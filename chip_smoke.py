@@ -4,7 +4,8 @@
 
 Phases, one line of numbers each:
 
-1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a).
+1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a), one
+             nvcc a source, all started together.
 2. kernel  - the fused Langevin kernel against its plain PyTorch twin at
              R=32 on alanine dipeptide in GBn2: energies and forces, then
              100 steps at friction 0 and at friction 1/ps.
@@ -15,6 +16,17 @@ Phases, one line of numbers each:
              rungs 0-3, and the 35-shard synthetic MSM build.
 5. times   - REMD aggregate ns/day for the kernel and the plain path, and
              the warm MSM build.
+6. pair    - the three GB pair kernels against their plain twins on the
+             3,726-atom chignolin assembly (R=8, minimized + 0.005 nm
+             noise): Born integrals, energy rows, dE/dB, forces, then the
+             whole energy and forces, and both against a float64 twin;
+             ms per sweep and per evaluation.
+7. protein - the protein-scale path: 8-rung 300-330 K REMD of the assembly
+             with every X-H bond constrained at 4 fs, through
+             ``run_replica_exchange`` (pair kernels, FIRE, SHAKE/RATTLE,
+             swaps); launches, ns/day, acceptance, temperature,
+             constraint deviation. Its step count is cut to fit the time
+             limit; atoms and replicas are not.
 
 Then the card's name and power limit, one JSON line of the kernels, and
 the last line ``{"ok": true, "device": {...}}``. A failed check raises and
@@ -36,6 +48,11 @@ N_STEPS = 20_000
 DT_PS = 0.002
 EXCHANGE_FREQUENCY = 100
 PLAIN_STEPS = 2_000
+PROTEIN_COPIES = (3, 3, 3)        # 27 chignolins, 3,726 atoms
+PROTEIN_REPLICAS = 8
+PROTEIN_STEPS = 3_000            # cut to fit: ~29 ms a step on the H100
+PROTEIN_DT_PS = 0.004
+PAIR_KERNELS = ("pair_born", "pair_energy", "pair_force")
 
 
 def _line(phase: str, numbers: dict) -> None:
@@ -67,6 +84,21 @@ def _ladder(n: int = N_REPLICAS) -> torch.Tensor:
     return torch.as_tensor(lad, dtype=torch.float32, device="cuda")
 
 
+def _reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from pmarlo_tpu_torch.md import fused_md, pair_force
+
+    fused_md.launches = 0
+    for k in pair_force.launches:
+        pair_force.launches[k] = 0
+
+
+def _counts() -> dict:
+    from pmarlo_tpu_torch.md import fused_md, pair_force
+
+    return {"fused_md_chunk": fused_md.launches, **pair_force.launches}
+
+
 def _mb_velocities(system, temps: torch.Tensor, rng) -> torch.Tensor:
     """Maxwell-Boltzmann velocities (R, N, 3) from a numpy generator."""
     from pmarlo_tpu_torch.constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
@@ -79,13 +111,13 @@ def _mb_velocities(system, temps: torch.Tensor, rng) -> torch.Tensor:
 
 
 def phase_build() -> dict:
-    from pmarlo_tpu_torch.md import fused_md
+    from pmarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    path = fused_md.build_library()
+    path = _kernels.build_library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in fused_md.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln.strip() for ln in _kernels.build_log().splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     out = {"build_s": secs, "library": path.name, "ptxas": ptxas}
     _line("phase 1 build", out)
     return out
@@ -215,7 +247,6 @@ def _msm_build(shards):
 
 def phase_main_path(system, positions) -> dict:
     from pmarlo_tpu_torch.analysis.discretize import discretize_dataset
-    from pmarlo_tpu_torch.md import fused_md
     from pmarlo_tpu_torch.md.forces import dihedral_angles
     from pmarlo_tpu_torch.msm.free_energy import generate_2d_fes
     from pmarlo_tpu_torch.remd.remd import RemdConfig, ReplicaExchange
@@ -225,14 +256,15 @@ def phase_main_path(system, positions) -> dict:
         exchange_frequency=EXCHANGE_FREQUENCY,
         report_interval=EXCHANGE_FREQUENCY, dt_ps=DT_PS, seed=0,
     )
-    fused_md.launches = 0
     remd = ReplicaExchange(system, positions, cfg, device="cuda", use_kernel=True)
     torch.cuda.synchronize()
+    _reset_counts()
     t0 = time.perf_counter()
     res = remd.run(N_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_launches = fused_md.launches
+    counts = _counts()
+    n_launches = counts["fused_md_chunk"]
     out = {
         "launches": n_launches,
         "frames": list(res.positions.shape),
@@ -241,6 +273,8 @@ def phase_main_path(system, positions) -> dict:
     }
     _check(n_launches == N_STEPS // EXCHANGE_FREQUENCY,
            f"main path made {n_launches} kernel launches")
+    _check(all(counts[k] == 0 for k in PAIR_KERNELS),
+           f"alanine path launched pair kernels: {counts}")
     _check(bool(np.isfinite(res.positions).all()), "REMD frames finite")
     _check(bool(np.isfinite(res.potential_energy).all()), "REMD energies finite")
     _check(0.0 < res.mean_acceptance < 1.0, f"mean acceptance {res.mean_acceptance}")
@@ -320,6 +354,131 @@ def phase_times(system, positions, main: dict) -> dict:
     return out
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_pair(system, x_min) -> dict:
+    """The three pair kernels against their plain twins, R=8, N=3,726."""
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+
+    rng = np.random.default_rng(6)
+    R = PROTEIN_REPLICAS
+    x = x_min[None] + torch.as_tensor(
+        rng.normal(0.0, 0.005, (R, system.n_atoms, 3)), dtype=torch.float32,
+        device="cuda",
+    )
+    fn = build_pair_force_fn(system)
+    Ip = fn.born_reference(x)
+    Ik = fn.born(x)
+    B, dB = fn.born_radii(Ip)
+    ep, dp = fn.energy_rows_reference(x, B)
+    ek, dk = fn.energy_rows(x, B)
+    _, c = fn.gb_terms(B, dB, dp)
+    Fp = fn.pair_forces_reference(x, B, c)
+    Fk = fn.pair_forces(x, B, c)
+    Ek, Gk = fn(x)
+    Ep, Gp = fn.reference(x)
+    # how close each float32 path comes to a float64 evaluation
+    E64, G64 = build_pair_force_fn(system, dtype=torch.float64).reference(x.double())
+    torch.cuda.synchronize()
+    out = {
+        "atoms": system.n_atoms, "replicas": R, "band": fn.band_D,
+        "born_max_abs_err": float((Ik - Ip).abs().max()),
+        "born_rel_err": _rel(Ik, Ip),
+        "e_rows_rel_err": _rel(ek, ep),
+        "dEdB_max_abs_err": float((dk - dp).abs().max()),
+        "dEdB_rel_err": _rel(dk, dp),
+        "force_max_abs_err": float((Fk - Fp).abs().max()),
+        "force_rel_err": _rel(Fk, Fp),
+        "total_energy_rel_err": _rel(Ek, Ep),
+        "total_force_rel_err": _rel(Gk, Gp),
+        "energy_vs_float64": _rel(Ek.double(), E64),
+        "plain_energy_vs_float64": _rel(Ep.double(), E64),
+        "force_vs_float64": _rel(Gk.double(), G64),
+    }
+    for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err"):
+        _check(out[key] <= 1e-5, f"{key} {out[key]}")
+    for key in ("force_rel_err", "total_force_rel_err"):
+        _check(out[key] <= 1e-4, f"{key} {out[key]}")
+    _check(bool(torch.isfinite(Gk).all()), "pair forces finite")
+    out["born_ms"] = _cuda_ms(lambda: fn.born(x), 20)
+    out["born_plain_ms"] = _cuda_ms(lambda: fn.born_reference(x), 3)
+    out["energy_ms"] = _cuda_ms(lambda: fn.energy_rows(x, B), 20)
+    out["energy_plain_ms"] = _cuda_ms(lambda: fn.energy_rows_reference(x, B), 3)
+    out["force_ms"] = _cuda_ms(lambda: fn.pair_forces(x, B, c), 20)
+    out["force_plain_ms"] = _cuda_ms(lambda: fn.pair_forces_reference(x, B, c), 3)
+    out["eval_ms"] = _cuda_ms(lambda: fn(x), 20)
+    out["eval_plain_ms"] = _cuda_ms(lambda: fn.reference(x), 3)
+    _line("phase 6 pair", out)
+    return out
+
+
+def phase_protein_remd() -> dict:
+    """Path 1 of the protein slice through ``run_replica_exchange``."""
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, constraint_violation
+    from pmarlo_tpu_torch.remd.remd import RemdConfig, run_replica_exchange
+
+    cfg = RemdConfig(
+        n_replicas=PROTEIN_REPLICAS, t_min=300.0, t_max=330.0,
+        exchange_frequency=100, report_interval=50, dt_ps=PROTEIN_DT_PS, seed=0,
+    )
+    structure = chignolin_assembly(PROTEIN_COPIES)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res, system = run_replica_exchange(
+        structure, n_steps=PROTEIN_STEPS, config=cfg, device="cuda",
+        use_kernel=True, constraints="hbonds", gb_model="gbn2",
+    )
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = _counts()
+    # one launch of each pair kernel per force evaluation: 500 FIRE
+    # iterations + the final energy, one per MD step, one per frame
+    evals = 501 + PROTEIN_STEPS + PROTEIN_STEPS // cfg.report_interval
+    spec = build_h_constraints(system)
+    frames = torch.as_tensor(res.positions, device="cuda")
+    deviation = float(constraint_violation(spec, frames))
+    # kinetic/target over the frames after the first picosecond
+    warm = int(round(1.0 / (cfg.report_interval * cfg.dt_ps)))
+    ratio = res.kinetic_temperature[warm:] / res.temperatures[None, :]
+    sim_ns = PROTEIN_STEPS * cfg.dt_ps * 1e-3 * PROTEIN_REPLICAS
+    out = {
+        "atoms": system.n_atoms,
+        "replicas": PROTEIN_REPLICAS,
+        "steps": PROTEIN_STEPS,
+        "dt_ps": cfg.dt_ps,
+        "constraints": spec.n_constraints,
+        "launches": {k: counts[k] for k in PAIR_KERNELS},
+        "force_evaluations": evals,
+        "fused_launches": counts["fused_md_chunk"],
+        "total_wall_s": total,
+        "run_wall_s": res.wall_seconds,
+        "ns_per_day_aggregate": sim_ns * 86_400.0 / res.wall_seconds,
+        "mean_acceptance": res.mean_acceptance,
+        "pair_acceptance": [float(a) for a in res.acceptance_matrix],
+        "kinetic_over_target": float(ratio.mean()),
+        "kinetic_over_target_per_rung": [float(r) for r in ratio.mean(0)],
+        "max_constraint_deviation_nm": deviation,
+        "frames": list(res.positions.shape),
+        "frames_finite": bool(np.isfinite(res.positions).all()),
+    }
+    _check(all(counts[k] == evals for k in PAIR_KERNELS),
+           f"pair launches {counts} for {evals} force evaluations")
+    _check(counts["fused_md_chunk"] == 0, "the protein path launched the fused chunk")
+    _check(out["frames_finite"], "protein REMD frames finite")
+    _check(bool(np.isfinite(res.potential_energy).all()), "protein energies finite")
+    _check(deviation <= 1e-4, f"constraint deviation {deviation} nm")
+    _check(0.0 < res.mean_acceptance < 1.0, f"mean acceptance {res.mean_acceptance}")
+    _check(0.95 <= out["kinetic_over_target"] <= 1.05,
+           f"kinetic/target temperature {out['kinetic_over_target']}")
+    _line("phase 7 protein remd", out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch sees none")
@@ -338,13 +497,24 @@ def main() -> None:
     main_path = phase_main_path(system, positions)
     phase_times(system, positions, main_path)
 
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+
+    protein, ppos = build_system(
+        chignolin_assembly(PROTEIN_COPIES), gb_model="gbn2", device="cuda",
+        dense_scales=False,
+    )
+    px_min, _ = minimize_energy(protein, ppos, force_fn=build_pair_force_fn(protein))
+    pair = phase_pair(protein, px_min)
+    remd = phase_protein_remd()
+
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_md_chunk",
         "route": "cuda",
         "source": "pmarlo_tpu_torch/csrc/fused_md.cu",
@@ -353,7 +523,23 @@ def main() -> None:
         "max_abs_err": kern["force_max_abs_err"],
         "ms": kern["chunk100_ms"],
         "plain_ms": kern["chunk100_plain_ms"],
-    }]}))
+    }]
+    for name, line, err, tag in (
+        ("pair_born", 465, "born_max_abs_err", "born"),
+        ("pair_energy", 486, "dEdB_max_abs_err", "energy"),
+        ("pair_force", 513, "force_max_abs_err", "force"),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
+            "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
+            "launches": remd["launches"][name],
+            "max_abs_err": pair[err],
+            "ms": pair[f"{tag}_ms"],
+            "plain_ms": pair[f"{tag}_plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -150,24 +150,60 @@ def make_dense_params(system: System, dtype=torch.float32) -> DenseParams:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class BondedParams:
+    """Bond, angle and torsion terms alone: what a force path without
+    (N, N) tables (``md/pair_force.py``) needs of ``DenseParams``."""
+
+    bond_idx: torch.Tensor     # (NB, 2) int64
+    bond_k: torch.Tensor
+    bond_r0: torch.Tensor
+    angle_idx: torch.Tensor    # (NA, 3)
+    angle_k: torch.Tensor
+    angle_t0: torch.Tensor
+    tor_idx: torch.Tensor      # (NT, 4)
+    tor_k: torch.Tensor
+    tor_n: torch.Tensor
+    tor_phase: torch.Tensor
+
+
+def make_bonded_params(system: System, dtype=torch.float32) -> BondedParams:
+    dev = system.device
+
+    def t(a):
+        return a.to(device=dev, dtype=dtype)
+
+    def idx(a):
+        return a.to(device=dev, dtype=torch.long)
+
+    return BondedParams(
+        bond_idx=idx(system.bond_idx), bond_k=t(system.bond_k),
+        bond_r0=t(system.bond_r0),
+        angle_idx=idx(system.angle_idx), angle_k=t(system.angle_k),
+        angle_t0=t(system.angle_t0),
+        tor_idx=idx(system.torsion_idx), tor_k=t(system.torsion_k),
+        tor_n=t(system.torsion_n), tor_phase=t(system.torsion_phase),
+    )
+
+
 def _dot(a, b):
     return (a * b).sum(-1)
 
 
-def _bond_energy_forces(p: DenseParams, x, forces):
+def _bond_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     x1 = x[..., p.bond_idx[:, 0], :]
     x2 = x[..., p.bond_idx[:, 1], :]
     d = x1 - x2
     r = torch.sqrt(_dot(d, d) + _EPS)
     dr = r - p.bond_r0
-    energy = (0.5 * p.bond_k * dr * dr).sum(-1)
+    energy = (0.5 * p.bond_k * dr * dr).sum(-1, dtype=energy_dtype)
     f1 = -(p.bond_k * dr / r)[..., None] * d
     forces.index_add_(-2, p.bond_idx[:, 0], f1)
     forces.index_add_(-2, p.bond_idx[:, 1], -f1)
     return energy
 
 
-def _angle_energy_forces(p: DenseParams, x, forces):
+def _angle_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     xi = x[..., p.angle_idx[:, 0], :]
     xj = x[..., p.angle_idx[:, 1], :]
     xk = x[..., p.angle_idx[:, 2], :]
@@ -181,7 +217,7 @@ def _angle_energy_forces(p: DenseParams, x, forces):
     theta = torch.arccos(cos_t)
     sin_t = torch.sqrt(1.0 - cos_t * cos_t)
     dE = p.angle_k * (theta - p.angle_t0)              # dE/dtheta
-    energy = (0.5 * p.angle_k * (theta - p.angle_t0) ** 2).sum(-1)
+    energy = (0.5 * p.angle_k * (theta - p.angle_t0) ** 2).sum(-1, dtype=energy_dtype)
     # dtheta/dxi = (cos*nu - nw) / (lu sin); symmetric for xk
     gi = (cos_t[..., None] * nu - nw) / (lu * sin_t)[..., None]
     gk = (cos_t[..., None] * nw - nu) / (lw * sin_t)[..., None]
@@ -193,7 +229,7 @@ def _angle_energy_forces(p: DenseParams, x, forces):
     return energy
 
 
-def _torsion_energy_forces(p: DenseParams, x, forces):
+def _torsion_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     x1 = x[..., p.tor_idx[:, 0], :]
     x2 = x[..., p.tor_idx[:, 1], :]
     x3 = x[..., p.tor_idx[:, 2], :]
@@ -211,7 +247,7 @@ def _torsion_energy_forces(p: DenseParams, x, forces):
     xx = _dot(m, n)
     phi = torch.atan2(yy, xx)
     arg = p.tor_n * phi - p.tor_phase
-    energy = (p.tor_k * (1.0 + torch.cos(arg))).sum(-1)
+    energy = (p.tor_k * (1.0 + torch.cos(arg))).sum(-1, dtype=energy_dtype)
     dE = -p.tor_k * p.tor_n * torch.sin(arg)           # dE/dphi
     # dphi/dx for this sign: d1 = -(|b2|/|m|^2) m ; d4 = (|b2|/|n|^2) n ;
     # d2 = -(1+s12) d1 + s32 d4 ; d3 = s12 d1 - (1+s32) d4
@@ -227,6 +263,19 @@ def _torsion_energy_forces(p: DenseParams, x, forces):
     forces.index_add_(-2, p.tor_idx[:, 2], c * d3)
     forces.index_add_(-2, p.tor_idx[:, 3], c * d4)
     return energy
+
+
+def bonded_energy_and_forces(p, x: torch.Tensor, energy_dtype=None):
+    """Bond + angle + torsion energy ``(...)`` and forces ``(..., N, 3)``
+    (``p``: ``BondedParams`` or ``DenseParams``); ``energy_dtype`` is the
+    type the energies are summed in (default: that of ``x``)."""
+    forces = torch.zeros_like(x)
+    energy = (
+        _bond_energy_forces(p, x, forces, energy_dtype)
+        + _angle_energy_forces(p, x, forces, energy_dtype)
+        + _torsion_energy_forces(p, x, forces, energy_dtype)
+    )
+    return energy, forces
 
 
 def _nonbonded_energy_pair_coef(p: DenseParams, inv_r):
@@ -342,12 +391,7 @@ def energy_and_forces(p: DenseParams, x: torch.Tensor) -> Tuple[torch.Tensor, to
     r = torch.sqrt((diff * diff).sum(-1) + _EPS) + eye
     inv_r = 1.0 / r
 
-    forces = torch.zeros_like(x)
-    energy = (
-        _bond_energy_forces(p, x, forces)
-        + _angle_energy_forces(p, x, forces)
-        + _torsion_energy_forces(p, x, forces)
-    )
+    energy, forces = bonded_energy_and_forces(p, x)
     e_nb, G = _nonbonded_energy_pair_coef(p, inv_r)
     energy = energy + e_nb
     if p.use_gb:
@@ -362,5 +406,6 @@ def energy_and_forces(p: DenseParams, x: torch.Tensor) -> Tuple[torch.Tensor, to
 
 __all__ = [
     "DenseParams", "make_dense_params", "energy_and_forces",
-    "born_radii_and_chain",
+    "born_radii_and_chain", "BondedParams", "make_bonded_params",
+    "bonded_energy_and_forces",
 ]

@@ -224,12 +224,19 @@ def build_system(
     tilt: Optional[Tuple[float, float, float]] = None,
     device="cpu",
     dtype=torch.float32,
+    dense_scales: Optional[bool] = None,
 ) -> Tuple[System, torch.Tensor]:
     """Build a ``System`` and initial positions (nm) from a PDB path,
     structure or topology, as ``pmarlo_tpu.md.forcefield.build_system``
     does on its implicit path. ``gb_model`` is "obc2" or "gbn2";
     ``implicit_solvent=False`` gives vacuum. Returns ``(system, positions)``
-    with every tensor on ``device``."""
+    with every tensor on ``device``.
+
+    ``dense_scales`` builds the (N, N) exclusion-scale matrices and GBn2
+    neck tables that the dense paths read; the default, as in JAX, is to
+    build them up to 12,000 atoms. ``False`` leaves ``scale_elec``,
+    ``scale_lj`` and the neck tables ``None``: the pair kernels
+    (``md/pair_force.py``) read only the sparse exclusion lists."""
     if box is not None or tilt is not None:
         raise NotImplementedError(
             "periodic boxes (explicit solvent) are not ported yet "
@@ -247,13 +254,19 @@ def build_system(
             "virtual sites are not ported yet (ROADMAP queue A11)"
         )
 
+    if dense_scales is None:
+        # (N, N) matrices cost 2 * N^2 * 8 B to build; past ~12k atoms
+        # only the sparse-list pair-kernel path is viable anyway
+        dense_scales = topology.n_atoms <= 12_000
     bond_idx, bond_k, bond_r0 = _bond_arrays(topology)
     angle_idx, angle_k, angle_t0 = _angle_arrays(topology)
     torsion_idx, torsion_k, torsion_n, torsion_phase = _torsion_arrays(topology)
-    sigma, eps, scale_e, scale_l = _nonbonded_arrays(topology, dense_scales=True)
+    sigma, eps, scale_e, scale_l = _nonbonded_arrays(
+        topology, dense_scales=dense_scales
+    )
     if implicit_solvent:
         gb_radii, gb_screen, gb_extras = _gb_arrays(
-            topology, gb_model=gb_model, dense_tables=True
+            topology, gb_model=gb_model, dense_tables=dense_scales
         )
     else:
         gb_radii = np.full(topology.n_atoms, 0.15)
@@ -305,8 +318,8 @@ def build_system(
         torsion_phase=f(torsion_phase),
         lj_sigma=f(sigma),
         lj_eps=f(eps),
-        scale_elec=f(scale_e),
-        scale_lj=f(scale_l),
+        scale_elec=None if scale_e is None else f(scale_e),
+        scale_lj=None if scale_l is None else f(scale_l),
         gb_radii=f(gb_radii),
         gb_screen=f(gb_screen),
         gb_alpha=extra("alpha"),

@@ -18,24 +18,19 @@ final positions:
 noise: successive windows must pass successive offsets.
 
 The kernel library is compiled with ``nvcc`` from ``pmarlo_tpu_torch/csrc``
-at first use into ``build/pmarlo_tpu_torch/`` beside the package, keyed by
-a hash of the sources, and loaded with ``ctypes``.
+at first use (``_kernels.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 from .analytic import energy_and_forces, make_dense_params
 from .integrate import MDState, langevin_step
@@ -44,84 +39,29 @@ from .system import System
 #: kernel launches made by this process (chip_smoke.py resets and reads it)
 launches = 0
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pmarlo_tpu_torch"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 #: atoms per replica the kernel takes: one thread per atom in one CTA, and
 #: one SM's register file holds 512 threads at the kernel's register count
 MAX_ATOMS = 512
 
-_lib: Optional[ctypes.CDLL] = None
-_build_log = ""
-
-
-def _sources():
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(home) / "bin" / "nvcc"] if home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.exists():
-            return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the fused kernel needs it")
-
-
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into a shared library (once per source hash)
-    and return its path. Raises with the compiler's output on failure."""
-    global _build_log
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = _BUILD_DIR / f"libpmarlo_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def build_log() -> str:
-    """The compiler's output of this process's build (``-Xptxas -v``:
-    registers, shared memory, spills); empty if the library was cached."""
-    return _build_log
+_configured = False
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+    global _configured
+    lib = _kernels.library()
+    if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
         lib.pmarlo_fused_md_chunk.argtypes = (
             [p] * 16 + [i, i, i, ctypes.c_longlong] + [f] * 5 + [i, i, p]
         )
         lib.pmarlo_fused_md_chunk.restype = i
-        lib.pmarlo_cuda_error_string.argtypes = [i]
-        lib.pmarlo_cuda_error_string.restype = ctypes.c_char_p
         lib.pmarlo_fused_md_max_atoms.argtypes = []
         lib.pmarlo_fused_md_max_atoms.restype = i
         if lib.pmarlo_fused_md_max_atoms() != MAX_ATOMS:
             raise RuntimeError("kernel library and wrapper disagree on MAX_ATOMS")
-        _lib = lib
-    return _lib
+        _configured = True
+    return lib
 
 
 def _bonded_csr(system: System) -> Tuple[np.ndarray, np.ndarray]:
@@ -273,9 +213,7 @@ class FusedChunk:
             self.dense.gb_pref, int(self.dense.use_gb), self._use_neck,
             stream,
         )
-        if rc != 0:
-            msg = lib.pmarlo_cuda_error_string(rc).decode()
-            raise RuntimeError(f"fused_md_chunk launch failed: {msg} ({rc})")
+        _kernels.check_launch(rc, "fused_md_chunk")
         launches += 1
         return xo, vo, eo, fo
 
@@ -286,5 +224,5 @@ def build_fused_chunk(system: System, *, dt: float, friction: float,
     return FusedChunk(system, dt=dt, friction=friction, n_replicas=n_replicas)
 
 
-__all__ = ["FusedChunk", "build_fused_chunk", "build_library", "build_log",
+__all__ = ["FusedChunk", "build_fused_chunk",
            "MAX_ATOMS", "launches"]

@@ -1,6 +1,7 @@
 """Folded BAOAB Langevin integration, batched over replicas.
 
-Port of ``pmarlo_tpu/md/integrate.py``. Positions and velocities are
+Port of ``pmarlo_tpu/md/integrate.py`` (``langevin_step`` with optional
+SHAKE/RATTLE, ``run_md``, ``thermalize``). Positions and velocities are
 ``(..., N, 3)`` tensors whose leading dimensions are replicas; Python
 loops take the place of ``lax.scan``.
 
@@ -164,11 +165,12 @@ def langevin_step(
     the trailing half-kick of one step and the leading one of the next
     share the same x and merge, one force evaluation per step (a dt/2
     kick would sample exp(-U/2kT)). Reported velocities are offset by
-    half a kick, as in OpenMM middle."""
-    if constraints is not None:
-        raise NotImplementedError(
-            "SHAKE/RATTLE constraints are not ported yet (ROADMAP queue A11)"
-        )
+    half a kick, as in OpenMM middle.
+
+    With ``constraints`` (``md.constraints.ConstraintSpec``) the step runs
+    in g-BAOAB order, as the JAX step does: RATTLE after the kick; SHAKE
+    after each position half-step, with the correction folded into v and
+    a RATTLE after it; RATTLE after the O step."""
     require_no_vsites(system, "langevin_step")
     if force_fn is None:
         energy, f = energy_and_forces_autograd(system, state.positions)
@@ -176,18 +178,111 @@ def langevin_step(
         energy, f = force_fn(state.positions)
     inv_m = _inv_mass(system)
     v = state.velocities + dt * f * inv_m
+    if constraints is not None:
+        from .constraints import rattle, shake
+
+        v = rattle(constraints, v, state.positions)
     x = state.positions + 0.5 * dt * v
+    if constraints is not None:
+        x_c = shake(constraints, x, state.positions)
+        v = v + (x_c - x) / (0.5 * dt)
+        x = x_c
+        v = rattle(constraints, v, x)
     c1 = math.exp(-friction * dt)
     c2 = torch.sqrt((1.0 - c1 * c1) * _kT(temperature_K, v) * inv_m)
     noise = gaussian_noise(state.seeds, state.step, system.n_atoms)
     v = c1 * v + c2 * noise.to(v.dtype)
+    if constraints is not None:
+        v = rattle(constraints, v, x)
+    x_pre = x
     x = x + 0.5 * dt * v
+    if constraints is not None:
+        x_c = shake(constraints, x, x_pre)
+        v = v + (x_c - x) / (0.5 * dt)
+        x = x_c
+        v = rattle(constraints, v, x)
     return dataclasses.replace(state, positions=x, velocities=v,
                                step=state.step + 1), energy
 
 
+def run_md(
+    system: System,
+    state: MDState,
+    *,
+    n_steps: int,
+    dt: float,
+    friction: float,
+    temperature_K,
+    report_interval: int = 100,
+    force_fn: Optional[Callable] = None,
+    constraints=None,
+) -> Tuple[MDState, dict]:
+    """Run ``n_steps`` and collect a frame every ``report_interval`` steps.
+
+    Returns ``(final_state, report)``; the report holds tensors
+    ``positions (F, ..., N, 3)``, ``potential_energy (F, ...)`` at the
+    reported positions, and ``temperature (F, ...)`` from the velocities
+    shifted by the trailing half-kick (a synchronized phase point, as
+    OpenMM reports), less constrained degrees of freedom. ``force_fn``
+    defaults to the analytic dense path (``md/analytic.py``)."""
+    if n_steps % report_interval != 0:
+        raise ValueError(
+            f"n_steps {n_steps} must be a multiple of report_interval {report_interval}"
+        )
+    if force_fn is None:
+        from .analytic import energy_and_forces, make_dense_params
+
+        dense = make_dense_params(system)
+
+        def force_fn(x):
+            return energy_and_forces(dense, x)
+    n_con = 0
+    if constraints is not None:
+        from .constraints import n_constraints, rattle
+
+        n_con = n_constraints(constraints)
+    inv_m = _inv_mass(system)
+    positions, energies, temps = [], [], []
+    for _ in range(n_steps // report_interval):
+        for _ in range(report_interval):
+            state, _ = langevin_step(
+                system, state, dt=dt, friction=friction,
+                temperature_K=temperature_K, force_fn=force_fn,
+                constraints=constraints,
+            )
+        e_now, f_now = force_fn(state.positions)
+        v_sync = state.velocities + 0.5 * dt * f_now * inv_m
+        if constraints is not None:
+            v_sync = rattle(constraints, v_sync, state.positions)
+        positions.append(state.positions)
+        energies.append(e_now)
+        # friction 0 is NVE: the COM momentum stays at thermalize()'s zero
+        temps.append(instantaneous_temperature(
+            system, v_sync, n_con, remove_com=(friction == 0.0)))
+    return state, {
+        "positions": torch.stack(positions),
+        "potential_energy": torch.stack(energies),
+        "temperature": torch.stack(temps),
+    }
+
+
+def thermalize(
+    system: System, positions: torch.Tensor, generator: torch.Generator,
+    temperature_K,
+) -> MDState:
+    """Fresh ``MDState`` with Maxwell-Boltzmann velocities (COM removed)
+    and Philox seeds drawn from ``generator``. A tensor of temperatures
+    ``(R,)`` thermalizes ``R`` replicas at ``positions (R, N, 3)``."""
+    v = remove_com_motion(system, initialize_velocities(system, generator, temperature_K))
+    shape = tuple(torch.as_tensor(temperature_K).shape)
+    seeds = torch.randint(0, 2**31 - 1, shape, generator=generator,
+                          device=system.device, dtype=torch.int64).to(torch.int32)
+    return MDState(positions=positions, velocities=v, seeds=seeds, step=0)
+
+
 __all__ = [
-    "MDState", "langevin_step", "initialize_velocities", "kinetic_energy",
+    "MDState", "langevin_step", "run_md", "thermalize",
+    "initialize_velocities", "kinetic_energy",
     "instantaneous_temperature", "remove_com_motion",
     "gaussian_noise", "philox4x32_10",
 ]

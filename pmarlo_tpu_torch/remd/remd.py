@@ -7,16 +7,23 @@ replica-identity permutation is recorded for per-walker views. Exchanges
 are parity-alternating neighbour Metropolis swaps with velocity rescaling
 by sqrt(T_new / T_old).
 
-Each exchange window is one chunk call (``md/fused_md.py``): with
-``use_kernel=True`` on a CUDA device that is one launch of the fused CUDA
-kernel, otherwise the plain PyTorch twin. Frames go into an ``(F, R, N, 3)``
-buffer preallocated on the device and are copied to the host once per
-``run()``.
+Two MD paths run the exchange windows:
+
+- the fused chunk (``md/fused_md.py``), unconstrained and up to 512 atoms:
+  with ``use_kernel=True`` on a CUDA device one launch of the fused CUDA
+  kernel per window, otherwise its plain PyTorch twin;
+- a ``force_fn`` (for protein scale ``md.pair_force.build_pair_force_fn``,
+  whose CUDA kernels run on CUDA tensors) under batched ``langevin_step``,
+  optionally with SHAKE/RATTLE ``constraints``.
+
+Frames go into an ``(F, R, N, 3)`` buffer preallocated on the device and
+are copied to the host once per ``run()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,7 +36,13 @@ from ..constants import (
     REMD_DEFAULT_EXCHANGE_FREQUENCY,
 )
 from ..md.fused_md import build_fused_chunk
-from ..md.integrate import MDState, initialize_velocities, remove_com_motion
+from ..md.integrate import (
+    MDState,
+    initialize_velocities,
+    instantaneous_temperature,
+    langevin_step,
+    remove_com_motion,
+)
 from ..md.minimize import minimize_energy
 from ..md.system import System
 from ..utils.input_parsing import parse_temperature_ladder
@@ -89,6 +102,12 @@ class RemdResult:
     dt_ps: float
     #: frames recorded per exchange attempt (0: unknown, estimate)
     frames_per_attempt: int = 0
+    #: (F, R) kinetic temperature of the state velocities at each frame,
+    #: degrees of freedom less the constraints
+    kinetic_temperature: Optional[np.ndarray] = None
+    #: host seconds of the run() call (it ends in copies to the host, so
+    #: the device work is inside)
+    wall_seconds: float = 0.0
 
     @property
     def mean_acceptance(self) -> float:
@@ -134,11 +153,31 @@ class ReplicaExchange:
         device,
         use_kernel: bool = False,
         minimize: bool = True,
+        force_fn=None,
+        constraints=None,
+        minimize_force_fn=None,
     ):
         """``use_kernel=True`` runs every window through the fused CUDA
         kernel, which needs ``device`` to be a CUDA device; ``False`` runs
-        the plain PyTorch twin on ``device``."""
+        the plain PyTorch twin on ``device``.
+
+        ``force_fn`` (``x (R, N, 3) -> (energies (R,), forces)``, e.g.
+        ``md.pair_force.build_pair_force_fn(system)``) replaces the fused
+        chunk: windows are batched ``langevin_step`` calls and the swap
+        energies come from ``force_fn`` at the post-window positions.
+        ``constraints`` (``md.constraints.build_h_constraints``) adds
+        SHAKE/RATTLE to every replica's step; the fused chunk does not
+        constrain, so it refuses them (as the JAX fused chunk does).
+        ``minimize_force_fn`` minimizes through the given forces (the
+        full system's, stiff X-H bonds kept) instead of autograd."""
         self.device = torch.device(device)
+        if constraints is not None and use_kernel:
+            raise ValueError(
+                "constraints are integrated by langevin_step; the fused "
+                "chunk does not SHAKE (use use_kernel=False)"
+            )
+        if force_fn is not None and use_kernel:
+            raise ValueError("force_fn override and use_kernel are exclusive")
         if use_kernel and self.device.type != "cuda":
             raise ValueError(
                 f"use_kernel=True needs a CUDA device, got {self.device}"
@@ -150,15 +189,25 @@ class ReplicaExchange:
             config.ladder(), dtype=torch.float32, device=self.device
         )
         self.n_replicas = int(self.ladder.shape[0])
-        self._chunk = build_fused_chunk(
-            self.system, dt=config.dt_ps, friction=config.friction_per_ps,
-            n_replicas=self.n_replicas,
-        )
+        if constraints is not None:
+            constraints = constraints.to(self.device)
+        self._constraints = constraints
+        if force_fn is None and constraints is not None:
+            from ..md.setup import _dense_force_fn
+
+            force_fn = _dense_force_fn(self.system)
+        self._force_fn = force_fn
+        self._chunk = None
+        if force_fn is None:
+            self._chunk = build_fused_chunk(
+                self.system, dt=config.dt_ps, friction=config.friction_per_ps,
+                n_replicas=self.n_replicas,
+            )
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(config.seed))
         x = positions.to(device=self.device, dtype=torch.float32)
         if minimize:
-            x, _ = minimize_energy(self.system, x)
+            x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn)
         x0 = x[None].expand((self.n_replicas,) + tuple(x.shape)).contiguous()
         v0 = remove_com_motion(
             self.system, initialize_velocities(self.system, gen, self.ladder)
@@ -179,6 +228,15 @@ class ReplicaExchange:
         """All replicas ``n_steps`` at per-replica temperatures; returns
         the new state and the energies at its positions (Metropolis needs
         the potential at the post-chunk configurations)."""
+        if self._force_fn is not None:
+            cfg = self.config
+            for _ in range(n_steps):
+                state, _ = langevin_step(
+                    self.system, state, dt=cfg.dt_ps,
+                    friction=cfg.friction_per_ps, temperature_K=temps,
+                    force_fn=self._force_fn, constraints=self._constraints,
+                )
+            return state, self._force_fn(state.positions)[0]
         args = (state.positions, state.velocities, state.seeds, temps,
                 n_steps, state.step)
         if self.use_kernel:
@@ -232,6 +290,7 @@ class ReplicaExchange:
     def run(self, n_steps: int) -> RemdResult:
         """Heating, equilibration, then ``n_steps // exchange_frequency``
         exchange windows; frames every ``report_interval`` steps."""
+        t_start = time.perf_counter()
         cfg = self.config
         if n_steps % cfg.exchange_frequency != 0:
             raise ValueError(
@@ -259,6 +318,8 @@ class ReplicaExchange:
             (F, R, N, 3), dtype=torch.int16 if i16 else torch.float32, device=dev
         )
         frame_e = torch.empty((F, R), dtype=torch.float32, device=dev)
+        frame_t = torch.empty((F, R), dtype=torch.float32, device=dev)
+        n_con = 0 if self._constraints is None else self._constraints.n_constraints
         ids_hist = torch.empty((n_attempts + 1, R), dtype=torch.int32, device=dev)
         acc_hist = torch.empty((n_attempts, R), dtype=torch.float32, device=dev)
         replica_ids = self.replica_ids
@@ -268,15 +329,19 @@ class ReplicaExchange:
             for _ in range(fpc):
                 state, energies = self._md_chunk(state, self.ladder, cfg.report_interval)
                 if i16:
-                    # XTC-style fixed point at 1e-3 nm; out-of-range values
-                    # poison to INT16_MIN (-32.768 nm) instead of wrapping
+                    # XTC-style fixed point at 1e-3 nm; out-of-range and
+                    # non-finite values poison to INT16_MIN (-32.768 nm)
+                    # instead of wrapping or casting NaN
                     q = torch.round(state.positions * 1000.0)
+                    bad = ~torch.isfinite(q) | (torch.abs(q) > 32767.0)
                     frames[f] = torch.where(
-                        torch.abs(q) > 32767.0, torch.full_like(q, -32768.0), q
+                        bad, torch.full_like(q, -32768.0), q
                     ).to(torch.int16)
                 else:
                     frames[f] = state.positions
                 frame_e[f] = energies
+                frame_t[f] = instantaneous_temperature(
+                    self.system, state.velocities, n_con)
                 f += 1
             u = torch.rand(R, generator=self._swap_gen, device=dev)
             state, replica_ids, acc = self._attempt_swaps(
@@ -307,6 +372,8 @@ class ReplicaExchange:
             n_steps=n_steps,
             dt_ps=cfg.dt_ps,
             frames_per_attempt=fpc,
+            kinetic_temperature=frame_t.cpu().numpy(),
+            wall_seconds=time.perf_counter() - t_start,
         )
 
 
@@ -324,37 +391,71 @@ def run_replica_exchange(
     target_acceptance: Optional[float] = None,
     constraints: Optional[str] = None,
 ) -> Tuple[RemdResult, System]:
-    """One-call REMD on the implicit-solvent dense path.
+    """One-call implicit-solvent REMD.
+
+    The system, constraints and force path come from
+    ``md.setup.build_implicit_setup`` (the same recipe for every entry
+    point): past 600 atoms on a CUDA device the pair kernels
+    (``md/pair_force.py``) run every force evaluation, minimization
+    included; below it the dense path runs, through the fused CUDA chunk
+    when ``use_kernel=True``. ``constraints="hbonds"`` SHAKE/RATTLEs every
+    X-H bond (OpenMM HBonds), which with HMR allows 4 fs steps; the fused
+    chunk refuses constraints. ``target_acceptance`` replaces the config's
+    geometric ladder with one designed from short energy-fluctuation probes
+    between its end temperatures (``remd/ladder.py``).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``bias_fn`` (A9), ``mesh`` (A13), ``target_acceptance`` and
-    ``constraints`` (A11), and solvated inputs with a periodic box (A12)."""
+    item: ``bias_fn`` (A9), ``mesh`` (A13), and solvated inputs with a
+    periodic box (A12)."""
+    import dataclasses as _dc
+
     from ..io.pdb import read_pdb
-    from ..md.forcefield import build_system
+    from ..md.setup import _dense_force_fn, build_implicit_setup
 
     if bias_fn is not None:
         raise NotImplementedError("bias_fn: bias potentials are ROADMAP queue A9")
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device REMD is ROADMAP queue A13")
-    if target_acceptance is not None:
-        raise NotImplementedError(
-            "target_acceptance: remd/ladder.py is ROADMAP queue A11"
+    if constraints not in (None, "none", "hbonds"):
+        raise ValueError(
+            f"constraints must be None|'none'|'hbonds', got {constraints!r}"
         )
-    if constraints not in (None, "none"):
-        raise NotImplementedError("constraints: SHAKE/RATTLE is ROADMAP queue A11")
+    config = config or RemdConfig()
     structure = read_pdb(pdb_file) if not hasattr(pdb_file, "residues") else pdb_file
     if getattr(structure, "box", None) is not None:
         raise NotImplementedError(
             "solvated input with a periodic box: explicit solvent is ROADMAP "
             "queue A12"
         )
-    system, positions = build_system(
+    setup = build_implicit_setup(
         structure, implicit_solvent=implicit_solvent, gb_model=gb_model,
-        device=device,
+        constraints=constraints, device=device,
     )
+    system, positions = setup.system, setup.positions
+    cspec, force_fn = setup.constraints, setup.force_fn
+    if target_acceptance is not None:
+        from .ladder import suggest_temperature_ladder
+
+        # the probes and the run start from the same relaxed structure
+        positions, _ = minimize_energy(system, positions,
+                                       force_fn=setup.minimize_force_fn)
+        ladder = config.ladder()
+        designed, _ = suggest_temperature_ladder(
+            system, positions, t_min=float(ladder[0]), t_max=float(ladder[-1]),
+            target_acceptance=target_acceptance,
+            force_fn=force_fn if force_fn is not None else _dense_force_fn(system),
+            constraints=cspec, dt_ps=config.dt_ps,
+        )
+        config = _dc.replace(
+            config, temperatures=tuple(float(t) for t in designed),
+            n_replicas=len(designed),
+        )
     remd = ReplicaExchange(
-        system, positions, config or RemdConfig(), device=device,
-        use_kernel=use_kernel,
+        system, positions, config, device=device,
+        use_kernel=use_kernel and setup.force_path == "dense",
+        force_fn=force_fn, constraints=cspec,
+        minimize=target_acceptance is None,
+        minimize_force_fn=setup.minimize_force_fn,
     )
     return remd.run(n_steps), system
 

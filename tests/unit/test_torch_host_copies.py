@@ -21,7 +21,7 @@ COPIES = [
     "io/pdb.py", "data/__init__.py", "md/topology.py", "md/residues.py",
     "md/nucleic.py", "md/ff_params.py", "md/gbn2.py", "msm/estimation.py",
     "msm/free_energy.py", "msm/fes_smoothing.py", "features/pairs.py",
-    "analysis/validation.py", "analysis/discretize.py",
+    "analysis/validation.py", "analysis/discretize.py", "analysis/diagnostics.py",
 ]
 
 

@@ -48,14 +48,23 @@ def _chip_smoke_imports():
     return sorted(mods)
 
 
+#: modules the protein-scale slice added; the walk must reach each of them
+NEW_MODULES = [
+    "pmarlo_tpu_torch._kernels", "pmarlo_tpu_torch.md.cells",
+    "pmarlo_tpu_torch.md.pair_force", "pmarlo_tpu_torch.md.constraints",
+    "pmarlo_tpu_torch.md.setup", "pmarlo_tpu_torch.remd.ladder",
+    "pmarlo_tpu_torch.data.chignolin", "pmarlo_tpu_torch.analysis.diagnostics",
+]
+
+
 def test_port_imports_without_jax():
-    code = f"EXTRA = {_chip_smoke_imports()!r}\n" + _BLOCKED_IMPORT
+    code = f"EXTRA = {_chip_smoke_imports() + NEW_MODULES!r}\n" + _BLOCKED_IMPORT
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 33
 
 
 def test_chip_smoke_imports_name_no_jax():
