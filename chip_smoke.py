@@ -28,6 +28,25 @@ Phases, one line of numbers each:
              constraint deviation. Its step count is cut to fit the time
              limit; atoms and replicas are not.
 
+8. bias    - the in-kernel DeepTICA CV bias on 138-atom chignolin, R=32,
+             a default-width model with random weights: harmonic and
+             hills-ledger (1,000 hills) energies and forces against the
+             plain version and against autograd of ``bias/`` over ``ml/``,
+             100 biased steps at friction 0 and 1/ps, ms per 100 steps
+             biased beside unbiased at N=138 and N=22, and the cost of one
+             grid barrier.
+9. fused   - the whole REMD run in one launch: ``run_fused`` against
+             ``run(use_kernel=True)`` window for window over 10 windows,
+             then 10,000 steps at full size, wall and ns/day beside the
+             windowed path's; then both whole-run kernels against the
+             plain version over launches of 2, 2 and 1 windows with
+             swaps, each from the state the one before left. Unbiased
+             and with ``kernel_bias``.
+10. cv     - the learned-CV path end to end: REMD frames -> phi/psi
+             features -> ``train_deeptica`` -> biased windows and a biased
+             ``run_fused`` -> ``run_fused_metadynamics`` -> sampling under
+             the ledger -> reweighted FES on the two CVs.
+
 Then the card's name and power limit, one JSON line of the kernels, and
 the last line ``{"ok": true, "device": {...}}``. A failed check raises and
 the script exits non-zero without that line. It needs a CUDA card and
@@ -53,6 +72,32 @@ PROTEIN_REPLICAS = 8
 PROTEIN_STEPS = 3_000            # cut to fit: ~29 ms a step on the H100
 PROTEIN_DT_PS = 0.004
 PAIR_KERNELS = ("pair_born", "pair_energy", "pair_force")
+CV_REPORT = 50                   # frames every 50 steps on the chignolin paths
+CV_STEPS = 10_000                # unbiased REMD that feeds the training
+CV_BIASED_STEPS = 1_000          # biased windows, one launch a frame
+CV_FUSED_STEPS = 10_000          # whole-run launches
+MTD_STEPS = 5_000
+MTD_INTERVAL = 500
+MTD_SIGMA = (0.2, 0.2)
+PLAIN_LAUNCHES = (2, 2, 1)       # windows a launch: whole-run kernels vs plain
+LEDGER_FRAMES = 100              # sampling under the final ledger
+N_HILLS_CHECK = 1_000            # valid hills of the ledger-variant check
+BIAS_VARIANTS = ("bias_harmonic", "bias_metadynamics", "fused_metadynamics",
+                 "fused_remd")
+
+# Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
+# outside the tensor cores (NVIDIA's data sheet), and the special-function
+# rate: 132 SMs x 16 SFU results a clock at the 1,980 MHz boost clock
+# (Hopper architecture white paper).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# float32 operations (an FMA counts two) and special-function results
+# (sqrt, reciprocal, log, exp) of one ordered pair in each GB sweep,
+# counted from csrc/gb_pair.cuh, csrc/pair_force.cu and csrc/fused_md.cu:
+# distance 8 + 2; HCT term 45 + 3; neck 14 + 2; GB f-function 20 + 4;
+# LJ + Coulomb 14-16.
+PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
 
 
 def _line(phase: str, numbers: dict) -> None:
@@ -89,6 +134,8 @@ def _reset_counts() -> None:
     from pmarlo_tpu_torch.md import fused_md, pair_force
 
     fused_md.launches = 0
+    for k in fused_md.variant_launches:
+        fused_md.variant_launches[k] = 0
     for k in pair_force.launches:
         pair_force.launches[k] = 0
 
@@ -96,7 +143,36 @@ def _reset_counts() -> None:
 def _counts() -> dict:
     from pmarlo_tpu_torch.md import fused_md, pair_force
 
-    return {"fused_md_chunk": fused_md.launches, **pair_force.launches}
+    return {"fused_md_chunk": fused_md.launches, **fused_md.variant_launches,
+            **pair_force.launches}
+
+
+def _bound(flops: float, sfu: float, n_bytes: float) -> dict:
+    """Least milliseconds the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rates."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(flops / FP32_FLOPS, sfu / SFU_OPS_PER_S) * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _md_bound(R: int, N: int, n_force_evals: int, *, n_dih: int = 0, widths=(),
+              n_hills: int = 0, frames: int = 0) -> dict:
+    """Bound of a fused-MD launch: ``n_force_evals`` force evaluations of R
+    replicas of N atoms (three GB sweeps over the N (N - 1) ordered pairs,
+    plus the CV bias: M dihedrals computed once and once more per role, the
+    MLP forward and backward, the hills sum), state in and out once, the
+    (N, N) tables once, ``frames`` frames out."""
+    pairs = N * (N - 1)
+    flops = pairs * sum(f for f, _ in PAIR_OPS.values())
+    sfu = pairs * sum(t for _, t in PAIR_OPS.values())
+    if n_dih:
+        mlp = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+        flops += 5 * n_dih * 150 + 4 * mlp + n_hills * 20
+        sfu += 5 * n_dih * 4 + sum(widths[1:-1]) + n_hills
+    n_bytes = 4 * (4 * R * N * 3 + R + 6 * N * N + 9 * N
+                   + frames * R * (N * 3 + 2) + 3 * n_hills)
+    return _bound(R * n_force_evals * flops, R * n_force_evals * sfu, n_bytes)
 
 
 def _mb_velocities(system, temps: torch.Tensor, rng) -> torch.Tensor:
@@ -479,6 +555,506 @@ def phase_protein_remd() -> dict:
     return out
 
 
+def _chignolin() -> dict:
+    """138-atom chignolin in GBn2 on the card: system, minimized positions,
+    topology info and the phi/psi quadruples in feature order."""
+    from pmarlo_tpu_torch.data.chignolin import chignolin_structure
+    from pmarlo_tpu_torch.features import TopologyInfo, phi_psi_indices
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.topology import build_topology
+
+    structure = chignolin_structure()
+    system, positions = build_system(structure, gb_model="gbn2", device="cuda")
+    _check(system.device.type == "cuda", "build_system(device='cuda') is on the card")
+    info = TopologyInfo.from_topology(build_topology(structure))
+    phi, psi, _ = phi_psi_indices(info.atom_names, info.residue_ids, info.chain_ids)
+    x_min, _ = minimize_energy(system, positions)
+    return {"system": system, "positions": positions, "x_min": x_min, "info": info,
+            "quads": np.concatenate([phi, psi], axis=0)}
+
+
+def _random_model(n_dihedrals: int, seed: int):
+    """A DeepTICA model of default width with random weights, scaler and
+    whitening, made with numpy from ``seed``."""
+    from pmarlo_tpu_torch.ml.deeptica import DeepTICAConfig, deeptica_from_numpy
+
+    rng = np.random.default_rng(seed)
+    cfg = DeepTICAConfig()
+    k = 2 * n_dihedrals
+    sizes = [k, *cfg.hidden, cfg.n_out]
+    params = [{"w": rng.normal(0.0, np.sqrt(2.0 / (a + b)), (a, b)).astype(np.float32),
+               "b": rng.normal(0.0, 0.1, b).astype(np.float32)}
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    whitening = {"mean": rng.normal(0.0, 0.1, cfg.n_out).astype(np.float32),
+                 "transform": rng.normal(0.0, 1.0, (cfg.n_out, cfg.n_out)).astype(np.float32)}
+    return deeptica_from_numpy(
+        cfg, params, rng.normal(0.0, 0.3, k).astype(np.float32),
+        rng.uniform(0.5, 1.0, k).astype(np.float32), whitening, device="cuda")
+
+
+def _md_inputs(system, x_min, R: int, seed: int):
+    rng = np.random.default_rng(seed)
+    x = x_min[None] + torch.as_tensor(
+        rng.normal(0.0, 0.005, (R, system.n_atoms, 3)), dtype=torch.float32,
+        device="cuda")
+    temps = _ladder(R)
+    seeds = torch.as_tensor(rng.integers(0, 2**31 - 1, R), dtype=torch.int32,
+                            device="cuda")
+    return x, _mb_velocities(system, temps, rng), seeds, temps
+
+
+def phase_bias(cx: dict, alanine, alanine_x_min) -> dict:
+    """The in-kernel CV bias against its plain version and autograd."""
+    from pmarlo_tpu_torch.bias import (
+        HarmonicExpansionBias, MetadynamicsBias, make_cv_bias_fn)
+    from pmarlo_tpu_torch.bias.harmonic import make_feature_cv_fn, make_phi_psi_feature_fn
+    from pmarlo_tpu_torch.bias.metadynamics import metad_state_from_numpy
+    from pmarlo_tpu_torch.md import fused_md
+    from pmarlo_tpu_torch.md.fused_md import build_fused_chunk
+    from pmarlo_tpu_torch.md.integrate import bias_energy_and_forces
+
+    system, info, quads = cx["system"], cx["info"], cx["quads"]
+    R, N, M = N_REPLICAS, system.n_atoms, len(quads)
+    model = _random_model(M, seed=8)
+    x, v, seeds, temps = _md_inputs(system, cx["x_min"], R, seed=8)
+    strength = 2.0
+    rng = np.random.default_rng(88)
+    out = {"atoms": N, "replicas": R, "dihedrals": M,
+           "widths": [2 * M, *model.config.hidden, model.config.n_out]}
+
+    unbiased = build_fused_chunk(system, dt=DT_PS, friction=1.0, n_replicas=R)
+    e0, f0 = unbiased.energy_and_forces(x)
+    cv_fn = make_feature_cv_fn(
+        make_phi_psi_feature_fn(info.atom_names, info.residue_ids,
+                                chain_ids=info.chain_ids),
+        model.as_function())
+    mtd = MetadynamicsBias(sigma=MTD_SIGMA, height=1.0)
+    # a ledger of 1,000 hills scattered around the replicas' own CVs
+    with torch.no_grad():
+        cv0 = cv_fn(x).cpu().numpy()
+    centers = np.zeros((mtd.max_hills, 2), np.float32)
+    heights = np.zeros(mtd.max_hills, np.float32)
+    centers[:N_HILLS_CHECK] = (cv0[rng.integers(0, R, N_HILLS_CHECK)]
+                               + rng.normal(0.0, 0.5, (N_HILLS_CHECK, 2)))
+    heights[:N_HILLS_CHECK] = rng.uniform(0.1, 1.0, N_HILLS_CHECK)
+    hills = metad_state_from_numpy(centers, heights, N_HILLS_CHECK, device="cuda")
+
+    chunks = {}
+    for kind in ("harmonic", "metadynamics"):
+        ledger = hills if kind == "metadynamics" else None
+        kw = dict(bias_model=model, bias_quads=quads, bias_strength=strength,
+                  bias_kind=kind, mtd_sigma=MTD_SIGMA if ledger is not None else None)
+        chunk = chunks[kind] = build_fused_chunk(
+            system, dt=DT_PS, friction=1.0, n_replicas=R, **kw)
+        ek, fk = chunk.energy_and_forces(x, ledger)
+        ep, fp = chunk._force_fn(ledger)(x)
+        # autograd of bias/ composed with ml/: the bias alone
+        bias_fn = (make_cv_bias_fn(cv_fn, HarmonicExpansionBias(strength))
+                   if ledger is None else mtd.bias_fn(ledger, cv_fn))
+        ea, fa = bias_energy_and_forces(bias_fn, x)
+        eb, fb = chunk.bias.energy_and_forces(x, ledger)
+        torch.cuda.synchronize()
+        fmax = float(fp.abs().max())
+        tag = kind
+        out[f"{tag}_force_max_abs_err"] = float((fk - fp).abs().max())
+        out[f"{tag}_force_rel_err"] = out[f"{tag}_force_max_abs_err"] / fmax
+        out[f"{tag}_energy_rel_err"] = float((ek - ep).abs().max() / ep.abs().max())
+        out[f"{tag}_bias_energy_max"] = float(eb.abs().max())
+        out[f"{tag}_bias_force_max"] = float(fb.abs().max())
+        # the kernel's bias share (biased minus unbiased launch) and the
+        # plain version's hand-written gradient, both against autograd
+        out[f"{tag}_kernel_vs_autograd_force_rel"] = float(
+            ((fk - f0) - fa).abs().max()) / fmax
+        out[f"{tag}_plain_vs_autograd_force_rel"] = float((fb - fa).abs().max()) / fmax
+        out[f"{tag}_kernel_vs_autograd_energy_rel"] = float(
+            ((ek - e0) - ea).abs().max() / ep.abs().max())
+        out[f"{tag}_plain_vs_autograd_energy_rel"] = float(
+            (eb - ea).abs().max() / ea.abs().max())
+        _check(out[f"{tag}_bias_force_max"] > 1.0, f"{tag}: the bias pushes")
+        for key in ("force_rel_err", "kernel_vs_autograd_force_rel",
+                    "plain_vs_autograd_force_rel"):
+            _check(out[f"{tag}_{key}"] <= 1e-4, f"{tag} {key} {out[f'{tag}_{key}']}")
+        for key in ("energy_rel_err", "kernel_vs_autograd_energy_rel",
+                    "plain_vs_autograd_energy_rel"):
+            _check(out[f"{tag}_{key}"] <= 1e-5, f"{tag} {key} {out[f'{tag}_{key}']}")
+        for friction in (0.0, 1.0):
+            c = build_fused_chunk(system, dt=DT_PS, friction=friction, n_replicas=R, **kw)
+            xk, _, ek = c(x, v, seeds, temps, 100, 0, hills=ledger)
+            xp, _, _ = c.reference(x, v, seeds, temps, 100, 0, hills=ledger)
+            torch.cuda.synchronize()
+            key = f"{tag}_friction{friction:g}_max_dx_nm"
+            out[key] = float((xk - xp).abs().max())
+            _check(bool(torch.isfinite(xk).all()), f"{key}: finite")
+            _check(out[key] <= 1e-3, f"{key} {out[key]}")
+        out[f"{tag}_chunk100_ms"] = _cuda_ms(
+            lambda: chunk(x, v, seeds, temps, 100, 0, hills=ledger), 10)
+        out[f"{tag}_chunk100_plain_ms"] = _cuda_ms(
+            lambda: chunk.reference(x, v, seeds, temps, 100, 0, hills=ledger), 1)
+    out["unbiased_chunk100_ms"] = _cuda_ms(lambda: unbiased(x, v, seeds, temps, 100, 0), 10)
+
+    # the same three at N = 22 (alanine dipeptide, 2 dihedrals, default width)
+    aq = _phi_psi_quads(alanine).cpu().numpy()
+    am = _random_model(len(aq), seed=9)
+    ax, av, aseeds, atemps = _md_inputs(alanine, alanine_x_min, R, seed=9)
+    a0 = build_fused_chunk(alanine, dt=DT_PS, friction=1.0, n_replicas=R)
+    a1 = build_fused_chunk(alanine, dt=DT_PS, friction=1.0, n_replicas=R,
+                           bias_model=am, bias_quads=aq, bias_strength=strength)
+    out["alanine_unbiased_chunk100_ms"] = _cuda_ms(
+        lambda: a0(ax, av, aseeds, atemps, 100, 0), 20)
+    out["alanine_harmonic_chunk100_ms"] = _cuda_ms(
+        lambda: a1(ax, av, aseeds, atemps, 100, 0), 20)
+
+    # one grid barrier: R CTAs of the chignolin block size, 0 and 10,000 barriers
+    threads = 32
+    while threads < N:
+        threads *= 2
+    n_bar = 10_000
+    t_none = _cuda_ms(lambda: fused_md.grid_barrier_probe(R, threads, 0), 10)
+    t_bar = _cuda_ms(lambda: fused_md.grid_barrier_probe(R, threads, n_bar), 10)
+    out["grid_barrier_us"] = (t_bar - t_none) * 1e3 / n_bar
+    out["cooperative_launch_ms"] = t_none
+    _line("phase 8 bias kernel", out)
+    out["model"] = model
+    out["hills"] = hills
+    return out
+
+
+def _remd_config(seed: int):
+    from pmarlo_tpu_torch.remd.remd import RemdConfig
+
+    return RemdConfig(
+        n_replicas=N_REPLICAS, t_min=300.0, t_max=450.0,
+        exchange_frequency=EXCHANGE_FREQUENCY, report_interval=CV_REPORT,
+        dt_ps=DT_PS, seed=seed,
+    )
+
+
+def _kinetic_ratio(res, cfg) -> float:
+    """Kinetic over target temperature of the frames after the first 2 ps."""
+    warm = int(round(2.0 / (cfg.report_interval * cfg.dt_ps)))
+    return float((res.kinetic_temperature[warm:] / res.temperatures[None, :]).mean())
+
+
+def _fused_remd_vs_plain(tag: str, remd) -> dict:
+    """The whole-run kernel against the plain version (the chunk's twin and
+    ``_attempt_swaps`` in a loop): ``PLAIN_LAUNCHES`` launches in a row,
+    each compared with the plain version run from the very state the
+    launch starts from (the trajectories are chaotic: their ~1e-6 nm of
+    rounding grows about tenfold a window, so a comparison is restarted
+    before it passes the tolerance). The launches of 2 windows hold the
+    swap and the rung carry-over inside a launch against the plain
+    version, the later ones start from permuted rungs and an advanced
+    attempt counter, and the closing launch of 1 window gates the state
+    after the swap tightly: velocities rescaled by ``sqrt(T_new / T_old)``
+    (leaving the rescale out would move them by ~2e-2 nm/ps).
+
+    A Metropolis decision whose margin ``|log u - log_acc|`` is no more
+    than 10 times what the two sides' energies differ by in ``log_acc``
+    lies within rounding of its threshold and may fall differently, after
+    which the rungs hold different walkers: it fails the run rather than
+    being skipped (the seeds are fixed; the smallest margin is reported)."""
+    from pmarlo_tpu_torch.constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
+    from pmarlo_tpu_torch.remd.remd import swap_uniforms
+
+    cfg, R = remd.config, remd.n_replicas
+    fpc = EXCHANGE_FREQUENCY // CV_REPORT
+    betas = 1.0 / (BOLTZMANN_CONSTANT_KJ_PER_MOL * remd.ladder.double().cpu().numpy())
+    pre = f"{tag}_vs_plain"
+    out = {f"{pre}_windows": list(PLAIN_LAUNCHES)}
+    rows = {k: [] for k in ("min_margin", "swaps", "frames_max_dx_nm", "energy_rel_err",
+                            "final_max_dx_nm", "final_max_dv_nm_per_ps")}
+    for n_windows in PLAIN_LAUNCHES:
+        done = remd._attempts_done
+        ref = remd._run_fused_reference(n_windows, fpc)
+        _reset_counts()
+        res = remd.run_fused(n_windows * EXCHANGE_FREQUENCY)
+        torch.cuda.synchronize()
+        _check(_counts()["fused_remd"] == 1, f"{tag}: the kernel was launched")
+        ref_e = ref.frame_energy.cpu().numpy()
+        ref_ids = ref.ids_hist.cpu().numpy()
+        margins = []
+        for a in range(n_windows):
+            left = np.arange(a % 2, R - 1, 2)
+            log_u = np.log(swap_uniforms(cfg.seed, done + a, R, "cpu").double().numpy()[left])
+            last = (a + 1) * fpc - 1
+            log_acc = [(betas[left] - betas[left + 1]) * (e[last, left] - e[last, left + 1])
+                       for e in (ref_e.astype(np.float64),
+                                 res.potential_energy.astype(np.float64))]
+            margin = np.abs(log_u - log_acc[0])
+            margins.append(float(margin.min()))
+            _check(bool((margin > 10.0 * np.abs(log_acc[1] - log_acc[0]) + 1e-6).all()),
+                   f"{tag}: a swap decision of attempt {done + a} lies within rounding "
+                   "of its threshold")
+        rows["min_margin"].append(min(margins))
+        rows["swaps"].append(int((ref_ids[1:] != ref_ids[:-1]).sum() // 2))
+        rows["frames_max_dx_nm"].append(
+            float(np.abs(res.positions - ref.frames.cpu().numpy()).max()))
+        rows["energy_rel_err"].append(
+            float(np.abs(res.potential_energy - ref_e).max() / np.abs(ref_e).max()))
+        rows["final_max_dx_nm"].append(
+            float((remd.state.positions - ref.positions).abs().max()))
+        rows["final_max_dv_nm_per_ps"].append(
+            float((remd.state.velocities - ref.velocities).abs().max()))
+        _check(np.array_equal(res.replica_ids, ref_ids), f"{tag}: kernel vs plain ids_hist")
+        _check(bool((remd.state.seeds == ref.seeds).all()), f"{tag}: kernel vs plain seeds")
+        # every launch swaps, and a 2-window launch swaps before its second window
+        _check(bool((ref_ids[1] != ref_ids[0]).any()), f"{tag}: a swap in the first window")
+    out.update({f"{pre}_{k}": v for k, v in rows.items()})
+    _line(f"phase 9 {tag} kernel vs plain", out)
+    _check(max(rows["frames_max_dx_nm"]) <= 1e-3 and max(rows["final_max_dx_nm"]) <= 1e-3,
+           f"{tag}: kernel vs plain frames")
+    _check(max(rows["energy_rel_err"]) <= 1e-4, f"{tag}: kernel vs plain energies")
+    _check(PLAIN_LAUNCHES[-1] == 1 and rows["final_max_dv_nm_per_ps"][-1] <= 1e-3,
+           f"{tag}: velocities after the swap")
+    out[f"{pre}_frames_max_dx_nm"] = max(rows["frames_max_dx_nm"])
+    return out
+
+
+def phase_fused_remd(cx: dict, model) -> dict:
+    """``run_fused`` against the windowed kernel path, then at full size."""
+    from pmarlo_tpu_torch.remd.remd import ReplicaExchange
+
+    system, x_min, quads = cx["system"], cx["x_min"], cx["quads"]
+    cfg = _remd_config(seed=9)
+    out = {"atoms": system.n_atoms, "replicas": N_REPLICAS}
+    for tag, kb in (("unbiased", None),
+                    ("biased", {"model": model, "quads": quads, "strength": 2.0})):
+        def make(use_kernel=True):
+            return ReplicaExchange(system, x_min, cfg, device="cuda", minimize=False,
+                                   use_kernel=use_kernel, kernel_bias=kb)
+
+        # --- window for window over 10 windows, same start and seeds ---
+        fused, windowed = make(), make()
+        n_short = 10 * EXCHANGE_FREQUENCY
+        _reset_counts()
+        rf = fused.run_fused(n_short)
+        torch.cuda.synchronize()
+        _check(_counts()["fused_remd"] == 1, f"{tag}: run_fused made one launch")
+        rw = windowed.run(n_short)
+        torch.cuda.synchronize()
+        _check(np.array_equal(rf.replica_ids, rw.replica_ids), f"{tag}: ids_hist equal")
+        _check(np.allclose(rf.acceptance_matrix, rw.acceptance_matrix, equal_nan=True),
+               f"{tag}: accept equal")
+        out[f"{tag}_frames_max_dx_nm"] = float(np.abs(rf.positions - rw.positions).max())
+        out[f"{tag}_frame_energy_rel_err"] = float(
+            np.abs(rf.potential_energy - rw.potential_energy).max()
+            / np.abs(rw.potential_energy).max())
+        out[f"{tag}_state_max_dx_nm"] = float(
+            (fused.state.positions - windowed.state.positions).abs().max())
+        out[f"{tag}_swaps_accepted_in_10_windows"] = int(
+            (rf.replica_ids[1:] != rf.replica_ids[:-1]).sum() // 2)
+        _check(out[f"{tag}_frames_max_dx_nm"] <= 1e-3, f"{tag}: frames agree")
+        _check(out[f"{tag}_state_max_dx_nm"] <= 1e-3, f"{tag}: final state agrees")
+        _check(out[f"{tag}_frame_energy_rel_err"] <= 1e-4, f"{tag}: frame energies agree")
+        _check(bool((fused.state.seeds == windowed.state.seeds).all()),
+               f"{tag}: seeds moved alike")
+
+        # --- full size: both continue from where the short runs ended ---
+        _reset_counts()
+        t0 = time.perf_counter()
+        rf = fused.run_fused(CV_FUSED_STEPS)
+        torch.cuda.synchronize()
+        wall_f = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        rw = windowed.run(CV_FUSED_STEPS)
+        torch.cuda.synchronize()
+        wall_w = time.perf_counter() - t0
+        sim_ns = CV_FUSED_STEPS * DT_PS * 1e-3 * N_REPLICAS
+        ratio = _kinetic_ratio(rf, cfg)
+        out.update({
+            f"{tag}_launches": counts["fused_remd"],
+            f"{tag}_fused_wall_s": wall_f,
+            f"{tag}_windowed_wall_s": wall_w,
+            f"{tag}_fused_ns_per_day": sim_ns * 86_400.0 / wall_f,
+            f"{tag}_windowed_ns_per_day": sim_ns * 86_400.0 / wall_w,
+            f"{tag}_mean_acceptance": rf.mean_acceptance,
+            f"{tag}_windowed_mean_acceptance": rw.mean_acceptance,
+            f"{tag}_kinetic_over_target": ratio,
+            f"{tag}_windowed_kinetic_over_target": _kinetic_ratio(rw, cfg),
+            f"{tag}_frames": list(rf.positions.shape),
+            f"{tag}_ids_equal_full_run": bool(np.array_equal(rf.replica_ids, rw.replica_ids)),
+        })
+        _check(counts["fused_remd"] == 1 and counts["fused_md_chunk"] == 0
+               and counts["bias_harmonic"] == 0, f"{tag}: one launch, got {counts}")
+        _check(bool(np.isfinite(rf.positions).all()), f"{tag}: frames finite")
+        _check(bool(np.isfinite(rf.potential_energy).all()), f"{tag}: energies finite")
+        _check(0.0 < rf.mean_acceptance < 1.0, f"{tag}: acceptance {rf.mean_acceptance}")
+        _check(0.97 <= ratio <= 1.03, f"{tag}: kinetic/target {ratio}")
+        _check(fused.state.positions.is_cuda, f"{tag}: state on the card")
+
+        out.update(_fused_remd_vs_plain(tag, make()))
+
+    # the unbiased kernel and its plain version, timed on 2 windows
+    n_timed = 2 * EXCHANGE_FREQUENCY
+    out["timed_steps"] = n_timed
+    r = ReplicaExchange(system, x_min, cfg, device="cuda", minimize=False)
+    fpc = EXCHANGE_FREQUENCY // CV_REPORT
+    out["fused_remd_ms"] = _cuda_ms(lambda: r.run_fused(n_timed), 5)
+    out["fused_remd_plain_ms"] = _cuda_ms(lambda: r._run_fused_reference(2, fpc), 1)
+    _line("phase 9 fused remd", out)
+    return out
+
+
+def phase_learned_cv(cx: dict) -> dict:
+    """REMD -> features -> DeepTICA -> biased REMD -> fused metadynamics
+    -> sampling under the ledger -> reweighted FES, on the card."""
+    from pmarlo_tpu_torch.bias import MetadynamicsBias
+    from pmarlo_tpu_torch.features import featurize_trajectory
+    from pmarlo_tpu_torch.md.enhanced_sampling import run_fused_metadynamics
+    from pmarlo_tpu_torch.md.fused_md import build_fused_chunk
+    from pmarlo_tpu_torch.ml import DeepTICAConfig, train_deeptica
+    from pmarlo_tpu_torch.msm.free_energy import generate_2d_fes
+    from pmarlo_tpu_torch.remd.remd import ReplicaExchange
+
+    system, positions, info, quads = (cx[k] for k in ("system", "positions", "info", "quads"))
+    R = N_REPLICAS
+    cfg = _remd_config(seed=10)
+    out = {"atoms": system.n_atoms, "replicas": R}
+    torch.cuda.synchronize()
+    _reset_counts()
+
+    # 1. unbiased REMD, one kernel launch a frame
+    remd = ReplicaExchange(system, positions, cfg, device="cuda", use_kernel=True)
+    res = remd.run(CV_STEPS)
+    out["remd_wall_s"] = res.wall_seconds
+    out["remd_mean_acceptance"] = res.mean_acceptance
+
+    # 2. cos/sin of phi/psi along every walker's continuous trajectory (a
+    # rung's trajectory changes walker at every accepted swap, which
+    # breaks the time correlation the training looks for)
+    feats = []
+    for walker in range(R):
+        traj = torch.as_tensor(res.replica_trajectory(walker), device="cuda")
+        X, _ = featurize_trajectory(traj, "phi_psi", info, cos_sin_expand=True)
+        feats.append(X)
+    _check(feats[0].is_cuda and feats[0].shape == (res.positions.shape[0], 2 * len(quads)),
+           f"features on the card, shape {tuple(feats[0].shape)}")
+    out["features"] = list(feats[0].shape)
+
+    # 3. DeepTICA at its defaults
+    t0 = time.perf_counter()
+    model = train_deeptica(feats, DeepTICAConfig(), device="cuda")
+    torch.cuda.synchronize()
+    hist = model.training_history
+    out.update({
+        "train_s": time.perf_counter() - t0,
+        "epochs": len(hist["epochs"]),
+        "vamp2_before": hist["vamp2_before"],
+        "vamp2_after": hist["vamp2_after"],
+        "first_val_vamp2": hist["epochs"][0]["val_vamp2"],
+        "best_val_vamp2": hist["best"]["val_vamp2"],
+        "best_epoch": hist["best"]["epoch"],
+    })
+    _check(model.device.type == "cuda", "the trained model lies on the card")
+    # vamp2_before sums the modes of all 32 scaled features and vamp2_after
+    # those of the 2 CVs, so the two are reported, not compared; what the
+    # training must do is raise the 2-CV validation score
+    _check(np.isfinite(hist["vamp2_before"]) and 0.0 < hist["vamp2_after"] <= 2.0 + 1e-3,
+           f"VAMP-2 {hist['vamp2_before']} -> {hist['vamp2_after']}")
+    _check(out["best_val_vamp2"] > out["first_val_vamp2"],
+           f"validation VAMP-2 {out['first_val_vamp2']} -> {out['best_val_vamp2']}")
+
+    # 4. the CV back in the MD kernel: biased windows, then the whole run fused
+    biased = ReplicaExchange(system, positions, cfg, device="cuda", use_kernel=True,
+                             kernel_bias={"model": model, "quads": quads, "strength": 1.0})
+    rb = biased.run(CV_BIASED_STEPS)
+    rfused = biased.run_fused(CV_FUSED_STEPS)
+    out["biased_windows_wall_s"] = rb.wall_seconds
+    out["biased_fused_wall_s"] = rfused.wall_seconds
+    out["biased_fused_mean_acceptance"] = rfused.mean_acceptance
+    out["biased_fused_kinetic_over_target"] = _kinetic_ratio(rfused, cfg)
+    _check(bool(np.isfinite(rfused.positions).all()), "biased fused frames finite")
+    _check(0.0 < rfused.mean_acceptance < 1.0,
+           f"biased fused acceptance {rfused.mean_acceptance}")
+
+    # 5. well-tempered metadynamics on the two CVs, deposits inside the launch
+    mtd = MetadynamicsBias(sigma=MTD_SIGMA, height=1.2, bias_factor=10.0)
+    t0 = time.perf_counter()
+    md = run_fused_metadynamics(
+        system, cx["x_min"], cv_model=model, cv_quads=quads, mtd=mtd,
+        n_steps=MTD_STEPS, deposit_interval=MTD_INTERVAL, n_replicas=R, device="cuda")
+    torch.cuda.synchronize()
+    out["mtd_wall_s"] = time.perf_counter() - t0
+    hills = md["hills"]
+    n_hills = int(hills.n_hills)
+    hh = hills.heights[:n_hills]
+    out.update({"mtd_hills": n_hills, "mtd_height_min": float(hh.min()),
+                "mtd_height_max": float(hh.max())})
+    _check(hills.centers.is_cuda and md["positions"].is_cuda, "metadynamics on the card")
+    _check(n_hills == md["n_windows"] * R == (MTD_STEPS // MTD_INTERVAL) * R,
+           f"{n_hills} hills")
+    _check(bool(((hh > 0.0) & (hh <= mtd.height)).all()), "well-tempered heights in (0, h]")
+    _check(bool(torch.isfinite(hills.centers[:n_hills]).all()), "hill centers finite")
+    _check(bool(torch.isfinite(md["positions"]).all()), "metadynamics positions finite")
+
+    # 6. sampling under the final ledger, then the reweighted FES
+    sampler = build_fused_chunk(
+        system, dt=DT_PS, friction=1.0, n_replicas=R, bias_model=model,
+        bias_quads=quads, bias_kind="metadynamics", mtd_sigma=MTD_SIGMA)
+    x, v = md["positions"], md["velocities"]
+    seeds = torch.arange(R, dtype=torch.int32, device="cuda")
+    temps = torch.full((R,), 300.0, device="cuda")
+    cvs = []
+    for f in range(LEDGER_FRAMES):
+        x, v, _ = sampler(x, v, seeds, temps, CV_REPORT, MTD_STEPS + f * CV_REPORT,
+                          hills=hills)
+        cvs.append(sampler.bias.cv(x))
+    cvs = torch.cat(cvs).cpu().numpy()                                 # (frames * R, 2)
+    weights = mtd.reweighting_factors(hills, cvs)
+    fes = generate_2d_fes(cvs[:, 0], cvs[:, 1], temperature_K=300.0, bins=24,
+                          weights=weights)
+    torch.cuda.synchronize()
+    counts = _counts()
+    out["launches"] = {k: counts[k] for k in ("fused_md_chunk", *BIAS_VARIANTS)}
+    out["fes_occupied_bin_fraction"] = float(fes.finite_fraction)
+    _check(bool(np.isfinite(weights).all()) and float(weights.max()) > 0.0,
+           "reweighting factors finite")
+    _check(bool(np.isfinite(fes.free_energy).any()), "reweighted FES has finite bins")
+    expected = {
+        "fused_md_chunk": CV_STEPS // CV_REPORT,
+        "bias_harmonic": CV_BIASED_STEPS // CV_REPORT,
+        "fused_remd": 1,
+        "fused_metadynamics": 1,
+        "bias_metadynamics": LEDGER_FRAMES,
+    }
+    _check(out["launches"] == expected, f"launches {out['launches']}, expected {expected}")
+    _check(all(counts[k] == 0 for k in PAIR_KERNELS), "no pair kernel on this path")
+
+    # the ledger of a short fused run (R = 32, 2 windows of 50 steps)
+    # against the plain version's, from the long run's ledger, so that each
+    # of the 64 deposits sums 320 hills and more; then both timed
+    interval, windows = 50, 2
+    n_timed = windows * interval
+    short = build_fused_chunk(
+        system, dt=DT_PS, friction=1.0, n_replicas=R, bias_model=model,
+        bias_quads=quads, bias_kind="metadynamics", mtd_sigma=MTD_SIGMA,
+        mtd_deposit_interval=interval, mtd_height=mtd.height,
+        mtd_bias_factor=mtd.bias_factor)
+    sx, sv, sseeds, _ = _md_inputs(system, cx["x_min"], R, seed=11)
+    xk, _, _, hk = short(sx, sv, sseeds, temps, n_timed, 0, hills=hills)
+    xp, _, _, hp = short.reference(sx, sv, sseeds, temps, n_timed, 0, hills=hills)
+    torch.cuda.synchronize()
+    lo, hi = n_hills, n_hills + windows * R
+    out["ledger_count"] = [int(hk.n_hills), int(hp.n_hills)]
+    out["ledger_centers_max_abs_err"] = float((hk.centers - hp.centers).abs().max())
+    out["ledger_heights_rel_err"] = float(
+        ((hk.heights - hp.heights)[lo:hi].abs() / hp.heights[lo:hi].abs()).max())
+    out["ledger_run_max_dx_nm"] = float((xk - xp).abs().max())
+    _check(int(hk.n_hills) == int(hp.n_hills) == hi, f"ledger counts {out['ledger_count']}")
+    _check(out["ledger_centers_max_abs_err"] <= 1e-4, "ledger centers agree")
+    _check(out["ledger_heights_rel_err"] <= 1e-4, "ledger heights agree")
+    _check(out["ledger_run_max_dx_nm"] <= 1e-3, "fused metadynamics positions agree")
+    out["timed_steps"] = n_timed
+    out["fused_mtd_ms"] = _cuda_ms(
+        lambda: short(sx, sv, sseeds, temps, n_timed, 0, hills=hills), 5)
+    out["fused_mtd_plain_ms"] = _cuda_ms(
+        lambda: short.reference(sx, sv, sseeds, temps, n_timed, 0, hills=hills), 1)
+    _line("phase 10 learned cv", out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch sees none")
@@ -508,37 +1084,94 @@ def main() -> None:
     pair = phase_pair(protein, px_min)
     remd = phase_protein_remd()
 
+    cx = _chignolin()
+    bias = phase_bias(cx, system, x_min)
+    fused = phase_fused_remd(cx, bias["model"])
+    cv = phase_learned_cv(cx)
+
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi)
+    R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
+    Nc, M = cx["system"].n_atoms, len(cx["quads"])
+    widths = bias["widths"]
+    cuda = {"route": "cuda", "library_ms": None}
+    fused_src = {**cuda, "source": "pmarlo_tpu_torch/csrc/fused_md.cu"}
     kernels = [{
-        "name": "fused_md_chunk",
-        "route": "cuda",
-        "source": "pmarlo_tpu_torch/csrc/fused_md.cu",
+        "name": "fused_md_chunk", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:791",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + cv["launches"]["fused_md_chunk"],
         "max_abs_err": kern["force_max_abs_err"],
         "ms": kern["chunk100_ms"],
         "plain_ms": kern["chunk100_plain_ms"],
+        "timed": f"100 steps, R={R}, N={N}",
+        **_md_bound(R, N, 101),
     }]
     for name, line, err, tag in (
         ("pair_born", 465, "born_max_abs_err", "born"),
         ("pair_energy", 486, "dEdB_max_abs_err", "energy"),
         ("pair_force", 513, "force_max_abs_err", "force"),
     ):
+        Rp = PROTEIN_REPLICAS
+        flops, sfu = PAIR_OPS[tag]
+        pairs = Rp * Np * (Np - 1)
         kernels.append({
-            "name": name,
-            "route": "cuda",
+            "name": name, **cuda,
             "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
             "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
             "launches": remd["launches"][name],
             "max_abs_err": pair[err],
             "ms": pair[f"{tag}_ms"],
             "plain_ms": pair[f"{tag}_plain_ms"],
+            "timed": f"one sweep, R={Rp}, N={Np}",
+            # positions, per-atom rows and Born radii in, one row a atom out
+            **_bound(pairs * flops, pairs * sfu, 4 * Rp * Np * 12),
         })
+    shape = f"R={R}, N={Nc}"
+    kernels += [{
+        "name": "fused_md_bias_harmonic", **fused_src,
+        "replaces": "pmarlo_tpu/md/pallas_md.py:436",
+        "launches": cv["launches"]["bias_harmonic"],
+        "max_abs_err": bias["harmonic_force_max_abs_err"],
+        "ms": bias["harmonic_chunk100_ms"],
+        "plain_ms": bias["harmonic_chunk100_plain_ms"],
+        "timed": f"100 steps, {shape}",
+        **_md_bound(R, Nc, 101, n_dih=M, widths=widths),
+    }, {
+        "name": "fused_md_bias_metadynamics", **fused_src,
+        "replaces": "pmarlo_tpu/md/pallas_md.py:504",
+        "launches": cv["launches"]["bias_metadynamics"],
+        "max_abs_err": bias["metadynamics_force_max_abs_err"],
+        "ms": bias["metadynamics_chunk100_ms"],
+        "plain_ms": bias["metadynamics_chunk100_plain_ms"],
+        "timed": f"100 steps, {shape}, {N_HILLS_CHECK} hills",
+        **_md_bound(R, Nc, 101, n_dih=M, widths=widths, n_hills=N_HILLS_CHECK),
+    }, {
+        "name": "fused_md_fused_metadynamics", **fused_src,
+        "replaces": "pmarlo_tpu/md/pallas_md.py:1075",
+        "launches": cv["launches"]["fused_metadynamics"],
+        "max_abs_err": cv["ledger_centers_max_abs_err"],
+        "ms": cv["fused_mtd_ms"],
+        "plain_ms": cv["fused_mtd_plain_ms"],
+        "timed": f"{cv['timed_steps']} steps, 2 deposit windows, {shape}, "
+                 f"{cv['mtd_hills']} hills",
+        **_md_bound(R, Nc, cv["timed_steps"] + 1, n_dih=M, widths=widths,
+                    n_hills=cv["mtd_hills"]),
+    }, {
+        "name": "fused_remd", **fused_src,
+        "replaces": "pmarlo_tpu/md/pallas_md.py:1298",
+        "launches": cv["launches"]["fused_remd"],
+        "max_abs_err": max(fused["unbiased_vs_plain_frames_max_dx_nm"],
+                           fused["biased_vs_plain_frames_max_dx_nm"]),
+        "ms": fused["fused_remd_ms"],
+        "plain_ms": fused["fused_remd_plain_ms"],
+        "timed": f"{fused['timed_steps']} steps, 2 windows, unbiased, {shape}",
+        **_md_bound(R, Nc, fused["timed_steps"] + fused["timed_steps"] // CV_REPORT,
+                    frames=fused["timed_steps"] // CV_REPORT),
+    }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

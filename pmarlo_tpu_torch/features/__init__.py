@@ -1,1 +1,41 @@
-"""Feature bookkeeping."""
+"""Featurization: dihedrals, distances, Rg, contacts, registry.
+
+Port of ``pmarlo_tpu/features`` (``base``, ``builtins``, ``featurize``,
+``pairs``): plain PyTorch over coordinate tensors on their device.
+"""
+
+from .base import (
+    FEATURE_REGISTRY,
+    FeatureSpec,
+    TopologyInfo,
+    get_feature,
+    parse_feature_spec,
+    register_feature,
+)
+from .builtins import (
+    chi1_indices,
+    compute_angles,
+    compute_dihedrals,
+    compute_distances,
+    contacts,
+    phi_psi_indices,
+    radius_of_gyration,
+)
+from .featurize import featurize_trajectory
+
+__all__ = [
+    "FEATURE_REGISTRY",
+    "FeatureSpec",
+    "TopologyInfo",
+    "get_feature",
+    "parse_feature_spec",
+    "register_feature",
+    "compute_dihedrals",
+    "compute_distances",
+    "compute_angles",
+    "phi_psi_indices",
+    "chi1_indices",
+    "radius_of_gyration",
+    "contacts",
+    "featurize_trajectory",
+]

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..io.pdb import PDBStructure, read_pdb
 from ..utils.errors import ForceFieldError
 from . import ff_params as ff
@@ -222,7 +223,7 @@ def build_system(
     gb_model: str = "obc2",
     box: Optional[Tuple[float, float, float]] = None,
     tilt: Optional[Tuple[float, float, float]] = None,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
     dense_scales: Optional[bool] = None,
 ) -> Tuple[System, torch.Tensor]:
@@ -230,13 +231,15 @@ def build_system(
     structure or topology, as ``pmarlo_tpu.md.forcefield.build_system``
     does on its implicit path. ``gb_model`` is "obc2" or "gbn2";
     ``implicit_solvent=False`` gives vacuum. Returns ``(system, positions)``
-    with every tensor on ``device``.
+    with every tensor on ``device`` (``None``: the card when there is one,
+    ``_device.default_device()``).
 
     ``dense_scales`` builds the (N, N) exclusion-scale matrices and GBn2
     neck tables that the dense paths read; the default, as in JAX, is to
     build them up to 12,000 atoms. ``False`` leaves ``scale_elec``,
     ``scale_lj`` and the neck tables ``None``: the pair kernels
     (``md/pair_force.py``) read only the sparse exclusion lists."""
+    device = torch.device(device) if device is not None else default_device()
     if box is not None or tilt is not None:
         raise NotImplementedError(
             "periodic boxes (explicit solvent) are not ported yet "

@@ -1,17 +1,27 @@
 """Fused multi-step Langevin chunk: a CUDA kernel and its plain twin.
 
-Port of ``pmarlo_tpu/md/pallas_md.py build_pallas_chunk`` (unbiased).
-``build_fused_chunk`` returns a ``FusedChunk``; calling it advances every
-replica ``n_steps`` folded-BAOAB steps and returns the energies at the
-final positions:
+Port of ``pmarlo_tpu/md/pallas_md.py``: ``build_pallas_chunk`` (unbiased,
+with the in-kernel DeepTICA bias, with the hills ledger as input, and with
+the deposits fused into the launch) and ``build_pallas_remd`` (the whole
+REMD run in one launch). ``build_fused_chunk`` returns a ``FusedChunk``;
+calling it advances every replica ``n_steps`` folded-BAOAB steps and
+returns the energies at the final positions:
 
     chunk(x, v, seeds, temps, n_steps, step_offset) -> (x, v, energies)
+    chunk(..., hills=ledger) -> the same under the metadynamics bias, or,
+        built with ``mtd_deposit_interval``, (x, v, energies, ledger)
+    chunk.remd(x, v, seeds, ids, ladder, ...) -> ``FusedRemdOutput``
 
 - tensors on a CUDA device launch ``csrc/fused_md.cu`` (one launch per
-  call; the module counter ``launches`` counts them). A CUDA tensor never
-  reaches the plain version: the launch happens or the call raises.
+  call; ``launches`` counts the unbiased chunk and ``variant_launches``
+  the other kernels by name). A CUDA tensor never reaches the plain
+  version: the launch happens or the call raises.
 - tensors on the CPU run ``FusedChunk.reference``: ``langevin_step`` over
-  ``analytic.energy_and_forces``, with the same Philox noise stream.
+  ``analytic.energy_and_forces`` plus the bias twin (``md/cv_bias.py``),
+  with the same Philox noise stream; deposits are
+  ``MetadynamicsBias.deposit`` in replica order. The whole-run REMD twin
+  is ``ReplicaExchange._run_fused_reference`` (``remd/remd.py``), which
+  ``run_fused`` takes on the CPU.
 
 ``n_steps`` is a runtime argument (no per-size prebuild), and
 ``step_offset`` is the global index of the first step, which keys the
@@ -24,24 +34,60 @@ at first use (``_kernels.py``) and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _kernels
+from ..bias.metadynamics import MetadynamicsBias, MetaDState
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 from .analytic import energy_and_forces, make_dense_params
+from .cv_bias import MAX_CV, MAX_LAYERS, CVBias
 from .integrate import MDState, langevin_step
 from .system import System
 
-#: kernel launches made by this process (chip_smoke.py resets and reads it)
+#: launches of the unbiased chunk kernel made by this process
+#: (chip_smoke.py resets and reads it)
 launches = 0
 
+#: launches of the other kernels of ``csrc/fused_md.cu``, by name
+variant_launches = {
+    "bias_harmonic": 0,        # chunk with the harmonic CV bias
+    "bias_metadynamics": 0,    # chunk with the hills ledger as input
+    "fused_metadynamics": 0,   # chunk with the deposits inside the launch
+    "fused_remd": 0,           # the whole REMD run
+}
+
 #: atoms per replica the kernel takes: one thread per atom in one CTA, and
-#: one SM's register file holds 512 threads at the kernel's register count
+#: one SM's register file holds 512 threads at the kernel's register bound
 MAX_ATOMS = 512
+
+# argument order of pmarlo_fused_md_launch (the enums of csrc/fused_md.cu)
+_PTRS = (
+    "x", "v", "energy", "forces", "seeds", "kT", "atom_p", "pair_p", "bond_i",
+    "bond_p", "angle_i", "angle_p", "tors_i", "tors_p", "csr_ptr", "csr_ent",
+    "quads", "dih_ptr", "dih_ent", "bias_p", "mtd_centers", "mtd_heights",
+    "mtd_count", "cv_buf", "x_out", "v_out", "seeds_out", "ladder",
+    "betas", "ids0", "frames", "frame_e", "frame_ke", "ids_hist", "accept",
+    "swap_e",
+)
+_INTS = (
+    "n_replicas", "n_atoms", "n_steps", "use_gb", "use_neck", "bias_kind",
+    "n_dih", "n_layers", *(f"width{l}" for l in range(MAX_LAYERS + 1)),
+    "n_cv", "use_whiten", "bias_p_len", "mtd_capacity", "mtd_interval",
+    "n_attempts", "frames_per_attempt", "report_interval", "swap_seed",
+)
+_FLOATS = (
+    "dt", "half_dt", "c1", "c2sq", "gb_pref", "bias_strength", "mtd_height",
+    "mtd_kb_dt", *(f"mtd_inv_sigma{k}" for k in range(MAX_CV)),
+)
+_MODE_CHUNK, _MODE_FUSED_MTD, _MODE_FUSED_REMD = 0, 1, 2
+_BIAS_KINDS = {"harmonic": 1, "metadynamics": 2}
+#: cudaErrorCooperativeLaunchTooLarge
+_TOO_LARGE = 720
 
 _configured = False
 
@@ -51,17 +97,37 @@ def _library() -> ctypes.CDLL:
     lib = _kernels.library()
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f = ctypes.c_float
-        lib.pmarlo_fused_md_chunk.argtypes = (
-            [p] * 16 + [i, i, i, ctypes.c_longlong] + [f] * 5 + [i, i, p]
-        )
-        lib.pmarlo_fused_md_chunk.restype = i
+        lib.pmarlo_fused_md_launch.argtypes = [
+            i, p, p, p, ctypes.c_longlong, ctypes.c_longlong, p]
+        lib.pmarlo_fused_md_launch.restype = i
         lib.pmarlo_fused_md_max_atoms.argtypes = []
         lib.pmarlo_fused_md_max_atoms.restype = i
+        lib.pmarlo_fused_md_abi.argtypes = [i]
+        lib.pmarlo_fused_md_abi.restype = i
+        lib.pmarlo_grid_barrier_probe.argtypes = [i, i, i, p]
+        lib.pmarlo_grid_barrier_probe.restype = i
         if lib.pmarlo_fused_md_max_atoms() != MAX_ATOMS:
             raise RuntimeError("kernel library and wrapper disagree on MAX_ATOMS")
+        abi = [lib.pmarlo_fused_md_abi(k) for k in range(5)]
+        if abi != [len(_PTRS), len(_INTS), len(_FLOATS), MAX_LAYERS, MAX_CV]:
+            raise RuntimeError(
+                f"kernel library and wrapper disagree on the argument lists: {abi}")
         _configured = True
     return lib
+
+
+@dataclasses.dataclass
+class FusedRemdOutput:
+    """What one whole-run REMD launch returns, rung-major."""
+
+    positions: torch.Tensor     # (R, N, 3) final
+    velocities: torch.Tensor    # (R, N, 3) final
+    seeds: torch.Tensor         # (R,) noise seeds, moved with the configurations
+    frames: torch.Tensor        # (F, R, N, 3)
+    frame_energy: torch.Tensor  # (F, R)
+    frame_kinetic: torch.Tensor  # (F, R) kinetic energy of the state velocities
+    ids_hist: torch.Tensor      # (A + 1, R) int32
+    accept: torch.Tensor        # (A, R) 1 on both rungs of an accepted pair
 
 
 def _bonded_csr(system: System) -> Tuple[np.ndarray, np.ndarray]:
@@ -85,16 +151,29 @@ class FusedChunk:
     """K-step Langevin chunk for all replicas of one system (see module
     docstring). Built by ``build_fused_chunk``."""
 
-    def __init__(self, system: System, *, dt: float, friction: float, n_replicas: int):
+    def __init__(self, system: System, *, dt: float, friction: float, n_replicas: int,
+                 bias: Optional[CVBias] = None, mtd: Optional[MetadynamicsBias] = None,
+                 mtd_deposit_interval: Optional[int] = None):
         if system.n_atoms > MAX_ATOMS:
             raise ValueError(
                 f"the fused kernel holds one replica in one CTA, one thread "
                 f"per atom: N = {system.n_atoms} exceeds {MAX_ATOMS}"
             )
+        if mtd_deposit_interval is not None:
+            if bias is None or bias.kind != "metadynamics" or mtd is None:
+                raise ValueError(
+                    "mtd_deposit_interval needs a metadynamics bias and its "
+                    "MetadynamicsBias parameters")
+            if int(mtd_deposit_interval) < 1:
+                raise ValueError("mtd_deposit_interval must be >= 1")
         self.system = system
         self.dt = float(dt)
         self.friction = float(friction)
         self.n_replicas = int(n_replicas)
+        self.bias = bias
+        self.mtd = mtd
+        self.mtd_deposit_interval = (
+            None if mtd_deposit_interval is None else int(mtd_deposit_interval))
         self.dense = make_dense_params(system)
         p = self.dense
         n = system.n_atoms
@@ -122,44 +201,96 @@ class FusedChunk:
         self._csr_ent = torch.as_tensor(ent, device=dev).contiguous()
         self._use_neck = int(use_neck)
         self.c1 = math.exp(-self.friction * self.dt)
+        self._bias_tables = None
+        #: the hill widths as launch arguments, read from the device once
+        self._mtd_inv_sigma = {}
+        if bias is not None:
+            if bias.device != dev or bias.n_atoms != n:
+                raise ValueError("the bias was built for another device or system")
+            dptr, dent = bias.dihedral_csr()
+            self._bias_tables = {
+                "quads": bias.quads.to(torch.int32).contiguous(),
+                "dih_ptr": torch.as_tensor(dptr, device=dev),
+                "dih_ent": torch.as_tensor(dent, device=dev).contiguous(),
+                "bias_p": bias.blob(),
+            }
+            if bias.mtd_inv_sigma is not None:
+                self._mtd_inv_sigma = {
+                    f"mtd_inv_sigma{k}": float(s)
+                    for k, s in enumerate(bias.mtd_inv_sigma.cpu())}
 
     # --- plain PyTorch version ------------------------------------------------
 
-    def reference(self, x, v, seeds, temps, n_steps: int, step_offset: int = 0):
-        """Plain PyTorch twin: ``langevin_step`` over the analytic forces,
-        the kernel's noise stream, energies at the final positions."""
-        self._check(x, v, seeds, temps, n_steps)
-        state = MDState(positions=x, velocities=v, seeds=seeds, step=int(step_offset))
-        force_fn = lambda y: energy_and_forces(self.dense, y)  # noqa: E731
+    def _force_fn(self, hills):
+        """Physical forces plus the bias twin under a fixed ledger."""
+        if self.bias is None:
+            return lambda y: energy_and_forces(self.dense, y)
+
+        def force_fn(y):
+            e, f = energy_and_forces(self.dense, y)
+            eb, fb = self.bias.energy_and_forces(y, hills)
+            return e + eb, f + fb
+
+        return force_fn
+
+    def _steps(self, state, temps, n_steps, force_fn):
         for _ in range(int(n_steps)):
             state, _ = langevin_step(
                 self.system, state, dt=self.dt, friction=self.friction,
                 temperature_K=temps, force_fn=force_fn,
             )
-        energies, _ = energy_and_forces(self.dense, state.positions)
-        return state.positions, state.velocities, energies
+        return state
+
+    def reference(self, x, v, seeds, temps, n_steps: int, step_offset: int = 0,
+                  hills: Optional[MetaDState] = None):
+        """Plain PyTorch twin: ``langevin_step`` over the analytic forces
+        and the bias twin, the kernel's noise stream, energies at the final
+        positions. With ``mtd_deposit_interval`` every replica deposits a
+        hill after each window, in replica order, and the ledger comes
+        back as a fourth value."""
+        self._check(x, v, seeds, temps, n_steps, hills)
+        state = MDState(positions=x, velocities=v, seeds=seeds, step=int(step_offset))
+        if self.mtd_deposit_interval is None:
+            force_fn = self._force_fn(hills)
+            state = self._steps(state, temps, n_steps, force_fn)
+            return state.positions, state.velocities, force_fn(state.positions)[0]
+        mtd = dataclasses.replace(self.mtd, max_hills=int(hills.heights.shape[0]))
+        for _ in range(int(n_steps) // self.mtd_deposit_interval):
+            state = self._steps(state, temps, self.mtd_deposit_interval,
+                                self._force_fn(hills))
+            cvs = self.bias.cv(state.positions)
+            for r in range(self.n_replicas):
+                hills = mtd.deposit(hills, cvs[r])
+        energies = self._force_fn(hills)(state.positions)[0]
+        return state.positions, state.velocities, energies, hills
 
     # --- dispatch ---------------------------------------------------------------
 
-    def __call__(self, x, v, seeds, temps, n_steps: int, step_offset: int = 0):
+    def __call__(self, x, v, seeds, temps, n_steps: int, step_offset: int = 0,
+                 hills: Optional[MetaDState] = None):
         if x.device.type == "cpu":
-            return self.reference(x, v, seeds, temps, n_steps, step_offset)
-        xo, vo, eo, _ = self._launch(x, v, seeds, temps, n_steps, step_offset, False)
-        return xo, vo, eo
+            return self.reference(x, v, seeds, temps, n_steps, step_offset, hills)
+        xo, vo, eo, _, ho = self._launch(x, v, seeds, temps, n_steps, step_offset,
+                                         False, hills)
+        if self.mtd_deposit_interval is None:
+            return xo, vo, eo
+        return xo, vo, eo, ho
 
-    def energy_and_forces(self, x: torch.Tensor):
-        """Energies ``(R,)`` and forces ``(R, N, 3)`` at ``x``: the kernel
-        with zero steps on a CUDA tensor, the analytic twin on the CPU."""
+    def energy_and_forces(self, x: torch.Tensor, hills: Optional[MetaDState] = None):
+        """Energies ``(R,)`` and forces ``(R, N, 3)`` at ``x``, bias
+        included: the kernel with zero steps on a CUDA tensor, the analytic
+        twin on the CPU."""
         if x.device.type == "cpu":
-            return energy_and_forces(self.dense, x)
+            return self._force_fn(hills)(x)
         R = x.shape[0]
         v = torch.zeros_like(x)
         seeds = torch.zeros(R, dtype=torch.int32, device=x.device)
         temps = torch.zeros(R, dtype=torch.float32, device=x.device)
-        _, _, eo, fo = self._launch(x, v, seeds, temps, 0, 0, True)
+        _, _, eo, fo, _ = self._launch(x, v, seeds, temps, 0, 0, True, hills,
+                                       deposits=False)
         return eo, fo
 
-    def _check(self, x, v, seeds, temps, n_steps):
+    def _check(self, x, v, seeds, temps, n_steps, hills=None):
         n = self.system.n_atoms
         if x.dim() != 3 or tuple(x.shape[1:]) != (n, 3):
             raise ValueError(f"x must be (R, {n}, 3), got {tuple(x.shape)}")
@@ -184,45 +315,223 @@ class FusedChunk:
                 f"tensors on {x.device} but the chunk was built for "
                 f"{self.system.device}"
             )
+        needs_hills = self.bias is not None and self.bias.kind == "metadynamics"
+        if needs_hills != (hills is not None):
+            raise ValueError(
+                "the hills ledger is passed to a metadynamics chunk, and only to one")
+        if hills is not None:
+            H = hills.heights.shape[0]
+            if tuple(hills.centers.shape) != (H, self.bias.n_cv):
+                raise ValueError(
+                    f"hills.centers must be ({H}, {self.bias.n_cv}), got "
+                    f"{tuple(hills.centers.shape)}")
+            if hills.centers.device != x.device:
+                raise ValueError("the hills ledger must lie on the device of x")
+        if (self.mtd_deposit_interval is not None
+                and int(n_steps) % self.mtd_deposit_interval != 0):
+            raise ValueError("n_steps must be a multiple of mtd_deposit_interval")
 
-    def _launch(self, x, v, seeds, temps, n_steps, step_offset, want_forces):
+    # --- the kernel ---------------------------------------------------------------
+
+    def _common_args(self, R: int, n_steps: int):
+        """Pointer, integer and float arguments every mode shares; the
+        tensors in ``keep`` must outlive the launch call."""
+        n = self.system.n_atoms
+        ptrs = {
+            "atom_p": self._atom_p, "pair_p": self._pair_p,
+            "bond_i": self._bond_i, "bond_p": self._bond_p,
+            "angle_i": self._angle_i, "angle_p": self._angle_p,
+            "tors_i": self._tors_i, "tors_p": self._tors_p,
+            "csr_ptr": self._csr_ptr, "csr_ent": self._csr_ent,
+        }
+        ints = {
+            "n_replicas": R, "n_atoms": n, "n_steps": int(n_steps),
+            "use_gb": int(self.dense.use_gb), "use_neck": self._use_neck,
+        }
+        floats = {
+            "dt": self.dt, "half_dt": 0.5 * self.dt, "c1": self.c1,
+            "c2sq": 1.0 - self.c1 * self.c1, "gb_pref": self.dense.gb_pref,
+        }
+        b = self.bias
+        if b is not None:
+            ptrs.update(self._bias_tables)
+            ints.update({
+                "bias_kind": _BIAS_KINDS[b.kind], "n_dih": b.n_dihedrals,
+                "n_layers": len(b.weights), "n_cv": b.n_cv,
+                "use_whiten": int(b.wmat is not None),
+                "bias_p_len": int(self._bias_tables["bias_p"].numel()),
+            })
+            ints.update({f"width{l}": w for l, w in enumerate(b.widths)})
+            floats["bias_strength"] = b.strength
+            floats.update(self._mtd_inv_sigma)
+        return ptrs, ints, floats
+
+    def _run(self, mode: int, what: str, ptrs, ints, floats, step_offset: int,
+             attempt_offset: int, device) -> None:
+        lib = _library()
+        pv = (ctypes.c_void_p * len(_PTRS))(*[
+            ptrs[k].data_ptr() if ptrs.get(k) is not None else None for k in _PTRS])
+        iv = (ctypes.c_int * len(_INTS))(*[int(ints.get(k, 0)) for k in _INTS])
+        fv = (ctypes.c_float * len(_FLOATS))(*[float(floats.get(k, 0.0)) for k in _FLOATS])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pmarlo_fused_md_launch(
+            mode, pv, iv, fv, int(step_offset), int(attempt_offset), stream)
+        if rc == _TOO_LARGE:
+            raise RuntimeError(
+                f"{what}: {ints['n_replicas']} replicas of {ints['n_atoms']} atoms "
+                "cannot all be resident on this card at once, and the kernel's "
+                "grid barrier needs them to be; run fewer replicas per launch")
+        _kernels.check_launch(rc, what)
+
+    def _launch(self, x, v, seeds, temps, n_steps, step_offset, want_forces,
+                hills=None, deposits=True):
         global launches
         if x.device.type != "cuda":
             raise RuntimeError(f"the fused kernel runs on CUDA tensors, got {x.device}")
-        self._check(x, v, seeds, temps, n_steps)
-        lib = _library()
-        R, n = x.shape[0], self.system.n_atoms
+        self._check(x, v, seeds, temps, 0 if not deposits else n_steps, hills)
+        R = x.shape[0]
+        dev = x.device
         xo = x.contiguous().clone()
         vo = v.contiguous().clone()
-        eo = torch.empty(R, dtype=torch.float32, device=x.device)
+        eo = torch.empty(R, dtype=torch.float32, device=dev)
         fo = torch.empty_like(xo) if want_forces else None
         kT = (BOLTZMANN_CONSTANT_KJ_PER_MOL * temps.to(torch.float32)).contiguous()
-        seeds_c = seeds.contiguous()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.pmarlo_fused_md_chunk(
-            xo.data_ptr(), vo.data_ptr(), eo.data_ptr(),
-            fo.data_ptr() if fo is not None else None,
-            seeds_c.data_ptr(), kT.data_ptr(),
-            self._atom_p.data_ptr(), self._pair_p.data_ptr(),
-            self._bond_i.data_ptr(), self._bond_p.data_ptr(),
-            self._angle_i.data_ptr(), self._angle_p.data_ptr(),
-            self._tors_i.data_ptr(), self._tors_p.data_ptr(),
-            self._csr_ptr.data_ptr(), self._csr_ent.data_ptr(),
-            R, n, int(n_steps), int(step_offset),
-            self.dt, 0.5 * self.dt, self.c1, 1.0 - self.c1 * self.c1,
-            self.dense.gb_pref, int(self.dense.use_gb), self._use_neck,
-            stream,
+        ptrs, ints, floats = self._common_args(R, n_steps)
+        ptrs.update({"x": xo, "v": vo, "energy": eo, "forces": fo,
+                     "seeds": seeds.contiguous(), "kT": kT})
+        fused = deposits and self.mtd_deposit_interval is not None
+        ho = None
+        if hills is not None:
+            # the fused mode writes the ledger: it works on a copy
+            ho = MetaDState(
+                centers=hills.centers.to(torch.float32).contiguous().clone(),
+                heights=hills.heights.to(torch.float32).contiguous().clone(),
+                n_hills=hills.n_hills.to(torch.int32).reshape(1).clone(),
+            )
+            ptrs.update({"mtd_centers": ho.centers, "mtd_heights": ho.heights,
+                         "mtd_count": ho.n_hills})
+            ints["mtd_capacity"] = int(ho.heights.shape[0])
+        if fused:
+            mtd = self.mtd
+            ptrs["cv_buf"] = torch.empty((R, self.bias.n_cv), dtype=torch.float32, device=dev)
+            ints["mtd_interval"] = self.mtd_deposit_interval
+            floats["mtd_height"] = float(mtd.height)
+            if mtd.bias_factor is not None:
+                if mtd.bias_factor <= 1.0:
+                    raise ValueError("bias_factor must be > 1")
+                floats["mtd_kb_dt"] = (BOLTZMANN_CONSTANT_KJ_PER_MOL
+                                       * (mtd.bias_factor - 1.0) * mtd.temperature_K)
+        name = ("fused_metadynamics" if fused
+                else "chunk" if self.bias is None else f"bias_{self.bias.kind}")
+        self._run(_MODE_FUSED_MTD if fused else _MODE_CHUNK, f"fused_md {name}",
+                  ptrs, ints, floats, step_offset, 0, dev)
+        if name == "chunk":
+            launches += 1
+        else:
+            variant_launches[name] += 1
+        if ho is not None:
+            ho = dataclasses.replace(ho, n_hills=ho.n_hills.reshape(()))
+        return xo, vo, eo, fo, ho
+
+    def remd(self, x, v, seeds, ids, ladder, *, n_attempts: int,
+             frames_per_attempt: int, report_interval: int, step_offset: int,
+             swap_seed: int, attempt_offset: int) -> FusedRemdOutput:
+        """The whole REMD run in one launch (``build_pallas_remd``):
+        ``n_attempts`` windows of ``frames_per_attempt`` blocks of
+        ``report_interval`` steps, a frame and its energies after each
+        block, a parity-alternating neighbour Metropolis swap after each
+        window (parity = the window's index in this call; the uniform of
+        pair ``p`` at global attempt ``attempt_offset + a`` is
+        ``remd.swap_uniforms``'s). Inputs and outputs are rung-major. CUDA
+        tensors only: the plain version is
+        ``ReplicaExchange._run_fused_reference``."""
+        if x.device.type != "cuda":
+            raise RuntimeError(f"the fused kernel runs on CUDA tensors, got {x.device}")
+        if self.bias is not None and self.bias.kind != "harmonic":
+            raise ValueError("fused REMD takes the harmonic CV bias only")
+        self._check(x, v, seeds, ladder, 0)
+        R, n = x.shape[0], self.system.n_atoms
+        dev = x.device
+        A, fpc = int(n_attempts), int(frames_per_attempt)
+        if A < 1 or fpc < 1 or int(report_interval) < 1:
+            raise ValueError("n_attempts, frames_per_attempt, report_interval must be >= 1")
+        if tuple(ids.shape) != (R,) or ids.dtype != torch.int32:
+            raise ValueError("ids must be (R,) int32")
+        f32 = dict(dtype=torch.float32, device=dev)
+        ladder = ladder.to(torch.float32).contiguous()
+        out = FusedRemdOutput(
+            positions=torch.empty((R, n, 3), **f32),
+            velocities=torch.empty((R, n, 3), **f32),
+            seeds=torch.empty(R, dtype=torch.int32, device=dev),
+            frames=torch.empty((A * fpc, R, n, 3), **f32),
+            frame_energy=torch.empty((A * fpc, R), **f32),
+            frame_kinetic=torch.empty((A * fpc, R), **f32),
+            ids_hist=torch.empty((A + 1, R), dtype=torch.int32, device=dev),
+            accept=torch.empty((A, R), **f32),
         )
-        _kernels.check_launch(rc, "fused_md_chunk")
-        launches += 1
-        return xo, vo, eo, fo
+        out.ids_hist[0] = ids
+        ptrs, ints, floats = self._common_args(R, A * fpc * int(report_interval))
+        ptrs.update({
+            "x": x.contiguous(), "v": v.contiguous(), "seeds": seeds.contiguous(),
+            "kT": (BOLTZMANN_CONSTANT_KJ_PER_MOL * ladder).contiguous(),
+            "ladder": ladder,
+            "betas": (1.0 / (BOLTZMANN_CONSTANT_KJ_PER_MOL * ladder)).contiguous(),
+            "ids0": ids.contiguous(),
+            "x_out": out.positions, "v_out": out.velocities, "seeds_out": out.seeds,
+            "frames": out.frames, "frame_e": out.frame_energy,
+            "frame_ke": out.frame_kinetic, "ids_hist": out.ids_hist,
+            "accept": out.accept,
+            "swap_e": torch.empty((2, R), **f32),
+        })
+        ints.update({"n_attempts": A, "frames_per_attempt": fpc,
+                     "report_interval": int(report_interval),
+                     "swap_seed": int(swap_seed) & 0x7FFFFFFF})
+        self._run(_MODE_FUSED_REMD, "fused_md fused_remd", ptrs, ints, floats,
+                  step_offset, attempt_offset, dev)
+        variant_launches["fused_remd"] += 1
+        return out
 
 
-def build_fused_chunk(system: System, *, dt: float, friction: float,
-                      n_replicas: int) -> FusedChunk:
-    """The fused chunk for ``system`` (tensors on ``system.device``)."""
-    return FusedChunk(system, dt=dt, friction=friction, n_replicas=n_replicas)
+def build_fused_chunk(
+    system: System, *, dt: float, friction: float, n_replicas: int,
+    bias_model=None, bias_quads=None, bias_strength: float = 1.0,
+    bias_kind: str = "harmonic", mtd_sigma=None,
+    mtd_deposit_interval: Optional[int] = None, mtd_height: float = 1.0,
+    mtd_bias_factor: Optional[float] = None, mtd_temperature_K: float = 300.0,
+) -> FusedChunk:
+    """The fused chunk for ``system`` (tensors on ``system.device``), with
+    the keywords of ``build_pallas_chunk``: ``bias_model`` (a
+    ``DeepTICAModel``) and ``bias_quads`` put the CV bias into the kernel,
+    ``bias_kind="metadynamics"`` with ``mtd_sigma`` reads a hills ledger
+    passed at call time, and ``mtd_deposit_interval`` moves the deposits
+    into the launch."""
+    bias = mtd = None
+    if bias_model is not None:
+        if bias_quads is None:
+            raise ValueError("bias_model requires bias_quads (dihedral atom quadruples)")
+        bias = CVBias(bias_model, bias_quads, n_atoms=system.n_atoms,
+                      strength=bias_strength, kind=bias_kind, mtd_sigma=mtd_sigma,
+                      device=system.device)
+        if bias_kind == "metadynamics":
+            mtd = MetadynamicsBias(
+                sigma=tuple(float(s) for s in np.asarray(mtd_sigma, np.float64)),
+                height=float(mtd_height), bias_factor=mtd_bias_factor,
+                temperature_K=float(mtd_temperature_K))
+    return FusedChunk(system, dt=dt, friction=friction, n_replicas=n_replicas,
+                      bias=bias, mtd=mtd, mtd_deposit_interval=mtd_deposit_interval)
 
 
-__all__ = ["FusedChunk", "build_fused_chunk",
-           "MAX_ATOMS", "launches"]
+def grid_barrier_probe(n_blocks: int, n_threads: int, n_barriers: int,
+                       device="cuda") -> None:
+    """Launch ``n_blocks`` CTAs of ``n_threads`` threads that meet at
+    ``n_barriers`` grid barriers and do nothing else: timed with and
+    without barriers, it gives the cost of the barrier the fused REMD and
+    fused metadynamics kernels synchronise their replicas with."""
+    rc = _library().pmarlo_grid_barrier_probe(
+        int(n_blocks), int(n_threads), int(n_barriers),
+        torch.cuda.current_stream(torch.device(device)).cuda_stream)
+    _kernels.check_launch(rc, "grid_barrier_probe")
+
+
+__all__ = ["FusedChunk", "FusedRemdOutput", "build_fused_chunk", "grid_barrier_probe",
+           "MAX_ATOMS", "launches", "variant_launches"]

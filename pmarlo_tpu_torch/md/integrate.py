@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -148,6 +149,40 @@ def remove_com_motion(system: System, velocities: torch.Tensor) -> torch.Tensor:
     return velocities - p / system.masses.sum()
 
 
+def bias_energy_and_forces(bias_fn: Callable, x: torch.Tensor):
+    """Energy ``(...)`` and forces ``(..., N, 3)`` of a bias
+    ``bias_fn(positions (..., N, 3)) -> energy (...)`` by autograd."""
+    with torch.enable_grad():
+        y = x.detach().requires_grad_(True)
+        e = bias_fn(y)
+        (g,) = torch.autograd.grad(e.sum(), y)
+    return e.detach(), -g
+
+
+def compose_bias(force_fn: Callable, bias_fn: Callable) -> Callable:
+    """Wrap ``force_fn(x) -> (e, f)`` so energies AND forces include the
+    CV bias (force = -grad of the bias energy). Single source for every
+    entry point that combines a force function with a bias."""
+
+    def wrapped(x):
+        e, f = force_fn(x)
+        be, bf = bias_energy_and_forces(bias_fn, x)
+        return e + be, f + bf
+
+    return wrapped
+
+
+def make_force_fn(system: System, bias_fn: Optional[Callable] = None) -> Callable:
+    """Build ``force_fn(x) -> (energy, forces)``: the analytic dense path
+    (``md/analytic.py``, the math the fused kernel runs) plus, if given, a
+    bias ``bias_fn(positions) -> energy`` whose forces come from autograd.
+    Leading dimensions of ``x`` batch."""
+    from .analytic import energy_and_forces, make_dense_params
+
+    force_fn = partial(energy_and_forces, make_dense_params(system))
+    return force_fn if bias_fn is None else compose_bias(force_fn, bias_fn)
+
+
 def langevin_step(
     system: System,
     state: MDState,
@@ -216,6 +251,7 @@ def run_md(
     report_interval: int = 100,
     force_fn: Optional[Callable] = None,
     constraints=None,
+    bias_fn: Optional[Callable] = None,
 ) -> Tuple[MDState, dict]:
     """Run ``n_steps`` and collect a frame every ``report_interval`` steps.
 
@@ -224,18 +260,20 @@ def run_md(
     reported positions, and ``temperature (F, ...)`` from the velocities
     shifted by the trailing half-kick (a synchronized phase point, as
     OpenMM reports), less constrained degrees of freedom. ``force_fn``
-    defaults to the analytic dense path (``md/analytic.py``)."""
+    defaults to the analytic dense path (``md/analytic.py``) with
+    ``bias_fn`` folded in; a given ``force_fn`` must already hold its bias
+    (``md.setup.compose_bias``), so passing both raises."""
     if n_steps % report_interval != 0:
         raise ValueError(
             f"n_steps {n_steps} must be a multiple of report_interval {report_interval}"
         )
+    if force_fn is not None and bias_fn is not None:
+        raise ValueError(
+            "pass either force_fn or bias_fn, not both: compose the bias "
+            "into the force_fn (md.setup.compose_bias)"
+        )
     if force_fn is None:
-        from .analytic import energy_and_forces, make_dense_params
-
-        dense = make_dense_params(system)
-
-        def force_fn(x):
-            return energy_and_forces(dense, x)
+        force_fn = make_force_fn(system, bias_fn)
     n_con = 0
     if constraints is not None:
         from .constraints import n_constraints, rattle
@@ -282,6 +320,7 @@ def thermalize(
 
 __all__ = [
     "MDState", "langevin_step", "run_md", "thermalize",
+    "make_force_fn", "compose_bias", "bias_energy_and_forces",
     "initialize_velocities", "kinetic_energy",
     "instantaneous_temperature", "remove_com_motion",
     "gaussian_noise", "philox4x32_10",

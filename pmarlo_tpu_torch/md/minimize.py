@@ -23,11 +23,18 @@ def minimize_energy(
     dt_start: float = 1e-4,
     dt_max: float = 2e-3,
     force_fn: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]] = None,
+    bias_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FIRE minimization of one configuration ``(N, 3)``.
     Returns ``(positions, final_energy)``. ``force_fn`` (x -> (energy,
-    forces)) replaces the autograd path."""
+    forces)) replaces the autograd path; ``bias_fn`` (positions -> energy)
+    is added to either."""
     require_no_vsites(system, "minimize_energy")
+    if bias_fn is not None:
+        from .integrate import compose_bias
+
+        base = force_fn or (lambda x: energy_and_forces_autograd(system, x))
+        force_fn = compose_bias(base, bias_fn)
     if force_fn is None:
         def neg_grad(x):
             return energy_and_forces_autograd(system, x)[1]

@@ -13,14 +13,15 @@ queue A12.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 
+from .._device import default_device
 from ..io.pdb import read_pdb
 from .forcefield import build_system
+from .integrate import compose_bias, make_force_fn  # compose_bias: re-exported, JAX has it here
 from .system import System
 from .topology import _WATER_NAMES, Topology, build_topology
 
@@ -49,12 +50,6 @@ class ImplicitSetup:
     minimize_force_fn: Optional[Callable] = None
 
 
-def _dense_force_fn(system: System) -> Callable:
-    from .analytic import energy_and_forces, make_dense_params
-
-    return partial(energy_and_forces, make_dense_params(system))
-
-
 def build_implicit_setup(
     structure,
     *,
@@ -63,9 +58,10 @@ def build_implicit_setup(
     constraints: Optional[str] = None,
     force_path: str = "auto",
     tile: int = 128,
-    device="cpu",
+    device=None,
 ) -> ImplicitSetup:
-    """Build the implicit-solvent setup on ``device``.
+    """Build the implicit-solvent setup on ``device`` (``None``: the card
+    when there is one, ``_device.default_device()``).
 
     Auto rule: the pair kernels (``md/pair_force.py``) past
     ``PAIR_KERNEL_MIN_ATOMS`` atoms on a CUDA device, the dense analytic
@@ -75,7 +71,7 @@ def build_implicit_setup(
         raise ValueError(
             f"constraints must be None|'none'|'hbonds', got {constraints!r}"
         )
-    device = torch.device(device)
+    device = torch.device(device) if device is not None else default_device()
     if isinstance(structure, (str, Path)):
         structure = read_pdb(structure)
     topology = (structure if isinstance(structure, Topology)
@@ -114,7 +110,7 @@ def build_implicit_setup(
     elif cspec is None:
         force_fn = None   # the REMD driver's fused chunk or its twin
     else:
-        force_fn = _dense_force_fn(md_system)
+        force_fn = make_force_fn(md_system)
     return ImplicitSetup(
         system=system, md_system=md_system, positions=positions,
         constraints=cspec, force_fn=force_fn, force_path=force_path,
@@ -131,5 +127,5 @@ def build_explicit_setup(*args, **kwargs):
 
 __all__ = [
     "ImplicitSetup", "PAIR_KERNEL_MIN_ATOMS", "build_explicit_setup",
-    "build_implicit_setup", "is_explicit_solvent",
+    "build_implicit_setup", "compose_bias", "is_explicit_solvent",
 ]

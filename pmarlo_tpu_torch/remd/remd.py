@@ -7,17 +7,25 @@ replica-identity permutation is recorded for per-walker views. Exchanges
 are parity-alternating neighbour Metropolis swaps with velocity rescaling
 by sqrt(T_new / T_old).
 
-Two MD paths run the exchange windows:
+Two MD paths run the exchange windows of ``run()``:
 
 - the fused chunk (``md/fused_md.py``), unconstrained and up to 512 atoms:
   with ``use_kernel=True`` on a CUDA device one launch of the fused CUDA
-  kernel per window, otherwise its plain PyTorch twin;
+  kernel per window, otherwise its plain PyTorch twin; ``kernel_bias``
+  puts a DeepTICA CV bias into that kernel;
 - a ``force_fn`` (for protein scale ``md.pair_force.build_pair_force_fn``,
   whose CUDA kernels run on CUDA tensors) under batched ``langevin_step``,
-  optionally with SHAKE/RATTLE ``constraints``.
+  optionally with SHAKE/RATTLE ``constraints`` and with a Python
+  ``bias_fn`` composed in.
+
+``run_fused()`` runs the whole of the fused-chunk path (MD, frames, swaps,
+identities) in ONE kernel launch. Swap uniforms are a pure function of
+``(config.seed, attempt, pair)`` (``swap_uniforms``, Philox), drawn the
+same way by ``run()``, ``run_fused()`` and the kernel, so the paths make
+the same decisions from the same energies.
 
 Frames go into an ``(F, R, N, 3)`` buffer preallocated on the device and
-are copied to the host once per ``run()``.
+are copied to the host once per call.
 """
 
 from __future__ import annotations
@@ -29,21 +37,27 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..constants import (
     BOLTZMANN_CONSTANT_KJ_PER_MOL,
     DEFAULT_FRICTION_PER_PS,
     DEFAULT_TIMESTEP_PS,
     REMD_DEFAULT_EXCHANGE_FREQUENCY,
 )
-from ..md.fused_md import build_fused_chunk
+from ..md.fused_md import FusedRemdOutput, build_fused_chunk
 from ..md.integrate import (
     MDState,
+    _uniform24,
     initialize_velocities,
     instantaneous_temperature,
+    kinetic_energy,
     langevin_step,
+    make_force_fn,
+    philox4x32_10,
     remove_com_motion,
 )
 from ..md.minimize import minimize_energy
+from ..md.setup import compose_bias
 from ..md.system import System
 from ..utils.input_parsing import parse_temperature_ladder
 
@@ -134,6 +148,33 @@ class RemdResult:
         return np.asarray(frames)
 
 
+#: second Philox key word of the swap stream (``kSwapKey`` in
+#: ``csrc/fused_md.cu``); the MD noise streams hold the replica index there
+SWAP_KEY = 0x53574150
+
+
+def swap_uniforms(seed: int, attempt: int, n_replicas: int, device) -> torch.Tensor:
+    """The Metropolis uniforms of exchange attempt ``attempt``: ``u[p]`` in
+    (0, 1) decides neighbour pair ``(p, p + 1)``. Philox4x32-10 with key
+    ``(seed, SWAP_KEY)`` and counter ``(attempt low word, attempt high word,
+    p, 1)``; the fused REMD kernel computes the same numbers."""
+    pairs = torch.arange(n_replicas, dtype=torch.int64, device=device)
+    full = lambda v: torch.full_like(pairs, int(v))  # noqa: E731
+    w0, _, _, _ = philox4x32_10(
+        full(attempt & 0xFFFFFFFF), full((attempt >> 32) & 0xFFFFFFFF), pairs, full(1),
+        full(int(seed) & 0x7FFFFFFF), full(SWAP_KEY),
+    )
+    return _uniform24(w0)
+
+
+def _quantize_i16(x: torch.Tensor) -> torch.Tensor:
+    """XTC-style fixed point at 1e-3 nm; out-of-range and non-finite values
+    poison to INT16_MIN (-32.768 nm) instead of wrapping or casting NaN."""
+    q = torch.round(x * 1000.0)
+    bad = ~torch.isfinite(q) | (torch.abs(q) > 32767.0)
+    return torch.where(bad, torch.full_like(q, -32768.0), q).to(torch.int16)
+
+
 class ReplicaExchange:
     """Replica-exchange runner.
 
@@ -150,16 +191,26 @@ class ReplicaExchange:
         positions: torch.Tensor,
         config: RemdConfig,
         *,
-        device,
+        device=None,
         use_kernel: bool = False,
         minimize: bool = True,
         force_fn=None,
         constraints=None,
         minimize_force_fn=None,
+        bias_fn=None,
+        kernel_bias=None,
     ):
-        """``use_kernel=True`` runs every window through the fused CUDA
-        kernel, which needs ``device`` to be a CUDA device; ``False`` runs
-        the plain PyTorch twin on ``device``.
+        """``device`` defaults to the system's. ``use_kernel=True`` runs
+        every window through the fused CUDA kernel, which needs ``device``
+        to be a CUDA device; ``False`` runs the plain PyTorch twin on
+        ``device``.
+
+        ``kernel_bias`` runs a DeepTICA harmonic-expansion CV bias INSIDE
+        the fused kernel (JAX's ``pallas_bias``): ``{"model":
+        DeepTICAModel (tanh MLP on cos/sin dihedral features), "quads":
+        (M, 4) dihedral atom indices, "strength": float}``. An arbitrary
+        Python ``bias_fn(positions) -> energy`` runs on the plain path,
+        with forces by autograd, and is also applied to the minimization.
 
         ``force_fn`` (``x (R, N, 3) -> (energies (R,), forces)``, e.g.
         ``md.pair_force.build_pair_force_fn(system)``) replaces the fused
@@ -170,7 +221,7 @@ class ReplicaExchange:
         constrain, so it refuses them (as the JAX fused chunk does).
         ``minimize_force_fn`` minimizes through the given forces (the
         full system's, stiff X-H bonds kept) instead of autograd."""
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else system.device
         if constraints is not None and use_kernel:
             raise ValueError(
                 "constraints are integrated by langevin_step; the fused "
@@ -178,11 +229,23 @@ class ReplicaExchange:
             )
         if force_fn is not None and use_kernel:
             raise ValueError("force_fn override and use_kernel are exclusive")
+        if use_kernel and bias_fn is not None:
+            raise ValueError(
+                "use_kernel=True takes the structured kernel_bias (in-kernel "
+                "DeepTICA bias), not an arbitrary bias_fn; use the plain "
+                "path for python bias functions"
+            )
+        if kernel_bias is not None and not use_kernel:
+            raise ValueError("kernel_bias requires use_kernel=True")
         if use_kernel and self.device.type != "cuda":
             raise ValueError(
                 f"use_kernel=True needs a CUDA device, got {self.device}"
             )
         self.system = system.to(self.device)
+        self.bias_fn = bias_fn
+        # run_fused() reads this to wire the in-kernel CV bias: it is the
+        # same chunk, so a biased run_fused cannot come out unbiased
+        self._kernel_bias = kernel_bias
         self.config = config
         self.use_kernel = use_kernel
         self.ladder = torch.as_tensor(
@@ -193,21 +256,32 @@ class ReplicaExchange:
             constraints = constraints.to(self.device)
         self._constraints = constraints
         if force_fn is None and constraints is not None:
-            from ..md.setup import _dense_force_fn
-
-            force_fn = _dense_force_fn(self.system)
+            force_fn = make_force_fn(self.system)
+        if bias_fn is not None:
+            # compose the bias into an override: storing the override alone
+            # would run unbiased dynamics while the caller believes the
+            # bias is active
+            force_fn = (make_force_fn(self.system, bias_fn) if force_fn is None
+                        else compose_bias(force_fn, bias_fn))
         self._force_fn = force_fn
         self._chunk = None
         if force_fn is None:
+            bias_kwargs = {}
+            if kernel_bias is not None:
+                bias_kwargs = dict(
+                    bias_model=kernel_bias["model"], bias_quads=kernel_bias["quads"],
+                    bias_strength=kernel_bias.get("strength", 1.0),
+                )
             self._chunk = build_fused_chunk(
                 self.system, dt=config.dt_ps, friction=config.friction_per_ps,
-                n_replicas=self.n_replicas,
+                n_replicas=self.n_replicas, **bias_kwargs,
             )
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(config.seed))
         x = positions.to(device=self.device, dtype=torch.float32)
         if minimize:
-            x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn)
+            x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn,
+                                   bias_fn=bias_fn)
         x0 = x[None].expand((self.n_replicas,) + tuple(x.shape)).contiguous()
         v0 = remove_com_motion(
             self.system, initialize_velocities(self.system, gen, self.ladder)
@@ -220,7 +294,8 @@ class ReplicaExchange:
         self.replica_ids = torch.arange(
             self.n_replicas, dtype=torch.int32, device=self.device
         )
-        self._swap_gen = gen
+        #: exchange attempts made so far: the counter of the swap stream
+        self._attempts_done = 0
 
     # --- phases -----------------------------------------------------------------
 
@@ -328,22 +403,12 @@ class ReplicaExchange:
         for a in range(n_attempts):
             for _ in range(fpc):
                 state, energies = self._md_chunk(state, self.ladder, cfg.report_interval)
-                if i16:
-                    # XTC-style fixed point at 1e-3 nm; out-of-range and
-                    # non-finite values poison to INT16_MIN (-32.768 nm)
-                    # instead of wrapping or casting NaN
-                    q = torch.round(state.positions * 1000.0)
-                    bad = ~torch.isfinite(q) | (torch.abs(q) > 32767.0)
-                    frames[f] = torch.where(
-                        bad, torch.full_like(q, -32768.0), q
-                    ).to(torch.int16)
-                else:
-                    frames[f] = state.positions
+                frames[f] = _quantize_i16(state.positions) if i16 else state.positions
                 frame_e[f] = energies
                 frame_t[f] = instantaneous_temperature(
                     self.system, state.velocities, n_con)
                 f += 1
-            u = torch.rand(R, generator=self._swap_gen, device=dev)
+            u = swap_uniforms(cfg.seed, self._attempts_done + a, R, dev)
             state, replica_ids, acc = self._attempt_swaps(
                 state, energies, replica_ids, a, u
             )
@@ -351,6 +416,7 @@ class ReplicaExchange:
             acc_hist[a] = acc
         self.state = state
         self.replica_ids = replica_ids
+        self._attempts_done += n_attempts
 
         pos = frames.cpu().numpy()
         if i16:
@@ -377,12 +443,118 @@ class ReplicaExchange:
         )
 
 
+    def run_fused(self, n_steps: int) -> RemdResult:
+        """Fully-fused REMD: the ENTIRE run (MD, frame capture, parity
+        Metropolis swaps, identity bookkeeping) is one kernel launch
+        (``md/fused_md.py FusedChunk.remd``; ``build_pallas_remd`` in JAX).
+        Unbiased or in-kernel-bias configurations of the fused-chunk path;
+        as in JAX it runs the exchange windows only (no heating or
+        equilibration phase). On a CUDA device the kernel is launched
+        whatever ``use_kernel`` says (as JAX's ``run_fused`` always builds
+        ``build_pallas_remd``) or the call raises; the plain version
+        (``_run_fused_reference``: a loop of the chunk's twin and
+        ``_attempt_swaps`` over the same swap uniforms) runs only when the
+        replicas lie on the CPU."""
+        t_start = time.perf_counter()
+        if self.bias_fn is not None:
+            raise ValueError("run_fused supports in-kernel bias only (kernel_bias)")
+        if self._chunk is None:
+            raise ValueError(
+                "run_fused runs the fused chunk; a force_fn override or "
+                "constraints go through run()"
+            )
+        cfg = self.config
+        if n_steps < cfg.exchange_frequency or n_steps % cfg.exchange_frequency != 0:
+            raise ValueError(
+                f"n_steps {n_steps} must be a positive multiple of "
+                f"exchange_frequency {cfg.exchange_frequency}"
+            )
+        R = self.n_replicas
+        A = n_steps // cfg.exchange_frequency
+        fpc = max(cfg.exchange_frequency // cfg.report_interval, 1)
+        state = self.state
+        if self.device.type == "cuda":
+            out = self._chunk.remd(
+                state.positions, state.velocities, state.seeds, self.replica_ids,
+                self.ladder, n_attempts=A, frames_per_attempt=fpc,
+                report_interval=cfg.report_interval, step_offset=state.step,
+                swap_seed=cfg.seed, attempt_offset=self._attempts_done,
+            )
+        else:
+            out = self._run_fused_reference(A, fpc)
+        self.state = MDState(positions=out.positions, velocities=out.velocities,
+                             seeds=out.seeds, step=state.step + n_steps)
+        self.replica_ids = out.ids_hist[-1]
+        self._attempts_done += A
+
+        frames = out.frames
+        if cfg.frame_precision == "i16":
+            frames = _quantize_i16(frames)
+        pos = frames.cpu().numpy()
+        if cfg.frame_precision == "i16":
+            pos = pos.astype(np.float32) / 1000.0
+        acc = out.accept.cpu().numpy()
+        pair_acc = np.full(R - 1, np.nan)
+        for pair in range(R - 1):
+            # pair (p, p+1) is attempted on parities where p is "left"
+            attempts = acc[pair % 2::2, pair]
+            if attempts.size:
+                pair_acc[pair] = float(attempts.mean())
+        n_dof = 3 * self.system.n_atoms
+        return RemdResult(
+            positions=pos,
+            potential_energy=out.frame_energy.cpu().numpy(),
+            temperatures=self.ladder.cpu().numpy(),
+            replica_ids=out.ids_hist.cpu().numpy(),
+            acceptance_matrix=pair_acc,
+            exchange_attempts=A,
+            n_steps=n_steps,
+            dt_ps=cfg.dt_ps,
+            frames_per_attempt=fpc,
+            kinetic_temperature=(
+                2.0 * out.frame_kinetic / (n_dof * BOLTZMANN_CONSTANT_KJ_PER_MOL)
+            ).cpu().numpy(),
+            wall_seconds=time.perf_counter() - t_start,
+        )
+
+    def _run_fused_reference(self, n_attempts: int, fpc: int) -> FusedRemdOutput:
+        """Plain PyTorch version of ``FusedChunk.remd``, from the present
+        state; it reads the state and the swap counter and changes
+        neither."""
+        cfg = self.config
+        R = self.n_replicas
+        state, ids = self.state, self.replica_ids
+        frames, frame_e, frame_ke, ids_hist, accept = [], [], [], [ids], []
+        for a in range(n_attempts):
+            for _ in range(fpc):
+                x, v, energies = self._chunk.reference(
+                    state.positions, state.velocities, state.seeds, self.ladder,
+                    cfg.report_interval, state.step)
+                state = dataclasses.replace(
+                    state, positions=x, velocities=v,
+                    step=state.step + cfg.report_interval)
+                frames.append(x)
+                frame_e.append(energies)
+                frame_ke.append(kinetic_energy(self.system, v))
+            u = swap_uniforms(cfg.seed, self._attempts_done + a, R, self.device)
+            state, ids, acc_left = self._attempt_swaps(state, energies, ids, a, u)
+            left = torch.nan_to_num(acc_left, nan=0.0)
+            accept.append(left + torch.roll(left, 1))   # both rungs of a pair
+            ids_hist.append(ids)
+        return FusedRemdOutput(
+            positions=state.positions, velocities=state.velocities, seeds=state.seeds,
+            frames=torch.stack(frames), frame_energy=torch.stack(frame_e),
+            frame_kinetic=torch.stack(frame_ke), ids_hist=torch.stack(ids_hist),
+            accept=torch.stack(accept),
+        )
+
+
 def run_replica_exchange(
     pdb_file,
     *,
     n_steps: int = 10_000,
     config: Optional[RemdConfig] = None,
-    device="cpu",
+    device=None,
     use_kernel: bool = False,
     implicit_solvent: bool = True,
     gb_model: str = "gbn2",
@@ -391,7 +563,8 @@ def run_replica_exchange(
     target_acceptance: Optional[float] = None,
     constraints: Optional[str] = None,
 ) -> Tuple[RemdResult, System]:
-    """One-call implicit-solvent REMD.
+    """One-call implicit-solvent REMD on ``device`` (``None``: the card
+    when there is one, ``_device.default_device()``).
 
     The system, constraints and force path come from
     ``md.setup.build_implicit_setup`` (the same recipe for every entry
@@ -402,18 +575,18 @@ def run_replica_exchange(
     X-H bond (OpenMM HBonds), which with HMR allows 4 fs steps; the fused
     chunk refuses constraints. ``target_acceptance`` replaces the config's
     geometric ladder with one designed from short energy-fluctuation probes
-    between its end temperatures (``remd/ladder.py``).
+    between its end temperatures (``remd/ladder.py``). ``bias_fn``
+    (positions -> energy) biases the minimization and every replica's
+    forces on the plain path; with ``use_kernel=True`` it raises (the
+    kernel takes ``ReplicaExchange(kernel_bias=...)``).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``bias_fn`` (A9), ``mesh`` (A13), and solvated inputs with a
-    periodic box (A12)."""
+    item: ``mesh`` (A13) and solvated inputs with a periodic box (A12)."""
     import dataclasses as _dc
 
     from ..io.pdb import read_pdb
-    from ..md.setup import _dense_force_fn, build_implicit_setup
+    from ..md.setup import build_implicit_setup
 
-    if bias_fn is not None:
-        raise NotImplementedError("bias_fn: bias potentials are ROADMAP queue A9")
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device REMD is ROADMAP queue A13")
     if constraints not in (None, "none", "hbonds"):
@@ -421,6 +594,7 @@ def run_replica_exchange(
             f"constraints must be None|'none'|'hbonds', got {constraints!r}"
         )
     config = config or RemdConfig()
+    device = torch.device(device) if device is not None else default_device()
     structure = read_pdb(pdb_file) if not hasattr(pdb_file, "residues") else pdb_file
     if getattr(structure, "box", None) is not None:
         raise NotImplementedError(
@@ -443,7 +617,7 @@ def run_replica_exchange(
         designed, _ = suggest_temperature_ladder(
             system, positions, t_min=float(ladder[0]), t_max=float(ladder[-1]),
             target_acceptance=target_acceptance,
-            force_fn=force_fn if force_fn is not None else _dense_force_fn(system),
+            force_fn=force_fn if force_fn is not None else make_force_fn(system),
             constraints=cspec, dt_ps=config.dt_ps,
         )
         config = _dc.replace(
@@ -455,9 +629,10 @@ def run_replica_exchange(
         use_kernel=use_kernel and setup.force_path == "dense",
         force_fn=force_fn, constraints=cspec,
         minimize=target_acceptance is None,
-        minimize_force_fn=setup.minimize_force_fn,
+        minimize_force_fn=setup.minimize_force_fn, bias_fn=bias_fn,
     )
     return remd.run(n_steps), system
 
 
-__all__ = ["RemdConfig", "RemdResult", "ReplicaExchange", "run_replica_exchange"]
+__all__ = ["RemdConfig", "RemdResult", "ReplicaExchange", "run_replica_exchange",
+           "swap_uniforms"]

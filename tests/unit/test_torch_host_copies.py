@@ -22,6 +22,14 @@ COPIES = [
     "md/nucleic.py", "md/ff_params.py", "md/gbn2.py", "msm/estimation.py",
     "msm/free_energy.py", "msm/fes_smoothing.py", "features/pairs.py",
     "analysis/validation.py", "analysis/discretize.py", "analysis/diagnostics.py",
+    "ml/whitening.py", "utils/json_io.py",
+]
+
+#: host-side index functions of ``features/builtins.py``: numpy, carried
+#: over as they are; the geometry below them is rewritten for tensors
+INDEX_FUNCTIONS = [
+    "_atoms_by_residue", "_residue_groups", "phi_psi_indices", "omega_indices",
+    "chi1_indices", "ca_pair_indices",
 ]
 
 
@@ -60,3 +68,19 @@ def test_shipped_neck_tables_are_copied():
     a = (ROOT / "pmarlo_tpu" / "data" / "gbn2_neck_tables.npz").read_bytes()
     b = (ROOT / "pmarlo_tpu_torch" / "data" / "gbn2_neck_tables.npz").read_bytes()
     assert a == b
+
+
+@pytest.mark.parametrize("name", INDEX_FUNCTIONS)
+def test_feature_index_functions_are_copied(name):
+    """Each index function of ``features/builtins.py`` has its source's
+    text, docstring and comments included."""
+    def source_of(path):
+        text = path.read_text()
+        for node in ast.parse(text).body:
+            if isinstance(node, ast.FunctionDef) and node.name == name:
+                return ast.get_source_segment(text, node)
+        raise AssertionError(f"{name} not found in {path}")
+
+    src = source_of(ROOT / "pmarlo_tpu" / "features" / "builtins.py")
+    copy = source_of(ROOT / "pmarlo_tpu_torch" / "features" / "builtins.py")
+    assert copy == src, f"features/builtins.py {name} drifted from its source"
