@@ -47,6 +47,33 @@ Phases, one line of numbers each:
              ``run_fused`` -> ``run_fused_metadynamics`` -> sampling under
              the ledger -> reweighted FES on the two CVs.
 
+11. periodic - the dense minimum-image kernel on the shipped 2,315-atom
+             solvated chignolin (R=8, minimized + 0.005 nm noise), shifted
+             and switched LJ: against its plain version and against
+             autograd of the dense periodic energy (float64: atoms with a
+             pair on the cutoff, which float32 may cut the other way, are
+             counted and left out); ms per sweep and per evaluation.
+12. cells  - the cell-list kernel: (a) on the same inputs against its
+             plain version, the dense oracle and the periodic kernel, in
+             reaction-field, switched and real-space Ewald mode (phase 11's
+             atoms on the cutoff left out against the oracle and the
+             periodic kernel, whose r^2 round differently); (b) on a
+             sheared 375-atom water box against the oracle; (c) on the
+             27,783-atom water box at R=1 and R=4 against its plain
+             version, ms per sweep, per binning pass and per evaluation;
+             (d) 200 MD steps under the displacement rule (``_SkinRule``):
+             ``evaluate`` on the kept assignment equals a fresh evaluation.
+13. explicit remd - ``run_replica_exchange`` on the solvated chignolin
+             file, 8 rungs 300-330 K, rigid water and X-H constraints at
+             2 fs, once through "auto" (the dense kernel) and once through
+             "cells": launches, ms a step, ns/day, acceptance, temperature,
+             constraint deviation.
+14. water md - ``thermalize`` + ``run_md`` on the 27,783-atom water box
+             through the cell kernel (a sort every step): ms a step,
+             ns/day, temperature, constraint deviation; the energy drift of
+             500 steps at friction 0; the same path under the displacement
+             rule, three stretches of each from one start, alternating.
+
 Then the card's name and power limit, one JSON line of the kernels, and
 the last line ``{"ok": true, "device": {...}}``. A failed check raises and
 the script exits non-zero without that line. It needs a CUDA card and
@@ -55,6 +82,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -84,6 +112,21 @@ LEDGER_FRAMES = 100              # sampling under the final ledger
 N_HILLS_CHECK = 1_000            # valid hills of the ledger-variant check
 BIAS_VARIANTS = ("bias_harmonic", "bias_metadynamics", "fused_metadynamics",
                  "fused_remd")
+SOLVATED_PDB = "examples/outputs/explicit_solvent/chignolin_solvated.pdb"
+EXPLICIT_REPLICAS = 8
+EXPLICIT_STEPS = 2_000
+EXPLICIT_REPORT = 50
+EXPLICIT_CUTOFF = 0.9
+EXPLICIT_SWITCH = 0.8
+# OpenMM's alpha for a real-space tolerance of 5e-4 at the 0.9 nm cutoff
+EWALD_ALPHA = float(np.sqrt(-np.log(2.0 * 5e-4)) / EXPLICIT_CUTOFF)
+WATER_SIDE = 21                  # 21^3 waters = 27,783 atoms, box 6.61 nm
+WATER_WARM_STEPS = 100
+WATER_STEPS = 1_000
+WATER_REBIN_STEPS = 300          # a stretch of the rebin comparison
+WATER_REBIN_ROUNDS = 3           # stretches of each policy, alternating
+WATER_NVE_STEPS = 500
+SKIN_STEPS = 200
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
 # outside the tensor cores (NVIDIA's data sheet), and the special-function
@@ -98,6 +141,17 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # distance 8 + 2; HCT term 45 + 3; neck 14 + 2; GB f-function 20 + 4;
 # LJ + Coulomb 14-16.
 PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
+# The periodic sweeps, counted from csrc/periodic_pair.cuh and the two
+# kernels: every ordered candidate pair pays the displacement, r^2, the band
+# and the cutoff test (with the per-axis minimum image in the dense sweep,
+# with none in the cell sweep); a pair inside the cutoff pays the pair term
+# on top: (float32 operations, special-function results) with shifted LJ and
+# reaction field, and the extra of the switch and of the Ewald term (erfcf
+# counted as a polynomial and one exponential).
+PERIODIC_CANDIDATE_OPS = {"dense": 22, "cells": 12}
+PERIODIC_PAIR_OPS = (53, 1)
+PERIODIC_SWITCH_OPS = (20, 0)
+PERIODIC_EWALD_OPS = (30, 2)
 
 
 def _line(phase: str, numbers: dict) -> None:
@@ -131,20 +185,20 @@ def _ladder(n: int = N_REPLICAS) -> torch.Tensor:
 
 def _reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    from pmarlo_tpu_torch.md import fused_md, pair_force
+    from pmarlo_tpu_torch.md import cell_force, fused_md, pair_force, periodic_force
 
     fused_md.launches = 0
-    for k in fused_md.variant_launches:
-        fused_md.variant_launches[k] = 0
-    for k in pair_force.launches:
-        pair_force.launches[k] = 0
+    for counts in (fused_md.variant_launches, pair_force.launches,
+                   periodic_force.launches, cell_force.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _counts() -> dict:
-    from pmarlo_tpu_torch.md import fused_md, pair_force
+    from pmarlo_tpu_torch.md import cell_force, fused_md, pair_force, periodic_force
 
     return {"fused_md_chunk": fused_md.launches, **fused_md.variant_launches,
-            **pair_force.launches}
+            **pair_force.launches, **periodic_force.launches, **cell_force.launches}
 
 
 def _bound(flops: float, sfu: float, n_bytes: float) -> dict:
@@ -1055,6 +1109,494 @@ def phase_learned_cv(cx: dict) -> dict:
     return out
 
 
+def _pairs_within(x: torch.Tensor, box, rc: float, band: int, chunk: int = 1024) -> int:
+    """Ordered pairs of ``x (R, N, 3)`` in an orthorhombic ``box`` with
+    ``|i - j| > band`` inside the cutoff: the pairs whose term the sweeps
+    evaluate in this run (for the bound)."""
+    R, n = x.shape[0], x.shape[1]
+    b = torch.as_tensor(box, dtype=x.dtype, device=x.device)
+    jj = torch.arange(n, device=x.device)[None, :]
+    total = 0
+    for r in range(R):
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            d = x[r, s:e, None, :] - x[r, None, :, :]
+            d = d - b * torch.round(d / b)
+            ii = torch.arange(s, e, device=x.device)[:, None]
+            total += int((((d * d).sum(-1) < rc * rc) & ((ii - jj).abs() > band)).sum())
+    return total
+
+
+def _periodic_bound(kind: str, candidates: float, within: float, R: int, N: int, *,
+                    switch: bool = False, ewald: bool = False, extra_bytes: int = 0) -> dict:
+    """Bound of one periodic sweep: ``candidates`` ordered candidate pairs,
+    ``within`` of them inside the cutoff; positions and the three per-atom
+    rows in, float64 energy rows and float32 forces out."""
+    flops, sfu = PERIODIC_PAIR_OPS
+    for on, (f, t) in ((switch, PERIODIC_SWITCH_OPS), (ewald, PERIODIC_EWALD_OPS)):
+        if on:
+            flops, sfu = flops + f, sfu + t
+    n_bytes = R * N * (12 + 8 + 12) + 12 * N + extra_bytes
+    return _bound(candidates * PERIODIC_CANDIDATE_OPS[kind] + within * flops,
+                  within * sfu, n_bytes)
+
+
+def _noisy(x_min: torch.Tensor, R: int, seed: int, sigma: float = 0.005) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return x_min[None] + torch.as_tensor(
+        rng.normal(0.0, sigma, (R,) + tuple(x_min.shape)), dtype=torch.float32,
+        device="cuda")
+
+
+def _oracle(system, x: torch.Tensor):
+    """Autograd of the dense float64 periodic energy, one replica at a time."""
+    from pmarlo_tpu_torch.md.forces import energy_and_forces_autograd
+
+    out = [energy_and_forces_autograd(system, xr.double()) for xr in x]
+    return torch.stack([e for e, _ in out]), torch.stack([f for _, f in out])
+
+
+def _gate(out: dict, tag: str, e, f, e_ref, f_ref) -> None:
+    """Energy to 1e-5 relative, forces to 1e-4 of max |F|."""
+    out[f"{tag}_energy_rel_err"] = _rel(e.double(), e_ref.double())
+    out[f"{tag}_force_rel_err"] = _rel(f.double(), f_ref.double())
+    _check(out[f"{tag}_energy_rel_err"] <= 1e-5, f"{tag} energy {out[f'{tag}_energy_rel_err']}")
+    _check(out[f"{tag}_force_rel_err"] <= 1e-4, f"{tag} forces {out[f'{tag}_force_rel_err']}")
+
+
+def _on_cutoff_atoms(x: torch.Tensor, box, rc: float, tol: float = 4e-6,
+                     chunk: int = 1024) -> torch.Tensor:
+    """``(R, N)`` bool: atoms of ``x (R, N, 3)`` that have a pair with
+    ``|r^2 - rc^2| <= tol rc^2`` in the orthorhombic ``box`` (float64
+    arithmetic). The dense sweep takes the minimum image of a raw
+    difference and the cell sweep adds a lattice shift to wrapped
+    coordinates: their float32 r^2 differ by a few units in the last place
+    of a box length times 2 r (about 1e-6 rc^2 here), so one may cut such a
+    pair and the other keep it, and the shifted potential's force jumps
+    there. ``tol`` is four times that."""
+    R, n = x.shape[0], x.shape[1]
+    xd = x.double()
+    b = torch.as_tensor(box, dtype=torch.float64, device=x.device)
+    flagged = torch.zeros((R, n), dtype=torch.bool, device=x.device)
+    for r in range(R):
+        for s in range(0, n, chunk):
+            d = xd[r, s:s + chunk, None, :] - xd[r, None, :, :]
+            d = d - b * torch.round(d / b)
+            near = ((d * d).sum(-1) - rc * rc).abs() <= tol * rc * rc
+            flagged[r, s:s + chunk] = near.any(-1)
+    return flagged
+
+
+class _SkinRule:
+    """The JAX package's rebin rule around a ``CellForce``, kept here to be
+    measured against the port's (a sort on every call): the cell assignment
+    stays while no atom has moved more than half the grid's slack from
+    where it was binned, the swept coordinates advancing by the raw
+    displacement; the test is read back to the host on every call."""
+
+    def __init__(self, fn):
+        from pmarlo_tpu_torch.md.cells import free_skin
+
+        self.fn = fn
+        self.half_skin2 = (0.5 * free_skin(fn.grid)) ** 2
+        self.sorts = 0
+
+    def __call__(self, x):
+        return self.fn(x)
+
+    def init_state(self, x):
+        self.sorts += 1
+        return self.fn.init_state(x), x
+
+    def kept(self, x, carry):
+        """The carry's assignment with its coordinates advanced to ``x``."""
+        st, x_ref = carry
+        return dataclasses.replace(st, xw=st.xw + (x - x_ref)[None])
+
+    def apply(self, x, carry):
+        disp = x - carry[1]
+        if bool((disp * disp).sum(-1).max() > self.half_skin2):
+            carry = self.init_state(x)
+        energy, forces = self.fn.evaluate(x[None], self.kept(x, carry))
+        return energy[0], forces[0], carry
+
+
+def _solvated_chignolin(switch=None):
+    from pmarlo_tpu_torch.io.pdb import read_pdb
+    from pmarlo_tpu_torch.md.forcefield import build_system
+
+    st = read_pdb(SOLVATED_PDB)
+    return build_system(st, box=st.box, cutoff=EXPLICIT_CUTOFF, switch_distance=switch,
+                        device="cuda")
+
+
+def phase_periodic() -> dict:
+    """``periodic_force.cu`` against its plain version and the dense
+    autograd oracle on solvated chignolin, R=8."""
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.periodic_force import build_periodic_force_fn
+
+    R = EXPLICIT_REPLICAS
+    out = {"replicas": R}
+    keep = {}
+    for tag, switch in (("shifted", None), ("switched", EXPLICIT_SWITCH)):
+        system, positions = _solvated_chignolin(switch)
+        fn = build_periodic_force_fn(system)
+        if tag == "shifted":
+            x_min, _ = minimize_energy(system, positions, force_fn=fn)
+            x = _noisy(x_min, R, seed=11)
+            # float32 and float64 r^2 may cut a pair on the cutoff
+            # differently: such atoms are left out against the oracle
+            clear = ~_on_cutoff_atoms(x, system.box, EXPLICIT_CUTOFF)
+            out.update(atoms=system.n_atoms, band=fn.band_D,
+                       atoms_with_a_pair_on_the_cutoff=int((~clear).sum()))
+            clear = clear[..., None]
+        ek, fk = fn.sweep(x)
+        ep, fp = fn.sweep_reference(x)
+        _gate(out, f"{tag}_sweep", ek.sum(-1), fk, ep.sum(-1), fp)
+        out[f"{tag}_e_rows_rel_err"] = _rel(ek, ep)
+        out[f"{tag}_force_max_abs_err"] = float((fk - fp).abs().max())
+        e, f = fn(x)
+        er, fr = fn.reference(x)
+        _gate(out, f"{tag}_eval", e, f, er, fr)
+        eo, fo = _oracle(system, x)
+        _gate(out, f"{tag}_vs_oracle", e, f * clear, eo, fo * clear)
+        out[f"{tag}_vs_oracle_force_rel_err_all_atoms"] = _rel(f.double(), fo)
+        _check(bool(torch.isfinite(f).all()), f"{tag}: periodic forces finite")
+        keep[tag] = (system, e, f)
+        if tag == "shifted":
+            shifted_fn = fn
+    system, fn = keep["shifted"][0], shifted_fn
+    N = system.n_atoms
+    out["pairs_within_cutoff"] = _pairs_within(x, system.box, EXPLICIT_CUTOFF, fn.band_D)
+    out["sweep_ms"] = _cuda_ms(lambda: fn.sweep(x), 20)
+    out["sweep_plain_ms"] = _cuda_ms(lambda: fn.sweep_reference(x), 3)
+    out["eval_ms"] = _cuda_ms(lambda: fn(x), 20)
+    out["eval_plain_ms"] = _cuda_ms(lambda: fn.reference(x), 3)
+    out.update(_periodic_bound("dense", R * N * N, out["pairs_within_cutoff"], R, N))
+    out["bound_share"] = out["bound_ms"] / out["sweep_ms"]
+    _line("phase 11 periodic kernel", out)
+    out.update(x_min=x_min, x=x, keep=keep, clear=clear)
+    return out
+
+
+def _water_box_system():
+    """The 27,783-atom TIP3P box: system, lattice positions, constraints
+    and the MD system (constrained bonded terms stripped)."""
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, strip_constrained_bonded
+    from pmarlo_tpu_torch.md.forcefield import build_system
+
+    structure, box = water_box_structure(WATER_SIDE)
+    system, x0 = build_system(structure, box=box, cutoff=EXPLICIT_CUTOFF,
+                              hydrogen_mass=None, device="cuda")
+    spec = build_h_constraints(system)
+    return system, x0, spec, strip_constrained_bonded(system)
+
+
+def phase_cells(periodic: dict, water) -> dict:
+    """``cell_force.cu`` against its plain version, the dense oracle and the
+    periodic kernel; a sheared box; the water box; the skin."""
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
+    from pmarlo_tpu_torch.md.cells import bin_atoms, free_skin
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.integrate import langevin_step, thermalize
+
+    R = EXPLICIT_REPLICAS
+    x = periodic["x"]
+    out = {"replicas": R}
+    e_rf = None
+    # the two routes may cut a pair on the cutoff differently: such atoms
+    # (counted in phase 11) are left out where one route is held against
+    # the other or against the oracle
+    clear = periodic["clear"]
+    _check(int((~clear).sum()) <= 0.01 * clear.numel(), "few atoms lie on the cutoff")
+
+    def sweeps(fn, xs):
+        order, cell_start, _, xw = bin_atoms(fn.grid, xs)
+        order, cell_start = order.contiguous(), cell_start.contiguous()
+        return (fn.sweep(xw, order, cell_start), fn.sweep_reference(xw, order, cell_start),
+                (xw, order, cell_start))
+
+    # (a) solvated chignolin: three modes, three references
+    for tag, switch, alpha in (("rf", None, None), ("switched", EXPLICIT_SWITCH, None),
+                               ("ewald", None, EWALD_ALPHA)):
+        system, e_dense, f_dense = periodic["keep"]["switched" if switch else "shifted"]
+        fn = build_cell_force_fn(system, _ewald_alpha=alpha)
+        (ek, fk), (ep, fp), _ = sweeps(fn, x)
+        _gate(out, f"{tag}_sweep", ek.sum(-1), fk, ep.sum(-1), fp)
+        out[f"{tag}_force_max_abs_err"] = float((fk - fp).abs().max())
+        e, f = fn(x)
+        er, fr = fn.reference(x)
+        _gate(out, f"{tag}_eval", e, f, er, fr)
+        _check(bool(torch.isfinite(f).all()), f"{tag}: cell forces finite")
+        if alpha is None:
+            # the reaction-field modes have a dense oracle and a dense kernel
+            eo, fo = _oracle(system, x)
+            _gate(out, f"{tag}_vs_oracle", e, f * clear, eo, fo * clear)
+            _gate(out, f"{tag}_vs_periodic_kernel", e, f * clear, e_dense, f_dense * clear)
+            out[f"{tag}_vs_periodic_kernel_force_rel_err_all_atoms"] = _rel(f, f_dense)
+        else:
+            _check(fn.electrostatics == "ewald" and fn.phys.shift_c > 0.0, "Ewald mode is on")
+            out["ewald_alpha"] = alpha
+            out["ewald_minus_rf_energy"] = float((e - e_rf).abs().max())
+            _check(out["ewald_minus_rf_energy"] > 1.0, "the Ewald term differs from RF")
+        if tag == "rf":
+            e_rf = e
+            g = fn.grid
+            out["chignolin_grid"] = [g.nx, g.ny, g.nz]
+            binned = sweeps(fn, x)[2]
+            out["chignolin_sweep_ms"] = _cuda_ms(lambda: fn.sweep(*binned), 20)
+            out["chignolin_eval_ms"] = _cuda_ms(lambda: fn(x), 20)
+
+    # (b) a sheared 375-atom water box (the JAX package's triclinic test cell)
+    s5, box5 = water_box_structure(5)
+    tri, x5 = build_system(s5, box=box5, tilt=(0.2, 0.2, 0.2), cutoff=0.45,
+                           hydrogen_mass=None, device="cuda")
+    fn = build_cell_force_fn(tri)
+    xs = _noisy(x5, 4, seed=12, sigma=0.02)
+    e, f = fn(xs)
+    er, fr = fn.reference(xs)
+    _gate(out, "sheared_eval", e, f, er, fr)
+    eo, fo = _oracle(tri, xs)
+    _gate(out, "sheared_vs_oracle", e, f, eo, fo)
+
+    # (c) the 27,783-atom water box
+    wsys, x0, _, _ = water
+    N = wsys.n_atoms
+    fn = build_cell_force_fn(wsys)
+    g = fn.grid
+    out.update(water_atoms=N, water_grid=[g.nx, g.ny, g.nz], water_skin_nm=free_skin(g),
+               water_band=fn.band_D)
+    for Rw in (1, 4):
+        xw_in = _noisy(x0, Rw, seed=13, sigma=0.02)
+        (ek, fk), (ep, fp), binned = sweeps(fn, xw_in)
+        tag = f"water_r{Rw}"
+        _gate(out, f"{tag}_sweep", ek.sum(-1), fk, ep.sum(-1), fp)
+        out[f"{tag}_force_max_abs_err"] = float((fk - fp).abs().max())
+        e, f = fn(xw_in)
+        er, fr = fn.reference(xw_in)
+        _gate(out, f"{tag}_eval", e, f, er, fr)
+        counts = (binned[2][:, 1:] - binned[2][:, :-1]).double()
+        # every atom meets the atoms of its 27 neighbour cells
+        per_cell = counts.reshape(Rw, g.nx, g.ny, g.nz)
+        candidates = float((per_cell * _neighbour_counts(per_cell)).sum())
+        within = _pairs_within(xw_in, wsys.box, EXPLICIT_CUTOFF, fn.band_D)
+        out[f"{tag}_candidate_pairs"] = candidates
+        out[f"{tag}_pairs_within_cutoff"] = within
+        out[f"{tag}_max_cell_occupancy"] = int(counts.max())
+        out[f"{tag}_sweep_ms"] = _cuda_ms(lambda: fn.sweep(*binned), 20)
+        out[f"{tag}_sweep_plain_ms"] = _cuda_ms(lambda: fn.sweep_reference(*binned), 2)
+        out[f"{tag}_bin_ms"] = _cuda_ms(lambda: bin_atoms(fn.grid, xw_in), 20)
+        out[f"{tag}_eval_ms"] = _cuda_ms(lambda: fn(xw_in), 20)
+        bound = _periodic_bound("cells", candidates, within, Rw, N,
+                                extra_bytes=4 * Rw * (N + g.n_cells + 1))
+        out[f"{tag}_bound_ms"] = bound["bound_ms"]
+        out[f"{tag}_bound_by"] = bound["bound_by"]
+        out[f"{tag}_bound_share"] = bound["bound_ms"] / out[f"{tag}_sweep_ms"]
+
+    # (d) the cover of a kept assignment: 200 steps under the displacement
+    # rule, then the kept assignment against a fresh binning
+    _, _, spec, md_system = water
+    rule = _SkinRule(build_cell_force_fn(md_system))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    state = thermalize(wsys, x0, gen, 300.0)
+    carry = rule.init_state(state.positions)
+    for _ in range(SKIN_STEPS):
+        state, _, carry = langevin_step(
+            wsys, state, dt=DT_PS, friction=1.0, temperature_K=300.0, force_fn=rule.apply,
+            constraints=spec, force_state=carry)
+    e_kept, f_kept = rule.fn.evaluate(state.positions[None],
+                                      rule.kept(state.positions, carry))
+    e_new, f_new = rule.fn(state.positions[None])
+    out["skin_steps"] = SKIN_STEPS
+    out["skin_sorts"] = rule.sorts - 1
+    _gate(out, "skin_kept_vs_fresh", e_kept, f_kept, e_new, f_new)
+    _check(0 < out["skin_sorts"] < SKIN_STEPS,
+           f"{out['skin_sorts']} sorts in {SKIN_STEPS} steps")
+    _line("phase 12 cell kernel", out)
+    return out
+
+
+def _neighbour_counts(counts: torch.Tensor) -> torch.Tensor:
+    """For each cell of ``counts (R, nx, ny, nz)`` the atoms in its 27
+    periodic neighbour cells (itself included)."""
+    total = torch.zeros_like(counts)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                total += counts.roll((dx, dy, dz), (1, 2, 3))
+    return total
+
+
+def phase_explicit_remd() -> dict:
+    """The explicit-solvent path through ``run_replica_exchange``, once by
+    each engine."""
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, constraint_violation
+    from pmarlo_tpu_torch.remd.remd import RemdConfig, run_replica_exchange
+
+    R = EXPLICIT_REPLICAS
+    cfg = RemdConfig(
+        n_replicas=R, t_min=300.0, t_max=330.0, exchange_frequency=100,
+        report_interval=EXPLICIT_REPORT, dt_ps=DT_PS, seed=0,
+    )
+    # one launch per force evaluation: 500 FIRE iterations + the final
+    # energy, one per MD step, one per frame
+    evals = 501 + EXPLICIT_STEPS + EXPLICIT_STEPS // cfg.report_interval
+    out = {"replicas": R, "steps": EXPLICIT_STEPS, "dt_ps": cfg.dt_ps,
+           "force_evaluations": evals}
+    for nonbonded, kernel, other in (("auto", "periodic_force", "cell_force"),
+                                     ("cells", "cell_force", "periodic_force")):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res, system = run_replica_exchange(
+            SOLVATED_PDB, n_steps=EXPLICIT_STEPS, config=cfg, device="cuda",
+            nonbonded=nonbonded)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = _counts()
+        spec = build_h_constraints(system)
+        deviation = float(constraint_violation(
+            spec, torch.as_tensor(res.positions, device="cuda")))
+        # kinetic/target over the second half of the run (the start is a
+        # minimized structure: its kinetic energy halves at once)
+        half = res.kinetic_temperature.shape[0] // 2
+        ratio = res.kinetic_temperature[half:] / res.temperatures[None, :]
+        sim_ns = EXPLICIT_STEPS * cfg.dt_ps * 1e-3 * R
+        tag = "dense" if nonbonded == "auto" else "cells"
+        out[tag] = {
+            "atoms": system.n_atoms,
+            "constraints": spec.n_constraints,
+            "launches": {kernel: counts[kernel], other: counts[other]},
+            "total_wall_s": total,
+            "run_wall_s": res.wall_seconds,
+            "ms_per_step": res.wall_seconds / EXPLICIT_STEPS * 1e3,
+            "ns_per_day_aggregate": sim_ns * 86_400.0 / res.wall_seconds,
+            "mean_acceptance": res.mean_acceptance,
+            "pair_acceptance": [float(a) for a in res.acceptance_matrix],
+            "kinetic_over_target": float(ratio.mean()),
+            "max_constraint_deviation_nm": deviation,
+            "frames": list(res.positions.shape),
+        }
+        _check(system.device.type == "cuda" and system.box is not None,
+               f"{tag}: a periodic system on the card")
+        # "auto" at 2,315 atoms is the dense sweep: every evaluation
+        # launched this engine's kernel and none the other's
+        _check(counts[kernel] == evals and counts[other] == 0,
+               f"{tag}: launches {counts} for {evals} force evaluations")
+        _check(all(counts[k] == 0 for k in PAIR_KERNELS) and counts["fused_md_chunk"] == 0,
+               f"{tag}: an implicit-solvent kernel ran")
+        _check(bool(np.isfinite(res.positions).all()), f"{tag}: frames finite")
+        _check(bool(np.isfinite(res.potential_energy).all()), f"{tag}: energies finite")
+        _check(deviation <= 1e-4, f"{tag}: constraint deviation {deviation} nm")
+        _check(0.0 < res.mean_acceptance < 1.0, f"{tag}: acceptance {res.mean_acceptance}")
+        _check(0.95 <= out[tag]["kinetic_over_target"] <= 1.05,
+               f"{tag}: kinetic/target {out[tag]['kinetic_over_target']}")
+    _line("phase 13 explicit remd", out)
+    return out
+
+
+def phase_water_md(water) -> dict:
+    """``thermalize`` + ``run_md`` on the 27,783-atom water box through the
+    cell kernel's stateful entries."""
+    from pmarlo_tpu_torch.constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
+    from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
+    from pmarlo_tpu_torch.md.constraints import constraint_violation
+    from pmarlo_tpu_torch.md.integrate import run_md, thermalize
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+
+    system, x0, spec, md_system = water
+    N = system.n_atoms
+    out = {"atoms": N, "constraints": spec.n_constraints, "dt_ps": DT_PS}
+    # the lattice start relaxes through the FULL system's sweep first
+    x_min, _ = minimize_energy(system, x0, force_fn=build_cell_force_fn(system),
+                               max_iterations=100)
+    fn = build_cell_force_fn(md_system)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    kw = dict(dt=DT_PS, temperature_K=300.0, force_fn=fn, constraints=spec)
+    torch.cuda.synchronize()
+    _reset_counts()
+    state = thermalize(system, x_min, gen, 300.0)
+    state, _ = run_md(system, state, n_steps=WATER_WARM_STEPS, friction=1.0,
+                      report_interval=WATER_WARM_STEPS, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, frames = run_md(system, state, n_steps=WATER_STEPS, friction=1.0,
+                           report_interval=100, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update({
+        "steps": WATER_STEPS,
+        "ms_per_step": wall / WATER_STEPS * 1e3,
+        "ns_per_day": WATER_STEPS * DT_PS * 1e-3 * 86_400.0 / wall,
+        "kinetic_over_target": float(frames["temperature"].mean() / 300.0),
+        "kinetic_over_target_last": float(frames["temperature"][-1] / 300.0),
+        "max_constraint_deviation_nm": float(constraint_violation(spec, frames["positions"])),
+    })
+    _check(state.positions.is_cuda, "water-box state on the card")
+    _check(bool(torch.isfinite(frames["positions"]).all()), "water-box frames finite")
+    _check(bool(torch.isfinite(frames["potential_energy"]).all()), "water-box energies finite")
+    _check(out["max_constraint_deviation_nm"] <= 1e-4,
+           f"water-box constraint deviation {out['max_constraint_deviation_nm']}")
+    _check(0.8 <= out["kinetic_over_target"] <= 1.25,
+           f"water-box kinetic/target {out['kinetic_over_target']}")
+
+    # NVE: friction 0; total energy at 10 reports, the slope of a linear fit
+    nve, nf = run_md(system, state, n_steps=WATER_NVE_STEPS, friction=0.0,
+                     report_interval=50, **kw)
+    torch.cuda.synchronize()
+    counts = _counts()
+    dof = 3 * N - spec.n_constraints - 3
+    kT = BOLTZMANN_CONSTANT_KJ_PER_MOL * 300.0
+    e_tot = (nf["potential_energy"].double()
+             + 0.5 * dof * BOLTZMANN_CONSTANT_KJ_PER_MOL * nf["temperature"].double()
+             ).cpu().numpy()
+    t_ps = (np.arange(len(e_tot)) + 1) * 50 * DT_PS
+    slope = float(np.polyfit(t_ps, e_tot, 1)[0])          # kJ/mol/ps
+    out.update({
+        "nve_steps": WATER_NVE_STEPS,
+        "nve_drift_kT_per_dof_per_ns": slope * 1e3 / (kT * dof),
+        "nve_energy_span_kj_mol": float(e_tot.max() - e_tot.min()),
+        "launches": counts["cell_force"],
+    })
+    _check(bool(np.isfinite(e_tot).all()), "NVE energies finite")
+    # one launch per step and per report; the minimization ran before the reset
+    expected = (WATER_WARM_STEPS + 1 + WATER_STEPS + WATER_STEPS // 100
+                + WATER_NVE_STEPS + WATER_NVE_STEPS // 50)
+    _check(counts["cell_force"] == expected and counts["periodic_force"] == 0,
+           f"water-box launches {counts}, expected {expected}")
+
+    # the main path sorts on every call and reads nothing back. Against it
+    # the displacement rule (a sort only when an atom outran half the slack,
+    # one host read a call): stretches of each from one start, alternating,
+    # so that a drift of the host's speed falls on both
+    rule = _SkinRule(fn)
+    start, _ = run_md(system, nve, n_steps=20, friction=1.0, report_interval=20, **kw)
+    readings = {"skin": [], "always": []}
+    for _ in range(WATER_REBIN_ROUNDS):
+        for tag, f in (("skin", rule), ("always", fn)):
+            kw["force_fn"] = f
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_md(system, start, n_steps=WATER_REBIN_STEPS, friction=1.0,
+                   report_interval=100, **kw)
+            torch.cuda.synchronize()
+            readings[tag].append((time.perf_counter() - t0) / WATER_REBIN_STEPS * 1e3)
+    calls = WATER_REBIN_ROUNDS * (WATER_REBIN_STEPS + WATER_REBIN_STEPS // 100 + 1)
+    out["rebin_steps_a_stretch"] = WATER_REBIN_STEPS
+    out["rebin_skin_sorts_per_call"] = rule.sorts / calls
+    for tag, ms in readings.items():
+        out[f"rebin_{tag}_ms_per_step"] = ms
+        out[f"rebin_{tag}_median_ms_per_step"] = float(np.median(ms))
+    _check(rule.sorts < calls, f"the displacement rule made {rule.sorts} sorts in {calls} calls")
+    _line("phase 14 water md", out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch sees none")
@@ -1088,6 +1630,12 @@ def main() -> None:
     bias = phase_bias(cx, system, x_min)
     fused = phase_fused_remd(cx, bias["model"])
     cv = phase_learned_cv(cx)
+
+    periodic = phase_periodic()
+    water = _water_box_system()
+    cells = phase_cells(periodic, water)
+    explicit = phase_explicit_remd()
+    water_md = phase_water_md(water)
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1171,6 +1719,28 @@ def main() -> None:
         "timed": f"{fused['timed_steps']} steps, 2 windows, unbiased, {shape}",
         **_md_bound(R, Nc, fused["timed_steps"] + fused["timed_steps"] // CV_REPORT,
                     frames=fused["timed_steps"] // CV_REPORT),
+    }]
+    Re, Ne, Nw = EXPLICIT_REPLICAS, periodic["atoms"], cells["water_atoms"]
+    kernels += [{
+        "name": "periodic_force", **cuda,
+        "source": "pmarlo_tpu_torch/csrc/periodic_force.cu",
+        "replaces": "pmarlo_tpu/md/pallas_periodic.py:190",
+        "launches": explicit["dense"]["launches"]["periodic_force"],
+        "max_abs_err": periodic["shifted_force_max_abs_err"],
+        "ms": periodic["sweep_ms"],
+        "plain_ms": periodic["sweep_plain_ms"],
+        "timed": f"one sweep, R={Re}, N={Ne}",
+        "bound_ms": periodic["bound_ms"], "bound_by": periodic["bound_by"],
+    }, {
+        "name": "cell_force", **cuda,
+        "source": "pmarlo_tpu_torch/csrc/cell_force.cu",
+        "replaces": "pmarlo_tpu/md/pallas_cells.py:232",
+        "launches": explicit["cells"]["launches"]["cell_force"] + water_md["launches"],
+        "max_abs_err": cells["water_r1_force_max_abs_err"],
+        "ms": cells["water_r1_sweep_ms"],
+        "plain_ms": cells["water_r1_sweep_plain_ms"],
+        "timed": f"one sweep, R=1, N={Nw}",
+        "bound_ms": cells["water_r1_bound_ms"], "bound_by": cells["water_r1_bound_by"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

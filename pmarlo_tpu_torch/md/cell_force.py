@@ -1,0 +1,390 @@
+"""Explicit-solvent forces in O(N): the cell-list sweep as a CUDA kernel
+with its plain PyTorch twin.
+
+Port of ``pmarlo_tpu/md/pallas_cells.py build_cell_force_fn``: the same
+physics as the dense sweep (``md/periodic_force.py``: shifted or switched
+LJ, reaction-field Coulomb, OpenMM CutoffPeriodic semantics, 1-4 pairs as
+uncut scaled Coulomb), orthorhombic or triclinic, evaluated over the
+27-cell neighbourhood of every atom. A force evaluation is
+
+1. binning (``cells.bin_atoms``): wrapped coordinates, a stable sort of
+   the atoms by cell and CSR offsets. No slot array, no capacity and no
+   ghost copies: any occupancy fits, so nothing can overflow;
+2. the sweep (``csrc/cell_force.cu`` on CUDA tensors, ``sweep_reference``
+   on CPU tensors: a CUDA tensor launches the kernel or raises): per atom
+   the 27 neighbour cells, each displaced by the lattice vector of the
+   face it is reached across, the index band ``|i - j| <= D`` masked,
+   half-summed energy rows and row forces;
+3. the band add-back and far-pair correction from the pair lists
+   (``periodic_force.PairListCorrection``), the bonded terms
+   (``md/analytic.py``) and, if asked for, the dispersion tail 2 pi C / V.
+
+**Binning policy.** Every evaluation bins afresh: the sort and the offsets
+are a few device operations and nothing is read back to the host. The
+stateful entries ``init_state`` / ``apply`` (and ``_batched``) keep the
+signatures of the JAX package's, whose carry lets it skip the sort while no
+atom has moved more than half the grid's slack (``cells.free_skin``); on a
+card that test is a host read a call, and on the 27,783-atom water box it
+fails every second step, so it saves nothing measurable (PERF.md). Here the
+carry is the binning of the call that returned it, and ``evaluate`` sweeps
+any binning it is given. The physics does not depend on when the sort
+happens, only the summation order does.
+
+The kernel has a real-space Ewald mode (``erfcf`` and its exact
+derivative, shifted to zero at the cutoff) for a smooth-PME path that is
+not ported yet; it is reached through the private ``_ewald_alpha``.
+
+Pair arithmetic in the kernel is float32; energy rows accumulate in
+float64 and the plain twin evaluates in float64 outright. Energies come
+back as float32. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .analytic import bonded_energy_and_forces, make_bonded_params
+from .cells import (
+    CellGrid,
+    ExclusionBand,
+    NeighborState,
+    bin_atoms,
+    make_cell_grid,
+)
+from .periodic_force import (
+    PairListCorrection,
+    PairPhysics,
+    atom_rows,
+    cutoff_mask,
+    pair_terms,
+)
+from .system import System, require_no_vsites
+
+#: kernel launches made by this process (chip_smoke.py resets and reads it)
+launches = {"cell_force": 0}
+
+_configured = False
+
+
+def _library() -> ctypes.CDLL:
+    global _configured
+    lib = _kernels.library()
+    if not _configured:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pmarlo_cell_force.argtypes = [p, p, p, p, i, i, p, i, i, p, p, i, p, p, p]
+        lib.pmarlo_cell_force.restype = i
+        _configured = True
+    return lib
+
+
+def _neighbor_tables(grid: CellGrid):
+    """The 27-cell neighbourhood: ``shifts (27, 3)`` float32, the lattice
+    shift ``wx a + wy b + wz c`` of a neighbour reached across faces, indexed
+    ``(wx + 1) 9 + (wy + 1) 3 + (wz + 1)``; and for each of the 27 offsets
+    and each cell the neighbour's flat index ``nb (27, C)`` and its row of
+    ``shifts`` ``wrap (27, C)`` (``csrc/cell_force.cu`` derives both in the
+    kernel)."""
+    H, _ = grid.matrices()
+    w = np.array(list(np.ndindex(3, 3, 3))) - 1
+    shifts = (w @ H).astype(np.float32)
+    cells = np.arange(grid.n_cells)
+    cz = cells % grid.nz
+    cy = (cells // grid.nz) % grid.ny
+    cx = cells // (grid.nz * grid.ny)
+    nb = np.empty((27, grid.n_cells), np.int64)
+    wrap = np.empty((27, grid.n_cells), np.int64)
+    for k in range(27):
+        off = (k // 9 - 1, (k // 3) % 3 - 1, k % 3 - 1)
+        wrapped, wraps = [], []
+        for c, o, n in zip((cx, cy, cz), off, (grid.nx, grid.ny, grid.nz)):
+            t = c + o
+            wraps.append(np.where(t < 0, -1, np.where(t >= n, 1, 0)))
+            wrapped.append(t % n)
+        nb[k] = (wrapped[0] * grid.ny + wrapped[1]) * grid.nz + wrapped[2]
+        wrap[k] = (wraps[0] + 1) * 9 + (wraps[1] + 1) * 3 + (wraps[2] + 1)
+    return shifts, nb, wrap
+
+
+class CellForce:
+    """``fn(x) -> (energy, forces)`` for the full periodic potential of
+    ``system`` through the cell list: ``x`` is ``(N, 3)`` or ``(R, N, 3)``
+    (every replica is binned on its own); energies come back with the
+    leading shape. Built by ``build_cell_force_fn``."""
+
+    def __init__(self, system: System, grid: CellGrid, phys: PairPhysics, *,
+                 band: Optional[ExclusionBand] = None, dispersion_correction: bool = False,
+                 cell_chunk: int = 64):
+        self.system = system
+        self.grid = grid
+        self.phys = phys
+        self.electrostatics = "ewald" if phys.ewald else "rf"
+        self.cell_chunk = int(cell_chunk)
+        self._atom_p = atom_rows(system)
+        self.band = band if band is not None else ExclusionBand.from_system(system)
+        if self.band.band_se.shape[0] != system.n_atoms:
+            raise ValueError("exclusion band built for another system")
+        self.band_D = int(self.band.width)
+        self.correction = PairListCorrection(system, self.band, phys)
+        self._bonded = make_bonded_params(system)
+        self.e_dispersion = 0.0
+        if dispersion_correction:
+            from .dispersion import dispersion_coefficient
+
+            volume = float(np.prod(system.box))
+            self.e_dispersion = 2.0 * math.pi * dispersion_coefficient(system) / volume
+        self._dims = (ctypes.c_int * 3)(grid.nx, grid.ny, grid.nz)
+        self._row_tiles = max((grid.capacity + 31) // 32, 1)
+        shifts, nb, wrap = _neighbor_tables(grid)
+        self._shifts = torch.as_tensor(shifts, device=system.device).contiguous()
+        self._nb = torch.as_tensor(nb, device=system.device)
+        self._wrap = torch.as_tensor(wrap, device=system.device)
+
+    # --- shapes and state ---------------------------------------------------------
+
+    def _batch(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.system.n_atoms
+        if x.dim() != 3 or tuple(x.shape[1:]) != (n, 3):
+            raise ValueError(f"x must be (R, {n}, 3), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError("x must be float32")
+        if x.device != self.system.device:
+            raise ValueError(f"x on {x.device} but the cell force was built "
+                             f"for {self.system.device}")
+        return x
+
+    def _bin(self, xb: torch.Tensor) -> NeighborState:
+        order, cell_start, _, xw = bin_atoms(self.grid, xb)
+        return NeighborState(order=order.contiguous(), cell_start=cell_start.contiguous(),
+                             xw=xw)
+
+    # --- the sweep: plain twin and kernel ---------------------------------------------
+
+    def sweep_reference(self, xw: torch.Tensor, order: torch.Tensor,
+                        cell_start: torch.Tensor):
+        """``(e_rows (R, N) float64, forces (R, N, 3))`` by atom index (twin
+        of ``cell_force_kernel``): for every cell its atoms against the
+        atoms of the 27 neighbour cells, displaced by their lattice shifts,
+        band-masked, over chunks of cells. The displacement and r^2 are
+        float32, computed as the kernel computes them, so both cut the same
+        pairs; the pair terms are evaluated in float64."""
+        xw = self._batch(xw)
+        R, n = xw.shape[0], xw.shape[1]
+        dev = xw.device
+        q, sig, seps = (row.double() for row in self._atom_p)
+        C = self.grid.n_cells
+        e_rows = torch.zeros((R, n), dtype=torch.float64, device=dev)
+        forces = torch.zeros((R, n, 3), dtype=torch.float64, device=dev)
+        for rep in range(R):
+            x = xw[rep]
+            cs = cell_start[rep].long()
+            ordr = order[rep].long()
+            counts = cs[1:] - cs[:-1]
+            M = int(counts.max())
+            slots = torch.arange(M, device=dev)[None, :]
+            valid = slots < counts[:, None]                            # (C, M)
+            atoms = ordr[(cs[:-1, None] + slots).clamp(max=n - 1)]     # (C, M)
+            for c0 in range(0, C, self.cell_chunk):
+                c1 = min(c0 + self.cell_chunk, C)
+                ai, vi = atoms[c0:c1], valid[c0:c1]
+                xi = x[ai]                                             # (c, M, 3)
+                e_acc = torch.zeros(ai.shape, dtype=torch.float64, device=dev)
+                f_acc = torch.zeros(ai.shape + (3,), dtype=torch.float64, device=dev)
+                for k in range(27):
+                    nb = self._nb[k, c0:c1]
+                    aj, vj = atoms[nb], valid[nb]
+                    xj = x[aj] + self._shifts[self._wrap[k, c0:c1]][:, None, :]
+                    d = xi[:, :, None, :] - xj[:, None, :, :]          # (c, M, M, 3)
+                    mask = (vi[:, :, None] & vj[:, None, :]
+                            & ((ai[:, :, None] - aj[:, None, :]).abs() > self.band_D)
+                            & cutoff_mask(d, self.phys.rc))
+                    d = d.double()
+                    e_lj, e_el, w_lj, w_el, inv_r = pair_terms(
+                        self.phys, torch.where(mask, (d * d).sum(-1), 1.0),
+                        q[ai][:, :, None] * q[aj][:, None, :],
+                        0.5 * (sig[ai][:, :, None] + sig[aj][:, None, :]),
+                        seps[ai][:, :, None] * seps[aj][:, None, :])
+                    m = mask.to(torch.float64)
+                    e_acc += ((e_lj + e_el) * m).sum(-1)
+                    w = (w_lj + w_el) * inv_r * m
+                    f_acc -= (w[..., None] * d).sum(-2)
+                e_rows[rep, ai[vi]] = 0.5 * e_acc[vi]
+                forces[rep, ai[vi]] = f_acc[vi]
+        return e_rows, forces.to(xw.dtype)
+
+    def _launch(self, xw, order, cell_start):
+        for t, dtype in ((xw, torch.float32), (order, torch.int32),
+                         (cell_start, torch.int32)):
+            if t.device.type != "cuda" or t.device != xw.device:
+                raise RuntimeError(f"cell_force runs on CUDA tensors, got {t.device}")
+            if t.dtype != dtype or not t.is_contiguous():
+                raise TypeError(f"cell_force takes contiguous {dtype} tensors")
+        R, n = xw.shape[0], xw.shape[1]
+        if tuple(order.shape) != (R, n) or tuple(cell_start.shape) != (R, self.grid.n_cells + 1):
+            raise ValueError("cell_force: order / cell_start do not match xw and the grid")
+        lib = _library()
+        e_rows = torch.empty((R, n), dtype=torch.float64, device=xw.device)
+        forces = torch.empty_like(xw)
+        phys, ewald = self.phys.kernel_args()
+        rc = lib.pmarlo_cell_force(
+            xw.data_ptr(), self._atom_p.data_ptr(), order.data_ptr(), cell_start.data_ptr(),
+            R, n, self._dims, self._row_tiles, self.band_D, self._shifts.data_ptr(), phys, ewald,
+            e_rows.data_ptr(), forces.data_ptr(),
+            torch.cuda.current_stream(xw.device).cuda_stream,
+        )
+        _kernels.check_launch(rc, "cell_force")
+        launches["cell_force"] += 1
+        return e_rows, forces
+
+    def sweep(self, xw, order, cell_start):
+        """The band-masked sweep: the twin on the CPU, the kernel on CUDA."""
+        xw = self._batch(xw)
+        if xw.device.type == "cpu":
+            return self.sweep_reference(xw, order, cell_start)
+        return self._launch(xw.contiguous(), order, cell_start)
+
+    # --- assembly -------------------------------------------------------------------------
+
+    def _evaluate(self, xb, st: NeighborState, sweep):
+        e_rows, forces = sweep(st.xw, st.order, st.cell_start)
+        e_c, f_c = self.correction(xb)
+        e_b, f_b = bonded_energy_and_forces(self._bonded, xb, energy_dtype=torch.float64)
+        energy = (e_rows.sum(-1) + e_c + e_b + self.e_dispersion).to(xb.dtype)
+        return energy, forces + f_c + f_b
+
+    def evaluate(self, xs: torch.Tensor, st: NeighborState):
+        """``(energies, forces)`` of ``xs (R, N, 3)`` swept on the binning
+        ``st``, whose ``xw`` must be ``xs`` up to lattice vectors and cover
+        every pair within the cutoff by its 27-cell neighbourhoods."""
+        return self._evaluate(self._batch(xs), st, self.sweep)
+
+    def _call(self, x, sweep):
+        lead = tuple(x.shape[:-2])
+        xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
+        energy, forces = self._evaluate(xb, self._bin(xb), sweep)
+        return energy.reshape(lead), forces.reshape(tuple(x.shape))
+
+    def __call__(self, x: torch.Tensor):
+        """Energy and forces from a fresh binning: the kernel on a CUDA
+        tensor, the twin on a CPU tensor."""
+        return self._call(x, self.sweep)
+
+    def reference(self, x: torch.Tensor):
+        """The plain twin of the whole evaluation, on any device."""
+        return self._call(x, self.sweep_reference)
+
+    # --- stateful entries -------------------------------------------------------------------
+
+    def init_state_batched(self, xs: torch.Tensor) -> NeighborState:
+        return self._bin(self._batch(xs))
+
+    def apply_batched(self, xs: torch.Tensor, st: NeighborState):
+        """``(energies, forces, state)`` of ``xs (R, N, 3)``; ``state`` is
+        the binning of ``xs`` (``st`` is not consulted: see the module
+        docstring)."""
+        st = self.init_state_batched(xs)
+        energy, forces = self.evaluate(xs, st)
+        return energy, forces, st
+
+    def init_state(self, x: torch.Tensor) -> NeighborState:
+        return self.init_state_batched(x[None])
+
+    def apply(self, x: torch.Tensor, st: NeighborState):
+        """``apply_batched`` for one configuration ``x (N, 3)``."""
+        energy, forces, st = self.apply_batched(x[None], st)
+        return energy[0], forces[0], st
+
+    # --- NPT entries: not ported yet ---------------------------------------------------------
+
+    def dynamic(self, x, box):
+        """The traced-box evaluation of the NPT path."""
+        raise NotImplementedError(
+            "dynamic / init_state_dynamic / apply_dynamic: the barostat and the "
+            "NPT entries of the cell sweep are not ported yet (ROADMAP queue A12)")
+
+    def init_state_dynamic(self, x, box):
+        return self.dynamic(x, box)
+
+    def apply_dynamic(self, x, st, box):
+        return self.dynamic(x, box)
+
+
+def build_cell_force_fn(
+    system: System,
+    *,
+    occupancy_margin: float = 1.4,
+    electrostatics: str = "rf",
+    mesh=None,
+    dispersion_correction: bool = False,
+    band: Optional[ExclusionBand] = None,
+    _ewald_alpha: Optional[float] = None,
+) -> CellForce:
+    """The cell-list force function of ``system`` (tensors on
+    ``system.device``), as ``pallas_cells.build_cell_force_fn`` builds it
+    for a static box.
+
+    ``electrostatics="rf"`` matches ``build_periodic_force_fn`` (the dense
+    sweep): the same LJ shift or switch, reaction field and 1-4 semantics.
+    The grid has the most cells whose layers are at least one cutoff thick
+    (no skin is bought: every call bins afresh); ``occupancy_margin`` sizes
+    ``grid.capacity``, the row tiles a launch provides for each cell (a
+    fuller cell is still covered). ``dispersion_correction`` adds the
+    isotropic LJ tail energy 2 pi C / V (``md/dispersion.py``). The result
+    carries ``grid``, ``electrostatics``, ``init_state`` / ``apply`` /
+    ``init_state_batched`` / ``apply_batched`` and ``evaluate``.
+
+    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+    item: ``electrostatics="pme"`` (smooth PME, A12), ``mesh`` (A13), and the
+    NPT entries ``dynamic`` / ``init_state_dynamic`` / ``apply_dynamic``
+    (barostat, A12)."""
+    require_no_vsites(system, "the cell-list sweep")
+    if system.box is None:
+        raise ValueError("build_cell_force_fn needs system.box")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the spatially decomposed cell sweep is ROADMAP queue A13")
+    if electrostatics == "pme":
+        raise NotImplementedError(
+            "electrostatics='pme': smooth PME (md/pme.py, md/eft.py) is not "
+            "ported yet (ROADMAP queue A12)")
+    if electrostatics != "rf":
+        raise ValueError(f"electrostatics must be rf|pme, got {electrostatics!r}")
+    n = system.n_atoms
+    box_f = tuple(float(b) for b in system.box)
+    tilt_f = system.tilt
+    rc = float(system.cutoff)
+    if tilt_f is not None:
+        from .box import box_matrix, perp_widths, validate_reduced
+
+        tilt_f = tuple(float(t) for t in tilt_f)
+        H = box_matrix(box_f, tilt_f)
+        validate_reduced(H)
+        min_width = float(np.min(perp_widths(H)))
+    else:
+        min_width = min(box_f)
+
+    grid = make_cell_grid(box_f, rc, n, occupancy_margin=occupancy_margin, tilt=tilt_f)
+    if min_width < 2.0 * rc:
+        # on a 1-/2-cell axis the neighbourhood holds the same cell through
+        # both wrap directions with different shifts, so a pair appears at
+        # distances d and L - d. Only one can pass r < rc when L >= 2 rc;
+        # below that the pair would be counted twice, so refuse (the
+        # minimum-image validity bound the dense sweep assumes too)
+        raise ValueError(
+            f"box {box_f} (tilt {tilt_f}) has a perpendicular width "
+            f"smaller than 2*cutoff ({2 * rc}): periodic "
+            "pairs would be double-counted (and the triclinic rounded "
+            "minimum image would be unreliable). Use a larger box or a "
+            "smaller cutoff."
+        )
+    phys = PairPhysics.from_system(system, ewald_alpha=_ewald_alpha)
+    return CellForce(system, grid, phys, band=band,
+                     dispersion_correction=dispersion_correction)
+
+
+__all__ = ["CellForce", "build_cell_force_fn", "launches"]

@@ -1,24 +1,33 @@
-"""Index-band exclusions for the O(N)-memory implicit pair path.
+"""Index-band exclusions and the cell decomposition of a periodic box.
 
-Port of three host functions of ``pmarlo_tpu/md/cells.py``:
-``_scaled_pair_list``, ``exclusion_band_width`` and ``banded_scales``
-(numpy, the same arithmetic); the cell-list machinery of that module is
-explicit solvent, ROADMAP queue A12.
+Port of ``pmarlo_tpu/md/cells.py``.
 
-The pair kernels (``md/pair_force.py``) mask every LJ/Coulomb pair whose
-atom indices differ by at most the band width D, and the band is added
-back in plain PyTorch at its wanted (scaled) value: excluded pairs then
-contribute an exact zero instead of a large kernel term minus a large
+**Exclusions** (``_scaled_pair_list``, ``exclusion_band_width``,
+``banded_scales``: numpy, the same arithmetic). The pair kernels
+(``md/pair_force.py``), the periodic kernel (``md/periodic_force.py``) and
+the cell-list kernel (``md/cell_force.py``) mask every LJ/Coulomb pair
+whose atom indices differ by at most the band width D, and the band is
+added back in plain PyTorch at its wanted (scaled) value: excluded pairs
+then contribute an exact zero instead of a large kernel term minus a large
 correction. Scaled pairs farther apart in index than D (disulfides) go to a
 sparse far list, corrected by subtraction at their moderate distances.
 ``ExclusionBand`` carries these arrays; ``ExclusionBand.from_numpy`` takes
 the JAX package's own arrays.
+
+**Cells** (``CellGrid``, ``make_cell_grid``, ``bin_atoms``,
+``NeighborState``, ``free_skin``). Atoms are binned into a grid whose cell
+layers are at least one cutoff thick, so the 27-cell neighbourhood covers
+every pair within the cutoff. The TPU layout (a fixed-capacity slot array
+per cell, nine ghost-padded neighbour runs, lane alignment) is not carried
+over: ``bin_atoms`` returns a stable sort of the atoms by cell id and CSR
+offsets (``cell_start``), which hold any occupancy, so no cell can
+overflow.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +151,147 @@ class ExclusionBand:
         return i[keep], j[keep], c_el[keep], c_lj[keep]
 
 
+@dataclasses.dataclass(frozen=True)
+class CellGrid:
+    """Static geometry of the cell decomposition."""
+
+    box: Tuple[float, float, float]
+    cutoff: float
+    nx: int
+    ny: int
+    nz: int
+    #: rows a launch provisions for each cell (mean occupancy with margin):
+    #: a hint for the launch shape only; a fuller cell is still covered
+    capacity: int
+    #: triclinic off-diagonals (bx, cx, cy), ``md/box.py`` reduced form;
+    #: None -> orthorhombic. Cells are then parallelepipeds binned in
+    #: fractional coordinates.
+    tilt: Optional[Tuple[float, float, float]] = None
+
+    @property
+    def n_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def cell_size(self) -> Tuple[float, float, float]:
+        """Per-axis slab thickness bounding the neighbourhood cover: the
+        edge length for orthorhombic grids, the perpendicular width per
+        cell layer for triclinic ones."""
+        if self.tilt is None:
+            return (self.box[0] / self.nx, self.box[1] / self.ny,
+                    self.box[2] / self.nz)
+        from .box import box_matrix, perp_widths
+
+        pw = perp_widths(box_matrix(self.box, self.tilt))
+        return (float(pw[0]) / self.nx, float(pw[1]) / self.ny,
+                float(pw[2]) / self.nz)
+
+    def matrices(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(H, Hinv) as float64 numpy."""
+        from .box import box_matrix
+
+        H = box_matrix(self.box, self.tilt)
+        return H, np.linalg.inv(H)
+
+
+def make_cell_grid(
+    box: Tuple[float, float, float],
+    cutoff: float,
+    n_atoms: int,
+    *,
+    occupancy_margin: float = 1.4,
+    min_headroom: int = 8,
+    tilt: Optional[Tuple[float, float, float]] = None,
+) -> CellGrid:
+    """Choose the grid: the most cells with a layer at least ``cutoff``
+    thick per axis; ``capacity`` from the mean occupancy with margin,
+    rounded up to a multiple of 8 (as the JAX grid without lane
+    alignment)."""
+    if tilt is None:
+        widths = np.asarray(box, np.float64)
+    else:
+        from .box import box_matrix, perp_widths, validate_reduced
+
+        H = box_matrix(box, tilt)
+        validate_reduced(H)
+        # the cover condition bounds the perpendicular slab width per
+        # cell layer, not the (longer) edge length
+        widths = perp_widths(H)
+    nx = max(int(np.floor(widths[0] / cutoff)), 1)
+    ny = max(int(np.floor(widths[1] / cutoff)), 1)
+    nz = max(int(np.floor(widths[2] / cutoff)), 1)
+    mean_occ = n_atoms / float(nx * ny * nz)
+    cap = int(np.ceil(occupancy_margin * mean_occ)) + min_headroom
+    cap = ((cap + 7) // 8) * 8
+    return CellGrid(box=tuple(float(b) for b in box), cutoff=float(cutoff),
+                    nx=int(nx), ny=int(ny), nz=int(nz), capacity=int(cap),
+                    tilt=(tuple(float(t) for t in tilt)
+                          if tilt is not None else None))
+
+
+def free_skin(grid: CellGrid) -> float:
+    """Slack between the thinnest cell layer and the cutoff: the skin the
+    grid supports with no extra kernel work."""
+    return float(min(grid.cell_size) - grid.cutoff)
+
+
+def bin_atoms(grid: CellGrid, x: torch.Tensor):
+    """Assign atoms to cells and sort them by cell.
+
+    ``x`` is ``(..., N, 3)``; every leading index (a replica) is binned on
+    its own. Returns ``(order, cell_start, cell_id, xw)``:
+
+    - ``cell_id (..., N)`` int64: each atom's flat cell index
+      ``(cx * ny + cy) * nz + cz``, as the JAX ``bin_atoms`` computes it;
+    - ``order (..., N)`` int32: atom indices sorted by cell, ascending atom
+      index within a cell (a stable sort), so a cell's summation order is
+      fixed;
+    - ``cell_start (..., n_cells + 1)`` int32: CSR offsets into ``order``;
+    - ``xw (..., N, 3)``: the positions wrapped into the primary cell, the
+      coordinates the kernel works on (with lattice shifts for neighbour
+      cells across a face, it needs no minimum-image arithmetic)."""
+    ncell = torch.as_tensor([grid.nx, grid.ny, grid.nz], dtype=x.dtype, device=x.device)
+    if grid.tilt is None:
+        box = torch.as_tensor(grid.box, dtype=x.dtype, device=x.device)
+        xw = x - torch.floor(x / box) * box
+        f = xw / box
+    else:
+        from .box import latmul
+
+        H_np, Hinv_np = grid.matrices()
+        H = torch.as_tensor(H_np, dtype=x.dtype, device=x.device)
+        Hinv = torch.as_tensor(Hinv_np, dtype=x.dtype, device=x.device)
+        f = latmul(x, Hinv)
+        f = f - torch.floor(f)
+        xw = latmul(f, H)
+    c = (f * ncell).to(torch.int64)
+    cx = c[..., 0].clamp(0, grid.nx - 1)
+    cy = c[..., 1].clamp(0, grid.ny - 1)
+    cz = c[..., 2].clamp(0, grid.nz - 1)
+    cid = (cx * grid.ny + cy) * grid.nz + cz
+    cid_sorted, order = torch.sort(cid, dim=-1, stable=True)
+    edges = torch.arange(grid.n_cells + 1, device=x.device).expand(
+        cid.shape[:-1] + (grid.n_cells + 1,)).contiguous()
+    cell_start = torch.searchsorted(cid_sorted, edges)
+    return order.to(torch.int32), cell_start.to(torch.int32), cid, xw
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborState:
+    """A cell assignment: what ``bin_atoms`` found, as the cell-list sweep
+    takes it. ``xw`` are the coordinates the sweep works on. They need not
+    stay inside the primary cell: an assignment holds for any ``xw`` that
+    keeps every pair within the cutoff inside its 27-cell neighbourhoods
+    (each atom within ``free_skin(grid) / 2`` of where it was binned), moved
+    by raw displacement with no re-wrap, so that an atom drifting across the
+    boundary stays consistent with its binned cell and the lattice shifts."""
+
+    order: torch.Tensor       # (..., N) int32 atoms sorted by cell
+    cell_start: torch.Tensor  # (..., n_cells + 1) int32 CSR offsets
+    xw: torch.Tensor          # (..., N, 3) the coordinates swept
+
+
 __all__ = [
-    "ExclusionBand", "banded_scales", "exclusion_band_width",
+    "CellGrid", "ExclusionBand", "NeighborState", "banded_scales", "bin_atoms",
+    "exclusion_band_width", "free_skin", "make_cell_grid",
 ]

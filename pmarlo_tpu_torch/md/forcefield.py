@@ -2,8 +2,8 @@
 
 Port of ``pmarlo_tpu/md/forcefield.py``. The parameter tables are built by
 the same host numpy helpers over the copied topology, ``ff_params`` and
-``gbn2`` modules, then placed on ``device`` as tensors. Only the implicit
-solvent / vacuum path is ported: a periodic box is ROADMAP queue A12.
+``gbn2`` modules, then placed on ``device`` as tensors. ``box=`` builds the
+explicit-solvent periodic system (waters and ions kept, GB off).
 """
 
 from __future__ import annotations
@@ -223,6 +223,8 @@ def build_system(
     gb_model: str = "obc2",
     box: Optional[Tuple[float, float, float]] = None,
     tilt: Optional[Tuple[float, float, float]] = None,
+    cutoff: float = 0.9,
+    switch_distance: Optional[float] = None,
     device=None,
     dtype=torch.float32,
     dense_scales: Optional[bool] = None,
@@ -238,23 +240,64 @@ def build_system(
     neck tables that the dense paths read; the default, as in JAX, is to
     build them up to 12,000 atoms. ``False`` leaves ``scale_elec``,
     ``scale_lj`` and the neck tables ``None``: the pair kernels
-    (``md/pair_force.py``) read only the sparse exclusion lists."""
+    (``md/pair_force.py``), the periodic kernel (``md/periodic_force.py``)
+    and the cell-list kernel (``md/cell_force.py``) read only the sparse
+    exclusion lists.
+
+    ``box`` (nm, lattice diagonal) switches to the explicit-solvent
+    periodic path: minimum-image LJ + reaction-field electrostatics with
+    ``cutoff`` (OpenMM CutoffPeriodic semantics), GB disabled, and waters
+    and ions kept in the topology (TIP3P + Joung-Cheatham). ``tilt`` =
+    (bx, cx, cy) adds triclinic off-diagonals in GROMACS reduced form
+    (``md/box.py``). ``switch_distance`` (nm, periodic path only) enables
+    OpenMM's LJ switching function: the quintic smoothstep takes the
+    unshifted LJ energy to zero on [switch_distance, cutoff]."""
     device = torch.device(device) if device is not None else default_device()
-    if box is not None or tilt is not None:
-        raise NotImplementedError(
-            "periodic boxes (explicit solvent) are not ported yet "
-            "(ROADMAP queue A12)"
-        )
     if gb_model not in ("obc2", "gbn2"):
         raise ValueError(f"gb_model must be obc2|gbn2, got {gb_model!r}")
+    if tilt is not None and box is None:
+        raise ValueError("tilt without box: a triclinic cell needs both")
+    if switch_distance is not None:
+        if box is None:
+            raise ValueError(
+                "switch_distance applies to the periodic LJ path only; "
+                "the implicit-solvent path runs NoCutoff (no switching)"
+            )
+        if not 0.0 < float(switch_distance) < cutoff:
+            raise ValueError(
+                f"switch_distance must lie in (0, cutoff={cutoff}); "
+                f"got {switch_distance}"
+            )
+    if box is not None:
+        implicit_solvent = False
+        if tilt is None:
+            if any(b <= 2.0 * cutoff for b in box):
+                raise ValueError(
+                    f"every box length must exceed 2*cutoff = {2*cutoff} "
+                    f"nm (minimum-image validity); got {box}"
+                )
+        else:
+            from .box import box_matrix, perp_widths, validate_reduced
+
+            H = box_matrix(box, tilt)
+            validate_reduced(H)
+            pw = perp_widths(H)
+            if np.min(pw) <= 2.0 * cutoff:
+                raise ValueError(
+                    "every perpendicular cell width must exceed "
+                    f"2*cutoff = {2 * cutoff} nm (triclinic minimum-"
+                    f"image validity); box {box} tilt {tilt} has "
+                    f"widths {tuple(np.round(pw, 3))}"
+                )
     if isinstance(source, Topology):
         topology = source
     else:
         structure = source if isinstance(source, PDBStructure) else read_pdb(source)
-        topology = build_topology(structure, keep_waters=False)
+        topology = build_topology(structure, keep_waters=box is not None)
     if topology.vsites is not None:
         raise NotImplementedError(
-            "virtual sites are not ported yet (ROADMAP queue A11)"
+            "virtual sites (TIP4P-Ew, TIP5P water) are not ported yet "
+            "(ROADMAP queue A11)"
         )
 
     if dense_scales is None:
@@ -340,6 +383,11 @@ def build_system(
         gb_model=gb_model,
         gb_offset=(0.009 if gb_model == "obc2" else 0.0195141),
         gb_neck_scale=(0.0 if gb_model == "obc2" else 0.826836),
+        box=None if box is None else tuple(float(b) for b in box),
+        tilt=None if tilt is None else tuple(float(t) for t in tilt),
+        cutoff=float(cutoff),
+        switch_distance=(None if switch_distance is None
+                         else float(switch_distance)),
     )
     return system, f(topology.positions)
 

@@ -1,13 +1,16 @@
 """Potential energy as plain PyTorch, with forces by autograd.
 
-Port of ``pmarlo_tpu/md/forces.py`` (implicit solvent / vacuum, NoCutoff).
-Every function takes positions ``(..., N, 3)``: leading dimensions (e.g.
-replicas) batch, and energies come back with shape ``(...)``. This is the
-autodiff reference that ``md/analytic.py`` and the fused kernel are held to.
+Port of ``pmarlo_tpu/md/forces.py``: implicit solvent / vacuum (NoCutoff)
+and, for a ``System`` with a box, the dense minimum-image LJ +
+reaction-field potential. Every function takes positions ``(..., N, 3)``:
+leading dimensions (e.g. replicas) batch, and energies come back with
+shape ``(...)``. This is the autodiff reference that ``md/analytic.py``,
+the fused kernel, the periodic kernel and the cell-list kernel are held to.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
@@ -16,6 +19,21 @@ from .gbn2 import neck_value_and_derivative
 from .system import System, require_dense_scales, require_no_vsites
 
 _EPS = 1e-12
+
+
+def lj_switch(r: torch.Tensor, r_switch: float, r_cutoff: float):
+    """OpenMM LJ switching function: quintic smoothstep S and dS/dr.
+
+    S(x) = 1 - 10 x^3 + 15 x^4 - 6 x^5 with x = (r - r_sw)/(rc - r_sw),
+    clipped to [0, 1]: S = 1 below the switch distance, S = 0 at the
+    cutoff, with zero first and second derivatives at both ends, so
+    multiplying the unshifted LJ energy by S makes energy and force
+    continuous at the cutoff. Returns ``(S, dS/dr)``."""
+    inv_w = 1.0 / (r_cutoff - r_switch)
+    x = torch.clamp((r - r_switch) * inv_w, 0.0, 1.0)
+    s = 1.0 + x * x * x * (-10.0 + x * (15.0 - x * 6.0))
+    ds = x * x * (-30.0 + x * (60.0 - x * 30.0)) * inv_w
+    return s, ds
 
 
 def _gather(positions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -93,6 +111,70 @@ def nonbonded_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
     return ((e_lj + e_el) * upper).sum((-2, -1))
 
 
+def periodic_nonbonded_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
+    """Minimum-image LJ + reaction-field Coulomb for periodic systems
+    (OpenMM CutoffPeriodic semantics: RF dielectric ``solvent_dielectric``
+    beyond the cutoff; LJ potential-shifted to 0 at the cutoff, or switched
+    when ``system.switch_distance`` is set). Dense O(N^2); needs every
+    perpendicular box width > 2 * cutoff. Exclusion scales apply to both
+    terms; 1-4 Coulomb keeps the plain 1/r form (no RF shift, no cutoff),
+    as OpenMM treats exceptions. The autograd oracle of
+    ``md/periodic_force.py`` and ``md/cell_force.py``."""
+    require_dense_scales(system, "periodic_nonbonded_energy")
+    if system.box is None:
+        raise ValueError("periodic_nonbonded_energy needs system.box")
+    dt, dev = positions.dtype, positions.device
+    box = torch.as_tensor(system.box, dtype=dt, device=dev)
+    rc = system.cutoff
+    diff = positions[..., :, None, :] - positions[..., None, :, :]
+    if system.tilt is None:
+        diff = diff - box * torch.round(diff / box)
+    else:
+        # rounded fractional minimum image: exact for every r < cutoff
+        # because build_system enforces min perp width > 2*cutoff, and
+        # pairs beyond the cutoff are masked whichever image is picked
+        from .box import box_matrix, min_image_round
+
+        H = box_matrix(system.box, system.tilt)
+        diff = min_image_round(
+            diff, torch.as_tensor(H, dtype=dt, device=dev),
+            torch.as_tensor(np.linalg.inv(H), dtype=dt, device=dev),
+        )
+    r2 = (diff * diff).sum(-1)
+    n = r2.shape[-1]
+    eye = torch.eye(n, dtype=dt, device=dev)
+    r = torch.sqrt(r2 + _EPS) + eye
+    inv_r = 1.0 / r
+    within = (r < rc).to(dt) * (1.0 - eye)
+
+    sigma_ij = 0.5 * (system.lj_sigma[:, None] + system.lj_sigma[None, :]).to(dt)
+    eps_ij = torch.sqrt(torch.clamp(
+        system.lj_eps[:, None] * system.lj_eps[None, :], min=0.0)).to(dt)
+    sr6 = (sigma_ij * inv_r) ** 6
+    if system.switch_distance is None:
+        sr6c = (sigma_ij / rc) ** 6
+        e_lj = 4.0 * eps_ij * ((sr6 * sr6 - sr6) - (sr6c * sr6c - sr6c))
+    else:
+        sw, _ = lj_switch(r, float(system.switch_distance), rc)
+        e_lj = 4.0 * eps_ij * (sr6 * sr6 - sr6) * sw
+    e_lj = e_lj * system.scale_lj.to(dt) * within
+
+    # reaction field: E = ke q q (1/r + k_rf r^2 - c_rf), r < rc
+    eps_rf = system.solvent_dielectric
+    k_rf = (eps_rf - 1.0) / ((2.0 * eps_rf + 1.0) * rc**3)
+    c_rf = 1.0 / rc + k_rf * rc * rc
+    ke = COULOMB_CONSTANT_KJ_NM_PER_MOL_E2 / system.solute_dielectric
+    qq = (system.charges[:, None] * system.charges[None, :]).to(dt)
+    scale_elec = system.scale_elec.to(dt)
+    full = (scale_elec >= 1.0).to(dt)
+    e_rf = ke * qq * (inv_r + k_rf * r * r - c_rf) * full * within
+    # 1-4 exceptions: scaled plain Coulomb, no RF shift (OpenMM rule)
+    e_14 = ke * qq * inv_r * (scale_elec * (1.0 - full)) * (1.0 - eye)
+
+    upper = torch.triu(torch.ones_like(eye), diagonal=1)
+    return ((e_lj + e_rf + e_14) * upper).sum((-2, -1))
+
+
 def born_radii(system: System, positions: torch.Tensor) -> torch.Tensor:
     """OBC/GBn2 Born radii ``(..., N)``: HCT pair integral (+ GBn2 neck)
     then the tanh rescale."""
@@ -165,13 +247,12 @@ def gb_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
 def potential_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
     """Total potential energy (kJ/mol), shape ``(...)``."""
     require_no_vsites(system, "potential_energy")
-    if system.box is not None:
-        raise NotImplementedError("periodic systems: ROADMAP queue A12")
+    nb = periodic_nonbonded_energy if system.box is not None else nonbonded_energy
     e = (
         bond_energy(system, positions)
         + angle_energy(system, positions)
         + torsion_energy(system, positions)
-        + nonbonded_energy(system, positions)
+        + nb(system, positions)
     )
     if system.use_gb:
         e = e + gb_energy(system, positions)
@@ -196,6 +277,6 @@ def compute_forces(system: System, positions: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "potential_energy", "compute_forces",
     "energy_and_forces_autograd", "bond_energy", "angle_energy",
-    "torsion_energy", "nonbonded_energy", "gb_energy", "born_radii",
-    "dihedral_angles",
+    "torsion_energy", "nonbonded_energy", "periodic_nonbonded_energy",
+    "lj_switch", "gb_energy", "born_radii", "dihedral_angles",
 ]

@@ -161,15 +161,41 @@ def bias_energy_and_forces(bias_fn: Callable, x: torch.Tensor):
 
 def compose_bias(force_fn: Callable, bias_fn: Callable) -> Callable:
     """Wrap ``force_fn(x) -> (e, f)`` so energies AND forces include the
-    CV bias (force = -grad of the bias energy). Single source for every
-    entry point that combines a force function with a bias."""
+    CV bias (force = -grad of the bias energy), keeping the cell-list
+    force function's stateful entries (``init_state`` / ``apply`` /
+    ``init_state_batched`` / ``apply_batched``). Single source for every entry point that combines a force
+    function with a bias."""
 
     def wrapped(x):
         e, f = force_fn(x)
         be, bf = bias_energy_and_forces(bias_fn, x)
         return e + be, f + bf
 
+    def stateful(apply):
+        def _apply(x, st):
+            e, f, st = apply(x, st)
+            be, bf = bias_energy_and_forces(bias_fn, x)
+            return e + be, f + bf, st
+        return _apply
+
+    if hasattr(force_fn, "init_state"):
+        wrapped.init_state = force_fn.init_state
+        wrapped.apply = stateful(force_fn.apply)
+    if hasattr(force_fn, "init_state_batched"):
+        wrapped.init_state_batched = force_fn.init_state_batched
+        wrapped.apply_batched = stateful(force_fn.apply_batched)
     return wrapped
+
+
+def stateful_entries(force_fn: Optional[Callable], positions: torch.Tensor):
+    """``(init_state, apply)`` of a stateful force function (the cell-list
+    sweep) for positions of this rank, the batched pair for
+    ``(R, N, 3)``; ``(None, None)`` for a plain ``force_fn(x)``."""
+    names = (("init_state", "apply") if positions.dim() == 2
+             else ("init_state_batched", "apply_batched"))
+    if force_fn is None or not hasattr(force_fn, names[0]):
+        return None, None
+    return getattr(force_fn, names[0]), getattr(force_fn, names[1])
 
 
 def make_force_fn(system: System, bias_fn: Optional[Callable] = None) -> Callable:
@@ -192,9 +218,15 @@ def langevin_step(
     temperature_K,
     force_fn: Optional[Callable] = None,
     constraints=None,
-) -> Tuple[MDState, torch.Tensor]:
+    force_state=None,
+):
     """One folded BAOAB step (OpenMM ``LangevinMiddleIntegrator``).
     Returns ``(new_state, energy at the pre-step positions)``.
+
+    With ``force_state`` (a stateful force function's carry, the cell-list
+    sweep's ``NeighborState``), ``force_fn`` must have the stateful
+    signature ``fn(x, state) -> (energy, forces, state)`` and the return
+    becomes ``(new_state, energy, new_force_state)``.
 
     B(dt): v += dt f/m ; A(dt/2) ; O ; A(dt/2). The kick is the FULL dt:
     the trailing half-kick of one step and the leading one of the next
@@ -202,12 +234,14 @@ def langevin_step(
     kick would sample exp(-U/2kT)). Reported velocities are offset by
     half a kick, as in OpenMM middle.
 
-    With ``constraints`` (``md.constraints.ConstraintSpec``) the step runs
+    With ``constraints`` (a spec of ``md.constraints``) the step runs
     in g-BAOAB order, as the JAX step does: RATTLE after the kick; SHAKE
     after each position half-step, with the correction folded into v and
     a RATTLE after it; RATTLE after the O step."""
     require_no_vsites(system, "langevin_step")
-    if force_fn is None:
+    if force_state is not None:
+        energy, f, force_state = force_fn(state.positions, force_state)
+    elif force_fn is None:
         energy, f = energy_and_forces_autograd(system, state.positions)
     else:
         energy, f = force_fn(state.positions)
@@ -236,8 +270,11 @@ def langevin_step(
         v = v + (x_c - x) / (0.5 * dt)
         x = x_c
         v = rattle(constraints, v, x)
-    return dataclasses.replace(state, positions=x, velocities=v,
-                               step=state.step + 1), energy
+    new_state = dataclasses.replace(state, positions=x, velocities=v,
+                                    step=state.step + 1)
+    if force_state is not None:
+        return new_state, energy, force_state
+    return new_state, energy
 
 
 def run_md(
@@ -262,7 +299,9 @@ def run_md(
     OpenMM reports), less constrained degrees of freedom. ``force_fn``
     defaults to the analytic dense path (``md/analytic.py``) with
     ``bias_fn`` folded in; a given ``force_fn`` must already hold its bias
-    (``md.setup.compose_bias``), so passing both raises."""
+    (``md.setup.compose_bias``), so passing both raises. A stateful
+    ``force_fn`` (the cell-list sweep: ``init_state`` / ``apply``) has its
+    neighbour state threaded through the steps."""
     if n_steps % report_interval != 0:
         raise ValueError(
             f"n_steps {n_steps} must be a multiple of report_interval {report_interval}"
@@ -280,15 +319,26 @@ def run_md(
 
         n_con = n_constraints(constraints)
     inv_m = _inv_mass(system)
+    init_state, apply = stateful_entries(force_fn, state.positions)
+    fstate = None if init_state is None else init_state(state.positions)
+    step_force = force_fn if apply is None else apply
     positions, energies, temps = [], [], []
     for _ in range(n_steps // report_interval):
         for _ in range(report_interval):
-            state, _ = langevin_step(
+            out = langevin_step(
                 system, state, dt=dt, friction=friction,
-                temperature_K=temperature_K, force_fn=force_fn,
-                constraints=constraints,
+                temperature_K=temperature_K, force_fn=step_force,
+                constraints=constraints, force_state=fstate,
             )
-        e_now, f_now = force_fn(state.positions)
+            state = out[0]
+            if fstate is not None:
+                fstate = out[2]
+        # the energy at the REPORTED positions (the in-step energy is one
+        # position update behind)
+        if fstate is not None:
+            e_now, f_now, fstate = step_force(state.positions, fstate)
+        else:
+            e_now, f_now = step_force(state.positions)
         v_sync = state.velocities + 0.5 * dt * f_now * inv_m
         if constraints is not None:
             v_sync = rattle(constraints, v_sync, state.positions)
@@ -320,7 +370,7 @@ def thermalize(
 
 __all__ = [
     "MDState", "langevin_step", "run_md", "thermalize",
-    "make_force_fn", "compose_bias", "bias_energy_and_forces",
+    "make_force_fn", "compose_bias", "bias_energy_and_forces", "stateful_entries",
     "initialize_velocities", "kinetic_energy",
     "instantaneous_temperature", "remove_com_motion",
     "gaussian_noise", "philox4x32_10",

@@ -1,20 +1,23 @@
-"""One implicit-solvent setup recipe for every entry point.
+"""One setup recipe per solvent model for every entry point.
 
-Port of the implicit half of ``pmarlo_tpu/md/setup.py``:
-``build_implicit_setup`` builds the system, the X-H constraints, the
-system with the constrained bonded terms stripped, and the force path
-(the auto rule chooses between the dense analytic path and the pair
-kernels). Minimization relaxes the FULL system (stiff X-H bonds kept);
-MD runs the stripped system under SHAKE/RATTLE, as OpenMM's
-``createSystem(constraints=HBonds)`` does. Explicit solvent is ROADMAP
-queue A12.
+Port of ``pmarlo_tpu/md/setup.py``. ``build_implicit_setup`` builds the
+system, the X-H constraints, the system with the constrained bonded terms
+stripped, and the force path (the auto rule chooses between the dense
+analytic path and the pair kernels). ``build_explicit_setup`` does the
+same for a solvated input (a box and waters): water detection, the
+nonbonded engine (``resolve_nonbonded``: the dense minimum-image sweep
+below 3,000 atoms, the cell list from there up), rigid water and X-H
+constraints, and the two force functions. In both, minimization relaxes
+the FULL system (stiff X-H bonds kept); MD runs the stripped system under
+SHAKE/RATTLE, as OpenMM's ``createSystem(constraints=HBonds,
+rigidWater=True)`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -118,14 +121,121 @@ def build_implicit_setup(
     )
 
 
-def build_explicit_setup(*args, **kwargs):
-    """Explicit solvent (periodic box, rigid water, cell lists)."""
-    raise NotImplementedError(
-        "explicit-solvent setup is not ported yet (ROADMAP queue A12)"
+@dataclasses.dataclass
+class ExplicitSetup:
+    """Everything an explicit-solvent entry point needs, built consistently."""
+
+    system: System                 # full system (stiff X-H bonds kept)
+    md_system: System              # constrained bonded terms stripped
+    positions: torch.Tensor
+    constraints: object            # SHAKE/RATTLE spec (or None)
+    md_force_fn: Callable          # MD path (possibly the stateful cell sweep)
+    minimize_force_fn: Optional[Callable]  # FULL-system sweep, or None
+    nonbonded: str                 # resolved engine name
+
+
+def resolve_nonbonded(
+    nonbonded: str, n_atoms: int, *, require_cells: bool = False,
+    triclinic: bool = False,
+) -> str:
+    """Resolve "auto" and validate. The dense sweep walks all N^2 pairs:
+    past a few thousand atoms the O(N) cell list wins. ``require_cells``
+    forces the cell path regardless of size; so does ``triclinic`` (the
+    dense sweep does a per-axis minimum image on the box diagonal and would
+    corrupt tilted-cell forces)."""
+    if nonbonded == "auto":
+        return ("cells" if (n_atoms >= 3000 or require_cells or triclinic)
+                else "dense")
+    if nonbonded not in ("dense", "cells", "pme"):
+        raise ValueError(
+            f"nonbonded must be auto|dense|cells|pme, got {nonbonded!r}"
+        )
+    if nonbonded == "dense" and triclinic:
+        raise ValueError(
+            "nonbonded='dense' is orthorhombic-only (per-axis minimum "
+            "image); triclinic cells need 'cells' or 'pme'"
+        )
+    return nonbonded
+
+
+def build_explicit_setup(
+    structure,
+    *,
+    box: Optional[Tuple[float, float, float]] = None,
+    tilt: Optional[Tuple[float, float, float]] = None,
+    cutoff: float = 0.9,
+    switch_distance: Optional[float] = None,
+    nonbonded: str = "auto",
+    require_cells: bool = False,
+    dispersion_correction: bool = False,
+    build_minimize_fn: bool = True,
+    pme_precise: bool = False,
+    device=None,
+) -> ExplicitSetup:
+    """Build the full explicit-solvent setup from a solvated structure on
+    ``device`` (``None``: the card when there is one).
+
+    ``box`` overrides the structure's CRYST1; ``build_minimize_fn=False``
+    skips the FULL-system sweep's setup (resume paths never minimize). The
+    minimize function aliases the MD function when stripping was a no-op
+    (no constraints), so nothing is built twice. Neither sweep reads the
+    (N, N) scale matrices (``build_system`` builds them up to 12,000 atoms
+    for the autograd oracle): both work from the sparse exclusion lists.
+
+    ``nonbonded="pme"`` and ``pme_precise`` raise ``NotImplementedError``:
+    smooth PME is not ported yet (ROADMAP queue A12)."""
+    if isinstance(structure, (str, Path)):
+        structure = read_pdb(structure)
+    if nonbonded == "pme" or pme_precise:
+        raise NotImplementedError(
+            "nonbonded='pme' / pme_precise: smooth PME (md/pme.py, md/eft.py) "
+            "is not ported yet (ROADMAP queue A12)")
+    system, positions = build_system(
+        structure, box=box if box is not None else structure.box,
+        tilt=(tilt if tilt is not None else getattr(structure, "tilt", None)),
+        cutoff=cutoff, switch_distance=switch_distance, device=device,
+    )
+    nonbonded = resolve_nonbonded(
+        nonbonded, system.n_atoms, require_cells=require_cells,
+        triclinic=system.tilt is not None,
+    )
+
+    from .constraints import build_h_constraints, strip_constrained_bonded
+
+    constraints = build_h_constraints(system)
+    # MD forces drop the bonded terms the constraints replace; minimization
+    # keeps the FULL system: unconstrained relaxation needs the stiff bonds
+    md_system = (strip_constrained_bonded(system)
+                 if constraints is not None else system)
+
+    if nonbonded == "dense":
+        if dispersion_correction:
+            raise ValueError(
+                "dispersion_correction (NPT) needs the cell-list engine "
+                "(nonbonded='cells' or 'pme'), not 'dense'"
+            )
+        from .periodic_force import build_periodic_force_fn as _build
+    else:
+        from .cell_force import build_cell_force_fn
+
+        def _build(sys_):
+            return build_cell_force_fn(
+                sys_, dispersion_correction=dispersion_correction)
+
+    md_force_fn = _build(md_system)
+    minimize_force_fn = None
+    if build_minimize_fn:
+        minimize_force_fn = (md_force_fn if md_system is system
+                             else _build(system))
+    return ExplicitSetup(
+        system=system, md_system=md_system, positions=positions,
+        constraints=constraints, md_force_fn=md_force_fn,
+        minimize_force_fn=minimize_force_fn, nonbonded=nonbonded,
     )
 
 
 __all__ = [
-    "ImplicitSetup", "PAIR_KERNEL_MIN_ATOMS", "build_explicit_setup",
-    "build_implicit_setup", "compose_bias", "is_explicit_solvent",
+    "ExplicitSetup", "ImplicitSetup", "PAIR_KERNEL_MIN_ATOMS",
+    "build_explicit_setup", "build_implicit_setup", "compose_bias",
+    "is_explicit_solvent", "resolve_nonbonded",
 ]

@@ -141,8 +141,10 @@ def require_dense_scales(system: System, context: str) -> None:
     if system.scale_elec is None or system.scale_lj is None:
         raise ValueError(
             f"{context} needs the dense (N, N) scale matrices, but this "
-            f"System ({system.n_atoms} atoms) was built without them; the "
-            "O(N) cell path is not ported yet (ROADMAP queue A12)."
+            f"System ({system.n_atoms} atoms) was built without them "
+            "(dense_scales=False, the default past 12,000 atoms); the pair "
+            "kernels, the periodic kernel and the cell-list kernel read the "
+            "sparse exclusion lists instead."
         )
 
 

@@ -86,7 +86,7 @@ def probe_energy_statistics(
     steps (up to ``max_extensions`` times) while an effective sample size
     is below ``min_ess`` or the tail still drifts."""
     from ..analysis.diagnostics import integrated_autocorrelation_time
-    from ..md.integrate import langevin_step, thermalize
+    from ..md.integrate import langevin_step, stateful_entries, thermalize
 
     dev = positions.device
     temps = torch.as_tensor(list(temperatures), dtype=torch.float32, device=dev)
@@ -97,13 +97,19 @@ def probe_energy_statistics(
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         st = thermalize(system, x0, gen, temps)
+        init_state, apply = stateful_entries(force_fn, x0)
+        fstate = None if init_state is None else init_state(x0)
         energies = []
         for _ in range(steps):
-            st, e = langevin_step(
+            out = langevin_step(
                 system, st, dt=dt_ps, friction=friction_per_ps,
-                temperature_K=temps, force_fn=force_fn, constraints=constraints,
+                temperature_K=temps, force_fn=force_fn if apply is None else apply,
+                constraints=constraints, force_state=fstate,
             )
-            energies.append(e)
+            st = out[0]
+            if fstate is not None:
+                fstate = out[2]
+            energies.append(out[1])
         return torch.stack(energies, 1).double().cpu().numpy()
 
     steps = int(probe_steps)

@@ -1,6 +1,6 @@
 """Replica-exchange MD with replicas as the leading tensor dimension.
 
-Port of ``pmarlo_tpu/remd/remd.py`` (the implicit-solvent dense path).
+Port of ``pmarlo_tpu/remd/remd.py`` (implicit and explicit solvent).
 State is rung-major: slot r always holds the configuration simulating at
 ``ladder[r]``, so per-rung trajectories are demuxed by construction, and the
 replica-identity permutation is recorded for per-walker views. Exchanges
@@ -14,9 +14,12 @@ Two MD paths run the exchange windows of ``run()``:
   kernel per window, otherwise its plain PyTorch twin; ``kernel_bias``
   puts a DeepTICA CV bias into that kernel;
 - a ``force_fn`` (for protein scale ``md.pair_force.build_pair_force_fn``,
-  whose CUDA kernels run on CUDA tensors) under batched ``langevin_step``,
+  for explicit solvent ``md.periodic_force`` or ``md.cell_force``, whose
+  CUDA kernels run on CUDA tensors) under batched ``langevin_step``,
   optionally with SHAKE/RATTLE ``constraints`` and with a Python
-  ``bias_fn`` composed in.
+  ``bias_fn`` composed in. The cell-list sweep's replica-batched stateful
+  entries (``init_state_batched`` / ``apply_batched``) carry its cell
+  assignment through a window.
 
 ``run_fused()`` runs the whole of the fused-chunk path (MD, frames, swaps,
 identities) in ONE kernel launch. Swap uniforms are a pure function of
@@ -55,6 +58,7 @@ from ..md.integrate import (
     make_force_fn,
     philox4x32_10,
     remove_com_motion,
+    stateful_entries,
 )
 from ..md.minimize import minimize_energy
 from ..md.setup import compose_bias
@@ -305,12 +309,21 @@ class ReplicaExchange:
         the potential at the post-chunk configurations)."""
         if self._force_fn is not None:
             cfg = self.config
+            # the cell-list sweep threads its cell assignment through the steps
+            init_state, apply = stateful_entries(self._force_fn, state.positions)
+            fstate = None if init_state is None else init_state(state.positions)
             for _ in range(n_steps):
-                state, _ = langevin_step(
+                out = langevin_step(
                     self.system, state, dt=cfg.dt_ps,
                     friction=cfg.friction_per_ps, temperature_K=temps,
-                    force_fn=self._force_fn, constraints=self._constraints,
+                    force_fn=self._force_fn if apply is None else apply,
+                    constraints=self._constraints, force_state=fstate,
                 )
+                state = out[0]
+                if fstate is not None:
+                    fstate = out[2]
+            if fstate is not None:
+                return state, apply(state.positions, fstate)[0]
             return state, self._force_fn(state.positions)[0]
         args = (state.positions, state.velocities, state.seeds, temps,
                 n_steps, state.step)
@@ -561,31 +574,48 @@ def run_replica_exchange(
     bias_fn=None,
     mesh=None,
     target_acceptance: Optional[float] = None,
+    cutoff: float = 0.9,
+    switch_distance: Optional[float] = None,
+    nonbonded: str = "auto",
     constraints: Optional[str] = None,
 ) -> Tuple[RemdResult, System]:
-    """One-call implicit-solvent REMD on ``device`` (``None``: the card
-    when there is one, ``_device.default_device()``).
+    """One-call REMD on ``device`` (``None``: the card when there is one,
+    ``_device.default_device()``).
 
-    The system, constraints and force path come from
+    **Implicit solvent.** The system, constraints and force path come from
     ``md.setup.build_implicit_setup`` (the same recipe for every entry
     point): past 600 atoms on a CUDA device the pair kernels
     (``md/pair_force.py``) run every force evaluation, minimization
     included; below it the dense path runs, through the fused CUDA chunk
     when ``use_kernel=True``. ``constraints="hbonds"`` SHAKE/RATTLEs every
     X-H bond (OpenMM HBonds), which with HMR allows 4 fs steps; the fused
-    chunk refuses constraints. ``target_acceptance`` replaces the config's
-    geometric ladder with one designed from short energy-fluctuation probes
-    between its end temperatures (``remd/ladder.py``). ``bias_fn``
-    (positions -> energy) biases the minimization and every replica's
-    forces on the plain path; with ``use_kernel=True`` it raises (the
-    kernel takes ``ReplicaExchange(kernel_bias=...)``).
+    chunk refuses constraints.
+
+    **Explicit solvent.** A solvated input (CRYST1 box + waters) switches
+    to explicit-solvent REMD (``md.setup.build_explicit_setup``): the
+    periodic LJ + reaction-field potential at ``cutoff``, rigid TIP3P and
+    X-H constraints in every replica, constrained bonded terms stripped
+    from the MD force path, and the ``nonbonded`` engine ("dense": the
+    O(N^2) minimum-image sweep, "cells": the O(N) cell-list sweep, "auto":
+    cells from 3,000 atoms up). The structure is minimized through the
+    FULL system's sweep; ladder probes and Metropolis energies run through
+    the MD sweep. ``switch_distance`` enables the LJ switching function.
+    The explicit path always constrains: ``constraints="none"`` raises.
+    ``use_kernel`` (the fused chunk) has no part in it.
+
+    ``target_acceptance`` replaces the config's geometric ladder with one
+    designed from short energy-fluctuation probes between its end
+    temperatures (``remd/ladder.py``). ``bias_fn`` (positions -> energy)
+    biases every replica's forces on the plain path (and the implicit
+    path's minimization); with ``use_kernel=True`` it raises (the kernel
+    takes ``ReplicaExchange(kernel_bias=...)``).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` (A13) and solvated inputs with a periodic box (A12)."""
+    item: ``mesh`` (A13) and ``nonbonded="pme"`` (A12)."""
     import dataclasses as _dc
 
     from ..io.pdb import read_pdb
-    from ..md.setup import build_implicit_setup
+    from ..md.setup import build_explicit_setup, build_implicit_setup, is_explicit_solvent
 
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device REMD is ROADMAP queue A13")
@@ -596,23 +626,43 @@ def run_replica_exchange(
     config = config or RemdConfig()
     device = torch.device(device) if device is not None else default_device()
     structure = read_pdb(pdb_file) if not hasattr(pdb_file, "residues") else pdb_file
-    if getattr(structure, "box", None) is not None:
-        raise NotImplementedError(
-            "solvated input with a periodic box: explicit solvent is ROADMAP "
-            "queue A12"
+    explicit = is_explicit_solvent(structure)
+    if explicit:
+        if constraints == "none":
+            raise ValueError(
+                "constraints='none' is not available on the explicit-"
+                "solvent path: rigid TIP3P water requires SHAKE"
+            )
+        setup = build_explicit_setup(
+            structure, cutoff=cutoff, switch_distance=switch_distance,
+            nonbonded=nonbonded, device=device,
         )
-    setup = build_implicit_setup(
-        structure, implicit_solvent=implicit_solvent, gb_model=gb_model,
-        constraints=constraints, device=device,
-    )
-    system, positions = setup.system, setup.positions
-    cspec, force_fn = setup.constraints, setup.force_fn
+        force_fn, force_path = setup.md_force_fn, setup.nonbonded
+        # minimize through the FULL system's sweep (the MD system has the
+        # stiff X-H bonds stripped); ReplicaExchange then gets minimize=False
+        positions, _ = minimize_energy(setup.system, setup.positions,
+                                       force_fn=setup.minimize_force_fn)
+    else:
+        if switch_distance is not None:
+            raise ValueError(
+                "switch_distance applies to the explicit-solvent "
+                "periodic path only; this structure routed to the "
+                "implicit-solvent path (NoCutoff, nothing to switch)"
+            )
+        setup = build_implicit_setup(
+            structure, implicit_solvent=implicit_solvent, gb_model=gb_model,
+            constraints=constraints, device=device,
+        )
+        force_fn, force_path = setup.force_fn, setup.force_path
+        positions = setup.positions
+    system, cspec = setup.system, setup.constraints
     if target_acceptance is not None:
         from .ladder import suggest_temperature_ladder
 
         # the probes and the run start from the same relaxed structure
-        positions, _ = minimize_energy(system, positions,
-                                       force_fn=setup.minimize_force_fn)
+        if not explicit:
+            positions, _ = minimize_energy(system, positions,
+                                           force_fn=setup.minimize_force_fn)
         ladder = config.ladder()
         designed, _ = suggest_temperature_ladder(
             system, positions, t_min=float(ladder[0]), t_max=float(ladder[-1]),
@@ -626,9 +676,9 @@ def run_replica_exchange(
         )
     remd = ReplicaExchange(
         system, positions, config, device=device,
-        use_kernel=use_kernel and setup.force_path == "dense",
+        use_kernel=use_kernel and force_path == "dense" and not explicit,
         force_fn=force_fn, constraints=cspec,
-        minimize=target_acceptance is None,
+        minimize=target_acceptance is None and not explicit,
         minimize_force_fn=setup.minimize_force_fn, bias_fn=bias_fn,
     )
     return remd.run(n_steps), system

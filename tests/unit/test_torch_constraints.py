@@ -199,5 +199,14 @@ def test_harmonic_oscillator_statistics():
 def test_water_constraints_are_explicit_solvent():
     system, _ = build_system(alanine_dipeptide_structure(), gb_model="gbn2")
     wet = dataclasses.replace(system, residue_names=("HOH",) + system.residue_names[1:])
-    with pytest.raises(NotImplementedError, match="A12"):
+    # a residue that is called water but is not an (O, H1, H2) block
+    with pytest.raises(ValueError, match="contiguous"):
         build_h_constraints(wet)
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.md.constraints import CompositeConstraintSpec
+
+    structure, box = water_box_structure(2, spacing=0.5, margin=0.0)
+    wsys, _ = build_system(structure, box=box, cutoff=0.45)
+    spec = build_h_constraints(wsys)
+    assert isinstance(spec, CompositeConstraintSpec) and spec.protein is None
+    assert spec.n_constraints == 3 * 8

@@ -33,6 +33,15 @@ INDEX_FUNCTIONS = [
 ]
 
 
+#: host-side lattice functions of ``md/box.py``: numpy, carried over as
+#: they are; the tensor functions beside them are rewritten for torch
+BOX_FUNCTIONS = [
+    "box_matrix", "reduce_box_matrix", "split_matrix", "from_lengths_angles",
+    "to_lengths_angles", "validate_reduced", "perp_widths", "volume",
+    "tilt_ratios", "dodecahedron_vectors",
+]
+
+
 def _note(rel):
     return (f"Host copy of ``pmarlo_tpu/{rel}``; "
             "tests/unit/test_torch_host_copies.py holds the two equal.")
@@ -70,17 +79,39 @@ def test_shipped_neck_tables_are_copied():
     assert a == b
 
 
+def _function_source(path, name):
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return _normalise(ast.get_source_segment(text, node))
+    raise AssertionError(f"{name} not found in {path}")
+
+
 @pytest.mark.parametrize("name", INDEX_FUNCTIONS)
 def test_feature_index_functions_are_copied(name):
     """Each index function of ``features/builtins.py`` has its source's
     text, docstring and comments included."""
-    def source_of(path):
-        text = path.read_text()
-        for node in ast.parse(text).body:
-            if isinstance(node, ast.FunctionDef) and node.name == name:
-                return ast.get_source_segment(text, node)
-        raise AssertionError(f"{name} not found in {path}")
-
-    src = source_of(ROOT / "pmarlo_tpu" / "features" / "builtins.py")
-    copy = source_of(ROOT / "pmarlo_tpu_torch" / "features" / "builtins.py")
+    src = _function_source(ROOT / "pmarlo_tpu" / "features" / "builtins.py", name)
+    copy = _function_source(ROOT / "pmarlo_tpu_torch" / "features" / "builtins.py", name)
     assert copy == src, f"features/builtins.py {name} drifted from its source"
+
+
+@pytest.mark.parametrize("name", BOX_FUNCTIONS)
+def test_box_lattice_functions_are_copied(name):
+    """Each numpy lattice function of ``md/box.py`` has its source's text."""
+    src = _function_source(ROOT / "pmarlo_tpu" / "md" / "box.py", name)
+    copy = _function_source(ROOT / "pmarlo_tpu_torch" / "md" / "box.py", name)
+    assert copy == src, f"md/box.py {name} drifted from its source"
+
+
+def test_dispersion_coefficient_is_copied():
+    """``md/dispersion.py dispersion_coefficient`` differs from its source
+    only where the per-atom parameters come off the device."""
+    src = _function_source(ROOT / "pmarlo_tpu" / "md" / "dispersion.py",
+                           "dispersion_coefficient")
+    copy = _function_source(ROOT / "pmarlo_tpu_torch" / "md" / "dispersion.py",
+                            "dispersion_coefficient")
+    for field in ("lj_sigma", "lj_eps"):
+        src = src.replace(f"np.asarray(system.{field}, np.float64)",
+                          f"_np(system.{field}).astype(np.float64)")
+    assert copy == src

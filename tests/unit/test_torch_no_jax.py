@@ -66,6 +66,12 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.bias.harmonic", "pmarlo_tpu_torch.bias.metadynamics",
     "pmarlo_tpu_torch.md.cv_bias", "pmarlo_tpu_torch.md.enhanced_sampling",
 ]
+#: modules the explicit-solvent slice added
+NEW_MODULES += [
+    "pmarlo_tpu_torch.md.box", "pmarlo_tpu_torch.md.dispersion",
+    "pmarlo_tpu_torch.md.periodic_force", "pmarlo_tpu_torch.md.cell_force",
+    "pmarlo_tpu_torch.data.water",
+]
 
 
 def test_port_imports_without_jax():
@@ -75,7 +81,7 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 33 + 14
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 33 + 14 + 5
 
 
 def test_chip_smoke_imports_name_no_jax():

@@ -60,7 +60,9 @@ def test_setup_recipe(pair_setup):
     assert auto.system.scale_elec is not None
     assert not is_explicit_solvent(chignolin_assembly((2, 1, 1)))
     with pytest.raises(NotImplementedError, match="A12"):
-        build_explicit_setup(None)
+        build_explicit_setup(chignolin_assembly((2, 1, 1)), nonbonded="pme")
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_explicit_setup(chignolin_assembly((2, 1, 1)), pme_precise=True)
 
 
 def test_small_protein_slice_runs_constrained_at_4_fs(pair_setup):

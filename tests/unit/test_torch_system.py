@@ -77,7 +77,24 @@ def test_system_to_moves_every_tensor():
 
 
 def test_build_system_rejects_periodic_box():
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_system(alanine_dipeptide_structure(), box=(3.0, 3.0, 3.0))
+    """A periodic box is refused where the minimum image would be invalid
+    (a width of at most twice the cutoff, orthorhombic or triclinic), a
+    tilt needs a box, and the LJ switch exists on the periodic path only."""
+    with pytest.raises(ValueError, match="2\\*cutoff"):
+        build_system(alanine_dipeptide_structure(), box=(3.0, 3.0, 1.8))
+    with pytest.raises(ValueError, match="perpendicular"):
+        build_system(alanine_dipeptide_structure(), box=(3.0, 3.0, 3.0),
+                     tilt=(0.0, 0.0, 1.5), cutoff=1.4)
+    with pytest.raises(ValueError, match="tilt without box"):
+        build_system(alanine_dipeptide_structure(), tilt=(0.1, 0.0, 0.0))
+    with pytest.raises(ValueError, match="switch_distance"):
+        build_system(alanine_dipeptide_structure(), switch_distance=0.8)
+    with pytest.raises(ValueError, match="switch_distance"):
+        build_system(alanine_dipeptide_structure(), box=(3.0, 3.0, 3.0),
+                     switch_distance=0.95)
+    system, _ = build_system(alanine_dipeptide_structure(), box=(3.0, 3.0, 3.0),
+                             switch_distance=0.8)
+    assert system.box == (3.0, 3.0, 3.0) and system.tilt is None
+    assert system.cutoff == 0.9 and system.switch_distance == 0.8 and not system.use_gb
     with pytest.raises(ValueError, match="gb_model"):
         build_system(alanine_dipeptide_structure(), gb_model="hct")
