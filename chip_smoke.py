@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --temperature-study   # see temperature_study()
 
 Phases, one line of numbers each:
 
@@ -74,7 +75,36 @@ Phases, one line of numbers each:
              500 steps at friction 0; the same path under the displacement
              rule, three stretches of each from one start, alternating.
 
-Then the card's name and power limit, one JSON line of the kernels, and
+15. large kernels - the tile-culled and the Newton pair kernels on the
+             24,840-atom chignolin assembly (180 copies), ``gb_cutoff=1.5``,
+             tiles of 128 in a Morton order of the start geometry, R=1 and a
+             batch of 3: each of the six sweeps against its plain version,
+             Newton against ordered, Newton run to run (its sums are atomic),
+             a huge cutoff against the dense kernels, Morton against identity
+             order; the share of tile blocks computed; ms a sweep beside the
+             dense kernels' at the same N; bounds from this run's pairs.
+16. bonded - the bonded kernel on the same assembly against
+             ``bonded_energy_and_forces`` and float64 autograd; ms a call.
+17. large path - the large implicit-solvent path at full width: 61,824
+             atoms (448 copies), ``build_pair_force_fn(tile=128,
+             gb_cutoff=1.5, order_from=x0)`` (Newton sweeps and the bonded
+             kernel by default) -> ``minimize_energy`` (300 FIRE iterations)
+             -> ``thermalize`` -> ``run_md`` at 4 fs with every X-H bond
+             constrained, 50 warm-up steps and a timed 4 ps: ms a force
+             evaluation, ms a step, ns/day, temperature, constraint
+             deviation, peak device memory; then a short stretch of the same
+             run through the ordered culled sweeps (``newton=False``); then
+             the six sweeps and the bonded kernel against their plain
+             versions at this width, at the positions the run arrived at
+             (the ``kernels`` line takes their errors, times and bounds from
+             here). Two temperatures are printed: ``run_md``'s reported one
+             over the second half, which at 4 fs settles ~12% under the
+             target, and the state's mid-step one, which is gated to
+             [0.9, 1.1] at 3.2 and 4.2 ps (``--temperature-study`` measures
+             both at 4 fs and 2 fs).
+
+Then a summary line that repeats the headline numbers of phases 1 and
+15-17, the card's name and power limit, one JSON line of the kernels, and
 the last line ``{"ok": true, "device": {...}}``. A failed check raises and
 the script exits non-zero without that line. It needs a CUDA card and
 imports nothing of JAX.
@@ -85,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -97,7 +128,7 @@ EXCHANGE_FREQUENCY = 100
 PLAIN_STEPS = 2_000
 PROTEIN_COPIES = (3, 3, 3)        # 27 chignolins, 3,726 atoms
 PROTEIN_REPLICAS = 8
-PROTEIN_STEPS = 3_000            # cut to fit: ~29 ms a step on the H100
+PROTEIN_STEPS = 2_000            # cut to fit: ~29 ms a step on the H100
 PROTEIN_DT_PS = 0.004
 PAIR_KERNELS = ("pair_born", "pair_energy", "pair_force")
 CV_REPORT = 50                   # frames every 50 steps on the chignolin paths
@@ -127,6 +158,16 @@ WATER_REBIN_STEPS = 300          # a stretch of the rebin comparison
 WATER_REBIN_ROUNDS = 3           # stretches of each policy, alternating
 WATER_NVE_STEPS = 500
 SKIN_STEPS = 200
+LARGE_CHECK_COPIES = (6, 6, 5)   # 180 chignolins, 24,840 atoms
+LARGE_COPIES = (8, 8, 7)         # 448 chignolins, 61,824 atoms
+LARGE_TILE = 128
+GB_CUTOFF = 1.5
+LARGE_FIRE = 300
+LARGE_WARM_STEPS = 50
+LARGE_STEPS = 1_000              # the timed stretch through the Newton sweeps (4 ps)
+LARGE_ORDERED_STEPS = 50         # the same run through the ordered culled sweeps
+LARGE_DT_PS = 0.004
+STUDY_PS = 6                     # picoseconds at each time step of --temperature-study
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
 # outside the tensor cores (NVIDIA's data sheet), and the special-function
@@ -141,6 +182,15 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # distance 8 + 2; HCT term 45 + 3; neck 14 + 2; GB f-function 20 + 4;
 # LJ + Coulomb 14-16.
 PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
+# The culled sweeps: every pair of a computed tile block pays the
+# displacement, r^2 and the cutoff test on r^2 (no root: the threshold is
+# exact, pair_force.cutoff_r2); a pair inside the cutoff pays the rest of
+# PAIR_OPS. The Newton sweeps visit each unordered pair once and pay for a
+# pair inside the cutoff the shared terms once, the HCT term per direction
+# (born: a second 45 + 3) and the dE/dB term per side (energy: ~10 more); the
+# force sweep's 174 + 16 already holds both directions.
+CULLED_CANDIDATE_OPS = (10, 0)
+NEWTON_OPS = {"born": (112, 10), "energy": (52, 6), "force": (174, 16)}
 # The periodic sweeps, counted from csrc/periodic_pair.cuh and the two
 # kernels: every ordered candidate pair pays the displacement, r^2, the band
 # and the cutoff test (with the per-axis minimum image in the dense sweep,
@@ -185,20 +235,23 @@ def _ladder(n: int = N_REPLICAS) -> torch.Tensor:
 
 def _reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    from pmarlo_tpu_torch.md import cell_force, fused_md, pair_force, periodic_force
+    from pmarlo_tpu_torch.md import (bonded_window, cell_force, fused_md, pair_force,
+                                     periodic_force)
 
     fused_md.launches = 0
     for counts in (fused_md.variant_launches, pair_force.launches,
-                   periodic_force.launches, cell_force.launches):
+                   periodic_force.launches, cell_force.launches, bonded_window.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _counts() -> dict:
-    from pmarlo_tpu_torch.md import cell_force, fused_md, pair_force, periodic_force
+    from pmarlo_tpu_torch.md import (bonded_window, cell_force, fused_md, pair_force,
+                                     periodic_force)
 
     return {"fused_md_chunk": fused_md.launches, **fused_md.variant_launches,
-            **pair_force.launches, **periodic_force.launches, **cell_force.launches}
+            **pair_force.launches, **periodic_force.launches, **cell_force.launches,
+            **bonded_window.launches}
 
 
 def _bound(flops: float, sfu: float, n_bytes: float) -> dict:
@@ -1597,15 +1650,446 @@ def phase_water_md(water) -> dict:
     return out
 
 
+def _large_system(copies):
+    """A chignolin assembly in GBn2 on the card, without (N, N) tables."""
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.md.forcefield import build_system
+
+    return build_system(chignolin_assembly(copies), gb_model="gbn2", device="cuda",
+                        dense_scales=False)
+
+
+def _pairs_within_gb_cutoff(fn, xs: torch.Tensor, close: torch.Tensor) -> int:
+    """Ordered pairs of the stored positions ``xs (R, N, 3)`` inside the GB
+    cutoff, counted by the ordered plain version's own pair mask."""
+    return int(sum(float(one.sum()) for *_, one in fn._blocks(xs, close)))
+
+
+def _culled_bound(tag: str, newton: bool, visited: float, within: float, R: int,
+                  N: int) -> dict:
+    """Bound of one culled sweep: ``visited`` ordered pairs in computed tile
+    blocks, ``within`` of them inside the cutoff (the Newton sweeps take
+    half of each); positions, five per-atom rows, class and index rows, Born
+    radii and chain coefficients in, one to three rows out."""
+    flops, sfu = NEWTON_OPS[tag] if newton else PAIR_OPS[tag]
+    cf, cs = CULLED_CANDIDATE_OPS
+    share = 0.5 if newton else 1.0
+    n_bytes = R * N * (12 + 8 + 12) + 28 * N
+    return _bound(share * (visited * cf + within * (flops - cf)),
+                  share * (visited * cs + within * (sfu - cs)), n_bytes)
+
+
+def _visited_within(fo, xs: torch.Tensor, close: torch.Tensor):
+    """Ordered pairs in the tile blocks that ``close`` keeps, and those of
+    them inside the cutoff, at the stored positions ``xs (1, N, 3)``."""
+    N = xs.shape[1]
+    sizes = torch.full((fo.n_tiles,), float(fo.tile), device="cuda")
+    sizes[-1] = N - (fo.n_tiles - 1) * fo.tile
+    visited = float((close[0].double() * sizes[:, None] * sizes[None, :]).sum())
+    return visited, _pairs_within_gb_cutoff(fo, xs, close)
+
+
+def _sweeps_vs_plain(out: dict, prefix: str, fn, x: torch.Tensor, max_abs: bool):
+    """Each of ``fn``'s three sweeps, and the whole evaluation, against its
+    plain version at the positions ``x (R, N, 3)``: I, e_rows, dE/dB and the
+    total energy to 1e-5 relative, forces to 1e-4 of max |F|. Returns the
+    Born radii and chain coefficients (for the timed sweeps)."""
+    xs = fn.to_storage(x)
+    Ip, Ik = fn.born_reference(xs), fn.born(xs)
+    B, dB = fn.born_radii(Ip)
+    (ep, dp), (ek, dk) = fn.energy_rows_reference(xs, B), fn.energy_rows(xs, B)
+    _, c = fn.gb_terms(B, dB, dp)
+    Fp, Fk = fn.pair_forces_reference(xs, B, c), fn.pair_forces(xs, B, c)
+    Ek, Gk = fn(x)
+    Ep, Gp = fn.reference(x)
+    torch.cuda.synchronize()
+    errs = {
+        "born_rel_err": _rel(Ik, Ip), "e_rows_rel_err": _rel(ek, ep),
+        "dEdB_rel_err": _rel(dk, dp), "force_rel_err": _rel(Fk, Fp),
+        "total_energy_rel_err": _rel(Ek, Ep), "total_force_rel_err": _rel(Gk, Gp),
+    }
+    for key, err in errs.items():
+        out[f"{prefix}_{key}"] = err
+        _check(err <= (1e-4 if "force" in key else 1e-5), f"{prefix} {key} {err}")
+    _check(bool(torch.isfinite(Gk).all()), f"{prefix} forces finite")
+    if max_abs:
+        out[f"{prefix}_born_max_abs_err"] = float((Ik - Ip).abs().max())
+        out[f"{prefix}_dEdB_max_abs_err"] = float((dk - dp).abs().max())
+        out[f"{prefix}_force_max_abs_err"] = float((Fk - Fp).abs().max())
+    return B, c
+
+
+def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, visited, within) -> None:
+    """ms of each sweep of ``fn`` and of its plain version at the stored
+    positions ``xs (1, N, 3)``, beside the bound from this run's pairs."""
+    for tag, kernel, plain in (
+        ("born", lambda: fn.born(xs, close), lambda: fn.born_reference(xs, close)),
+        ("energy", lambda: fn.energy_rows(xs, B, close),
+         lambda: fn.energy_rows_reference(xs, B, close)),
+        ("force", lambda: fn.pair_forces(xs, B, c, close),
+         lambda: fn.pair_forces_reference(xs, B, c, close)),
+    ):
+        out[f"{mode}_{tag}_ms"] = _cuda_ms(kernel, 20)
+        out[f"{mode}_{tag}_plain_ms"] = _cuda_ms(plain, 1)
+        bound = _culled_bound(tag, mode == "newton", visited, within, 1, xs.shape[1])
+        out[f"{mode}_{tag}_bound_ms"] = bound["bound_ms"]
+        out[f"{mode}_{tag}_bound_by"] = bound["bound_by"]
+
+
+def _bonded_bound(system, fn) -> dict:
+    """Bound of one bonded call, a gather pass: positions, the term tables
+    and the incidence lists in, the gradient and the energy partials out;
+    ~100 flops an incidence."""
+    N = system.n_atoms
+    inc = int(fn._csr_ent.shape[0])
+    n_bytes = (N * 12 + 16 * int(system.bond_idx.shape[0])
+               + 20 * int(system.angle_idx.shape[0])
+               + 28 * int(system.torsion_idx.shape[0]) + 8 * inc + 4 * (N + 1) + N * 12)
+    return _bound(100.0 * inc, 4.0 * inc, n_bytes)
+
+
+def phase_large_kernels() -> dict:
+    """The culled and Newton pair kernels against their plain versions,
+    against each other and against the dense kernels, N=24,840."""
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+
+    t0 = time.perf_counter()
+    system, x0 = _large_system(LARGE_CHECK_COPIES)
+    N = system.n_atoms
+    out = {"atoms": N, "tile": LARGE_TILE, "gb_cutoff": GB_CUTOFF,
+           "system_build_s": time.perf_counter() - t0}
+    cut = dict(tile=LARGE_TILE, gb_cutoff=GB_CUTOFF)
+    fns = {"culled": build_pair_force_fn(system, order_from=x0, newton=False, **cut),
+           "newton": build_pair_force_fn(system, order_from=x0, newton=True, **cut)}
+    x_min, _ = minimize_energy(system, x0, force_fn=fns["newton"], max_iterations=100)
+    x1 = _noisy(x_min, 1, seed=21)
+    x3 = _noisy(x_min, 3, seed=22)
+    fo = fns["culled"]
+    xs = fo.to_storage(x1)
+    close = fo.close_tiles(xs)
+    visited, within = _visited_within(fo, xs, close)
+    out.update({
+        "tile_blocks": fo.n_tiles ** 2,
+        "tile_blocks_computed": int(close.sum()),
+        "tile_block_share": float(close.float().mean()),
+        "pairs_visited_share": visited / (N * N),
+        "pairs_within_cutoff": within,
+        "pairs_within_share_of_visited": within / visited,
+    })
+
+    for mode, fn in fns.items():
+        B1, c1 = _sweeps_vs_plain(out, f"{mode}_r1", fn, x1, max_abs=True)
+        _sweeps_vs_plain(out, f"{mode}_r3", fn, x3, max_abs=False)
+
+    # the Newton sweeps against the ordered ones, and against themselves:
+    # their sums are atomic, so two runs differ in the last bits
+    Eo, Go = fns["culled"](x3)
+    En, Gn = fns["newton"](x3)
+    En2, Gn2 = fns["newton"](x3)
+    _gate(out, "newton_vs_ordered", En, Gn, Eo, Go)
+    out["newton_run_to_run_force_rel"] = _rel(Gn2, Gn)
+    out["newton_run_to_run_energy_rel"] = _rel(En2.double(), En.double())
+    _check(out["newton_run_to_run_force_rel"] <= 1e-4, "Newton forces run to run")
+    _check(out["newton_run_to_run_energy_rel"] <= 1e-5, "Newton energy run to run")
+    # the ordered sweeps are row-owned: the same bits from a second launch
+    xs3 = fo.to_storage(x3)
+    B3, dB3 = fo.born_radii(fo.born(xs3))
+    _, c3 = fo.gb_terms(B3, dB3, fo.energy_rows(xs3, B3)[1])
+    again = all(torch.equal(a, b) for a, b in (
+        (fo.born(xs3), fo.born(xs3)),
+        (fo.energy_rows(xs3, B3)[0], fo.energy_rows(xs3, B3)[0]),
+        (fo.pair_forces(xs3, B3, c3), fo.pair_forces(xs3, B3, c3))))
+    _check(again, "ordered culled sweeps reproducible")
+
+    # a cutoff beyond every pair is the dense physics: against the dense kernels
+    dense = build_pair_force_fn(system)
+    Ed, Gd = dense(x1)
+    for mode, newton in (("culled", False), ("newton", True)):
+        Eh, Gh = build_pair_force_fn(system, tile=LARGE_TILE, gb_cutoff=50.0,
+                                     newton=newton)(x1)
+        _gate(out, f"{mode}_huge_cutoff_vs_dense", Eh, Gh, Ed, Gd)
+    # Morton order is a layout: identity order gives the same numbers, more blocks
+    ident = build_pair_force_fn(system, newton=False, **cut)
+    Ei, Gi = ident(x1)
+    E1, G1 = fns["culled"](x1)
+    _gate(out, "morton_vs_identity", E1, G1, Ei, Gi)
+    out["identity_tile_block_share"] = float(ident.close_tiles(x1).float().mean())
+
+    out["tile_table_ms"] = _cuda_ms(lambda: fo.close_tiles(xs), 20)
+    for mode, fn in fns.items():
+        _time_sweeps(out, mode, fn, xs, B1, c1, close, visited, within)
+        out[f"{mode}_eval_ms"] = _cuda_ms(lambda: fn(x1), 10)
+    # the dense kernels at the same N (their own Born radii: other physics, same work)
+    Bd, dBd = dense.born_radii(dense.born(x1))
+    _, cd = dense.gb_terms(Bd, dBd, dense.energy_rows(x1, Bd)[1])
+    out["dense_born_ms"] = _cuda_ms(lambda: dense.born(x1), 5)
+    out["dense_energy_ms"] = _cuda_ms(lambda: dense.energy_rows(x1, Bd), 5)
+    out["dense_force_ms"] = _cuda_ms(lambda: dense.pair_forces(x1, Bd, cd), 5)
+    out["dense_eval_ms"] = _cuda_ms(lambda: dense(x1), 5)
+    _line("phase 15 large kernels", out)
+    out["system"], out["x_min"] = system, x_min
+    return out
+
+
+def phase_bonded(large: dict) -> dict:
+    """``csrc/bonded.cu`` against its plain version and float64 autograd."""
+    from pmarlo_tpu_torch.md.bonded_window import build_bonded_window
+    from pmarlo_tpu_torch.md.forces import angle_energy, bond_energy, torsion_energy
+
+    system, x_min = large["system"], large["x_min"]
+    N = system.n_atoms
+    fn = build_bonded_window(system)
+    out = {"atoms": N, "bonds": int(system.bond_idx.shape[0]),
+           "angles": int(system.angle_idx.shape[0]),
+           "torsions": int(system.torsion_idx.shape[0]),
+           "incidences": int(fn._csr_ent.shape[0]), "far_terms": fn.far_terms}
+    f64 = torch.float64
+    for tag, x in (("r1", _noisy(x_min, 1, seed=23, sigma=0.01)),
+                   ("r3", _noisy(x_min, 3, seed=24, sigma=0.01))):
+        e, g = fn(x, energy_dtype=f64)
+        ep, gp = fn.reference(x, energy_dtype=f64)
+        s64 = dataclasses.replace(system, **{
+            f.name: getattr(system, f.name).double() for f in dataclasses.fields(system)
+            if isinstance(getattr(system, f.name), torch.Tensor)
+            and getattr(system, f.name).is_floating_point()})
+        y = x.double().requires_grad_(True)
+        ea = bond_energy(s64, y) + angle_energy(s64, y) + torsion_energy(s64, y)
+        (ga,) = torch.autograd.grad(ea.sum(), y)
+        e2, g2 = fn(x, energy_dtype=f64)
+        torch.cuda.synchronize()
+        _gate(out, f"{tag}_vs_plain", e, g, ep, gp)
+        _gate(out, f"{tag}_vs_autograd", e, g, ea.detach(), ga)
+        _check(torch.equal(e, e2) and torch.equal(g, g2), "bonded kernel reproducible")
+        if tag == "r1":
+            out["grad_max_abs_err"] = float((g - gp).abs().max())
+            x1 = x
+    out["bonded_ms"] = _cuda_ms(lambda: fn(x1), 50)
+    out["bonded_plain_ms"] = _cuda_ms(lambda: fn.reference(x1), 5)
+    out.update(_bonded_bound(system, fn))
+    _line("phase 16 bonded", out)
+    return out
+
+
+def phase_large_path() -> dict:
+    """The large implicit-solvent path at full width, 61,824 atoms.
+
+    The temperature gate is not on ``run_md``'s reported kinetic/target
+    ratio over the second half (printed as
+    ``reported_kinetic_over_target_second_half``; it reads ~0.88 at 4 fs and
+    stays there) but on the state's mid-step velocities at 3.2 and 4.2 ps
+    (``kinetic_over_target_state_by_ps``), in [0.9, 1.1]: the reported
+    velocities carry the trailing half kick, and that on-step kinetic energy
+    is low by a share that grows as dt^2 (``temperature_study`` measures it).
+    """
+    from pmarlo_tpu_torch.md.constraints import (build_h_constraints, constraint_violation,
+                                                 strip_constrained_bonded)
+    from pmarlo_tpu_torch.md.integrate import instantaneous_temperature, run_md, thermalize
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn, kernel_name
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    system, x0 = _large_system(LARGE_COPIES)
+    t1 = time.perf_counter()
+    cut = dict(tile=LARGE_TILE, gb_cutoff=GB_CUTOFF, order_from=x0)
+    fn = build_pair_force_fn(system, **cut)
+    spec = build_h_constraints(system)
+    md_system = strip_constrained_bonded(system)
+    fn_md = build_pair_force_fn(md_system, **cut)
+    t2 = time.perf_counter()
+    _check(fn.mode == fn_md.mode == "newton" and fn.bonded == fn_md.bonded == "window",
+           "the large path defaults to the Newton sweeps and the bonded kernel")
+    N = system.n_atoms
+    out = {"atoms": N, "constraints": spec.n_constraints, "dt_ps": LARGE_DT_PS,
+           "tiles": fn.n_tiles, "system_build_s": t1 - t0, "force_fn_build_s": t2 - t1}
+    x_min, e_min = minimize_energy(system, x0, force_fn=fn, max_iterations=LARGE_FIRE)
+    torch.cuda.synchronize()
+    out["minimize_s"] = time.perf_counter() - t2
+    out["energy_start_kj_mol"] = float(fn(x0)[0])
+    out["energy_minimized_kj_mol"] = float(e_min)
+    close = fn.close_tiles(fn.to_storage(x_min[None]))
+    out["tile_block_share"] = float(close.float().mean())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    kw = dict(dt=LARGE_DT_PS, friction=1.0, temperature_K=300.0, constraints=spec)
+    state = thermalize(system, x_min, gen, 300.0)
+    state, _ = run_md(system, state, n_steps=LARGE_WARM_STEPS, force_fn=fn_md,
+                      report_interval=LARGE_WARM_STEPS, **kw)
+    # the timed stretch in four segments: run_md reports temperatures from
+    # velocities shifted by the trailing half kick, which at 4 fs read ~10%
+    # low (the on-step kinetic energy of a BAOAB step is low by (w dt)^2 / 4 a
+    # mode); the state's own mid-step velocities, read at each segment's end,
+    # are the thermostat's temperature, as ReplicaExchange.run reports it
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    segments, state_ratio = [], []
+    for _ in range(4):
+        state, seg = run_md(system, state, n_steps=LARGE_STEPS // 4, force_fn=fn_md,
+                            report_interval=50, **kw)
+        segments.append(seg)
+        state_ratio.append(float(instantaneous_temperature(
+            system, state.velocities, spec.n_constraints) / 300.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    frames = {k: torch.cat([seg[k] for seg in segments]) for k in segments[0]}
+    counts = _counts()
+    half = frames["temperature"].shape[0] // 2
+    out.update({
+        "steps": LARGE_STEPS,
+        "ms_per_step": wall / LARGE_STEPS * 1e3,
+        "ns_per_day": LARGE_STEPS * LARGE_DT_PS * 1e-3 * 86_400.0 / wall,
+        "reported_kinetic_over_target_second_half": float(
+            frames["temperature"][half:].mean() / 300.0),
+        "kinetic_over_target_state_by_ps": state_ratio,
+        "reported_kinetic_over_target_frames": [float(t / 300.0)
+                                                for t in frames["temperature"]],
+        "max_constraint_deviation_nm": float(constraint_violation(spec, frames["positions"])),
+        "frames_finite": bool(torch.isfinite(frames["positions"]).all()),
+        "launches": {k: v for k, v in counts.items() if v},
+    })
+    # one evaluation a FIRE iteration, the minimizer's final energy and the
+    # start energy above; one a step and one a report
+    evals = (LARGE_FIRE + 2 + LARGE_WARM_STEPS + 1 + LARGE_STEPS + LARGE_STEPS // 50)
+    newton = [kernel_name(s, "newton") for s in ("born", "energy", "force")]
+    _check(all(counts[k] == evals for k in newton) and counts["bonded"] == evals,
+           f"large-path launches {out['launches']}, expected {evals} of each")
+    _check(set(out["launches"]) == set(newton) | {"bonded"},
+           f"the large path launched other kernels: {out['launches']}")
+    _check(out["frames_finite"], "large-path frames finite")
+    _check(bool(torch.isfinite(frames["potential_energy"]).all()), "large-path energies finite")
+    _check(out["max_constraint_deviation_nm"] <= 1e-4,
+           f"large-path constraint deviation {out['max_constraint_deviation_nm']}")
+    out["eval_ms"] = _cuda_ms(lambda: fn_md(state.positions), 10)
+
+    # the same run through the ordered culled sweeps
+    fn_ord = build_pair_force_fn(md_system, newton=False, **cut)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t4 = time.perf_counter()
+    state_o, frames_o = run_md(system, state, n_steps=LARGE_ORDERED_STEPS, force_fn=fn_ord,
+                               report_interval=LARGE_ORDERED_STEPS, **kw)
+    torch.cuda.synchronize()
+    out["ordered_ms_per_step"] = (time.perf_counter() - t4) / LARGE_ORDERED_STEPS * 1e3
+    counts_o = _counts()
+    out["ordered_launches"] = {k: v for k, v in counts_o.items() if v}
+    culled = [kernel_name(s, "culled") for s in ("born", "energy", "force")]
+    _check(all(counts_o[k] == LARGE_ORDERED_STEPS + 1 for k in culled)
+           and set(out["ordered_launches"]) == set(culled) | {"bonded"},
+           f"ordered-path launches {out['ordered_launches']}")
+    _check(bool(torch.isfinite(frames_o["positions"]).all()), "ordered-path frames finite")
+    out["ordered_eval_ms"] = _cuda_ms(lambda: fn_ord(state.positions), 10)
+    e_n, f_n = fn_md(state.positions)
+    e_o, f_o = fn_ord(state.positions)
+    _gate(out, "newton_vs_ordered", e_n, f_n, e_o, f_o)
+    out["peak_device_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # every kernel of the path against its plain version at the path's own
+    # shapes (both counts are read: these launches are not the path's): the
+    # stripped system, 483 full tiles, the positions the run arrived at
+    x_end = state.positions.reshape(1, N, 3)
+    xs = fn_ord.to_storage(x_end)
+    close = fn_ord.close_tiles(xs)
+    visited, within = _visited_within(fn_ord, xs, close)
+    out.update({"end_tile_block_share": float(close.float().mean()),
+                "end_pairs_within_cutoff": within,
+                "end_pairs_within_share_of_visited": within / visited})
+    for mode, f in (("newton", fn_md), ("culled", fn_ord)):
+        B, c = _sweeps_vs_plain(out, mode, f, x_end, max_abs=True)
+        _time_sweeps(out, mode, f, xs, B, c, close, visited, within)
+    out["tile_table_ms"] = _cuda_ms(lambda: fn_ord.close_tiles(xs), 20)
+    bonded = fn_md._bonded_kernel
+    e_b, g_b = bonded(x_end, energy_dtype=torch.float64)
+    e_p, g_p = bonded.reference(x_end, energy_dtype=torch.float64)
+    _gate(out, "bonded_vs_plain", e_b, g_b, e_p, g_p)
+    out["bonded_incidences"] = int(bonded._csr_ent.shape[0])
+    out["bonded_grad_max_abs_err"] = float((g_b - g_p).abs().max())
+    out["bonded_ms"] = _cuda_ms(lambda: bonded(x_end), 50)
+    out["bonded_plain_ms"] = _cuda_ms(lambda: bonded.reference(x_end), 5)
+    bound = _bonded_bound(md_system, bonded)
+    out["bonded_bound_ms"], out["bonded_bound_by"] = bound["bound_ms"], bound["bound_by"]
+    out["peak_device_memory_with_plain_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _line("phase 17 large path", out)
+    # thermalized at a minimum, half the kinetic energy goes into the potential
+    # within ~0.1 ps and the thermostat (1/ps) brings it back over picoseconds:
+    # the gate is on the state's temperature 3.2 and 4.2 ps in
+    late = 0.5 * (state_ratio[2] + state_ratio[3])
+    _check(0.9 <= late <= 1.1, f"large-path kinetic/target {state_ratio}")
+    return out
+
+
+def temperature_study() -> dict:
+    """``python3 chip_smoke.py --temperature-study``: the two temperatures of
+    the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
+    minimized start and one seed, by picosecond: ``run_md``'s reported
+    kinetic/target ratio (velocities after the trailing half kick, mean of a
+    picosecond's frames) and the state's mid-step ratio at the picosecond's
+    end. If the reported deficit is a discretisation error of order
+    (w dt)^2 / 4 a mode it falls about fourfold from 4 fs to 2 fs while the
+    mid-step ratio stays at 1. A measurement: nothing is gated."""
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, strip_constrained_bonded
+    from pmarlo_tpu_torch.md.integrate import instantaneous_temperature, run_md, thermalize
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+
+    system, x0 = _large_system(LARGE_COPIES)
+    cut = dict(tile=LARGE_TILE, gb_cutoff=GB_CUTOFF, order_from=x0)
+    spec = build_h_constraints(system)
+    fn_md = build_pair_force_fn(strip_constrained_bonded(system), **cut)
+    x_min, _ = minimize_energy(system, x0, force_fn=build_pair_force_fn(system, **cut),
+                               max_iterations=LARGE_FIRE)
+    out = {"atoms": system.n_atoms, "ps": STUDY_PS}
+    for dt in (0.004, 0.002):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(17)
+        state = thermalize(system, x_min, gen, 300.0)
+        reported, mid = [], []
+        per_ps = round(1.0 / dt)
+        for _ in range(STUDY_PS):
+            state, seg = run_md(system, state, n_steps=per_ps, force_fn=fn_md,
+                                report_interval=per_ps // 10, dt=dt, friction=1.0,
+                                temperature_K=300.0, constraints=spec)
+            reported.append(float(seg["temperature"].mean() / 300.0))
+            mid.append(float(instantaneous_temperature(
+                system, state.velocities, spec.n_constraints) / 300.0))
+        _check(bool(torch.isfinite(state.positions).all()), f"dt={dt} positions finite")
+        tag = f"dt_{round(dt * 1e3)}fs"
+        out[f"{tag}_reported_by_ps"] = reported
+        out[f"{tag}_mid_step_by_ps"] = mid
+        out[f"{tag}_reported_deficit_last_2ps"] = 1.0 - 0.5 * (reported[-1] + reported[-2])
+        out[f"{tag}_mid_step_last_2ps"] = 0.5 * (mid[-1] + mid[-2])
+    out["deficit_ratio_4fs_over_2fs"] = (out["dt_4fs_reported_deficit_last_2ps"]
+                                         / out["dt_2fs_reported_deficit_last_2ps"])
+    _line("temperature study", out)
+    return out
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch sees none")
     import pmarlo_tpu_torch  # noqa: F401  (pins float32 matmuls)
+    if sys.argv[1:] == ["--temperature-study"]:
+        temperature_study()
+        print(_card())
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}")
     from pmarlo_tpu_torch.data import alanine_dipeptide_structure
     from pmarlo_tpu_torch.md.forcefield import build_system
     from pmarlo_tpu_torch.md.minimize import minimize_energy
 
-    phase_build()
+    t_start = time.perf_counter()
+    build = phase_build()
     system, positions = build_system(
         alanine_dipeptide_structure(), gb_model="gbn2", device="cuda"
     )
@@ -1636,13 +2120,13 @@ def main() -> None:
     cells = phase_cells(periodic, water)
     explicit = phase_explicit_remd()
     water_md = phase_water_md(water)
+    del water
 
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi)
+    large = phase_large_kernels()
+    bonded = phase_bonded(large)
+    large_path = phase_large_path()
+
+    print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
     Nc, M = cx["system"].n_atoms, len(cx["quads"])
     widths = bias["widths"]
@@ -1742,6 +2226,56 @@ def main() -> None:
         "timed": f"one sweep, R=1, N={Nw}",
         "bound_ms": cells["water_r1_bound_ms"], "bound_by": cells["water_r1_bound_by"],
     }]
+    Nl = large_path["atoms"]
+    for mode, lines, path_counts in (
+        ("culled", (984, 1009, 1039), large_path["ordered_launches"]),
+        ("newton", (1442, 1461, 1479), large_path["launches"]),
+    ):
+        for (tag, err), line in zip((("born", "born_max_abs_err"),
+                                     ("energy", "dEdB_max_abs_err"),
+                                     ("force", "force_max_abs_err")), lines):
+            name = f"pair_{tag}_{mode}"
+            kernels.append({
+                "name": name, **cuda,
+                "source": ("pmarlo_tpu_torch/csrc/pair_newton.cu" if mode == "newton"
+                           else "pmarlo_tpu_torch/csrc/pair_force.cu"),
+                "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
+                "launches": path_counts[name],
+                "max_abs_err": large_path[f"{mode}_{err}"],
+                "ms": large_path[f"{mode}_{tag}_ms"],
+                "plain_ms": large_path[f"{mode}_{tag}_plain_ms"],
+                "timed": f"one sweep, R=1, N={Nl}, cutoff {GB_CUTOFF} nm, tile {LARGE_TILE}",
+                "bound_ms": large_path[f"{mode}_{tag}_bound_ms"],
+                "bound_by": large_path[f"{mode}_{tag}_bound_by"],
+            })
+    kernels.append({
+        "name": "bonded", **cuda,
+        "source": "pmarlo_tpu_torch/csrc/bonded.cu",
+        "replaces": "pmarlo_tpu/md/bonded_window.py:350",
+        "launches": large_path["launches"]["bonded"] + large_path["ordered_launches"]["bonded"],
+        "max_abs_err": large_path["bonded_grad_max_abs_err"],
+        "ms": large_path["bonded_ms"],
+        "plain_ms": large_path["bonded_plain_ms"],
+        "timed": f"one call, R=1, N={Nl}, hydrogen bonds stripped",
+        "bound_ms": large_path["bonded_bound_ms"], "bound_by": large_path["bonded_bound_by"],
+    })
+    # the headline numbers again, close to the end of the output
+    _line("summary", {
+        "build_s": build["build_s"],
+        "large_kernels": {k: large[k] for k in (
+            "atoms", "tile_block_share", "pairs_within_share_of_visited", "tile_table_ms",
+            "culled_eval_ms", "newton_eval_ms", "dense_eval_ms", "dense_born_ms",
+            "dense_energy_ms", "dense_force_ms")},
+        "bonded": {k: bonded[k] for k in ("atoms", "incidences", "bonded_ms",
+                                          "bonded_plain_ms", "bound_ms")},
+        "large_path": {k: large_path[k] for k in (
+            "atoms", "system_build_s", "force_fn_build_s", "minimize_s", "tile_block_share",
+            "ms_per_step", "ns_per_day", "eval_ms", "ordered_ms_per_step", "ordered_eval_ms",
+            "reported_kinetic_over_target_second_half", "kinetic_over_target_state_by_ps",
+            "max_constraint_deviation_nm", "peak_device_memory_gib",
+            "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},
+        "script_s": time.perf_counter() - t_start,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bonded_terms.cuh"
 #include "gb_pair.cuh"
 
 namespace cg = cooperative_groups;
@@ -88,7 +89,6 @@ constexpr uint32_t kSwapKey = 0x53574150u;
 enum AtomRow { kInvM = 0, kQ, kRho, kSr, kRadii, kAlpha, kBeta, kGamma, kSa, kAtomRows };
 // (N, N) tables of the pair parameter block
 enum PairTable { kLjA = 0, kLjB, kQqScaled, kQqFull, kNeckD0, kNeckM0, kPairTables };
-enum TermType { kBond = 0, kAngle = 1, kTorsion = 2 };
 
 struct Args {
   float* x;                 // (R, N, 3) in/out
@@ -99,12 +99,7 @@ struct Args {
   const float* kT;          // (R,) kB * T per replica
   const float* atom_p;      // (kAtomRows, N)
   const float* pair_p;      // (kPairTables, N, N)
-  const int* bond_i;        // (NB, 2)
-  const float* bond_p;      // (NB, 2): k, r0
-  const int* angle_i;       // (NA, 3)
-  const float* angle_p;     // (NA, 2): k, theta0
-  const int* tors_i;        // (NT, 4)
-  const float* tors_p;      // (NT, 3): k, n, phase
+  BondedTables bonded;      // bond, angle and torsion terms
   const int* csr_ptr;       // (N + 1,)
   const int* csr_ent;       // (M, 2): (type << 2 | role, term)
   int n;
@@ -204,107 +199,6 @@ __device__ __forceinline__ void gaussian3(uint32_t seed, uint32_t replica,
   z[0] = ra * cosf(ta);
   z[1] = ra * sinf(ta);
   z[2] = rb * cosf(tb);
-}
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-__device__ __forceinline__ void cross3(const float a[3], const float b[3], float c[3]) {
-  c[0] = a[1] * b[2] - a[2] * b[1];
-  c[1] = a[2] * b[0] - a[0] * b[2];
-  c[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ void load3(const float* sx, int atom, float p[3]) {
-  p[0] = sx[3 * atom];
-  p[1] = sx[3 * atom + 1];
-  p[2] = sx[3 * atom + 2];
-}
-
-// force on the atom in `role` of bonded term `term`; energy when role == 0
-__device__ void bonded_term(const Args& a, const float* sx, int type, int role, int term,
-                            float f[3], float* e) {
-  if (type == kBond) {
-    float p1[3], p2[3], d[3];
-    load3(sx, a.bond_i[2 * term], p1);
-    load3(sx, a.bond_i[2 * term + 1], p2);
-    for (int c = 0; c < 3; ++c) d[c] = p1[c] - p2[c];
-    const float k = a.bond_p[2 * term], r0 = a.bond_p[2 * term + 1];
-    const float r = sqrtf(dot3(d, d) + kEps);
-    const float dr = r - r0;
-    const float s = (role == 0 ? -1.0f : 1.0f) * k * dr / r;
-    for (int c = 0; c < 3; ++c) f[c] += s * d[c];
-    if (role == 0) *e += 0.5f * k * dr * dr;
-  } else if (type == kAngle) {
-    float pi[3], pj[3], pk[3], u[3], w[3];
-    load3(sx, a.angle_i[3 * term], pi);
-    load3(sx, a.angle_i[3 * term + 1], pj);
-    load3(sx, a.angle_i[3 * term + 2], pk);
-    for (int c = 0; c < 3; ++c) {
-      u[c] = pi[c] - pj[c];
-      w[c] = pk[c] - pj[c];
-    }
-    const float k = a.angle_p[2 * term], t0 = a.angle_p[2 * term + 1];
-    const float lu = sqrtf(dot3(u, u) + kEps);
-    const float lw = sqrtf(dot3(w, w) + kEps);
-    float nu[3], nw[3];
-    for (int c = 0; c < 3; ++c) {
-      nu[c] = u[c] / lu;
-      nw[c] = w[c] / lw;
-    }
-    const float cos_t = fminf(fmaxf(dot3(nu, nw), -1.0f + 1e-7f), 1.0f - 1e-7f);
-    const float theta = acosf(cos_t);
-    const float sin_t = sqrtf(1.0f - cos_t * cos_t);
-    const float dE = k * (theta - t0);
-    float fi[3], fk[3];
-    for (int c = 0; c < 3; ++c) {
-      fi[c] = -dE * (cos_t * nu[c] - nw[c]) / (lu * sin_t);
-      fk[c] = -dE * (cos_t * nw[c] - nu[c]) / (lw * sin_t);
-    }
-    for (int c = 0; c < 3; ++c) {
-      f[c] += role == 0 ? fi[c] : (role == 2 ? fk[c] : -(fi[c] + fk[c]));
-    }
-    if (role == 0) *e += 0.5f * k * (theta - t0) * (theta - t0);
-  } else {
-    float x1[3], x2[3], x3[3], x4[3], b1[3], b2[3], b3[3], m[3], n[3], mn[3];
-    load3(sx, a.tors_i[4 * term], x1);
-    load3(sx, a.tors_i[4 * term + 1], x2);
-    load3(sx, a.tors_i[4 * term + 2], x3);
-    load3(sx, a.tors_i[4 * term + 3], x4);
-    for (int c = 0; c < 3; ++c) {
-      b1[c] = x2[c] - x1[c];
-      b2[c] = x3[c] - x2[c];
-      b3[c] = x4[c] - x3[c];
-    }
-    cross3(b1, b2, m);
-    cross3(b2, b3, n);
-    const float lb2 = sqrtf(dot3(b2, b2) + kEps);
-    const float m2 = dot3(m, m) + kEps;
-    const float n2 = dot3(n, n) + kEps;
-    // IUPAC sign: phi = atan2((m x n) . b2 / |b2|, m . n)
-    cross3(m, n, mn);
-    const float yy = dot3(mn, b2) / lb2;
-    const float xx = dot3(m, n);
-    const float phi = atan2f(yy, xx);
-    const float k = a.tors_p[3 * term], per = a.tors_p[3 * term + 1];
-    const float phase = a.tors_p[3 * term + 2];
-    const float arg = per * phi - phase;
-    const float dE = -k * per * sinf(arg);
-    const float s12 = dot3(b1, b2) / (lb2 * lb2);
-    const float s32 = dot3(b3, b2) / (lb2 * lb2);
-    for (int c = 0; c < 3; ++c) {
-      const float d1 = -(lb2 / m2) * m[c];
-      const float d4 = (lb2 / n2) * n[c];
-      float d;
-      if (role == 0) d = d1;
-      else if (role == 1) d = -(1.0f + s12) * d1 + s32 * d4;
-      else if (role == 2) d = s12 * d1 - (1.0f + s32) * d4;
-      else d = d4;
-      f[c] += -dE * d;
-    }
-    if (role == 0) *e += k * (1.0f + cosf(arg));
-  }
 }
 
 // Sum of `v` over the block, the same value in every thread. Fixed order
@@ -695,7 +589,7 @@ __device__ void compute_forces(const Args& a, const float* sx, float* sB, float*
     energy += 0.5f * e_nb;
     for (int q = a.csr_ptr[i]; q < a.csr_ptr[i + 1]; ++q) {
       const int code = a.csr_ent[2 * q];
-      bonded_term(a, sx, code >> 2, code & 3, a.csr_ent[2 * q + 1], f, &energy);
+      bonded_term(a.bonded, sx, code >> 2, code & 3, a.csr_ent[2 * q + 1], f, &energy);
     }
     if (kBias) {
       for (int q = a.dih_ptr[i]; q < a.dih_ptr[i + 1]; ++q) {
@@ -1026,12 +920,12 @@ int pmarlo_fused_md_launch(int mode, void* const* ptr, const int* iv, const floa
   a.kT = static_cast<const float*>(ptr[kPKT]);
   a.atom_p = static_cast<const float*>(ptr[kPAtomP]);
   a.pair_p = static_cast<const float*>(ptr[kPPairP]);
-  a.bond_i = static_cast<const int*>(ptr[kPBondI]);
-  a.bond_p = static_cast<const float*>(ptr[kPBondP]);
-  a.angle_i = static_cast<const int*>(ptr[kPAngleI]);
-  a.angle_p = static_cast<const float*>(ptr[kPAngleP]);
-  a.tors_i = static_cast<const int*>(ptr[kPTorsI]);
-  a.tors_p = static_cast<const float*>(ptr[kPTorsP]);
+  a.bonded.bond_i = static_cast<const int*>(ptr[kPBondI]);
+  a.bonded.bond_p = static_cast<const float*>(ptr[kPBondP]);
+  a.bonded.angle_i = static_cast<const int*>(ptr[kPAngleI]);
+  a.bonded.angle_p = static_cast<const float*>(ptr[kPAngleP]);
+  a.bonded.tors_i = static_cast<const int*>(ptr[kPTorsI]);
+  a.bonded.tors_p = static_cast<const float*>(ptr[kPTorsP]);
   a.csr_ptr = static_cast<const int*>(ptr[kPCsrPtr]);
   a.csr_ent = static_cast<const int*>(ptr[kPCsrEnt]);
   a.n = n_atoms;

@@ -7,6 +7,8 @@
 // md/periodic_force.py spell out the same expressions).
 #pragma once
 
+#include "pair_r2.cuh"
+
 namespace {
 
 // -2 / sqrt(pi): d erfc(x) / dx = kErfcSlope * exp(-x^2)
@@ -25,15 +27,6 @@ struct PairPhys {
   int ewald;      // 0: reaction field, 1: real-space Ewald
   int use_switch; // 0: shifted LJ, 1: unshifted LJ times the quintic switch
 };
-
-// r^2 of a displacement, each product and sum rounded on its own (no fused
-// multiply-add): (dx dx + dy dy) + dz dz in float32 as plain PyTorch
-// computes it. The potential is only shifted at the cutoff, so its force
-// jumps there (up to ~2 kJ/mol/nm for a pair of water oxygens); with r^2
-// reproducible, the kernel and its plain twin cut the same pairs.
-__device__ __forceinline__ float pair_r2(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
 
 // phys (host memory): rc, ke, k_rf, c_rf, alpha, shift_c, r_sw (a negative
 // r_sw: no switch)

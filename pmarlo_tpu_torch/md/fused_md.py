@@ -45,6 +45,7 @@ from .. import _kernels
 from ..bias.metadynamics import MetadynamicsBias, MetaDState
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 from .analytic import energy_and_forces, make_dense_params
+from .bonded_window import bonded_csr
 from .cv_bias import MAX_CV, MAX_LAYERS, CVBias
 from .integrate import MDState, langevin_step
 from .system import System
@@ -131,20 +132,9 @@ class FusedRemdOutput:
 
 
 def _bonded_csr(system: System) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-atom incidence lists of bonded terms: ``ptr (N+1,)`` and
-    ``entries (M, 2)`` of ``(type << 2 | role, term)``, type 0 bond,
-    1 angle, 2 torsion, role = the atom's position in the term."""
-    per_atom = [[] for _ in range(system.n_atoms)]
-    for ttype, idx in enumerate(
-        (system.bond_idx, system.angle_idx, system.torsion_idx)
-    ):
-        for term, atoms in enumerate(idx.detach().cpu().numpy()):
-            for role, atom in enumerate(atoms):
-                per_atom[int(atom)].append((ttype << 2 | role, term))
-    ptr = np.zeros(system.n_atoms + 1, dtype=np.int32)
-    ptr[1:] = np.cumsum([len(e) for e in per_atom])
-    ent = np.asarray([e for lst in per_atom for e in lst], dtype=np.int32)
-    return ptr, ent.reshape(-1, 2)
+    """``bonded_window.bonded_csr`` of the system's bonded terms."""
+    return bonded_csr(system.bond_idx.cpu().numpy(), system.angle_idx.cpu().numpy(),
+                      system.torsion_idx.cpu().numpy(), system.n_atoms)
 
 
 class FusedChunk:

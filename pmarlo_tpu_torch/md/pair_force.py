@@ -1,10 +1,11 @@
-"""Protein-scale implicit-solvent forces: three GB pair sweeps as CUDA
-kernels, each with its plain PyTorch twin.
+"""Implicit-solvent forces without any (N, N) table: three GB pair sweeps
+as CUDA kernels, each with its plain PyTorch twin.
 
-Port of ``pmarlo_tpu/md/pallas_pair.py build_pair_force_fn``, the dense
-path (``gb_cutoff=None``, ``newton=False``, ``bonded="gather"``): the same
-NoCutoff LJ + Coulomb + GB (OBC2 or GBn2 with neck) + ACE surface term,
-with nothing of size (N, N) stored anywhere. A force evaluation is
+Port of ``pmarlo_tpu/md/pallas_pair.py build_pair_force_fn``: the NoCutoff
+LJ + Coulomb + GB (OBC2 or GBn2 with neck) + ACE surface term of the dense
+path, and with ``gb_cutoff`` the large-assembly path on which every pair
+term is cut at ``r > gb_cutoff`` and whole tile blocks out of range are
+skipped. A force evaluation is
 
 1. ``born``: the Born integral I_i (HCT + GBn2 neck), one pass over pairs;
 2. glue: tanh rescale to Born radii B, with dB/dpsi (zero where 1/B is
@@ -14,13 +15,41 @@ with nothing of size (N, N) stored anywhere. A force evaluation is
 4. glue: self and SA terms, chain coefficients c = dE/dB dB/dpsi rho;
 5. ``pair_forces``: F_i = -sum_j W_ij (x_i - x_j) / r;
 6. the band add-back of the masked exclusions at their wanted scale
-   (``md/cells.py``), and the bonded terms (index gathers, no (N, N)).
+   (``md/cells.py``), and the bonded terms (index gathers, or the bonded
+   kernel of ``md/bonded_window.py`` with ``bonded="window"``).
 
-Sweeps 1, 3 and 5 are ``csrc/pair_force.cu`` on CUDA tensors and their
-twins (``*_reference``, row-chunked so memory stays O(tile * N)) on CPU
-tensors: a CUDA tensor launches the kernel or raises. Steps 2, 4 and 6 are
-plain PyTorch on either device. ``launches`` counts kernel launches by
-kernel name.
+Sweeps 1, 3 and 5 are CUDA kernels on CUDA tensors and their twins
+(``*_reference``, row-chunked so memory stays O(tile * N)) on CPU tensors:
+a CUDA tensor launches the kernel or raises. Three sets of kernels compute
+the same sums:
+
+- dense (``gb_cutoff=None``): ``csrc/pair_force.cu``, every ordered pair;
+- culled (``gb_cutoff``, ``newton=False``): the same kernels, walking only
+  the column tiles within reach of the row tile;
+- Newton (``newton=True``, the default with ``gb_cutoff``):
+  ``csrc/pair_newton.cu``, each unordered tile block once, results to both
+  atoms (atomic adds: the last bits change from run to run).
+
+Steps 2, 4 and 6 are plain PyTorch on either device. ``launches`` counts
+kernel launches by kernel name.
+
+**Tiles.** With ``gb_cutoff`` the atoms are stored in tiles of ``tile``
+atoms, in a Morton order of ``order_from`` when given (a layout only: the
+band mask keys on the caller's atom indices and forces come back in the
+caller's order). On every call ``tile_boxes`` takes each tile's bounding
+box from the live positions and ``tiles_within`` marks the tile pairs whose
+box gap is within the cutoff; kernels and twins read that one table, and a
+skipped block holds no pair within the cutoff, so it contributes an exact
+zero. There is no list of tiles of a fixed width, so the JAX path's list
+overflow (``check_overflow``, its NaN poison) has no counterpart: any
+geometry evaluates.
+
+**The force jumps at the cutoff** (a hard truncation, for thermostatted
+dynamics only, as in the JAX package). A kernel and its twin cut the same
+pairs: both test the float32 ``r^2 = (dx dx + dy dy) + dz dz`` plus 1e-12
+against one float32 threshold from the host (``cutoff_r2``), which decides
+exactly as ``sqrt(r^2 + 1e-12) <= gb_cutoff`` would, without a square root
+for a pair that is cut (``cutoff_pairs``, ``csrc/pair_r2.cuh``).
 
 Pair arithmetic is float32, but the energy is summed in float64 (the
 energy rows, the self/SA, correction and bonded sums) and the Born sums
@@ -41,15 +70,27 @@ import torch
 from .. import _kernels
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
 from .analytic import bonded_energy_and_forces, make_bonded_params
+from .bonded_window import build_bonded_window
 from .cells import ExclusionBand
 from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
 from .system import System, require_no_vsites
 
 _EPS = 1e-12
 
+_SWEEPS = ("born", "energy", "force")
+_MODES = ("dense", "culled", "newton")
+
+
+def kernel_name(sweep: str, mode: str) -> str:
+    """The launch counter of one sweep in one mode: ``pair_born``,
+    ``pair_born_culled``, ``pair_born_newton``, ..."""
+    return f"pair_{sweep}" if mode == "dense" else f"pair_{sweep}_{mode}"
+
+
 #: kernel launches made by this process, by kernel (chip_smoke.py resets
-#: and reads them); one force evaluation on the card launches each once
-launches = {"pair_born": 0, "pair_energy": 0, "pair_force": 0}
+#: and reads them); one force evaluation on the card launches the three
+#: sweeps of its mode once each
+launches = {kernel_name(s, m): 0 for m in _MODES for s in _SWEEPS}
 
 _configured = False
 
@@ -59,24 +100,112 @@ def _library() -> ctypes.CDLL:
     lib = _kernels.library()
     if not _configured:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pmarlo_pair_born.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
-        lib.pmarlo_pair_energy.argtypes = [p, p, p, i, i, i, f, f, i, p, p, p]
-        lib.pmarlo_pair_force.argtypes = (
-            [p, p, p, p, p, i, p, p, i, i, i, f, f, i, i, p, p]
-        )
-        for fn in (lib.pmarlo_pair_born, lib.pmarlo_pair_energy,
-                   lib.pmarlo_pair_force):
+        # x, atom_p, cls, orig, d0c, m0c, n_classes, B, chain, close, R, n,
+        # tile, band, ke, gb_pref, cutoff_r2
+        common = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, f, f, f]
+        lib.pmarlo_pair_sweep.argtypes = [i, i] + common + [i, i, p, p, p]
+        lib.pmarlo_pair_newton_sweep.argtypes = [i] + common + [i, i, i, p, p, p]
+        for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep,
+                   lib.pmarlo_pair_max_classes, lib.pmarlo_pair_newton_max_tile):
             fn.restype = i
         lib.pmarlo_pair_max_classes.argtypes = []
-        lib.pmarlo_pair_max_classes.restype = i
+        lib.pmarlo_pair_newton_max_tile.argtypes = []
         if lib.pmarlo_pair_max_classes() != MAX_CLASSES:
             raise RuntimeError("kernel library and wrapper disagree on MAX_CLASSES")
+        if lib.pmarlo_pair_newton_max_tile() != NEWTON_MAX_TILE:
+            raise RuntimeError("kernel library and wrapper disagree on NEWTON_MAX_TILE")
         _configured = True
     return lib
 
 
 #: radius classes the kernels hold in shared memory (csrc/pair_force.cu)
 MAX_CLASSES = 64
+#: rows of a CTA of the row-owned kernels: a culled tile is a multiple of it
+ROW_BLOCK = 32
+#: largest tile of the Newton kernels (two tiles in shared memory), a
+#: multiple of 32 (csrc/pair_newton.cu)
+NEWTON_MAX_TILE = 256
+
+
+def _morton_order(x: np.ndarray, bits: int = 10) -> np.ndarray:
+    """Spatial (Morton/Z-order) permutation: index-contiguous tiles
+    become spatially COMPACT blobs, which is what makes bounding-box
+    tile culling effective when the chain folds back through space.
+    Host-side, build time only (the permutation is static; culling
+    CORRECTNESS never depends on it — tile AABBs are recomputed
+    from live positions every force evaluation)."""
+    x = np.asarray(x, np.float64)
+    lo = x.min(axis=0)
+    span = max(float((x.max(axis=0) - lo).max()), 1e-9)
+    g = np.clip(((x - lo) / span * (2**bits - 1)).astype(np.uint64),
+                0, np.uint64(2**bits - 1))
+
+    def part1by2(v):
+        v = v & np.uint64(0x3FF)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x30000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x30C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x9249249)
+        return v
+
+    code = (part1by2(g[:, 0]) | (part1by2(g[:, 1]) << np.uint64(1))
+            | (part1by2(g[:, 2]) << np.uint64(2)))
+    return np.argsort(code, kind="stable").astype(np.int32)
+
+
+def _r2(d: torch.Tensor) -> torch.Tensor:
+    """``(dx dx + dy dy) + dz dz`` of displacements ``d (..., 3)``, each
+    product and sum rounded on its own, as ``csrc/pair_r2.cuh`` does."""
+    d2 = d * d
+    return (d2[..., 0] + d2[..., 1]) + d2[..., 2]
+
+
+def cutoff_r2(cutoff: float) -> float:
+    """The largest float32 ``t`` with ``sqrt(t) <= cutoff`` in float32. The
+    float32 square root is monotonic and correctly rounded, so ``s <= t``
+    decides as ``sqrt(s) <= cutoff`` does for every float32 ``s``: the
+    kernels and their twins reject a pair without taking its root."""
+    c = np.float32(cutoff)
+    zero, inf = np.float32(0.0), np.float32(np.inf)
+    t = np.float32(np.float64(c) * np.float64(c))
+    while np.sqrt(t) > c:
+        t = np.nextafter(t, zero)
+    while np.sqrt(np.nextafter(t, inf)) <= c:
+        t = np.nextafter(t, inf)
+    return float(t)
+
+
+def cutoff_pairs(d: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """Pairs within the GB cutoff: ``r^2 + 1e-12 <= cutoff_r2(cutoff)`` on
+    the float32 r^2 of the float32 displacements ``d (..., 3)``, the number
+    the kernels test (``pair_distance`` in ``csrc/pair_force.cu``); the same
+    pairs as ``sqrt(r^2 + 1e-12) <= cutoff``."""
+    d = d.float()
+    return _r2(d) + _EPS <= cutoff_r2(cutoff)
+
+
+def tile_boxes(xs: torch.Tensor, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bounding boxes ``(lo, hi)``, each ``(R, G, 3)`` float32, of the G
+    tiles of ``tile`` consecutive atoms of ``xs (R, N, 3)``; the ragged last
+    tile holds the atoms it has."""
+    xs = xs.float()
+    R, n = xs.shape[0], xs.shape[1]
+    pad = -n % tile
+    if pad:
+        # the last atom again: it lies inside its own tile's box
+        xs = torch.cat([xs, xs[:, -1:].expand(R, pad, 3)], 1)
+    xr = xs.reshape(R, -1, tile, 3)
+    return xr.amin(2), xr.amax(2)
+
+
+def tiles_within(lo: torch.Tensor, hi: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """``(R, G, G)`` bool: tile pairs whose boxes are at most ``cutoff``
+    apart. The gap is tested as a pair's distance is (``cutoff_pairs``):
+    per axis it is the difference of two atoms' coordinates and no larger
+    than that of any pair of the two tiles, and every later operation is
+    monotonic, so an excluded tile pair holds no pair within the cutoff."""
+    gap = torch.maximum(lo[:, :, None] - hi[:, None, :], lo[:, None, :] - hi[:, :, None])
+    return cutoff_pairs(gap.clamp_min(0.0), cutoff)
 
 
 def _radius_classes(rho: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -143,27 +272,54 @@ def _sr6(sig, inv_r):
 class PairForce:
     """``fn(x) -> (energy, forces)`` for the full potential of ``system``:
     ``x`` is ``(N, 3)`` or ``(R, N, 3)``; energies come back with the
-    leading shape (``()`` or ``(R,)``). Built by ``build_pair_force_fn``."""
+    leading shape (``()`` or ``(R,)``). Built by ``build_pair_force_fn``.
+
+    The per-sweep entry points (``born``, ``energy_rows``, ``pair_forces``
+    and their ``*_reference`` twins) take and return arrays in **storage
+    order** (``to_storage`` / ``from_storage``; the caller's order unless a
+    Morton order was asked for), ``(R, N, ...)`` only."""
 
     def __init__(self, system: System, *, tile: int = 128,
                  band: Optional[ExclusionBand] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 gb_cutoff: Optional[float] = None,
+                 perm: Optional[np.ndarray] = None,
+                 newton: bool = False, bonded: str = "gather"):
         require_no_vsites(system, "the pair force path")
         if system.box is not None:
             raise NotImplementedError("periodic systems: ROADMAP queue A12")
         if int(tile) < 1:
             raise ValueError(f"tile must be positive, got {tile}")
+        if gb_cutoff is not None and not float(gb_cutoff) > 0.0:
+            raise ValueError(f"gb_cutoff must be positive, got {gb_cutoff}")
         self.system = system
         self.tile = int(tile)
         self.dtype = dtype
+        self.gb_cutoff = None if gb_cutoff is None else float(gb_cutoff)
+        self._cut_r2 = 0.0 if gb_cutoff is None else cutoff_r2(self.gb_cutoff)
+        self.newton = bool(newton)
+        self.mode = "newton" if self.newton else ("dense" if gb_cutoff is None else "culled")
         n = system.n_atoms
         dev = system.device
+        if perm is not None:
+            perm = np.asarray(perm, np.int64)
+            if self.gb_cutoff is None:
+                raise ValueError("a storage order only affects the gb_cutoff path")
+            if not np.array_equal(np.sort(perm), np.arange(n)):
+                raise ValueError("perm must be a permutation of the atoms")
+        #: storage slot k holds the caller's atom ``perm[k]`` (None: identity)
+        self.perm = (None if perm is None
+                     else torch.as_tensor(perm, dtype=torch.long, device=dev))
 
         def host(t):
             return t.detach().cpu().double().numpy()
 
         def f32(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        def stored(a):
+            """A per-atom host array as a tensor in storage order."""
+            return f32(a if perm is None else np.asarray(a)[perm])
 
         q = host(system.charges)
         radii = host(system.gb_radii)
@@ -183,17 +339,21 @@ class PairForce:
             ab = np.full(n, OBC2_ALPHA)
             bb = np.full(n, OBC2_BETA)
             gb = np.full(n, OBC2_GAMMA)
-        self.q, self.rho, self.radii = f32(q), f32(rho), f32(radii)
-        self.sr = f32(sr)
-        self.sig = f32(host(system.lj_sigma))
+        self.q, self.rho, self.radii = stored(q), stored(rho), stored(radii)
+        self.sr = stored(sr)
+        self.sig = stored(host(system.lj_sigma))
         # sqrt(eps) per atom: the Lorentz-Berthelot mean is a product
-        self.seps = f32(np.sqrt(np.maximum(host(system.lj_eps), 0.0)))
-        self.sa = f32(system.surface_tension * (radii + probe) ** 2 * radii**6)
-        self.ab, self.bb, self.gb = f32(ab), f32(bb), f32(gb)
+        self.seps = stored(np.sqrt(np.maximum(host(system.lj_eps), 0.0)))
+        self.sa = stored(system.surface_tension * (radii + probe) ** 2 * radii**6)
+        self.ab, self.bb, self.gb = stored(ab), stored(bb), stored(gb)
         # the kernels' float32 copies of the per-atom rows and class tables
         self._atom_p = torch.stack(
             [self.q, self.sig, self.seps, self.rho, self.sr]
         ).float().contiguous()
+        # the caller's index of each stored atom: the band mask keys on it
+        self._orig = torch.as_tensor(np.arange(n) if perm is None else perm,
+                                     dtype=torch.int32, device=dev)
+        self._orig_long = self._orig.long()
 
         self.use_neck = (self.use_gb and system.gb_neck_scale != 0.0
                          and system.gb_model == "gbn2")
@@ -216,6 +376,8 @@ class PairForce:
         else:
             cls = np.zeros(n, np.int32)
             d0c = m0c = np.zeros((1, 1))
+        if perm is not None:
+            cls = cls[perm]
         self._cls = torch.as_tensor(cls, dtype=torch.int32, device=dev)
         self._cls_long = self._cls.long()
         self._d0c = f32(d0c)
@@ -223,6 +385,7 @@ class PairForce:
         self._d0c_k = self._d0c.float().contiguous()
         self._m0c_k = self._m0c.float().contiguous()
 
+        # the band add-back works on the caller's order
         self.band = band if band is not None else ExclusionBand.from_system(system)
         if self.band.band_se.shape[0] != n:
             raise ValueError("exclusion band built for another system")
@@ -236,7 +399,12 @@ class PairForce:
         self._corr_lj = f32(4.0 * c_lj * np.sqrt(np.maximum(
             eps_all[pi] * eps_all[pj], 0.0)))
         self._corr_el = f32(self.ke * c_el * q[pi] * q[pj])
+        if bonded not in ("gather", "window"):
+            raise ValueError(f"bonded must be gather|window, got {bonded!r}")
+        self.bonded = bonded
         self._bonded = make_bonded_params(system, dtype=dtype)
+        #: the bonded kernel (``bonded="window"``); None without bonded terms
+        self._bonded_kernel = build_bonded_window(system) if bonded == "window" else None
 
     # --- shapes -----------------------------------------------------------------
 
@@ -253,121 +421,196 @@ class PairForce:
             )
         return x
 
-    # --- plain PyTorch twins of the three kernels -------------------------------
+    def to_storage(self, a: torch.Tensor) -> torch.Tensor:
+        """A per-atom array ``(R, N, ...)`` from the caller's order into
+        storage order."""
+        return a if self.perm is None else a[:, self.perm]
 
-    def _chunks(self, x):
-        """Row chunks ``(s, e, d, r, one)``: separations ``(R, c, N, 3)``
-        of rows s:e against all atoms, distances with self and coincident
-        slots pushed to 1 nm, and the mask of genuine pairs."""
-        n = x.shape[1]
-        for s in range(0, n, self.tile):
-            e = min(s + self.tile, n)
-            d = x[:, s:e, None, :] - x[:, None, :, :]
-            r2 = (d * d).sum(-1)
-            pair = r2 > 1e-8
-            r = torch.where(pair, torch.sqrt(r2 + _EPS), torch.ones_like(r2))
-            yield s, e, d, r, pair.to(x.dtype)
-
-    def _neck_tables(self, s, e):
-        ci = self._cls_long[s:e, None]
-        cj = self._cls_long[None, :]
-        return self._d0c[ci, cj], self._m0c[ci, cj]
-
-    def born_reference(self, x: torch.Tensor) -> torch.Tensor:
-        """Born integral ``I (R, N)`` (twin of ``pair_born_kernel``)."""
-        x = self._batch(x)
-        out = torch.empty(x.shape[:2], dtype=x.dtype, device=x.device)
-        for s, e, _, r, one in self._chunks(x):
-            inv_r = 1.0 / r
-            H, _ = _hct(r, inv_r, self.rho[s:e, None], self.sr[None, :],
-                        derivative=False)
-            I = 0.5 * (H * one).sum(-1, dtype=torch.float64)
-            if self.use_neck:
-                d0, m0 = self._neck_tables(s, e)
-                nv, _ = _neck(r, d0, m0)
-                I = I + (nv * one).sum(-1, dtype=torch.float64)
-            out[:, s:e] = I.to(x.dtype)
+    def from_storage(self, a: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``to_storage``."""
+        if self.perm is None:
+            return a
+        out = torch.empty_like(a)
+        out[:, self.perm] = a
         return out
 
-    def _band_mask(self, s, e, n, dev):
-        ii = torch.arange(s, e, device=dev)[:, None]
-        jj = torch.arange(n, device=dev)[None, :]
-        return ((ii - jj).abs() > self.band_D).to(self.dtype)
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.system.n_atoms // self.tile)
 
-    def energy_rows_reference(self, x: torch.Tensor, B: torch.Tensor):
-        """``(e_rows (R, N) float64, dEdB_pair (R, N))`` (twin of
-        ``pair_energy_kernel``). The pair terms are evaluated in float64:
+    def close_tiles(self, xs: torch.Tensor) -> Optional[torch.Tensor]:
+        """``(R, G, G)`` bool table of the tile blocks to compute at the
+        stored positions ``xs``; ``None`` without a cutoff (every block)."""
+        if self.gb_cutoff is None:
+            return None
+        return tiles_within(*tile_boxes(xs, self.tile), self.gb_cutoff)
+
+    # --- plain PyTorch twins of the kernels -------------------------------------
+
+    def _blocks(self, x, close):
+        """Row tiles ``(s, e, cols, d, r, one)``: the columns ``cols`` the
+        row tile s:e meets (``None``: all atoms; an index tensor on the
+        culled and Newton paths), separations ``(R, c, m, 3)``, distances
+        with self and coincident slots pushed to 1 nm, and the mask of the
+        pairs to count: genuine, within the cutoff, and on the Newton path
+        each unordered pair once (column after row in storage order)."""
+        n = x.shape[1]
+        if self.gb_cutoff is not None and close is None:
+            close = self.close_tiles(x)
+        tiles = torch.arange(self.n_tiles, device=x.device)
+        within_tile = torch.arange(self.tile, device=x.device)
+        for s in range(0, n, self.tile):
+            e = min(s + self.tile, n)
+            t = s // self.tile
+            cols = None
+            if close is not None or self.newton:
+                # a tile any replica needs is computed for all: the pair
+                # mask zeroes what a replica's own table would have skipped
+                keep = (close[:, t].any(0) if close is not None
+                        else torch.ones_like(tiles, dtype=torch.bool))
+                if self.newton:
+                    keep = keep & (tiles >= t)
+                cols = (tiles[keep][:, None] * self.tile + within_tile).reshape(-1)
+                cols = cols[cols < n]
+                if cols.numel() == 0:
+                    continue
+            xc = x if cols is None else x[:, cols]
+            d = x[:, s:e, None, :] - xc[:, None, :, :]
+            r2 = _r2(d)
+            pair = r2 > 1e-8
+            r = torch.where(pair, torch.sqrt(r2 + _EPS), torch.ones_like(r2))
+            if self.gb_cutoff is not None:
+                # decided on float32 numbers whatever type the terms take
+                d32 = d if d.dtype == torch.float32 else (
+                    x[:, s:e, None, :].float() - xc[:, None, :, :].float())
+                pair = pair & cutoff_pairs(d32, self.gb_cutoff)
+            if self.newton:
+                rows_at = torch.arange(s, e, device=x.device)[:, None]
+                pair = pair & (cols[None, :] > rows_at)
+            yield s, e, cols, d, r, pair.to(x.dtype)
+
+    @staticmethod
+    def _at(a: torch.Tensor, cols) -> torch.Tensor:
+        """The column entries of a per-atom array ``(..., N)``."""
+        return a if cols is None else a[..., cols]
+
+    def _neck_tables(self, s, e, cols):
+        ci = self._cls_long[s:e, None]
+        cj = self._at(self._cls_long, cols)[None, :]
+        return self._d0c[ci, cj], self._m0c[ci, cj]
+
+    def born_reference(self, x: torch.Tensor, close=None) -> torch.Tensor:
+        """Born integral ``I (R, N)`` (twin of the Born kernels)."""
+        x = self._batch(x)
+        f64 = torch.float64
+        out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
+        for s, e, cols, _, r, one in self._blocks(x, close):
+            inv_r = 1.0 / r
+            H, _ = _hct(r, inv_r, self.rho[s:e, None], self._at(self.sr, cols)[None, :],
+                        derivative=False)
+            terms = 0.5 * H * one
+            out[:, s:e] += terms.sum(-1, dtype=f64)
+            if self.use_neck:
+                d0, m0 = self._neck_tables(s, e, cols)
+                nv, _ = _neck(r, d0, m0)
+                neck = nv * one
+                out[:, s:e] += neck.sum(-1, dtype=f64)
+            if self.newton:
+                Hc, _ = _hct(r, inv_r, self._at(self.rho, cols)[None, :],
+                             self.sr[s:e, None], derivative=False)
+                part = (0.5 * Hc * one).sum(-2, dtype=f64)
+                if self.use_neck:
+                    part = part + neck.sum(-2, dtype=f64)
+                out.index_add_(1, cols, part)   # the column atoms' share
+        return out.to(x.dtype)
+
+    def _band_mask(self, s, e, cols):
+        ii = self._orig_long[s:e, None]
+        jj = self._at(self._orig_long, cols)[None, :]
+        return (ii - jj).abs() > self.band_D
+
+    def energy_rows_reference(self, x: torch.Tensor, B: torch.Tensor, close=None):
+        """``(e_rows (R, N) float64, dEdB_pair (R, N))`` (twin of the energy
+        kernels). On the Newton path a pair's energy goes to its row atom
+        (the earlier one in storage order), so the rows sum to the same
+        total. The pair terms are evaluated in float64:
         as the reference the kernel's energies are held to, the twin must
         not carry float32's correlated rounding (a few dozen distinct
         charge products repeat over millions of pairs, so their rounding
         errors add up instead of averaging out)."""
         x = self._batch(x)
-        n = x.shape[1]
         f64 = torch.float64
         q, sig, seps = self.q.to(f64), self.sig.to(f64), self.seps.to(f64)
         B = B.to(f64)
-        e_out = torch.empty(x.shape[:2], dtype=f64, device=x.device)
+        e_out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
         b_out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
-        for s, e, _, r, one in self._chunks(x.to(f64)):
+        # each unordered pair once (Newton) or both ordered directions, halved
+        share = 1.0 if self.newton else 0.5
+        for s, e, cols, _, r, one in self._blocks(x.to(f64), close):
             inv_r = 1.0 / r
-            ob = self._band_mask(s, e, n, x.device).to(f64)
-            sr6 = _sr6(0.5 * (sig[s:e, None] + sig[None, :]), inv_r)
-            eps = seps[s:e, None] * seps[None, :]
-            qq = q[s:e, None] * q[None, :]
+            ob = self._band_mask(s, e, cols).to(f64)
+            sr6 = _sr6(0.5 * (sig[s:e, None] + self._at(sig, cols)[None, :]), inv_r)
+            eps = seps[s:e, None] * self._at(seps, cols)[None, :]
+            qq = q[s:e, None] * self._at(q, cols)[None, :]
             e_nb = (4.0 * eps * (sr6 * sr6 - sr6) + self.ke * qq * inv_r) * ob
-            e_row = 0.5 * (e_nb * one).sum(-1)
+            e_row = share * (e_nb * one).sum(-1)
             if self.use_gb:
                 Bi = B[:, s:e, None]
-                Bj = B[:, None, :]
+                Bj = self._at(B, cols)[:, None, :]
                 BB = Bi * Bj
                 rsq = r * r
                 expu = torch.exp(-rsq / (4.0 * BB))
                 inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
                 qq_gb = self.gb_pref * qq
-                e_row = e_row + (qq_gb * inv_f * one).sum(-1)
+                e_row = e_row + 2.0 * share * (qq_gb * inv_f * one).sum(-1)
                 dEdf = -qq_gb * inv_f * inv_f * one
                 dfdBi = expu * (Bj + rsq / (4.0 * Bi)) * (0.5 * inv_f)
-                b_out[:, s:e] = (dEdf * dfdBi).sum(-1)
+                b_out[:, s:e] += (dEdf * dfdBi).sum(-1)
+                if self.newton:
+                    dfdBj = expu * (Bi + rsq / (4.0 * Bj)) * (0.5 * inv_f)
+                    b_out.index_add_(1, cols, (dEdf * dfdBj).sum(-2))
             e_out[:, s:e] = e_row
         return e_out, b_out.to(x.dtype)
 
     def pair_forces_reference(self, x: torch.Tensor, B: torch.Tensor,
-                              c: torch.Tensor) -> torch.Tensor:
-        """Pair forces ``(R, N, 3)`` (twin of ``pair_force_kernel``)."""
+                              c: torch.Tensor, close=None) -> torch.Tensor:
+        """Pair forces ``(R, N, 3)`` (twin of the force kernels)."""
         x = self._batch(x)
-        n = x.shape[1]
-        out = torch.empty_like(x)
-        for s, e, d, r, one in self._chunks(x):
+        out = torch.zeros_like(x)
+        for s, e, cols, d, r, one in self._blocks(x, close):
             inv_r = 1.0 / r
-            ob = self._band_mask(s, e, n, x.device)
-            sr6 = _sr6(0.5 * (self.sig[s:e, None] + self.sig[None, :]), inv_r)
-            eps = self.seps[s:e, None] * self.seps[None, :]
-            qq = self.q[s:e, None] * self.q[None, :]
+            ob = self._band_mask(s, e, cols).to(x.dtype)
+            sr6 = _sr6(0.5 * (self.sig[s:e, None] + self._at(self.sig, cols)[None, :]), inv_r)
+            eps = self.seps[s:e, None] * self._at(self.seps, cols)[None, :]
+            qq = self.q[s:e, None] * self._at(self.q, cols)[None, :]
             W = (4.0 * eps * (-12.0 * sr6 * sr6 + 6.0 * sr6) * inv_r
                  - self.ke * qq * inv_r * inv_r) * ob
             if self.use_gb:
                 Bi = B[:, s:e, None]
-                Bj = B[:, None, :]
+                Bj = self._at(B, cols)[:, None, :]
                 BB = Bi * Bj
                 rsq = r * r
                 expu = torch.exp(-rsq / (4.0 * BB))
                 inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
                 dEdf = -(self.gb_pref * 2.0 * qq) * inv_f * inv_f
                 W = W + dEdf * (r * (1.0 - 0.25 * expu) * inv_f)
-                _, dH_ij = _hct(r, inv_r, self.rho[s:e, None], self.sr[None, :],
-                                value=False)
-                _, dH_ji = _hct(r, inv_r, self.rho[None, :], self.sr[s:e, None],
-                                value=False)
+                rho_j = self._at(self.rho, cols)[None, :]
+                sr_j = self._at(self.sr, cols)[None, :]
+                _, dH_ij = _hct(r, inv_r, self.rho[s:e, None], sr_j, value=False)
+                _, dH_ji = _hct(r, inv_r, rho_j, self.sr[s:e, None], value=False)
                 dI_ij = 0.5 * dH_ij
                 dI_ji = 0.5 * dH_ji
                 if self.use_neck:
-                    d0, m0 = self._neck_tables(s, e)
+                    d0, m0 = self._neck_tables(s, e, cols)
                     _, dnv = _neck(r, d0, m0)
                     dI_ij = dI_ij + dnv
                     dI_ji = dI_ji + dnv
-                W = W + c[:, s:e, None] * dI_ij + c[:, None, :] * dI_ji
-            W = W * one * inv_r
-            out[:, s:e] = -(W[..., None] * d).sum(-2)
+                W = W + c[:, s:e, None] * dI_ij + self._at(c, cols)[:, None, :] * dI_ji
+            Wd = (W * one * inv_r)[..., None] * d
+            out[:, s:e] -= Wd.sum(-2)
+            if self.newton:
+                # Newton's third law: +W d on the column atom
+                out.index_add_(1, cols, Wd.sum(1))
         return out
 
     # --- the kernels ---------------------------------------------------------------
@@ -384,73 +627,79 @@ class PairForce:
                 raise RuntimeError(f"{what} runs on CUDA tensors, got {t.device}")
             if t.dtype != torch.float32 or not t.is_contiguous():
                 raise TypeError(f"{what} takes contiguous float32 tensors")
+        if self.mode == "culled" and self.tile % ROW_BLOCK:
+            raise ValueError(
+                f"{what}: the culled kernels take tiles that are multiples of "
+                f"{ROW_BLOCK} atoms, got tile={self.tile}")
+        if self.mode == "newton" and (self.tile % 32 or self.tile > NEWTON_MAX_TILE):
+            raise ValueError(
+                f"{what}: the Newton kernels take tiles that are multiples of 32 "
+                f"atoms up to {NEWTON_MAX_TILE}, got tile={self.tile}")
+        if self.n_tiles > 65535:
+            raise ValueError(f"{what}: {self.n_tiles} tiles exceed the grid's 65,535")
 
-    def _launch_born(self, x):
-        self._check_cuda("pair_born", x)
+    def _launch(self, sweep: str, x, B=None, c=None, close=None):
+        """One sweep of this object's mode on the card: ``born`` gives
+        ``I (R, N)``, ``energy`` ``(e_rows float64, dEdB)``, ``force``
+        ``F (R, N, 3)``."""
+        name = kernel_name(sweep, self.mode)
+        self._check_cuda(name, x, *(t for t in (B, c) if t is not None))
         lib = _library()
         R, n = x.shape[0], x.shape[1]
-        out = torch.empty((R, n), dtype=torch.float32, device=x.device)
-        rc = lib.pmarlo_pair_born(
+        if self.gb_cutoff is not None:
+            if close is None:
+                close = self.close_tiles(x)
+            close = close.contiguous().view(torch.uint8)   # bool is one byte
+            if tuple(close.shape) != (R, self.n_tiles, self.n_tiles):
+                raise ValueError(f"{name}: close table {tuple(close.shape)}")
+        # the Newton kernels add into their outputs
+        new = torch.zeros if self.newton else torch.empty
+        shape = (R, n, 3) if sweep == "force" else (R, n)
+        out0 = new(shape, dtype=torch.float32, device=x.device)
+        rows = (new((R, n), dtype=torch.float64, device=x.device)
+                if sweep == "energy" else None)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        common = (
             x.data_ptr(), self._atom_p.data_ptr(), self._cls.data_ptr(),
-            self._d0c_k.data_ptr(), self._m0c_k.data_ptr(), self._d0c_k.shape[0],
-            R, n, int(self.use_neck), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            self._orig.data_ptr(), self._d0c_k.data_ptr(), self._m0c_k.data_ptr(),
+            self._d0c_k.shape[0], ptr(B), ptr(c), ptr(close), R, n, self.tile,
+            self.band_D, self.ke, self.gb_pref, self._cut_r2,
         )
-        _kernels.check_launch(rc, "pair_born")
-        launches["pair_born"] += 1
-        return out
-
-    def _launch_energy(self, x, B):
-        self._check_cuda("pair_energy", x, B)
-        lib = _library()
-        R, n = x.shape[0], x.shape[1]
-        e_rows = torch.empty((R, n), dtype=torch.float64, device=x.device)
-        dedb = torch.empty((R, n), dtype=torch.float32, device=x.device)
-        rc = lib.pmarlo_pair_energy(
-            x.data_ptr(), self._atom_p.data_ptr(), B.data_ptr(), R, n,
-            self.band_D, self.ke, self.gb_pref, int(self.use_gb),
-            e_rows.data_ptr(), dedb.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        _kernels.check_launch(rc, "pair_energy")
-        launches["pair_energy"] += 1
-        return e_rows, dedb
-
-    def _launch_force(self, x, B, c):
-        self._check_cuda("pair_force", x, B, c)
-        lib = _library()
-        R, n = x.shape[0], x.shape[1]
-        out = torch.empty_like(x)
-        rc = lib.pmarlo_pair_force(
-            x.data_ptr(), self._atom_p.data_ptr(), self._cls.data_ptr(),
-            self._d0c_k.data_ptr(), self._m0c_k.data_ptr(), self._d0c_k.shape[0],
-            B.data_ptr(), c.data_ptr(), R, n, self.band_D, self.ke,
-            self.gb_pref, int(self.use_gb), int(self.use_neck), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        _kernels.check_launch(rc, "pair_force")
-        launches["pair_force"] += 1
-        return out
+        tail = (int(self.use_gb), int(self.use_neck), out0.data_ptr(), ptr(rows),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        code = _SWEEPS.index(sweep)
+        if self.newton:
+            rc = lib.pmarlo_pair_newton_sweep(code, *common,
+                                              int(self.gb_cutoff is not None), *tail)
+        else:
+            rc = lib.pmarlo_pair_sweep(code, _MODES.index(self.mode), *common, *tail)
+        _kernels.check_launch(rc, name)
+        launches[name] += 1
+        return (rows, out0) if sweep == "energy" else out0
 
     # --- per-sweep entry points: the twin on the CPU, the kernel on CUDA ----------
 
-    def born(self, x: torch.Tensor) -> torch.Tensor:
+    def born(self, x: torch.Tensor, close=None) -> torch.Tensor:
         x = self._batch(x)
         if x.device.type == "cpu":
-            return self.born_reference(x)
-        return self._launch_born(x.contiguous())
+            return self.born_reference(x, close)
+        return self._launch("born", x.contiguous(), close=close)
 
-    def energy_rows(self, x: torch.Tensor, B: torch.Tensor):
+    def energy_rows(self, x: torch.Tensor, B: torch.Tensor, close=None):
         x = self._batch(x)
         if x.device.type == "cpu":
-            return self.energy_rows_reference(x, B)
-        return self._launch_energy(x.contiguous(), B.contiguous())
+            return self.energy_rows_reference(x, B, close)
+        return self._launch("energy", x.contiguous(), B.contiguous(), close=close)
 
-    def pair_forces(self, x: torch.Tensor, B: torch.Tensor, c: torch.Tensor):
+    def pair_forces(self, x: torch.Tensor, B: torch.Tensor, c: torch.Tensor, close=None):
         x = self._batch(x)
         if x.device.type == "cpu":
-            return self.pair_forces_reference(x, B, c)
-        return self._launch_force(x.contiguous(), B.contiguous(), c.contiguous())
+            return self.pair_forces_reference(x, B, c, close)
+        return self._launch("force", x.contiguous(), B.contiguous(), c.contiguous(),
+                            close=close)
 
     # --- glue, correction, assembly -------------------------------------------------
 
@@ -479,8 +728,10 @@ class PairForce:
         return energy, dEdB * dB * self.rho
 
     def correction(self, x: torch.Tensor):
-        """Band add-back and far-pair correction: energies ``(R,)`` and
-        forces ``(R, N, 3)``."""
+        """Band add-back and far-pair correction on positions in the
+        caller's order: energies ``(R,)`` and forces ``(R, N, 3)``. With a
+        cutoff a band or far pair beyond it is wanted at exactly zero, as
+        the sweeps count it."""
         x = self._batch(x)
         forces = torch.zeros_like(x)
         if self._corr_i.numel() == 0:
@@ -490,31 +741,50 @@ class PairForce:
         inv_r = 1.0 / r
         sr6 = _sr6(self._corr_sig, inv_r)
         el = self._corr_el * inv_r
-        energy = (self._corr_lj * (sr6 * sr6 - sr6) + el).sum(-1, dtype=torch.float64)
+        e_pair = self._corr_lj * (sr6 * sr6 - sr6) + el
         dEdr = (self._corr_lj * (-12.0 * sr6 * sr6 + 6.0 * sr6) - el) * inv_r
+        if self.gb_cutoff is not None:
+            within = cutoff_pairs(d, self.gb_cutoff).to(x.dtype)
+            e_pair = e_pair * within
+            dEdr = dEdr * within
+        energy = e_pair.sum(-1, dtype=torch.float64)
         f_i = -(dEdr * inv_r)[..., None] * d
         forces.index_add_(1, self._corr_i, f_i)
         forces.index_add_(1, self._corr_j, -f_i)
         return energy, forces
 
-    def _evaluate(self, x, born, energy_rows, pair_forces):
+    def bonded_reference(self, x: torch.Tensor):
+        """Bonded energies ``(R,)`` float64 and forces ``(R, N, 3)`` by
+        index gathers."""
+        return bonded_energy_and_forces(self._bonded, x, energy_dtype=torch.float64)
+
+    def bonded_terms(self, x: torch.Tensor):
+        """The same from the bonded kernel with ``bonded="window"`` (a system
+        without bonded terms has no kernel, and the gathers give zeros)."""
+        if self._bonded_kernel is None:
+            return self.bonded_reference(x)
+        energy, grad = self._bonded_kernel(x, energy_dtype=torch.float64)
+        return energy, -grad
+
+    def _evaluate(self, x, born, energy_rows, pair_forces, bonded_terms):
         lead = tuple(x.shape[:-2])
         xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
+        xs = self.to_storage(xb)
+        close = self.close_tiles(xs)
         if self.use_gb:
-            B, dB = self.born_radii(born(xb))
+            B, dB = self.born_radii(born(xs, close))
         else:
-            B = torch.ones(xb.shape[:2], dtype=xb.dtype, device=xb.device)
-        e_rows, dEdB_pair = energy_rows(xb, B)
+            B = torch.ones(xs.shape[:2], dtype=xs.dtype, device=xs.device)
+        e_rows, dEdB_pair = energy_rows(xs, B, close)
         energy = e_rows.sum(-1)
         if self.use_gb:
             e_gb, c = self.gb_terms(B, dB, dEdB_pair)
             energy = energy + e_gb
         else:
             c = torch.zeros_like(B)
-        forces = pair_forces(xb, B, c)
+        forces = self.from_storage(pair_forces(xs, B, c, close))
         e_c, f_c = self.correction(xb)
-        e_b, f_b = bonded_energy_and_forces(self._bonded, xb,
-                                            energy_dtype=torch.float64)
+        e_b, f_b = bonded_terms(xb)
         energy = (energy + e_c + e_b).to(xb.dtype)
         forces = forces + f_c + f_b
         return energy.reshape(lead), forces.reshape(tuple(x.shape))
@@ -522,12 +792,14 @@ class PairForce:
     def __call__(self, x: torch.Tensor):
         """Energy and forces: the kernels on a CUDA tensor, the twins on a
         CPU tensor."""
-        return self._evaluate(x, self.born, self.energy_rows, self.pair_forces)
+        return self._evaluate(x, self.born, self.energy_rows, self.pair_forces,
+                              self.bonded_terms)
 
     def reference(self, x: torch.Tensor):
-        """The plain twin of the whole evaluation, on any device."""
+        """The plain twin of the whole evaluation, on any device (the
+        bonded terms by the index gathers)."""
         return self._evaluate(x, self.born_reference, self.energy_rows_reference,
-                              self.pair_forces_reference)
+                              self.pair_forces_reference, self.bonded_reference)
 
     @property
     def launches(self) -> dict:
@@ -546,35 +818,47 @@ def build_pair_force_fn(
     band: Optional[ExclusionBand] = None,
     dtype: torch.dtype = torch.float32,
 ) -> PairForce:
-    """The dense pair force function of ``system`` (tensors on
-    ``system.device``), as ``pallas_pair.build_pair_force_fn`` builds it
-    with ``gb_cutoff=None``.
+    """The pair force function of ``system`` (tensors on ``system.device``),
+    with the arguments of ``pallas_pair.build_pair_force_fn``.
+
+    ``gb_cutoff`` (nm) cuts every pair term (LJ, Coulomb, GB cross term,
+    Born descreening, neck) at ``r > gb_cutoff`` and skips tile blocks whose
+    bounding boxes are farther apart: the path for large assemblies, for
+    thermostatted dynamics only (the force jumps at the cutoff).
+    ``order_from`` (positions ``(N, 3)``) stores the atoms in a Morton order
+    of that geometry, so that tiles are compact; it needs ``gb_cutoff``.
+    ``newton`` picks the kernels that compute each unordered tile block once
+    (default: with ``gb_cutoff``); they also run without a cutoff, over the
+    whole upper triangle. ``bonded`` is ``"gather"`` (index gathers),
+    ``"window"`` (the bonded kernel of ``md/bonded_window.py``) or
+    ``"auto"``: the kernel with ``gb_cutoff`` from 8,192 atoms up.
 
     ``tile`` is the row chunk of the plain twins (their memory is
-    O(tile * N) a sweep); the kernels' block shape is fixed in
-    ``csrc/pair_force.cu``. ``dtype=torch.float64`` gives a float64 twin
-    (a precision reference; the kernels take float32 only). ``band`` overrides the exclusion band built
-    from the system (``ExclusionBand.from_numpy`` carries JAX's).
-
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    row: ``gb_cutoff``, ``order_from`` and ``newton`` (the tile-culled and
-    Newton sweeps, queue B rows 6-7) and ``bonded="window"`` (row 10)."""
-    if gb_cutoff is not None or order_from is not None:
-        raise NotImplementedError(
-            "gb_cutoff/order_from: the tile-culled GB sweeps are ROADMAP "
-            "queue B rows 6-7"
-        )
-    if newton:
-        raise NotImplementedError(
-            "newton: the symmetric block-list sweeps are ROADMAP queue B rows 6-7"
-        )
-    if bonded == "window":
-        raise NotImplementedError(
-            "bonded='window': the windowed bonded kernel is ROADMAP queue B row 10"
-        )
-    if bonded not in ("auto", "gather"):
+    O(tile * N) a sweep) and, with ``gb_cutoff`` or ``newton``, the atoms a
+    tile: a multiple of 32 on the card, at most 256 for the Newton kernels.
+    ``dtype=torch.float64`` gives a float64 twin (a precision reference; the
+    kernels take float32 only). ``band`` overrides the exclusion band built
+    from the system (``ExclusionBand.from_numpy`` carries JAX's)."""
+    if order_from is not None and gb_cutoff is None:
+        raise ValueError("order_from only affects the gb_cutoff path")
+    if newton is None:
+        newton = gb_cutoff is not None
+    if bonded not in ("auto", "gather", "window"):
         raise ValueError(f"bonded must be auto|gather|window, got {bonded!r}")
-    return PairForce(system, tile=tile, band=band, dtype=dtype)
+    if bonded == "auto":
+        # the kernel takes float32: a float64 twin keeps the gathers
+        bonded = ("window" if gb_cutoff is not None and system.n_atoms >= 8192
+                  and dtype == torch.float32 else "gather")
+    perm = None
+    if order_from is not None:
+        x0 = (order_from.detach().cpu().numpy() if isinstance(order_from, torch.Tensor)
+              else np.asarray(order_from))
+        if x0.shape != (system.n_atoms, 3):
+            raise ValueError("order_from must provide one position per atom")
+        perm = _morton_order(x0)
+    return PairForce(system, tile=tile, band=band, dtype=dtype, gb_cutoff=gb_cutoff,
+                     perm=perm, newton=newton, bonded=bonded)
 
 
-__all__ = ["PairForce", "build_pair_force_fn", "launches", "MAX_CLASSES"]
+__all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
+           "cutoff_r2", "tile_boxes", "tiles_within", "MAX_CLASSES", "NEWTON_MAX_TILE"]

@@ -104,6 +104,16 @@ def test_box_lattice_functions_are_copied(name):
     assert copy == src, f"md/box.py {name} drifted from its source"
 
 
+def test_morton_order_is_copied():
+    """``md/pair_force.py _morton_order`` has the text of its source in
+    ``md/pallas_pair.py`` (a file that imports JAX, so only the function is
+    carried)."""
+    src = _function_source(ROOT / "pmarlo_tpu" / "md" / "pallas_pair.py", "_morton_order")
+    copy = _function_source(ROOT / "pmarlo_tpu_torch" / "md" / "pair_force.py",
+                            "_morton_order")
+    assert copy == src, "md/pair_force.py _morton_order drifted from its source"
+
+
 def test_dispersion_coefficient_is_copied():
     """``md/dispersion.py dispersion_coefficient`` differs from its source
     only where the per-atom parameters come off the device."""

@@ -72,6 +72,8 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.md.periodic_force", "pmarlo_tpu_torch.md.cell_force",
     "pmarlo_tpu_torch.data.water",
 ]
+#: modules the large-assembly slice added
+NEW_MODULES += ["pmarlo_tpu_torch.md.bonded_window"]
 
 
 def test_port_imports_without_jax():
@@ -81,7 +83,7 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 33 + 14 + 5
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 33 + 14 + 5 + 1
 
 
 def test_chip_smoke_imports_name_no_jax():

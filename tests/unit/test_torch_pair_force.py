@@ -194,22 +194,26 @@ def test_cpu_tensors_never_launch_and_cuda_paths_raise():
     eb, fb = fn.reference(x)
     assert torch.equal(ea, eb) and torch.equal(fa, fb)
     assert pair_force.launches == before
-    for launch, args in ((fn._launch_born, (x,)), (fn._launch_energy, (x, B)),
-                         (fn._launch_force, (x, B, c))):
+    for args in (("born", x), ("energy", x, B), ("force", x, B, c)):
         with pytest.raises(RuntimeError, match="CUDA"):
-            launch(*args)
+            fn._launch(*args)
     with pytest.raises(ValueError, match="does not match"):
-        fn._launch_force(x, B, c[:, :5])
+        fn._launch("force", x, B, c[:, :5])
 
 
 def test_unported_options_raise():
+    """What the pair path still refuses: a periodic system (ROADMAP A12).
+    The tile-culled, Newton and bonded-kernel arguments are ported
+    (``test_torch_pair_culled.py``, ``test_torch_bonded_kernel.py``)."""
+    import dataclasses
+
     system, _ = build_system(alanine_dipeptide_structure(), gb_model="gbn2")
-    for kwargs, row in ((dict(gb_cutoff=2.0), "rows 6-7"),
-                        (dict(order_from=np.zeros((22, 3))), "rows 6-7"),
-                        (dict(newton=True), "rows 6-7"),
-                        (dict(bonded="window"), "row 10")):
-        with pytest.raises(NotImplementedError, match=row):
-            build_pair_force_fn(system, **kwargs)
+    boxed = dataclasses.replace(system, box=(3.0, 3.0, 3.0))
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_pair_force_fn(boxed)
+    for kwargs in (dict(gb_cutoff=2.0), dict(gb_cutoff=2.0, order_from=np.zeros((22, 3))),
+                   dict(newton=True), dict(bonded="window")):
+        assert build_pair_force_fn(system, **kwargs) is not None
 
 
 def test_failed_build_raises_instead_of_falling_back(monkeypatch):
@@ -228,7 +232,7 @@ def test_failed_build_raises_instead_of_falling_back(monkeypatch):
     fake = pos[None].clone()
     monkeypatch.setattr(fn, "_check_cuda", lambda *a: None)
     with pytest.raises(RuntimeError, match="injected"):
-        fn._launch_born(fake)
+        fn._launch("born", fake)
 
 
 @pytest.mark.gpu
@@ -262,5 +266,5 @@ def test_kernels_match_plain_twins_on_the_card(copies):
     torch.cuda.synchronize()
     assert rel(e, er) <= 1e-5 and rel(f, fr) <= 1e-4
     assert bool(torch.isfinite(f).all())
-    assert {k: v - before[k] for k, v in pair_force.launches.items()} == {
+    assert {k: v - before[k] for k, v in pair_force.launches.items() if v != before[k]} == {
         "pair_born": 2, "pair_energy": 2, "pair_force": 2}
