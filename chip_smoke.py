@@ -6,10 +6,14 @@
 Phases, one line of numbers each:
 
 1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a), one
-             nvcc a source, all started together.
+             nvcc a source, all started together; the registers and spills
+             ptxas reports for the four fused kernels (no spill allowed).
 2. kernel  - the fused Langevin kernel against its plain PyTorch twin at
              R=32 on alanine dipeptide in GBn2: energies and forces, then
-             100 steps at friction 0 and at friction 1/ps.
+             100 steps at friction 0 and at friction 1/ps, two launches
+             bitwise equal; then us a step at R = 8, 32, 128, 512 with the
+             launch shape chosen (CTAs a replica C, lanes a row L,
+             threads), and ms per 100 steps of every shape at R=32.
 3. thermo  - 10,000 kernel steps at 1/ps on the 300-450 K ladder: the
              ladder-averaged kinetic/target temperature ratio.
 4. remd    - the main path: 32-replica REMD, 20,000 steps, one kernel
@@ -34,8 +38,9 @@ Phases, one line of numbers each:
              hills-ledger (1,000 hills) energies and forces against the
              plain version and against autograd of ``bias/`` over ``ml/``,
              100 biased steps at friction 0 and 1/ps, ms per 100 steps
-             biased beside unbiased at N=138 and N=22, and the cost of one
-             grid barrier.
+             biased beside unbiased at N=138 and N=22, two launches of each
+             bitwise equal, the R and shape sweeps of phase 2 at N=138, and
+             the cost of one grid barrier (also in clusters of 4 CTAs).
 9. fused   - the whole REMD run in one launch: ``run_fused`` against
              ``run(use_kernel=True)`` window for window over 10 windows,
              then 10,000 steps at full size, wall and ns/day beside the
@@ -104,9 +109,11 @@ Phases, one line of numbers each:
              both at 4 fs and 2 fs).
 
 Then a summary line that repeats the headline numbers of phases 1 and
-15-17, the card's name and power limit, one JSON line of the kernels, and
-the last line ``{"ok": true, "device": {...}}``. A failed check raises and
-the script exits non-zero without that line. It needs a CUDA card and
+15-17, the card's name and power limit, a line of the one-thread-an-atom
+fused kernels' times copied from PERF.md (for comparison; not measured
+here), one JSON line of the kernels, and the last line
+``{"ok": true, "device": {...}}``. A failed check raises and the script
+exits non-zero without that line. It needs a CUDA card and
 imports nothing of JAX.
 """
 
@@ -114,6 +121,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +176,16 @@ LARGE_STEPS = 1_000              # the timed stretch through the Newton sweeps (
 LARGE_ORDERED_STEPS = 50         # the same run through the ordered culled sweeps
 LARGE_DT_PS = 0.004
 STUDY_PS = 6                     # picoseconds at each time step of --temperature-study
+SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
+FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
+                 "fused_remd_bias_kernel")
+# ms of the one-thread-an-atom fused kernels at the same timed shapes, copied
+# from PERF.md section 6 (not measured by this script): printed on a line of
+# their own beside the kernels line, for comparison
+EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
+              "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
+              "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14}
+SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
 # outside the tensor cores (NVIDIA's data sheet), and the special-function
@@ -293,17 +311,78 @@ def _mb_velocities(system, temps: torch.Tensor, rng) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device="cuda")
 
 
+def _fused_ptxas(log: str) -> dict:
+    """Registers and spill bytes ptxas reported for each fused kernel."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d(fused_\w+?_kernel)E", ln)
+        if m:
+            name = m.group(1) if m.group(1) in FUSED_KERNELS else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
 def phase_build() -> dict:
     from pmarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
     path = _kernels.build_library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _kernels.build_log().splitlines()
+    log = _kernels.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    out = {"build_s": secs, "library": path.name, "ptxas": ptxas}
+    out = {"build_s": secs, "library": path.name, "fused_ptxas": _fused_ptxas(log),
+           "ptxas": ptxas}
+    fused = out["fused_ptxas"]
+    _check(sorted(fused) == sorted(FUSED_KERNELS) and all(
+        {"registers", "spill_stores", "spill_loads"} <= set(k) for k in fused.values()),
+        f"ptxas of the fused kernels: {fused}")
+    _check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in fused.values()),
+           f"fused kernels spill: {fused}")
     _line("phase 1 build", out)
     return out
+
+
+def _shape(chunk) -> dict:
+    """The launch shape of ``chunk``'s last launch."""
+    return {k: chunk.last_launch[k] for k in SHAPE_KEYS}
+
+
+def _replica_sweep(system, x_min, seed: int) -> list:
+    """us a step (100-step launches, friction 1/ps) at each of
+    ``SWEEP_REPLICAS`` replicas, with the launch shape chosen."""
+    from pmarlo_tpu_torch.md.fused_md import build_fused_chunk
+
+    rows = []
+    for R in SWEEP_REPLICAS:
+        x, v, seeds, temps = _md_inputs(system, x_min, R, seed)
+        chunk = build_fused_chunk(system, dt=DT_PS, friction=1.0, n_replicas=R)
+        ms = _cuda_ms(lambda: chunk(x, v, seeds, temps, 100, 0), 3)
+        rows.append({"replicas": R, "us_per_step": ms * 10.0, **_shape(chunk)})
+    return rows
+
+
+def _shape_sweep(chunk, x, v, seeds, temps) -> list:
+    """[C, L, threads, staged, ms per 100 steps] of every launch shape the
+    kernel takes for ``chunk``'s system and replica count."""
+    from pmarlo_tpu_torch.md.fused_md import launch_shapes
+
+    rows = []
+    for shape in launch_shapes(chunk.system.n_atoms):
+        ms = _cuda_ms(lambda: chunk._launch(x, v, seeds, temps, 100, 0, False, shape=shape), 3)
+        last = chunk.last_launch
+        rows.append([last["cluster"], last["lanes"], last["threads"], last["staged"], ms])
+    return rows
 
 
 def phase_kernel_vs_plain(system, x_min) -> dict:
@@ -354,8 +433,16 @@ def phase_kernel_vs_plain(system, x_min) -> dict:
         _check(out[f"{tag}_energy_rel_err"] <= 1e-4,
                f"{tag}: energy rel err {out[f'{tag}_energy_rel_err']}")
     out["chunk100_ms"] = _cuda_ms(lambda: chunk(x, v, seeds, temps, 100, 0), 20)
+    out["chunk100_shape"] = _shape(chunk)
+    xa, va, ea = chunk(x, v, seeds, temps, 100, 0)
+    xb, vb, eb = chunk(x, v, seeds, temps, 100, 0)
+    out["bitwise_equal_launches"] = bool(
+        torch.equal(xa, xb) and torch.equal(va, vb) and torch.equal(ea, eb))
+    _check(out["bitwise_equal_launches"], "two launches of the chunk differ")
     out["chunk100_plain_ms"] = _cuda_ms(
         lambda: chunk.reference(x, v, seeds, temps, 100, 0), 3)
+    out["replica_sweep"] = _replica_sweep(system, x_min, seed=2)
+    out["shape_sweep_r32"] = _shape_sweep(chunk, x, v, seeds, temps)
     _line("phase 2 kernel", out)
     return out
 
@@ -796,9 +883,17 @@ def phase_bias(cx: dict, alanine, alanine_x_min) -> dict:
             _check(out[key] <= 1e-3, f"{key} {out[key]}")
         out[f"{tag}_chunk100_ms"] = _cuda_ms(
             lambda: chunk(x, v, seeds, temps, 100, 0, hills=ledger), 10)
+        out[f"{tag}_chunk100_shape"] = _shape(chunk)
+        xa, _, ea = chunk(x, v, seeds, temps, 100, 0, hills=ledger)
+        xb, _, eb = chunk(x, v, seeds, temps, 100, 0, hills=ledger)
+        _check(bool(torch.equal(xa, xb) and torch.equal(ea, eb)),
+               f"{tag}: two launches of the biased chunk differ")
         out[f"{tag}_chunk100_plain_ms"] = _cuda_ms(
             lambda: chunk.reference(x, v, seeds, temps, 100, 0, hills=ledger), 1)
     out["unbiased_chunk100_ms"] = _cuda_ms(lambda: unbiased(x, v, seeds, temps, 100, 0), 10)
+    out["unbiased_chunk100_shape"] = _shape(unbiased)
+    out["replica_sweep"] = _replica_sweep(system, cx["x_min"], seed=12)
+    out["shape_sweep_r32"] = _shape_sweep(unbiased, x, v, seeds, temps)
 
     # the same three at N = 22 (alanine dipeptide, 2 dihedrals, default width)
     aq = _phi_psi_quads(alanine).cpu().numpy()
@@ -821,6 +916,11 @@ def phase_bias(cx: dict, alanine, alanine_x_min) -> dict:
     t_bar = _cuda_ms(lambda: fused_md.grid_barrier_probe(R, threads, n_bar), 10)
     out["grid_barrier_us"] = (t_bar - t_none) * 1e3 / n_bar
     out["cooperative_launch_ms"] = t_none
+    # the same in clusters of 4 CTAs: a cooperative launch that is also a
+    # cluster launch (the fused metadynamics and REMD kernels' shape at N=138)
+    t_none = _cuda_ms(lambda: fused_md.grid_barrier_probe(4 * R, threads, 0, cluster=4), 10)
+    t_bar = _cuda_ms(lambda: fused_md.grid_barrier_probe(4 * R, threads, n_bar, cluster=4), 10)
+    out["grid_barrier_cluster4_us"] = (t_bar - t_none) * 1e3 / n_bar
     _line("phase 8 bias kernel", out)
     out["model"] = model
     out["hills"] = hills
@@ -999,6 +1099,7 @@ def phase_fused_remd(cx: dict, model) -> dict:
     r = ReplicaExchange(system, x_min, cfg, device="cuda", minimize=False)
     fpc = EXCHANGE_FREQUENCY // CV_REPORT
     out["fused_remd_ms"] = _cuda_ms(lambda: r.run_fused(n_timed), 5)
+    out["fused_remd_shape"] = _shape(r._chunk)
     out["fused_remd_plain_ms"] = _cuda_ms(lambda: r._run_fused_reference(2, fpc), 1)
     _line("phase 9 fused remd", out)
     return out
@@ -1156,6 +1257,7 @@ def phase_learned_cv(cx: dict) -> dict:
     out["timed_steps"] = n_timed
     out["fused_mtd_ms"] = _cuda_ms(
         lambda: short(sx, sv, sseeds, temps, n_timed, 0, hills=hills), 5)
+    out["fused_mtd_shape"] = _shape(short)
     out["fused_mtd_plain_ms"] = _cuda_ms(
         lambda: short.reference(sx, sv, sseeds, temps, n_timed, 0, hills=hills), 1)
     _line("phase 10 learned cv", out)
@@ -2097,7 +2199,7 @@ def main() -> None:
     kern = phase_kernel_vs_plain(system, x_min)
     phase_thermostat(system, x_min)
     main_path = phase_main_path(system, positions)
-    phase_times(system, positions, main_path)
+    times = phase_times(system, positions, main_path)
 
     from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
     from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
@@ -2141,6 +2243,10 @@ def main() -> None:
         "plain_ms": kern["chunk100_plain_ms"],
         "timed": f"100 steps, R={R}, N={N}",
         **_md_bound(R, N, 101),
+        "launch_shape": kern["chunk100_shape"],
+        "ms_n138": bias["unbiased_chunk100_ms"],
+        "bound_ms_n138": _md_bound(R, cx["system"].n_atoms, 101)["bound_ms"],
+        "launch_shape_n138": bias["unbiased_chunk100_shape"],
     }]
     for name, line, err, tag in (
         ("pair_born", 465, "born_max_abs_err", "born"),
@@ -2172,6 +2278,7 @@ def main() -> None:
         "plain_ms": bias["harmonic_chunk100_plain_ms"],
         "timed": f"100 steps, {shape}",
         **_md_bound(R, Nc, 101, n_dih=M, widths=widths),
+        "launch_shape": bias["harmonic_chunk100_shape"],
     }, {
         "name": "fused_md_bias_metadynamics", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:504",
@@ -2181,6 +2288,7 @@ def main() -> None:
         "plain_ms": bias["metadynamics_chunk100_plain_ms"],
         "timed": f"100 steps, {shape}, {N_HILLS_CHECK} hills",
         **_md_bound(R, Nc, 101, n_dih=M, widths=widths, n_hills=N_HILLS_CHECK),
+        "launch_shape": bias["metadynamics_chunk100_shape"],
     }, {
         "name": "fused_md_fused_metadynamics", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:1075",
@@ -2192,6 +2300,7 @@ def main() -> None:
                  f"{cv['mtd_hills']} hills",
         **_md_bound(R, Nc, cv["timed_steps"] + 1, n_dih=M, widths=widths,
                     n_hills=cv["mtd_hills"]),
+        "launch_shape": cv["fused_mtd_shape"],
     }, {
         "name": "fused_remd", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:1298",
@@ -2203,6 +2312,7 @@ def main() -> None:
         "timed": f"{fused['timed_steps']} steps, 2 windows, unbiased, {shape}",
         **_md_bound(R, Nc, fused["timed_steps"] + fused["timed_steps"] // CV_REPORT,
                     frames=fused["timed_steps"] // CV_REPORT),
+        "launch_shape": fused["fused_remd_shape"],
     }]
     Re, Ne, Nw = EXPLICIT_REPLICAS, periodic["atoms"], cells["water_atoms"]
     kernels += [{
@@ -2262,6 +2372,18 @@ def main() -> None:
     # the headline numbers again, close to the end of the output
     _line("summary", {
         "build_s": build["build_s"],
+        "fused_ptxas": build["fused_ptxas"],
+        "fused": {
+            "chunk100_ms": kern["chunk100_ms"], "chunk100_n138_ms": bias["unbiased_chunk100_ms"],
+            "harmonic_chunk100_ms": bias["harmonic_chunk100_ms"],
+            "metadynamics_chunk100_ms": bias["metadynamics_chunk100_ms"],
+            "fused_mtd_ms": cv["fused_mtd_ms"], "fused_remd_ms": fused["fused_remd_ms"],
+            "alanine_ns_per_day": times["kernel_ns_per_day_aggregate"],
+            "sweep_n22": kern["replica_sweep"], "sweep_n138": bias["replica_sweep"],
+            "learned_cv_walls_s": {k: cv[k] for k in (
+                "remd_wall_s", "train_s", "biased_windows_wall_s", "biased_fused_wall_s",
+                "mtd_wall_s")},
+        },
         "large_kernels": {k: large[k] for k in (
             "atoms", "tile_block_share", "pairs_within_share_of_visited", "tile_table_ms",
             "culled_eval_ms", "newton_eval_ms", "dense_eval_ms", "dense_born_ms",
@@ -2276,6 +2398,9 @@ def main() -> None:
             "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},
         "script_s": time.perf_counter() - t_start,
     })
+    _line("one-thread-an-atom design, ms at the same timed shapes, copied from "
+          "PERF.md, not measured here",
+          EARLIER_MS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,7 +4,8 @@ Every ``pmarlo_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process, all started together, into an object file; one more ``nvcc``
 links them into a shared library with a plain C interface, which
 ``ctypes`` loads. The library goes into ``build/pmarlo_tpu_torch/`` beside
-the package, keyed by a hash of the sources and flags, at first use.
+the package, keyed by a hash of the sources and flags, at first use, with
+the compiler's output beside it (``build_log``).
 Nothing here runs when the package is imported.
 """
 
@@ -56,7 +57,9 @@ def build_library() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = _BUILD_DIR / f"libpmarlo_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        _build_log = log.read_text()
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -90,14 +93,17 @@ def build_library() -> Path:
         raise RuntimeError(
             f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}"
         )
+    log_tmp = log.with_name(f"{log.stem}.{os.getpid()}.tmp.log")
+    log_tmp.write_text(_build_log)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)
     return out
 
 
 def build_log() -> str:
-    """The compiler's output of this process's build (``-Xptxas -v``:
-    registers, shared memory, spills per kernel); empty if the library
-    was cached."""
+    """The compiler's output of the library's build (``-Xptxas -v``:
+    registers, shared memory, spills per kernel), kept beside the library
+    and read back when it was cached; empty before ``build_library``."""
     return _build_log
 
 

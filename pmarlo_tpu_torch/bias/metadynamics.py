@@ -14,6 +14,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 
 
@@ -30,8 +31,10 @@ class MetaDState:
                           self.n_hills.to(device))
 
 
-def metad_state_from_numpy(centers, heights, n_hills, device="cpu") -> MetaDState:
-    """A ledger from host arrays (e.g. a JAX ``MetaDState``'s fields)."""
+def metad_state_from_numpy(centers, heights, n_hills, device=None) -> MetaDState:
+    """A ledger from host arrays (e.g. a JAX ``MetaDState``'s fields), on
+    ``device`` (``None``: ``_device.default_device()``)."""
+    device = torch.device(device) if device is not None else default_device()
     return MetaDState(
         centers=torch.as_tensor(np.array(centers, dtype=np.float32), device=device),
         heights=torch.as_tensor(np.array(heights, dtype=np.float32), device=device),
@@ -54,8 +57,10 @@ class MetadynamicsBias:
     bias_factor: Optional[float] = None     # gamma > 1 for well-tempered
     temperature_K: float = 300.0
 
-    def init_state(self, n_cv: Optional[int] = None, device="cpu") -> MetaDState:
+    def init_state(self, n_cv: Optional[int] = None, device=None) -> MetaDState:
+        """An empty ledger on ``device`` (``None``: ``_device.default_device()``)."""
         n_cv = n_cv or len(self.sigma)
+        device = torch.device(device) if device is not None else default_device()
         return MetaDState(
             centers=torch.zeros((self.max_hills, n_cv), dtype=torch.float32, device=device),
             heights=torch.zeros(self.max_hills, dtype=torch.float32, device=device),

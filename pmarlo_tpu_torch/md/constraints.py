@@ -26,6 +26,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .._device import default_device
 from .ff_params import TYPE_ELEMENTS
 from .system import System
 from .topology import _WATER_NAMES
@@ -62,10 +63,12 @@ class ConstraintSpec:
         })
 
     @classmethod
-    def from_numpy(cls, spec, device="cpu") -> "ConstraintSpec":
+    def from_numpy(cls, spec, device=None) -> "ConstraintSpec":
         """From the JAX package's one-hot ``ConstraintSpec`` (arrays
         ``s1``, ``s2`` (C, N), ``d0``, ``inv_m1``, ``inv_m2``,
-        ``inv_mass_sum``, and ``n_iter``)."""
+        ``inv_mass_sum``, and ``n_iter``), on ``device`` (``None``:
+        ``_device.default_device()``)."""
+        device = torch.device(device) if device is not None else default_device()
         def f32(a):
             return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -291,8 +294,10 @@ class RigidWaterSpec:
                                    d0=self.d0.to(device))
 
     @classmethod
-    def from_numpy(cls, spec, device="cpu") -> "RigidWaterSpec":
-        """From the JAX package's ``RigidWaterSpec`` (3-site water)."""
+    def from_numpy(cls, spec, device=None) -> "RigidWaterSpec":
+        """From the JAX package's ``RigidWaterSpec`` (3-site water), on
+        ``device`` (``None``: ``_device.default_device()``)."""
+        device = torch.device(device) if device is not None else default_device()
         if int(getattr(spec, "stride", 3)) != 3:
             raise NotImplementedError(
                 "4- and 5-site water (virtual sites) is ROADMAP queue A11")

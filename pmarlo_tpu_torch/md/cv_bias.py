@@ -20,6 +20,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
+
 _EPS = 1e-12
 
 #: limits of the kernel's bias work space (``csrc/fused_md.cu``)
@@ -40,10 +42,11 @@ class CVBias:
     features, no layernorm), ``quads`` the ``(M, 4)`` dihedral atom
     indices in feature order. ``kind`` is ``"harmonic"`` (``strength``) or
     ``"metadynamics"`` (``mtd_sigma`` per-CV widths; the ledger is a call
-    argument)."""
+    argument). The tables go to ``device`` (``None``:
+    ``_device.default_device()``)."""
 
     def __init__(self, model, quads, *, n_atoms: int, strength: float = 1.0,
-                 kind: str = "harmonic", mtd_sigma=None, device="cpu"):
+                 kind: str = "harmonic", mtd_sigma=None, device=None):
         cfg = model.config
         if cfg.activation != "tanh":
             raise ValueError(
@@ -61,7 +64,7 @@ class CVBias:
         self.strength = float(strength)
         self.n_atoms = int(n_atoms)
         self.n_dihedrals = int(quads.shape[0])
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
 
         def t(a):
             return torch.as_tensor(np.asarray(_np(a), np.float32), device=self.device)

@@ -10,6 +10,8 @@ the fused kernel, the periodic kernel and the cell-list kernel are held to.
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Optional
+
 import numpy as np
 import torch
 
@@ -244,38 +246,53 @@ def gb_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
     return e_cross + e_self + e_sa
 
 
-def potential_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
-    """Total potential energy (kJ/mol), shape ``(...)``."""
+def potential_energy(system: System, positions: torch.Tensor,
+                     bias_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Total potential energy (kJ/mol), shape ``(...)``; a bias
+    ``bias_fn(positions (..., N, 3)) -> energy (...)`` is added when given
+    (its forces then come with the others from autograd)."""
     require_no_vsites(system, "potential_energy")
-    nb = periodic_nonbonded_energy if system.box is not None else nonbonded_energy
-    e = (
-        bond_energy(system, positions)
-        + angle_energy(system, positions)
-        + torsion_energy(system, positions)
-        + nb(system, positions)
-    )
-    if system.use_gb:
-        e = e + gb_energy(system, positions)
+    e = sum(energy_components(system, positions).values())
+    if bias_fn is not None:
+        e = e + bias_fn(positions)
     return e
 
 
-def energy_and_forces_autograd(system: System, positions: torch.Tensor):
+def energy_components(system: System, positions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The terms of ``potential_energy`` by name: ``bond``, ``angle``,
+    ``torsion``, ``nonbonded`` (periodic when the system has a box) and,
+    in implicit solvent, ``gb``."""
+    nb = periodic_nonbonded_energy if system.box is not None else nonbonded_energy
+    comps = {
+        "bond": bond_energy(system, positions),
+        "angle": angle_energy(system, positions),
+        "torsion": torsion_energy(system, positions),
+        "nonbonded": nb(system, positions),
+    }
+    if system.use_gb:
+        comps["gb"] = gb_energy(system, positions)
+    return comps
+
+
+def energy_and_forces_autograd(system: System, positions: torch.Tensor,
+                               bias_fn: Optional[Callable] = None):
     """``(energy (...), forces (..., N, 3))`` with forces = -dE/dx by
-    autograd (detached outputs)."""
+    autograd (detached outputs), the bias included when given."""
     with torch.enable_grad():
         x = positions.detach().requires_grad_(True)
-        e = potential_energy(system, x)
+        e = potential_energy(system, x, bias_fn)
         (g,) = torch.autograd.grad(e.sum(), x)
     return e.detach(), -g
 
 
-def compute_forces(system: System, positions: torch.Tensor) -> torch.Tensor:
-    """Forces (kJ/mol/nm) = -dE/dx."""
-    return energy_and_forces_autograd(system, positions)[1]
+def compute_forces(system: System, positions: torch.Tensor,
+                   bias_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Forces (kJ/mol/nm) = -dE/dx, the bias included when given."""
+    return energy_and_forces_autograd(system, positions, bias_fn)[1]
 
 
 __all__ = [
-    "potential_energy", "compute_forces",
+    "potential_energy", "energy_components", "compute_forces",
     "energy_and_forces_autograd", "bond_energy", "angle_energy",
     "torsion_energy", "nonbonded_energy", "periodic_nonbonded_energy",
     "lj_switch", "gb_energy", "born_radii", "dihedral_angles",

@@ -15,7 +15,10 @@ returns the energies at the final positions:
 - tensors on a CUDA device launch ``csrc/fused_md.cu`` (one launch per
   call; ``launches`` counts the unbiased chunk and ``variant_launches``
   the other kernels by name). A CUDA tensor never reaches the plain
-  version: the launch happens or the call raises.
+  version: the launch happens or the call raises. Each replica is a
+  cluster of ``C`` CTAs and each atom's row a team of ``L`` lanes;
+  ``launch_shape`` chooses both from the atom and replica counts and the
+  card.
 - tensors on the CPU run ``FusedChunk.reference``: ``langevin_step`` over
   ``analytic.energy_and_forces`` plus the bias twin (``md/cv_bias.py``),
   with the same Philox noise stream; deposits are
@@ -36,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +65,22 @@ variant_launches = {
     "fused_remd": 0,           # the whole REMD run
 }
 
-#: atoms per replica the kernel takes: one thread per atom in one CTA, and
-#: one SM's register file holds 512 threads at the kernel's register bound
+#: atoms per replica the kernels take: with one lane a row and one CTA a
+#: replica (the shape every replica count falls back to) a CTA has one
+#: thread an atom, and one SM's register file holds 512 threads at the
+#: kernels' register bound
 MAX_ATOMS = 512
+#: threads a CTA and CTAs a replica (a thread-block cluster) at most
+MAX_THREADS = 512
+MAX_CLUSTER = 8
+_CLUSTERS = (1, 2, 4, 8)
+_LANES = (1, 2, 4, 8, 16, 32)
+#: cost model of the chooser, in partners a lane visits a step: one level of
+#: the row team's shuffle sum, and the cluster barriers and copies of a step
+#: (chip_smoke.py's shape sweeps on an H100: a partner a lane costs 2.4-2.8 us
+#: a step over the three GB phases, a cluster of 2-8 CTAs 3.4-5.5 us more)
+_SHUFFLE_COST = 0.25
+_CLUSTER_COST = 1.5
 
 # argument order of pmarlo_fused_md_launch (the enums of csrc/fused_md.cu)
 _PTRS = (
@@ -80,12 +96,15 @@ _INTS = (
     "n_dih", "n_layers", *(f"width{l}" for l in range(MAX_LAYERS + 1)),
     "n_cv", "use_whiten", "bias_p_len", "mtd_capacity", "mtd_interval",
     "n_attempts", "frames_per_attempt", "report_interval", "swap_seed",
+    "cluster", "lanes", "staged",
 )
 _FLOATS = (
     "dt", "half_dt", "c1", "c2sq", "gb_pref", "bias_strength", "mtd_height",
     "mtd_kb_dt", *(f"mtd_inv_sigma{k}" for k in range(MAX_CV)),
 )
 _MODE_CHUNK, _MODE_FUSED_MTD, _MODE_FUSED_REMD = 0, 1, 2
+# what pmarlo_fused_md_plan writes
+_PLAN = ("threads", "smem_bytes", "stageable", "resident", "resident_staged")
 _BIAS_KINDS = {"harmonic": 1, "metadynamics": 2}
 #: cudaErrorCooperativeLaunchTooLarge
 _TOO_LARGE = 720
@@ -105,16 +124,70 @@ def _library() -> ctypes.CDLL:
         lib.pmarlo_fused_md_max_atoms.restype = i
         lib.pmarlo_fused_md_abi.argtypes = [i]
         lib.pmarlo_fused_md_abi.restype = i
-        lib.pmarlo_grid_barrier_probe.argtypes = [i, i, i, p]
+        lib.pmarlo_fused_md_plan.argtypes = [i, p, p]
+        lib.pmarlo_fused_md_plan.restype = i
+        lib.pmarlo_grid_barrier_probe.argtypes = [i, i, i, i, p]
         lib.pmarlo_grid_barrier_probe.restype = i
         if lib.pmarlo_fused_md_max_atoms() != MAX_ATOMS:
             raise RuntimeError("kernel library and wrapper disagree on MAX_ATOMS")
-        abi = [lib.pmarlo_fused_md_abi(k) for k in range(5)]
-        if abi != [len(_PTRS), len(_INTS), len(_FLOATS), MAX_LAYERS, MAX_CV]:
+        abi = [lib.pmarlo_fused_md_abi(k) for k in range(8)]
+        if abi != [len(_PTRS), len(_INTS), len(_FLOATS), MAX_LAYERS, MAX_CV,
+                   MAX_THREADS, MAX_CLUSTER, len(_PLAN)]:
             raise RuntimeError(
                 f"kernel library and wrapper disagree on the argument lists: {abi}")
         _configured = True
     return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchShape:
+    """How the kernels lay out one replica of ``n`` atoms: a cluster of
+    ``cluster`` CTAs, CTA k owning rows ``[k rows(n), (k + 1) rows(n))``,
+    each row a team of ``lanes`` lanes of one warp, ``threads(n)`` threads
+    a CTA (``shape_of`` in ``csrc/fused_md.cu`` derives the same)."""
+
+    cluster: int
+    lanes: int
+
+    def rows(self, n_atoms: int) -> int:
+        return -(-int(n_atoms) // self.cluster)
+
+    def threads(self, n_atoms: int) -> int:
+        return -(-self.rows(n_atoms) * self.lanes // 32) * 32
+
+
+def launch_shapes(n_atoms: int) -> list:
+    """Every shape the kernels take for ``n_atoms`` atoms: C in 1, 2, 4, 8
+    with rows in every CTA, L a power of two up to a warp, at most
+    ``MAX_THREADS`` threads a CTA."""
+    n = int(n_atoms)
+    shapes = [LaunchShape(C, L) for C in _CLUSTERS for L in _LANES]
+    return [s for s in shapes
+            if (s.cluster - 1) * s.rows(n) < n and s.threads(n) <= MAX_THREADS]
+
+
+def launch_shape(n_atoms: int, n_replicas: int,
+                 capacity: Callable[[LaunchShape], int]) -> LaunchShape:
+    """The launch shape of ``n_replicas`` replicas of ``n_atoms`` atoms:
+    of ``launch_shapes(n_atoms)``, the one with the fewest partners a lane
+    visits a step (``_SHUFFLE_COST`` a shuffle level, ``_CLUSTER_COST`` for
+    more than one CTA), then the fewest CTAs and lanes, of which
+    ``capacity(shape)`` replicas, at least ``n_replicas``, can be resident
+    at once. On the card ``capacity`` is the card's own count
+    (``FusedChunk._shape``). One CTA and one lane a row (a thread an atom)
+    is taken without asking, so no replica count is refused here; a
+    cooperative launch that still cannot be resident is refused by the
+    card."""
+    n, R = int(n_atoms), int(n_replicas)
+    if not 1 <= n <= MAX_ATOMS or R < 1:
+        raise ValueError(f"need 1 <= n_atoms <= {MAX_ATOMS} and n_replicas >= 1")
+
+    def cost(s: LaunchShape):
+        return (-(-n // s.lanes) + _SHUFFLE_COST * math.log2(s.lanes)
+                + (_CLUSTER_COST if s.cluster > 1 else 0.0), s.cluster, s.lanes)
+
+    return next(s for s in sorted(launch_shapes(n), key=cost)
+                if s == LaunchShape(1, 1) or capacity(s) >= R)
 
 
 @dataclasses.dataclass
@@ -146,8 +219,9 @@ class FusedChunk:
                  mtd_deposit_interval: Optional[int] = None):
         if system.n_atoms > MAX_ATOMS:
             raise ValueError(
-                f"the fused kernel holds one replica in one CTA, one thread "
-                f"per atom: N = {system.n_atoms} exceeds {MAX_ATOMS}"
+                f"the fused kernels hold one replica in at most {MAX_CLUSTER} CTAs "
+                f"and need one thread an atom when the replicas fill the card: "
+                f"N = {system.n_atoms} exceeds {MAX_ATOMS}"
             )
         if mtd_deposit_interval is not None:
             if bias is None or bias.kind != "metadynamics" or mtd is None:
@@ -194,6 +268,14 @@ class FusedChunk:
         self._bias_tables = None
         #: the hill widths as launch arguments, read from the device once
         self._mtd_inv_sigma = {}
+        #: launch shapes by replica count, and plans by (mode, replicas,
+        #: forced shape)
+        self._shapes = {}
+        self._plans = {}
+        #: the shape of this chunk's last launch: cluster, lanes, rows,
+        #: threads, staged (pair tables in shared memory), smem_bytes (without
+        #: the tables), resident (replicas the card holds at once)
+        self.last_launch: Optional[dict] = None
         if bias is not None:
             if bias.device != dev or bias.n_atoms != n:
                 raise ValueError("the bias was built for another device or system")
@@ -356,16 +438,67 @@ class FusedChunk:
             floats.update(self._mtd_inv_sigma)
         return ptrs, ints, floats
 
-    def _run(self, mode: int, what: str, ptrs, ints, floats, step_offset: int,
-             attempt_offset: int, device) -> None:
-        lib = _library()
-        pv = (ctypes.c_void_p * len(_PTRS))(*[
-            ptrs[k].data_ptr() if ptrs.get(k) is not None else None for k in _PTRS])
+    def _plan_of(self, mode: int, ints, shape: LaunchShape) -> dict:
+        """The card's numbers for one launch shape (``_PLAN``)."""
         iv = (ctypes.c_int * len(_INTS))(*[int(ints.get(k, 0)) for k in _INTS])
-        fv = (ctypes.c_float * len(_FLOATS))(*[float(floats.get(k, 0.0)) for k in _FLOATS])
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.pmarlo_fused_md_launch(
-            mode, pv, iv, fv, int(step_offset), int(attempt_offset), stream)
+        out = (ctypes.c_int * len(_PLAN))()
+        iv[_INTS.index("cluster")] = shape.cluster
+        iv[_INTS.index("lanes")] = shape.lanes
+        _kernels.check_launch(_library().pmarlo_fused_md_plan(mode, iv, out),
+                              f"fused_md plan {shape}")
+        return dict(zip(_PLAN, out))
+
+    def _shape(self, ints) -> LaunchShape:
+        """The launch shape of every mode for this many replicas, chosen
+        once: one shape, so that the windowed path (the chunk kernel) and
+        the whole-run path (the REMD kernel) sum in one order and stay
+        bitwise equal. ``launch_shape`` chooses by the card's count of
+        resident replicas of each shape, the lower of the two kernels'."""
+        R = int(ints["n_replicas"])
+        if R not in self._shapes:
+            modes = (_MODE_CHUNK, _MODE_FUSED_REMD)
+            self._shapes[R] = launch_shape(
+                self.system.n_atoms, R,
+                lambda s: min(self._plan_of(m, ints, s)["resident"] for m in modes))
+        return self._shapes[R]
+
+    def _plan(self, mode: int, ints, shape: Optional[LaunchShape] = None) -> dict:
+        """Launch shape and table placement of ``mode`` for this many
+        replicas (``shape`` forces one). The tables go to shared memory
+        where they fit and do not leave fewer replicas resident than there
+        are (or than without); staging reads the same numbers, so it does
+        not change the arithmetic."""
+        R = int(ints["n_replicas"])
+        key = (mode, R, shape)
+        if key not in self._plans:
+            if shape is None:
+                shape = self._shape(ints)
+            plan = self._plan_of(mode, ints, shape)
+            staged = bool(plan["stageable"]) and (
+                plan["resident_staged"] >= min(R, plan["resident"]))
+            self._plans[key] = {**dataclasses.asdict(shape),
+                                "rows": shape.rows(self.system.n_atoms),
+                                "threads": plan["threads"], "staged": staged,
+                                "smem_bytes": plan["smem_bytes"],
+                                "resident": plan["resident_staged" if staged else "resident"]}
+        return self._plans[key]
+
+    def _run(self, mode: int, what: str, ptrs, ints, floats, step_offset: int,
+             attempt_offset: int, device, shape: Optional[LaunchShape] = None) -> None:
+        lib = _library()
+        with torch.cuda.device(device):
+            plan = self._plan(mode, ints, shape)
+            ints = {**ints, "cluster": plan["cluster"], "lanes": plan["lanes"],
+                    "staged": int(plan["staged"])}
+            pv = (ctypes.c_void_p * len(_PTRS))(*[
+                ptrs[k].data_ptr() if ptrs.get(k) is not None else None for k in _PTRS])
+            iv = (ctypes.c_int * len(_INTS))(*[int(ints.get(k, 0)) for k in _INTS])
+            fv = (ctypes.c_float * len(_FLOATS))(*[
+                float(floats.get(k, 0.0)) for k in _FLOATS])
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.pmarlo_fused_md_launch(
+                mode, pv, iv, fv, int(step_offset), int(attempt_offset), stream)
+        self.last_launch = plan
         if rc == _TOO_LARGE:
             raise RuntimeError(
                 f"{what}: {ints['n_replicas']} replicas of {ints['n_atoms']} atoms "
@@ -374,7 +507,7 @@ class FusedChunk:
         _kernels.check_launch(rc, what)
 
     def _launch(self, x, v, seeds, temps, n_steps, step_offset, want_forces,
-                hills=None, deposits=True):
+                hills=None, deposits=True, shape: Optional[LaunchShape] = None):
         global launches
         if x.device.type != "cuda":
             raise RuntimeError(f"the fused kernel runs on CUDA tensors, got {x.device}")
@@ -414,7 +547,7 @@ class FusedChunk:
         name = ("fused_metadynamics" if fused
                 else "chunk" if self.bias is None else f"bias_{self.bias.kind}")
         self._run(_MODE_FUSED_MTD if fused else _MODE_CHUNK, f"fused_md {name}",
-                  ptrs, ints, floats, step_offset, 0, dev)
+                  ptrs, ints, floats, step_offset, 0, dev, shape)
         if name == "chunk":
             launches += 1
         else:
@@ -512,16 +645,19 @@ def build_fused_chunk(
 
 
 def grid_barrier_probe(n_blocks: int, n_threads: int, n_barriers: int,
-                       device="cuda") -> None:
-    """Launch ``n_blocks`` CTAs of ``n_threads`` threads that meet at
-    ``n_barriers`` grid barriers and do nothing else: timed with and
-    without barriers, it gives the cost of the barrier the fused REMD and
-    fused metadynamics kernels synchronise their replicas with."""
+                       device="cuda", cluster: int = 1) -> None:
+    """Launch ``n_blocks`` CTAs of ``n_threads`` threads, in clusters of
+    ``cluster``, that meet at ``n_barriers`` grid barriers and do nothing
+    else: timed with and without barriers, it gives the cost of the barrier
+    the fused REMD and fused metadynamics kernels synchronise their
+    replicas with (and shows whether the card takes a cooperative launch of
+    clusters)."""
     rc = _library().pmarlo_grid_barrier_probe(
-        int(n_blocks), int(n_threads), int(n_barriers),
+        int(n_blocks), int(n_threads), int(n_barriers), int(cluster),
         torch.cuda.current_stream(torch.device(device)).cuda_stream)
     _kernels.check_launch(rc, "grid_barrier_probe")
 
 
-__all__ = ["FusedChunk", "FusedRemdOutput", "build_fused_chunk", "grid_barrier_probe",
-           "MAX_ATOMS", "launches", "variant_launches"]
+__all__ = ["FusedChunk", "FusedRemdOutput", "LaunchShape", "build_fused_chunk",
+           "grid_barrier_probe", "launch_shape", "launch_shapes", "MAX_ATOMS",
+           "MAX_CLUSTER", "MAX_THREADS", "launches", "variant_launches"]

@@ -216,12 +216,17 @@ def langevin_step(
     dt: float,
     friction: float,
     temperature_K,
+    bias_fn: Optional[Callable] = None,
     force_fn: Optional[Callable] = None,
     constraints=None,
     force_state=None,
 ):
     """One folded BAOAB step (OpenMM ``LangevinMiddleIntegrator``).
     Returns ``(new_state, energy at the pre-step positions)``.
+
+    ``bias_fn(positions) -> energy`` adds a bias to the autograd forces of
+    ``potential_energy``; it cannot go with a ``force_fn``, which is used
+    as it is (``make_force_fn`` and ``compose_bias`` put a bias into one).
 
     With ``force_state`` (a stateful force function's carry, the cell-list
     sweep's ``NeighborState``), ``force_fn`` must have the stateful
@@ -239,10 +244,14 @@ def langevin_step(
     after each position half-step, with the correction folded into v and
     a RATTLE after it; RATTLE after the O step."""
     require_no_vsites(system, "langevin_step")
+    if force_fn is not None and bias_fn is not None:
+        raise ValueError(
+            "pass either force_fn or bias_fn, not both: a given force_fn is used "
+            "as it is and the bias would be dropped")
     if force_state is not None:
         energy, f, force_state = force_fn(state.positions, force_state)
     elif force_fn is None:
-        energy, f = energy_and_forces_autograd(system, state.positions)
+        energy, f = energy_and_forces_autograd(system, state.positions, bias_fn)
     else:
         energy, f = force_fn(state.positions)
     inv_m = _inv_mass(system)

@@ -14,6 +14,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
+
 #: fields holding integer index arrays (int32 in both packages)
 _INT_FIELDS = frozenset({
     "bond_idx", "angle_idx", "torsion_idx", "excl12_idx", "pair14_idx",
@@ -98,6 +100,12 @@ class System:
                 return i
         raise KeyError(f"no atom {atom_name!r} in residue {residue_id}")
 
+    def select(self, name: str) -> np.ndarray:
+        """Indices of all atoms with the given atom name (e.g. 'CA')."""
+        return np.asarray(
+            [i for i, n in enumerate(self.atom_names) if n == name], dtype=np.int64
+        )
+
     def to(self, device) -> "System":
         """The same system with every tensor on ``device``."""
         changes = {
@@ -117,10 +125,12 @@ class System:
         return d
 
 
-def system_from_numpy(d: Dict[str, Any], device="cpu") -> System:
+def system_from_numpy(d: Dict[str, Any], device=None) -> System:
     """Build the port's ``System`` from a ``System.to_dict()`` of either
     package (arrays become tensors on ``device``: index arrays int32,
-    parameters float32; static metadata passes through)."""
+    parameters float32; static metadata passes through). ``device=None``
+    is ``_device.default_device()``."""
+    device = torch.device(device) if device is not None else default_device()
     kwargs = {}
     for f in dataclasses.fields(System):
         if f.name not in d:

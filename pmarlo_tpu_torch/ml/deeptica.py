@@ -232,7 +232,9 @@ class DeepTICAModel:
         return prefix
 
     @classmethod
-    def load(cls, prefix: "str | Path", device="cpu") -> "DeepTICAModel":
+    def load(cls, prefix: "str | Path", device=None) -> "DeepTICAModel":
+        """The model saved at ``prefix``, on ``device`` (``device=None``:
+        ``_device.default_device()``)."""
         prefix = Path(prefix)
         cfg_d = json.loads(prefix.with_suffix(".json").read_text())
         with np.load(prefix.with_suffix(".weights.npz")) as data:
@@ -258,11 +260,13 @@ class DeepTICAModel:
 
 
 def deeptica_from_numpy(config, params, scaler_mean, scaler_scale, whitening=None,
-                        device="cpu") -> DeepTICAModel:
+                        device=None) -> DeepTICAModel:
     """A ``DeepTICAModel`` from host arrays, e.g. the fields of a model the
     JAX package trained: ``config`` a ``DeepTICAConfig`` or its dict,
     ``params`` the list ``[{"w": (in, out), "b": (out,)}, ...]``,
-    ``whitening`` a dict with ``mean`` and ``transform`` or None."""
+    ``whitening`` a dict with ``mean`` and ``transform`` or None. The
+    weights go to ``device`` (``None``: ``_device.default_device()``)."""
+    device = torch.device(device) if device is not None else default_device()
     if not isinstance(config, DeepTICAConfig):
         cfg_d = dict(config)
         cfg_d["hidden"] = tuple(cfg_d["hidden"])

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .._device import default_device
+
 _JITTER_LADDER = (0.0, 1e-6, 1e-4, 1e-2)
 
 
@@ -129,8 +131,10 @@ def vamp2_loss_from_covariances(
     return loss.to(torch.float32), metrics
 
 
-def vamp2_score_features(x0, xt, ridge: float = 1e-4, device="cpu") -> float:
-    """VAMP-2 proxy baseline on raw (scaled) features."""
+def vamp2_score_features(x0, xt, ridge: float = 1e-4, device=None) -> float:
+    """VAMP-2 proxy baseline on raw (scaled) features, computed on
+    ``device`` (``None``: ``_device.default_device()``)."""
+    device = torch.device(device) if device is not None else default_device()
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
     xt = torch.as_tensor(xt, dtype=torch.float32, device=device)
     with torch.no_grad():

@@ -12,17 +12,19 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .._device import default_device
 
-def set_global_seed(seed: int, device="cpu") -> torch.Generator:
+
+def set_global_seed(seed: int, device=None) -> torch.Generator:
     """Seed python and numpy RNGs and return a ``torch.Generator`` on
-    ``device`` for the rest. All tensor randomness of a run derives from
+    ``device`` (``None``: ``_device.default_device()``) for the rest. All tensor randomness of a run derives from
     it, so runs are reproducible; torch's global generator is left alone."""
     if not isinstance(seed, (int, np.integer)):
         raise TypeError(f"seed must be an int, got {type(seed)!r}")
     seed = int(seed)
     random.seed(seed)
     np.random.seed(seed % (2**32))
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device=torch.device(device) if device is not None else default_device())
     gen.manual_seed(seed)
     return gen
 

@@ -452,17 +452,20 @@ def _need_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 8, 33])
 @pytest.mark.parametrize("name,hidden", [("alanine", (64, 64)), ("chignolin", (64, 64)),
                                          ("chignolin", (8,))])
 @pytest.mark.parametrize("kind", ["harmonic", "metadynamics"])
-def test_bias_kernel_matches_plain_version_on_the_card(name, hidden, kind):
+def test_bias_kernel_matches_plain_version_on_the_card(name, hidden, kind, R):
     """Energies and forces to 1e-4 (forces of the largest force), 50 biased
-    steps to 1e-3 nm, one launch counted a call. Alanine's 32 threads
-    stride over 64 hidden units; chignolin has more threads than units."""
+    steps to 1e-3 nm, one launch counted a call, a second launch bitwise
+    equal to the first. CTA 0 of each replica runs the MLP with teams of
+    lanes a unit, wider or narrower than the layers; the other CTAs of a
+    cluster (chignolin at R=1 and 8: 8 CTAs, at R=33: 8 CTAs of 8 lanes)
+    take dE/dphi from it."""
     _need_card()
     system, pos, info, quads = _molecule(name, device="cuda")
     model = _model(len(quads), hidden=hidden, device="cuda")
-    R = 8
     x, v, seeds, temps = _md_inputs(system, pos, R)
     hills = _ledger(2, 700, 4096, device="cuda") if kind == "metadynamics" else None
     chunk = build_fused_chunk(
@@ -475,9 +478,11 @@ def test_bias_kernel_matches_plain_version_on_the_card(name, hidden, kind):
     assert float((fk - fp).abs().max() / fp.abs().max()) <= 1e-4
     assert float((ek - ep).abs().max() / ep.abs().max()) <= 1e-4
     xk, vk, ek = chunk(x, v, seeds, temps, 50, 0, hills=hills)
+    xk2, vk2, ek2 = chunk(x, v, seeds, temps, 50, 0, hills=hills)
     xp, vp, _ = chunk.reference(x, v, seeds, temps, 50, 0, hills=hills)
     torch.cuda.synchronize()
-    assert fused_md.variant_launches[key] == before + 2
+    assert fused_md.variant_launches[key] == before + 3
+    assert torch.equal(xk, xk2) and torch.equal(vk, vk2) and torch.equal(ek, ek2)
     assert bool(torch.isfinite(xk).all())
     assert float((xk - xp).abs().max()) <= 1e-3
 

@@ -15,10 +15,13 @@ import pytest
 import torch
 
 from pmarlo_tpu_torch.data import alanine_dipeptide_structure, replicate_structure
+from pmarlo_tpu_torch.data.chignolin import chignolin_structure
 from pmarlo_tpu_torch.md import analytic, fused_md
 from pmarlo_tpu_torch.md.forcefield import build_system
 from pmarlo_tpu_torch.md.forces import energy_and_forces_autograd
-from pmarlo_tpu_torch.md.fused_md import MAX_ATOMS, FusedChunk, _bonded_csr, build_fused_chunk
+from pmarlo_tpu_torch.md.fused_md import (
+    MAX_ATOMS, MAX_CLUSTER, MAX_THREADS, FusedChunk, LaunchShape, _bonded_csr,
+    build_fused_chunk, launch_shape, launch_shapes)
 from pmarlo_tpu_torch.md.integrate import gaussian_noise, philox4x32_10
 
 DT = 0.002
@@ -32,11 +35,12 @@ def _two_threads():
     torch.set_num_threads(prev)
 
 
-def _inputs(R, device="cpu", seed=0, sigma=0.005, copies=(1, 1, 1)):
+def _inputs(R, device="cpu", seed=0, sigma=0.005, copies=(1, 1, 1), structure=None):
     """Alanine GBn2 positions near the crystal geometry (``copies`` tiles
-    the molecule on a grid) and 300-450 K Maxwell-Boltzmann velocities,
-    made with numpy from ``seed``."""
-    structure = replicate_structure(alanine_dipeptide_structure(), copies)
+    the molecule on a grid; or another ``structure``) and 300-450 K
+    Maxwell-Boltzmann velocities, made with numpy from ``seed``."""
+    if structure is None:
+        structure = replicate_structure(alanine_dipeptide_structure(), copies)
     system, pos = build_system(structure, gb_model="gbn2", device=device)
     n = system.n_atoms
     rng = np.random.default_rng(seed)
@@ -183,8 +187,8 @@ def test_chunk_validates_its_inputs():
 
 
 def test_chunk_refuses_systems_above_the_kernel_bound():
-    """One CTA holds one replica, one thread per atom: above MAX_ATOMS the
-    chunk raises when it is built, on any device."""
+    """Many replicas fall back to one CTA a replica and one thread an atom,
+    so above MAX_ATOMS the chunk raises when it is built, on any device."""
     system, _, _, _, _ = _inputs(1, copies=(24, 1, 1))
     assert system.n_atoms == 528 > MAX_ATOMS
     with pytest.raises(ValueError, match=f"exceeds {MAX_ATOMS}"):
@@ -207,18 +211,123 @@ def test_bonded_csr_lists_every_term_role_once():
     assert len(seen) == n_roles == len(ent)
 
 
+# --- the launch shape ------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def _h100_capacity(n_atoms, ctas_per_sm):
+    """A stand-in for the card's count of resident replicas of a shape
+    (occupancy and ``cudaOccupancyMaxActiveClusters``, which the wrapper
+    asks on the card): an SM holds ``ctas_per_sm`` CTAs of ``MAX_THREADS``
+    threads and proportionally more of fewer threads, at most 32, and a
+    cluster's CTAs share one GPC, counted as one GPC of 14 SMs for every
+    16 (an H100 SXM's 132 SMs sit in 8 GPCs of 14-18)."""
+    def capacity(shape):
+        per_sm = min(32, (ctas_per_sm * MAX_THREADS) // shape.threads(n_atoms))
+        if shape.cluster == 1:
+            return H100_SMS * per_sm
+        return (H100_SMS // 16) * ((14 * per_sm) // shape.cluster)
+    return capacity
+
+
+def _old_capacity(n_atoms, n_sms, ctas_per_sm):
+    """Replicas the one-thread-an-atom design before the row teams took at
+    once: one CTA of the next power of two >= max(N, 32) threads a
+    replica."""
+    threads = 32
+    while threads < n_atoms:
+        threads *= 2
+    return n_sms * min(32, (ctas_per_sm * MAX_THREADS) // threads)
+
+
+@pytest.mark.parametrize("ctas_per_sm", [1, 2])
+@pytest.mark.parametrize("R", [1, 8, 32, 33, 132, 512])
+def test_launch_shape_is_a_valid_layout_for_every_atom_count(R, ctas_per_sm):
+    """For N = 1..512 on the H100's 132 SMs: at most 512 threads, L a power
+    of two within a warp, C in 1, 2, 4, 8, every row owned by exactly one
+    team of one CTA; all R replicas resident at once unless the shape is
+    the one-thread-an-atom fallback, and never a refusal of a replica
+    count the one-thread-an-atom design launched."""
+    for n in range(1, MAX_ATOMS + 1):
+        capacity = _h100_capacity(n, ctas_per_sm)
+        s = launch_shape(n, R, capacity)
+        rows, threads = s.rows(n), s.threads(n)
+        assert threads <= MAX_THREADS and threads % 32 == 0
+        assert s.lanes in (1, 2, 4, 8, 16, 32)
+        assert s.cluster in (1, 2, 4, 8) and s.cluster <= MAX_CLUSTER
+        assert rows == -(-n // s.cluster) and rows * s.lanes <= threads < rows * s.lanes + 32
+        owner = np.full(n, -1)
+        for k in range(s.cluster):
+            mine = np.arange(k * rows, min(n, (k + 1) * rows))
+            assert mine.size >= 1, (n, R, s)          # no CTA without rows
+            assert (owner[mine] == -1).all()
+            owner[mine] = k
+        assert (owner >= 0).all()
+        cap = capacity(s)
+        assert R <= cap or s == LaunchShape(1, 1), (n, R, s, cap)
+        if R <= _old_capacity(n, H100_SMS, ctas_per_sm):
+            assert R <= cap, (n, R, s, cap)
+
+
+def test_launch_shape_fills_the_card_with_teams_and_lowers_clusters_on_request():
+    """The shapes of the paths (R=32): alanine one CTA of 16-lane teams,
+    138-atom chignolin eight CTAs of 8-lane teams (four of 288 threads do
+    not all fit the H100's GPCs at one CTA an SM); where the card holds no
+    clusters beyond 4 or 1 CTAs, fewer CTAs; many replicas drop the lanes
+    first. ``launch_shapes`` lists every layout the kernels take."""
+    h100 = {n: _h100_capacity(n, 1) for n in (22, 138, 506)}
+
+    def at_most(n, c):
+        return lambda s: h100[n](s) if s.cluster <= c else 0
+
+    assert launch_shape(22, 32, h100[22]) == LaunchShape(1, 16)
+    assert launch_shape(138, 32, h100[138]) == LaunchShape(8, 8)
+    assert launch_shape(138, 8, h100[138]) == LaunchShape(8, 16)
+    assert launch_shape(138, 32, at_most(138, 4)) == LaunchShape(2, 4)
+    assert launch_shape(138, 32, at_most(138, 1)) == LaunchShape(1, 2)
+    assert launch_shape(22, 512, h100[22]) == LaunchShape(1, 4)
+    assert launch_shape(506, 512, h100[506]) == LaunchShape(1, 1)
+    assert launch_shape(138, 1, lambda s: 0) == LaunchShape(1, 1)
+    assert LaunchShape(8, 8).threads(138) == 160 and LaunchShape(2, 4).rows(138) == 69
+    assert LaunchShape(8, 16) in launch_shapes(138)
+    assert LaunchShape(8, 1) not in launch_shapes(7)           # a CTA without rows
+    assert LaunchShape(1, 32) not in launch_shapes(22)         # 704 threads
+    with pytest.raises(ValueError):
+        launch_shape(MAX_ATOMS + 1, 1, h100[506])
+
+
+# --- the kernel on the card ---------------------------------------------------------------------
+
+MOLECULES = {
+    "22_atoms": dict(copies=(1, 1, 1)),
+    "138_atoms": dict(structure="chignolin"),
+    "176_atoms": dict(copies=(2, 2, 2)),
+    "506_atoms": dict(copies=(23, 1, 1)),
+}
+
+
+def _card_inputs(name, R, seed=0):
+    kw = dict(MOLECULES[name])
+    if kw.get("structure") == "chignolin":
+        kw["structure"] = chignolin_structure()
+    return _inputs(R, device="cuda", seed=seed, **kw)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("copies", [(1, 1, 1), (2, 2, 2), (23, 1, 1)],
-                         ids=["22_atoms", "176_atoms", "506_atoms"])
-def test_kernel_matches_plain_twin_on_the_card(copies):
+@pytest.mark.parametrize("R", [1, 8, 33])
+@pytest.mark.parametrize("copies", list(MOLECULES))
+def test_kernel_matches_plain_twin_on_the_card(copies, R):
     """The CUDA kernel against its plain twin on the same card tensors:
     forces and energies to 1e-4 relative, 100 steps at friction 0 and at
-    1/ps (same Philox stream) to 1e-3 nm. One warp per CTA for alanine;
-    several warps and barriers up to the kernel's atom bound."""
+    1/ps (same Philox stream) to 1e-3 nm, and a second launch bitwise equal
+    to the first. The shapes chosen here span one CTA of 16-lane teams
+    (22 atoms), clusters of 2-8 CTAs with 4-16 lanes, and the
+    one-thread-an-atom layout; 22, 138 and 506 atoms are no multiple of
+    the C x L chosen for them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    R = 8
-    system, x, v, seeds, temps = _inputs(R, device="cuda", copies=copies)
+    system, x, v, seeds, temps = _card_inputs(copies, R)
     assert system.n_atoms <= MAX_ATOMS
     for friction in (0.0, 1.0):
         chunk = build_fused_chunk(system, dt=DT, friction=friction, n_replicas=R)
@@ -228,10 +337,44 @@ def test_kernel_matches_plain_twin_on_the_card(copies):
         assert float((fk - fp).abs().max() / fp.abs().max()) <= 1e-4
         assert float((ek - ep).abs().max() / ep.abs().max()) <= 1e-4
         xk, vk, ek = chunk(x, v, seeds, temps, 100, 0)
+        xk2, vk2, ek2 = chunk(x, v, seeds, temps, 100, 0)
         xp, vp, _ = chunk.reference(x, v, seeds, temps, 100, 0)
         torch.cuda.synchronize()
-        assert fused_md.launches == before + 2
+        assert fused_md.launches == before + 3
+        assert torch.equal(xk, xk2) and torch.equal(vk, vk2) and torch.equal(ek, ek2)
         assert bool(torch.isfinite(xk).all())
         assert float((xk - xp).abs().max()) <= 1e-3
         e_at, _ = analytic.energy_and_forces(chunk.dense, xk)
         assert float((ek - e_at).abs().max() / e_at.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copies", ["22_atoms", "138_atoms"])
+def test_every_launch_shape_matches_plain_twin_on_the_card(copies):
+    """Every shape the kernel takes (C in 1, 2, 4, 8 and L up to 32 within
+    512 threads) at R=8: forces to 1e-4 relative of the plain twin, 20
+    steps to 1e-3 nm, reproducible bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    R = 8
+    system, x, v, seeds, temps = _card_inputs(copies, R)
+    n = system.n_atoms
+    chunk = build_fused_chunk(system, dt=DT, friction=1.0, n_replicas=R)
+    ep, fp = analytic.energy_and_forces(chunk.dense, x)
+    xp, _, _ = chunk.reference(x, v, seeds, temps, 20, 0)
+    zeros = torch.zeros(R, dtype=torch.int32, device="cuda")
+    shapes = launch_shapes(n)
+    for shape in shapes:
+        _, _, ek, fk, _ = chunk._launch(x, torch.zeros_like(x), zeros, temps, 0, 0, True,
+                                        shape=shape)
+        xa, _, ea, _, _ = chunk._launch(x, v, seeds, temps, 20, 0, False, shape=shape)
+        xb, _, eb, _, _ = chunk._launch(x, v, seeds, temps, 20, 0, False, shape=shape)
+        torch.cuda.synchronize()
+        assert chunk.last_launch["cluster"] == shape.cluster
+        assert chunk.last_launch["lanes"] == shape.lanes
+        assert chunk.last_launch["threads"] == shape.threads(n)
+        assert float((fk - fp).abs().max() / fp.abs().max()) <= 1e-4, shape
+        assert float((ek - ep).abs().max() / ep.abs().max()) <= 1e-4, shape
+        assert float((xa - xp).abs().max()) <= 1e-3, shape
+        assert torch.equal(xa, xb) and torch.equal(ea, eb), shape
+    assert len(shapes) >= 14
