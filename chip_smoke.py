@@ -7,7 +7,9 @@ Phases, one line of numbers each:
 
 1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a), one
              nvcc a source, all started together; the registers and spills
-             ptxas reports for the four fused kernels (no spill allowed).
+             ptxas reports for the four fused kernels and the two
+             redesigned force kernels, ``pair_force_kernel`` and
+             ``newton_force_kernel`` (no spill allowed).
 2. kernel  - the fused Langevin kernel against its plain PyTorch twin at
              R=32 on alanine dipeptide in GBn2: energies and forces, then
              100 steps at friction 0 and at friction 1/ps, two launches
@@ -24,8 +26,11 @@ Phases, one line of numbers each:
 6. pair    - the three GB pair kernels against their plain twins on the
              3,726-atom chignolin assembly (R=8, minimized + 0.005 nm
              noise): Born integrals, energy rows, dE/dB, forces, then the
-             whole energy and forces, and both against a float64 twin;
-             ms per sweep and per evaluation.
+             whole energy and forces, and both against a float64 twin
+             (the forces at most 1e-5 of max |F| from it); two launches of
+             the force kernel bitwise equal; ms per sweep and per
+             evaluation, and of the Newton force kernel over the whole
+             upper triangle at the same shape (a point of comparison).
 7. protein - the protein-scale path: 8-rung 300-330 K REMD of the assembly
              with every X-H bond constrained at 4 fs, through
              ``run_replica_exchange`` (pair kernels, FIRE, SHAKE/RATTLE,
@@ -86,8 +91,11 @@ Phases, one line of numbers each:
              batch of 3: each of the six sweeps against its plain version,
              Newton against ordered, Newton run to run (its sums are atomic),
              a huge cutoff against the dense kernels, Morton against identity
-             order; the share of tile blocks computed; ms a sweep beside the
-             dense kernels' at the same N; bounds from this run's pairs.
+             order; the share of tile blocks computed; of the Newton force
+             kernel's work items and of their 32 x 32 patches, the share its
+             group-box test keeps and the share that holds a pair inside the
+             cutoff; ms a sweep beside the dense kernels' at the same N;
+             bounds from this run's pairs.
 16. bonded - the bonded kernel on the same assembly against
              ``bonded_energy_and_forces`` and float64 autograd; ms a call.
 17. large path - the large implicit-solvent path at full width: 61,824
@@ -138,6 +146,9 @@ PROTEIN_COPIES = (3, 3, 3)        # 27 chignolins, 3,726 atoms
 PROTEIN_REPLICAS = 8
 PROTEIN_STEPS = 2_000            # cut to fit: ~29 ms a step on the H100
 PROTEIN_DT_PS = 0.004
+# phase 6: the pair path's forces against a float64 evaluation, at most 1e-5
+# of max |F| (the force kernels take single special-function results)
+FORCE_VS_FLOAT64_MAX = 1e-5
 PAIR_KERNELS = ("pair_born", "pair_energy", "pair_force")
 CV_REPORT = 50                   # frames every 50 steps on the chignolin paths
 CV_STEPS = 10_000                # unbiased REMD that feeds the training
@@ -195,20 +206,37 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # float32 operations (an FMA counts two) and special-function results
-# (sqrt, reciprocal, log, exp) of one ordered pair in each GB sweep,
-# counted from csrc/gb_pair.cuh, csrc/pair_force.cu and csrc/fused_md.cu:
+# (sqrt, reciprocal, log, exp) of one ordered pair in each GB sweep of the
+# fused kernels, counted from csrc/gb_pair.cuh and csrc/fused_md.cu:
 # distance 8 + 2; HCT term 45 + 3; neck 14 + 2; GB f-function 20 + 4;
-# LJ + Coulomb 14-16.
+# LJ + Coulomb 14-16. The fused kernels' bound (_md_bound) counts them per
+# ordered pair.
 PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
-# The culled sweeps: every pair of a computed tile block pays the
-# displacement, r^2 and the cutoff test on r^2 (no root: the threshold is
-# exact, pair_force.cutoff_r2); a pair inside the cutoff pays the rest of
-# PAIR_OPS. The Newton sweeps visit each unordered pair once and pay for a
-# pair inside the cutoff the shared terms once, the HCT term per direction
-# (born: a second 45 + 3) and the dE/dB term per side (energy: ~10 more); the
-# force sweep's 174 + 16 already holds both directions.
-CULLED_CANDIDATE_OPS = (10, 0)
-NEWTON_OPS = {"born": (112, 10), "energy": (52, 6), "force": (174, 16)}
+# The bound of a GB pair sweep (rows 3-7 of PERF.md) counts the least work
+# of its function, not of a design: each unordered pair once, and with a
+# cutoff only the pairs inside it (a pair outside needs no work but its
+# test, which a design that does not visit it avoids). So a design that
+# visits fewer pairs cannot lower the bound: the dense sweeps count
+# R N (N - 1) / 2 pairs, the culled and Newton sweeps half the ordered pairs
+# inside the cutoff. A special function is one special-function result (the
+# force sweeps take them so, csrc/gb_force.cuh): 1/r and r from one rsqrt;
+# a per-atom factor (1/B) is staged, not counted a pair. Each unordered pair:
+# - born (I_i and I_j): distance 9 (3 differences, r^2 5, + 1e-12), r from
+#   1/r 1 [rsqrt]; the HCT value per direction 21 [1/L, 1/U, log] and its
+#   1/2 and sum 2, x 2; the neck value 9 [1/denom] and both sums 2: 67, 8.
+# - energy (the pair's energy, dE/dB both sides): distance 9 [rsqrt]; LJ +
+#   Coulomb 15; exp argument 3 [exp]; f^2 3 [rsqrt]; the GB energy 4;
+#   dE/dB 3 shared + 6 a side; the three sums 3: 52, 3.
+# - force (dE/dr / r, both Born chain directions, csrc/gb_force.cuh
+#   force_pair): distance 9 [rsqrt]; r and 1/r^2 2; LJ + Coulomb dE/dr 17;
+#   GB f-function and its dE/dr 15 [exp, rsqrt]; the HCT derivative per
+#   direction 34 [1/L, 1/U, log] and its 1/2 1, x 2; the neck derivative 14
+#   [1/denom] and its two sums 2; the chain terms 4 and / r 1; F_i and F_j
+#   9: 143, 10.
+NEWTON_OPS = {"born": (67, 8), "energy": (52, 3), "force": (143, 10)}
+# kernels whose registers and spills phase 1 reads and gates (no spill)
+PAIR_PTXAS_KERNELS = ("pair_force_kernel", "newton_born_kernel", "newton_energy_kernel",
+                      "newton_force_kernel")
 # The periodic sweeps, counted from csrc/periodic_pair.cuh and the two
 # kernels: every ordered candidate pair pays the displacement, r^2, the band
 # and the cutoff test (with the per-axis minimum image in the dense sweep,
@@ -311,13 +339,13 @@ def _mb_velocities(system, temps: torch.Tensor, rng) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device="cuda")
 
 
-def _fused_ptxas(log: str) -> dict:
-    """Registers and spill bytes ptxas reported for each fused kernel."""
+def _ptxas(log: str, kernels) -> dict:
+    """Registers and spill bytes ptxas reported for each of ``kernels``."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d(fused_\w+?_kernel)E", ln)
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+?_kernel)E", ln)
         if m:
-            name = m.group(1) if m.group(1) in FUSED_KERNELS else None
+            name = m.group(1) if m.group(1) in kernels else None
             continue
         if name is None:
             continue
@@ -341,14 +369,16 @@ def phase_build() -> dict:
     log = _kernels.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    out = {"build_s": secs, "library": path.name, "fused_ptxas": _fused_ptxas(log),
-           "ptxas": ptxas}
-    fused = out["fused_ptxas"]
-    _check(sorted(fused) == sorted(FUSED_KERNELS) and all(
-        {"registers", "spill_stores", "spill_loads"} <= set(k) for k in fused.values()),
-        f"ptxas of the fused kernels: {fused}")
-    _check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in fused.values()),
-           f"fused kernels spill: {fused}")
+    out = {"build_s": secs, "library": path.name,
+           "fused_ptxas": _ptxas(log, FUSED_KERNELS),
+           "pair_ptxas": _ptxas(log, PAIR_PTXAS_KERNELS), "ptxas": ptxas}
+    for key, names in (("fused_ptxas", FUSED_KERNELS), ("pair_ptxas", PAIR_PTXAS_KERNELS)):
+        found = out[key]
+        _check(sorted(found) == sorted(names) and all(
+            {"registers", "spill_stores", "spill_loads"} <= set(k) for k in found.values()),
+            f"ptxas of {names}: {found}")
+        _check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in found.values()),
+               f"kernels spill: {found}")
     _line("phase 1 build", out)
     return out
 
@@ -648,6 +678,11 @@ def phase_pair(system, x_min) -> dict:
     _, c = fn.gb_terms(B, dB, dp)
     Fp = fn.pair_forces_reference(x, B, c)
     Fk = fn.pair_forces(x, B, c)
+    Fk2 = fn.pair_forces(x, B, c)
+    # the Newton force kernel over the whole upper triangle (no cutoff), as a
+    # point of comparison for the dense force kernel's block design
+    newton = build_pair_force_fn(system, newton=True)
+    Fn = newton.pair_forces(x, B, c)
     Ek, Gk = fn(x)
     Ep, Gp = fn.reference(x)
     # how close each float32 path comes to a float64 evaluation
@@ -667,18 +702,26 @@ def phase_pair(system, x_min) -> dict:
         "energy_vs_float64": _rel(Ek.double(), E64),
         "plain_energy_vs_float64": _rel(Ep.double(), E64),
         "force_vs_float64": _rel(Gk.double(), G64),
+        "plain_force_vs_float64": _rel(Gp.double(), G64),
+        "force_two_launches_bitwise_equal": bool(torch.equal(Fk, Fk2)),
+        "newton_force_rel_err": _rel(Fn, Fp),
     }
     for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err"):
         _check(out[key] <= 1e-5, f"{key} {out[key]}")
     for key in ("force_rel_err", "total_force_rel_err"):
         _check(out[key] <= 1e-4, f"{key} {out[key]}")
     _check(bool(torch.isfinite(Gk).all()), "pair forces finite")
+    _check(out["force_two_launches_bitwise_equal"], "dense force kernel reproducible")
+    _check(out["newton_force_rel_err"] <= 1e-4, f"newton_force_rel_err {out['newton_force_rel_err']}")
+    _check(out["force_vs_float64"] <= FORCE_VS_FLOAT64_MAX,
+           f"force_vs_float64 {out['force_vs_float64']}")
     out["born_ms"] = _cuda_ms(lambda: fn.born(x), 20)
     out["born_plain_ms"] = _cuda_ms(lambda: fn.born_reference(x), 3)
     out["energy_ms"] = _cuda_ms(lambda: fn.energy_rows(x, B), 20)
     out["energy_plain_ms"] = _cuda_ms(lambda: fn.energy_rows_reference(x, B), 3)
     out["force_ms"] = _cuda_ms(lambda: fn.pair_forces(x, B, c), 20)
     out["force_plain_ms"] = _cuda_ms(lambda: fn.pair_forces_reference(x, B, c), 3)
+    out["newton_force_ms"] = _cuda_ms(lambda: newton.pair_forces(x, B, c), 20)
     out["eval_ms"] = _cuda_ms(lambda: fn(x), 20)
     out["eval_plain_ms"] = _cuda_ms(lambda: fn.reference(x), 3)
     _line("phase 6 pair", out)
@@ -1767,18 +1810,14 @@ def _pairs_within_gb_cutoff(fn, xs: torch.Tensor, close: torch.Tensor) -> int:
     return int(sum(float(one.sum()) for *_, one in fn._blocks(xs, close)))
 
 
-def _culled_bound(tag: str, newton: bool, visited: float, within: float, R: int,
-                  N: int) -> dict:
-    """Bound of one culled sweep: ``visited`` ordered pairs in computed tile
-    blocks, ``within`` of them inside the cutoff (the Newton sweeps take
-    half of each); positions, five per-atom rows, class and index rows, Born
-    radii and chain coefficients in, one to three rows out."""
-    flops, sfu = NEWTON_OPS[tag] if newton else PAIR_OPS[tag]
-    cf, cs = CULLED_CANDIDATE_OPS
-    share = 0.5 if newton else 1.0
+def _culled_bound(tag: str, within: float, R: int, N: int) -> dict:
+    """Bound of one culled or Newton sweep: the ``within`` ordered pairs
+    inside the cutoff, each unordered pair once at NEWTON_OPS; positions,
+    five per-atom rows, class and index rows, Born radii and chain
+    coefficients in, one to three rows out."""
+    flops, sfu = NEWTON_OPS[tag]
     n_bytes = R * N * (12 + 8 + 12) + 28 * N
-    return _bound(share * (visited * cf + within * (flops - cf)),
-                  share * (visited * cs + within * (sfu - cs)), n_bytes)
+    return _bound(0.5 * within * flops, 0.5 * within * sfu, n_bytes)
 
 
 def _visited_within(fo, xs: torch.Tensor, close: torch.Tensor):
@@ -1789,6 +1828,50 @@ def _visited_within(fo, xs: torch.Tensor, close: torch.Tensor):
     sizes[-1] = N - (fo.n_tiles - 1) * fo.tile
     visited = float((close[0].double() * sizes[:, None] * sizes[None, :]).sum())
     return visited, _pairs_within_gb_cutoff(fo, xs, close)
+
+
+def _patch_shares(fn, xs: torch.Tensor, close: torch.Tensor, chunk: int = 512) -> dict:
+    """What the Newton kernels meet at the stored positions ``xs (R, N, 3)``:
+    the Born and energy kernels' work items (the blocks (r, c >= r) that
+    ``close`` keeps) against the (G, G, R) grid of CTAs of the earlier
+    design, and the share of them that holds a pair inside the cutoff; the
+    32 x 32 patches of those blocks (a diagonal block's on or above its
+    diagonal), the share of them that the force kernel's group-box test
+    lists (its work items), and the share of its work items that holds a
+    pair inside the cutoff."""
+    from pmarlo_tpu_torch.md.pair_force import cutoff_pairs, tile_boxes, tiles_within
+
+    R, N = xs.shape[:2]
+    ng = -(-N // 32)
+    hit = torch.zeros((R, ng, ng), dtype=torch.bool, device=xs.device)
+    for s in range(0, N, chunk):
+        e = min(s + chunk, N)
+        d = xs[:, s:e, None, :] - xs[:, None, :, :]
+        within = cutoff_pairs(d, fn.gb_cutoff) & ((d * d).sum(-1) > 1e-8)
+        rows = -(-(e - s) // 32) * 32
+        within = torch.nn.functional.pad(within, (0, ng * 32 - N, 0, rows - (e - s)))
+        hit[:, s // 32:s // 32 + rows // 32] = within.reshape(
+            R, rows // 32, 32, ng, 32).any(4).any(2)
+    group_tile = torch.arange(ng, device=xs.device) // (fn.tile // 32)
+    g = torch.arange(ng, device=xs.device)
+    computed = close[:, group_tile][:, :, group_tile] & (g[None, :] >= g[:, None])
+    listed = computed & tiles_within(*tile_boxes(xs, 32), fn.gb_cutoff)
+    blocks = torch.triu(close)
+    G, per = close.shape[1], fn.tile // 32
+    pad = G * per - ng
+    block_hit = torch.nn.functional.pad(computed & hit, (0, pad, 0, pad)).reshape(
+        R, G, per, G, per).any(4).any(2)
+    n_blocks, n_computed, n_listed = int(blocks.sum()), int(computed.sum()), int(listed.sum())
+    return {
+        "grid_ctas_before": R * G * G,
+        "block_items": n_blocks,
+        "block_item_share_of_grid_before": n_blocks / (R * G * G),
+        "block_item_share_with_pair_within": int((blocks & block_hit).sum()) / n_blocks,
+        "patches_of_blocks": n_computed,
+        "force_items": n_listed,
+        "force_item_share_of_patches": n_listed / n_computed,
+        "force_item_share_with_pair_within": int((listed & hit).sum()) / n_listed,
+    }
 
 
 def _sweeps_vs_plain(out: dict, prefix: str, fn, x: torch.Tensor, max_abs: bool):
@@ -1821,7 +1904,7 @@ def _sweeps_vs_plain(out: dict, prefix: str, fn, x: torch.Tensor, max_abs: bool)
     return B, c
 
 
-def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, visited, within) -> None:
+def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, within) -> None:
     """ms of each sweep of ``fn`` and of its plain version at the stored
     positions ``xs (1, N, 3)``, beside the bound from this run's pairs."""
     for tag, kernel, plain in (
@@ -1833,7 +1916,7 @@ def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, visited, within) -> 
     ):
         out[f"{mode}_{tag}_ms"] = _cuda_ms(kernel, 20)
         out[f"{mode}_{tag}_plain_ms"] = _cuda_ms(plain, 1)
-        bound = _culled_bound(tag, mode == "newton", visited, within, 1, xs.shape[1])
+        bound = _culled_bound(tag, within, 1, xs.shape[1])
         out[f"{mode}_{tag}_bound_ms"] = bound["bound_ms"]
         out[f"{mode}_{tag}_bound_by"] = bound["bound_by"]
 
@@ -1878,6 +1961,7 @@ def phase_large_kernels() -> dict:
         "pairs_visited_share": visited / (N * N),
         "pairs_within_cutoff": within,
         "pairs_within_share_of_visited": within / visited,
+        "newton_force_walk": _patch_shares(fo, xs, close),
     })
 
     for mode, fn in fns.items():
@@ -1920,7 +2004,7 @@ def phase_large_kernels() -> dict:
 
     out["tile_table_ms"] = _cuda_ms(lambda: fo.close_tiles(xs), 20)
     for mode, fn in fns.items():
-        _time_sweeps(out, mode, fn, xs, B1, c1, close, visited, within)
+        _time_sweeps(out, mode, fn, xs, B1, c1, close, within)
         out[f"{mode}_eval_ms"] = _cuda_ms(lambda: fn(x1), 10)
     # the dense kernels at the same N (their own Born radii: other physics, same work)
     Bd, dBd = dense.born_radii(dense.born(x1))
@@ -2100,7 +2184,7 @@ def phase_large_path() -> dict:
                 "end_pairs_within_share_of_visited": within / visited})
     for mode, f in (("newton", fn_md), ("culled", fn_ord)):
         B, c = _sweeps_vs_plain(out, mode, f, x_end, max_abs=True)
-        _time_sweeps(out, mode, f, xs, B, c, close, visited, within)
+        _time_sweeps(out, mode, f, xs, B, c, close, within)
     out["tile_table_ms"] = _cuda_ms(lambda: fn_ord.close_tiles(xs), 20)
     bonded = fn_md._bonded_kernel
     e_b, g_b = bonded(x_end, energy_dtype=torch.float64)
@@ -2254,8 +2338,8 @@ def main() -> None:
         ("pair_force", 513, "force_max_abs_err", "force"),
     ):
         Rp = PROTEIN_REPLICAS
-        flops, sfu = PAIR_OPS[tag]
-        pairs = Rp * Np * (Np - 1)
+        flops, sfu = NEWTON_OPS[tag]
+        pairs = Rp * Np * (Np - 1) / 2
         kernels.append({
             "name": name, **cuda,
             "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
@@ -2373,6 +2457,10 @@ def main() -> None:
     _line("summary", {
         "build_s": build["build_s"],
         "fused_ptxas": build["fused_ptxas"],
+        "pair_ptxas": build["pair_ptxas"],
+        "pair": {k: pair[k] for k in (
+            "force_rel_err", "force_vs_float64", "force_two_launches_bitwise_equal",
+            "born_ms", "energy_ms", "force_ms", "newton_force_ms", "eval_ms")},
         "fused": {
             "chunk100_ms": kern["chunk100_ms"], "chunk100_n138_ms": bias["unbiased_chunk100_ms"],
             "harmonic_chunk100_ms": bias["harmonic_chunk100_ms"],
@@ -2385,7 +2473,8 @@ def main() -> None:
                 "mtd_wall_s")},
         },
         "large_kernels": {k: large[k] for k in (
-            "atoms", "tile_block_share", "pairs_within_share_of_visited", "tile_table_ms",
+            "atoms", "tile_block_share", "pairs_within_share_of_visited", "newton_force_walk",
+            "newton_born_ms", "newton_energy_ms", "newton_force_ms", "tile_table_ms",
             "culled_eval_ms", "newton_eval_ms", "dense_eval_ms", "dense_born_ms",
             "dense_energy_ms", "dense_force_ms")},
         "bonded": {k: bonded[k] for k in ("atoms", "incidences", "bonded_ms",
@@ -2393,6 +2482,8 @@ def main() -> None:
         "large_path": {k: large_path[k] for k in (
             "atoms", "system_build_s", "force_fn_build_s", "minimize_s", "tile_block_share",
             "ms_per_step", "ns_per_day", "eval_ms", "ordered_ms_per_step", "ordered_eval_ms",
+            "newton_born_ms", "newton_energy_ms", "newton_force_ms", "culled_force_ms",
+            "newton_force_bound_ms",
             "reported_kinetic_over_target_second_half", "kinetic_over_target_state_by_ps",
             "max_constraint_deviation_nm", "peak_device_memory_gib",
             "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},

@@ -35,10 +35,16 @@ struct PairArgs {
   const uint8_t* close;
   float* out0;           // born: I; energy: dE/dB pair sum; force: F (R, N, 3)
   double* rows;          // energy: e_rows (R, N)
+  // the dense force sweep's per-slot partials (R, G, N, 3), G = n_tiles
+  float* slots;
+  // the Newton sweeps' work list: [0] items in it, [1] items taken, then
+  // the items: blocks rep << 32 | r << 16 | c (Born, energy) or 32 x 32
+  // patches (rep * NG + g) * NG + h (force)
+  unsigned long long* work;
   int n;
   int n_classes;
   int band;
-  int tile;              // atoms a tile (culled and Newton sweeps)
+  int tile;              // atoms a tile (dense force, culled and Newton sweeps)
   int n_tiles;           // G = ceil(n / tile)
   // pair terms vanish where r^2 + 1e-12 > cut_r2 (has_cut): the wrapper's
   // largest float32 whose root is within the cutoff, so the test decides as

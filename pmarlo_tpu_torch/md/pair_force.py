@@ -24,8 +24,12 @@ a CUDA tensor launches the kernel or raises. Three sets of kernels compute
 the same sums:
 
 - dense (``gb_cutoff=None``): ``csrc/pair_force.cu``, every ordered pair;
-- culled (``gb_cutoff``, ``newton=False``): the same kernels, walking only
-  the column tiles within reach of the row tile;
+  the force sweep takes each unordered pair once, in blocks of
+  ``FORCE_TILE``-atom tiles whose sums are added in a fixed order (the
+  same bits from every launch);
+- culled (``gb_cutoff``, ``newton=False``): the same Born and energy
+  kernels and a row-owned force kernel, walking only the column tiles
+  within reach of the row tile;
 - Newton (``newton=True``, the default with ``gb_cutoff``):
   ``csrc/pair_newton.cu``, each unordered tile block once, results to both
   atoms (atomic adds: the last bits change from run to run).
@@ -103,15 +107,21 @@ def _library() -> ctypes.CDLL:
         # x, atom_p, cls, orig, d0c, m0c, n_classes, B, chain, close, R, n,
         # tile, band, ke, gb_pref, cutoff_r2
         common = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, f, f, f]
-        lib.pmarlo_pair_sweep.argtypes = [i, i] + common + [i, i, p, p, p]
-        lib.pmarlo_pair_newton_sweep.argtypes = [i] + common + [i, i, i, p, p, p]
-        for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep,
-                   lib.pmarlo_pair_max_classes, lib.pmarlo_pair_newton_max_tile):
+        # ..., use_gb, use_neck, out0, rows, slots or work, stream
+        lib.pmarlo_pair_sweep.argtypes = [i, i] + common + [i, i, p, p, p, p]
+        lib.pmarlo_pair_newton_sweep.argtypes = [i] + common + [i, i, i, p, p, p, p]
+        sizes = (lib.pmarlo_pair_max_classes, lib.pmarlo_pair_newton_max_tile,
+                 lib.pmarlo_pair_force_tile)
+        for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep, *sizes):
             fn.restype = i
-        lib.pmarlo_pair_max_classes.argtypes = []
-        lib.pmarlo_pair_newton_max_tile.argtypes = []
+        for fn in sizes:
+            fn.argtypes = []
+        lib.pmarlo_pair_newton_work_size.argtypes = [i, i, i, i]
+        lib.pmarlo_pair_newton_work_size.restype = ctypes.c_longlong
         if lib.pmarlo_pair_max_classes() != MAX_CLASSES:
             raise RuntimeError("kernel library and wrapper disagree on MAX_CLASSES")
+        if lib.pmarlo_pair_force_tile() != FORCE_TILE:
+            raise RuntimeError("kernel library and wrapper disagree on FORCE_TILE")
         if lib.pmarlo_pair_newton_max_tile() != NEWTON_MAX_TILE:
             raise RuntimeError("kernel library and wrapper disagree on NEWTON_MAX_TILE")
         _configured = True
@@ -125,6 +135,9 @@ ROW_BLOCK = 32
 #: largest tile of the Newton kernels (two tiles in shared memory), a
 #: multiple of 32 (csrc/pair_newton.cu)
 NEWTON_MAX_TILE = 256
+#: atoms a tile of the dense force kernel, which takes each (row tile,
+#: column tile >= row tile) block once (csrc/pair_force.cu)
+FORCE_TILE = 128
 
 
 def _morton_order(x: np.ndarray, bits: int = 10) -> np.ndarray:
@@ -578,40 +591,48 @@ class PairForce:
         x = self._batch(x)
         out = torch.zeros_like(x)
         for s, e, cols, d, r, one in self._blocks(x, close):
-            inv_r = 1.0 / r
-            ob = self._band_mask(s, e, cols).to(x.dtype)
-            sr6 = _sr6(0.5 * (self.sig[s:e, None] + self._at(self.sig, cols)[None, :]), inv_r)
-            eps = self.seps[s:e, None] * self._at(self.seps, cols)[None, :]
-            qq = self.q[s:e, None] * self._at(self.q, cols)[None, :]
-            W = (4.0 * eps * (-12.0 * sr6 * sr6 + 6.0 * sr6) * inv_r
-                 - self.ke * qq * inv_r * inv_r) * ob
-            if self.use_gb:
-                Bi = B[:, s:e, None]
-                Bj = self._at(B, cols)[:, None, :]
-                BB = Bi * Bj
-                rsq = r * r
-                expu = torch.exp(-rsq / (4.0 * BB))
-                inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
-                dEdf = -(self.gb_pref * 2.0 * qq) * inv_f * inv_f
-                W = W + dEdf * (r * (1.0 - 0.25 * expu) * inv_f)
-                rho_j = self._at(self.rho, cols)[None, :]
-                sr_j = self._at(self.sr, cols)[None, :]
-                _, dH_ij = _hct(r, inv_r, self.rho[s:e, None], sr_j, value=False)
-                _, dH_ji = _hct(r, inv_r, rho_j, self.sr[s:e, None], value=False)
-                dI_ij = 0.5 * dH_ij
-                dI_ji = 0.5 * dH_ji
-                if self.use_neck:
-                    d0, m0 = self._neck_tables(s, e, cols)
-                    _, dnv = _neck(r, d0, m0)
-                    dI_ij = dI_ij + dnv
-                    dI_ji = dI_ji + dnv
-                W = W + c[:, s:e, None] * dI_ij + self._at(c, cols)[:, None, :] * dI_ji
-            Wd = (W * one * inv_r)[..., None] * d
+            Wd = self.pair_force_terms(B, c, s, e, cols, d, r, one)
             out[:, s:e] -= Wd.sum(-2)
             if self.newton:
                 # Newton's third law: +W d on the column atom
                 out.index_add_(1, cols, Wd.sum(1))
         return out
+
+    def pair_force_terms(self, B, c, s, e, cols, d, r, one) -> torch.Tensor:
+        """``(W / r) d (R, e - s, m, 3)``: the force that the column atoms
+        ``cols`` (``None``: all) put on the row atoms s:e is ``-sum`` of it
+        over the columns, and the row atoms' on the columns ``+sum`` over the
+        rows. ``d`` are the separations ``x_row - x_col``, ``r`` the
+        distances and ``one`` the mask of the pairs to count."""
+        inv_r = 1.0 / r
+        ob = self._band_mask(s, e, cols).to(d.dtype)
+        sr6 = _sr6(0.5 * (self.sig[s:e, None] + self._at(self.sig, cols)[None, :]), inv_r)
+        eps = self.seps[s:e, None] * self._at(self.seps, cols)[None, :]
+        qq = self.q[s:e, None] * self._at(self.q, cols)[None, :]
+        W = (4.0 * eps * (-12.0 * sr6 * sr6 + 6.0 * sr6) * inv_r
+             - self.ke * qq * inv_r * inv_r) * ob
+        if self.use_gb:
+            Bi = B[:, s:e, None]
+            Bj = self._at(B, cols)[:, None, :]
+            BB = Bi * Bj
+            rsq = r * r
+            expu = torch.exp(-rsq / (4.0 * BB))
+            inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
+            dEdf = -(self.gb_pref * 2.0 * qq) * inv_f * inv_f
+            W = W + dEdf * (r * (1.0 - 0.25 * expu) * inv_f)
+            rho_j = self._at(self.rho, cols)[None, :]
+            sr_j = self._at(self.sr, cols)[None, :]
+            _, dH_ij = _hct(r, inv_r, self.rho[s:e, None], sr_j, value=False)
+            _, dH_ji = _hct(r, inv_r, rho_j, self.sr[s:e, None], value=False)
+            dI_ij = 0.5 * dH_ij
+            dI_ji = 0.5 * dH_ji
+            if self.use_neck:
+                d0, m0 = self._neck_tables(s, e, cols)
+                _, dnv = _neck(r, d0, m0)
+                dI_ij = dI_ij + dnv
+                dI_ji = dI_ji + dnv
+            W = W + c[:, s:e, None] * dI_ij + self._at(c, cols)[:, None, :] * dI_ji
+        return (W * one * inv_r)[..., None] * d
 
     # --- the kernels ---------------------------------------------------------------
 
@@ -658,6 +679,17 @@ class PairForce:
         out0 = new(shape, dtype=torch.float32, device=x.device)
         rows = (new((R, n), dtype=torch.float64, device=x.device)
                 if sweep == "energy" else None)
+        # scratch the kernels fill: the dense force sweep's per-slot
+        # partials (R, G, N, 3), or the Newton sweeps' work list (room for
+        # every block, or every 32 x 32 patch, of the upper triangle)
+        scratch = None
+        code = _SWEEPS.index(sweep)
+        if self.newton:
+            size = lib.pmarlo_pair_newton_work_size(code, R, n, self.tile)
+            scratch = torch.empty(size, dtype=torch.int64, device=x.device)
+        elif self.mode == "dense" and sweep == "force":
+            G = -(-n // FORCE_TILE)
+            scratch = torch.empty((R, G, n, 3), dtype=torch.float32, device=x.device)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -668,9 +700,8 @@ class PairForce:
             self._d0c_k.shape[0], ptr(B), ptr(c), ptr(close), R, n, self.tile,
             self.band_D, self.ke, self.gb_pref, self._cut_r2,
         )
-        tail = (int(self.use_gb), int(self.use_neck), out0.data_ptr(), ptr(rows),
+        tail = (int(self.use_gb), int(self.use_neck), out0.data_ptr(), ptr(rows), ptr(scratch),
                 torch.cuda.current_stream(x.device).cuda_stream)
-        code = _SWEEPS.index(sweep)
         if self.newton:
             rc = lib.pmarlo_pair_newton_sweep(code, *common,
                                               int(self.gb_cutoff is not None), *tail)
@@ -861,4 +892,5 @@ def build_pair_force_fn(
 
 
 __all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
-           "cutoff_r2", "tile_boxes", "tiles_within", "MAX_CLASSES", "NEWTON_MAX_TILE"]
+           "cutoff_r2", "tile_boxes", "tiles_within", "MAX_CLASSES", "NEWTON_MAX_TILE",
+           "FORCE_TILE"]
