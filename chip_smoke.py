@@ -7,9 +7,10 @@ Phases, one line of numbers each:
 
 1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a), one
              nvcc a source, all started together; the registers and spills
-             ptxas reports for the four fused kernels and the two
-             redesigned force kernels, ``pair_force_kernel`` and
-             ``newton_force_kernel`` (no spill allowed).
+             ptxas reports for the four fused kernels, the three dense GB
+             block kernels (``pair_born_kernel``, ``pair_energy_kernel``,
+             ``pair_force_kernel``) and the three Newton kernels (no spill
+             allowed).
 2. kernel  - the fused Langevin kernel against its plain PyTorch twin at
              R=32 on alanine dipeptide in GBn2: energies and forces, then
              100 steps at friction 0 and at friction 1/ps, two launches
@@ -27,8 +28,11 @@ Phases, one line of numbers each:
              3,726-atom chignolin assembly (R=8, minimized + 0.005 nm
              noise): Born integrals, energy rows, dE/dB, forces, then the
              whole energy and forces, and both against a float64 twin
-             (the forces at most 1e-5 of max |F| from it); two launches of
-             the force kernel bitwise equal; ms per sweep and per
+             (the forces at most 1e-5 of max |F| from it, the energy at
+             most 1e-5 relative; its distance read again with only the
+             Born or only the energy kernel in the evaluation); the pairs
+             whose HCT value takes the near form (the Born bound); two
+             launches of each of the three kernels bitwise equal; ms per sweep and per
              evaluation, and of the Newton force kernel over the whole
              upper triangle at the same shape (a point of comparison).
 7. protein - the protein-scale path: 8-rung 300-330 K REMD of the assembly
@@ -117,9 +121,10 @@ Phases, one line of numbers each:
              both at 4 fs and 2 fs).
 
 Then a summary line that repeats the headline numbers of phases 1 and
-15-17, the card's name and power limit, a line of the one-thread-an-atom
-fused kernels' times copied from PERF.md (for comparison; not measured
-here), one JSON line of the kernels, and the last line
+15-17, the card's name and power limit, a line of the kernels' times
+before their redesign (the one-thread-an-atom fused kernels, the row-owned
+dense Born and energy sweeps) copied from PERF.md (for comparison; not
+measured here), one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``. A failed check raises and the script
 exits non-zero without that line. It needs a CUDA card and
 imports nothing of JAX.
@@ -149,6 +154,11 @@ PROTEIN_DT_PS = 0.004
 # phase 6: the pair path's forces against a float64 evaluation, at most 1e-5
 # of max |F| (the force kernels take single special-function results)
 FORCE_VS_FLOAT64_MAX = 1e-5
+# and the whole energy against the float64 evaluation (exact ke and gb_pref),
+# at most 1e-5 relative, the limit of the energy gates against plain: the
+# dense kernels read 6.2e-6 to 6.5e-6 there, the plain float32 evaluation
+# 4.8e-6 to 4.9e-6 (PERF.md section 6)
+ENERGY_VS_FLOAT64_MAX = 1e-5
 PAIR_KERNELS = ("pair_born", "pair_energy", "pair_force")
 CV_REPORT = 50                   # frames every 50 steps on the chignolin paths
 CV_STEPS = 10_000                # unbiased REMD that feeds the training
@@ -190,12 +200,14 @@ STUDY_PS = 6                     # picoseconds at each time step of --temperatur
 SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
                  "fused_remd_bias_kernel")
-# ms of the one-thread-an-atom fused kernels at the same timed shapes, copied
-# from PERF.md section 6 (not measured by this script): printed on a line of
-# their own beside the kernels line, for comparison
+# ms of the kernels before their redesign at the same timed shapes: the
+# one-thread-an-atom fused kernels (PR 5) and the row-owned dense Born and
+# energy sweeps (PR 7), copied from PERF.md section 6 (not measured by this
+# script): printed on a line of their own beside the kernels line
 EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
-              "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14}
+              "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14,
+              "pair_born": 0.7112, "pair_energy": 0.6614}
 SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
@@ -205,25 +217,25 @@ SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
-# float32 operations (an FMA counts two) and special-function results
-# (sqrt, reciprocal, log, exp) of one ordered pair in each GB sweep of the
-# fused kernels, counted from csrc/gb_pair.cuh and csrc/fused_md.cu:
-# distance 8 + 2; HCT term 45 + 3; neck 14 + 2; GB f-function 20 + 4;
-# LJ + Coulomb 14-16. The fused kernels' bound (_md_bound) counts them per
-# ordered pair.
-PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
-# The bound of a GB pair sweep (rows 3-7 of PERF.md) counts the least work
+# The bound of a GB pair sweep (rows 1-7 of PERF.md: the pair kernels, and
+# the fused kernels' three sweeps a step, _md_bound) counts the least work
 # of its function, not of a design: each unordered pair once, and with a
 # cutoff only the pairs inside it (a pair outside needs no work but its
 # test, which a design that does not visit it avoids). So a design that
-# visits fewer pairs cannot lower the bound: the dense sweeps count
-# R N (N - 1) / 2 pairs, the culled and Newton sweeps half the ordered pairs
-# inside the cutoff. A special function is one special-function result (the
+# visits fewer pairs cannot lower the bound: the dense sweeps and the fused
+# kernels count R N (N - 1) / 2 pairs, the culled and Newton sweeps half
+# the ordered pairs inside the cutoff. A special function is one special-function result (the
 # force sweeps take them so, csrc/gb_force.cuh): 1/r and r from one rsqrt;
 # a per-atom factor (1/B) is staged, not counted a pair. Each unordered pair:
 # - born (I_i and I_j): distance 9 (3 differences, r^2 5, + 1e-12), r from
-#   1/r 1 [rsqrt]; the HCT value per direction 21 [1/L, 1/U, log] and its
-#   1/2 and sum 2, x 2; the neck value 9 [1/denom] and both sums 2: 67, 8.
+#   1/r 1 [rsqrt]; the HCT value per direction 21 and its 1/2 and sum 2,
+#   x 2; the neck value 9 [1/denom] and both sums 2: 67, 2. A direction's
+#   HCT value (csrc/gb_force.cuh hct_value) is a series where it is far
+#   (|sr_j / r| <= 0.3 and r - sr_j >= rho_i): t = sr_j / r and the
+#   activity sum r + sr_j 2, the test's r - sr_j 1, t^2 1, eight terms 14,
+#   t^3 / r times their sum 3: 21, no special function. A near direction
+#   takes born_pair's form, 21 [1/L, 1/U, log]: BORN_NEAR_SFU more results,
+#   counted on each run's positions (_pair_counts).
 # - energy (the pair's energy, dE/dB both sides): distance 9 [rsqrt]; LJ +
 #   Coulomb 15; exp argument 3 [exp]; f^2 3 [rsqrt]; the GB energy 4;
 #   dE/dB 3 shared + 6 a side; the three sums 3: 52, 3.
@@ -233,10 +245,11 @@ PAIR_OPS = {"born": (67, 7), "energy": (42, 6), "force": (174, 16)}
 #   direction 34 [1/L, 1/U, log] and its 1/2 1, x 2; the neck derivative 14
 #   [1/denom] and its two sums 2; the chain terms 4 and / r 1; F_i and F_j
 #   9: 143, 10.
-NEWTON_OPS = {"born": (67, 8), "energy": (52, 3), "force": (143, 10)}
+NEWTON_OPS = {"born": (67, 2), "energy": (52, 3), "force": (143, 10)}
+BORN_NEAR_SFU = 3
 # kernels whose registers and spills phase 1 reads and gates (no spill)
-PAIR_PTXAS_KERNELS = ("pair_force_kernel", "newton_born_kernel", "newton_energy_kernel",
-                      "newton_force_kernel")
+PAIR_PTXAS_KERNELS = ("pair_born_kernel", "pair_energy_kernel", "pair_force_kernel",
+                      "newton_born_kernel", "newton_energy_kernel", "newton_force_kernel")
 # The periodic sweeps, counted from csrc/periodic_pair.cuh and the two
 # kernels: every ordered candidate pair pays the displacement, r^2, the band
 # and the cutoff test (with the per-axis minimum image in the dense sweep,
@@ -312,13 +325,17 @@ def _bound(flops: float, sfu: float, n_bytes: float) -> dict:
 def _md_bound(R: int, N: int, n_force_evals: int, *, n_dih: int = 0, widths=(),
               n_hills: int = 0, frames: int = 0) -> dict:
     """Bound of a fused-MD launch: ``n_force_evals`` force evaluations of R
-    replicas of N atoms (three GB sweeps over the N (N - 1) ordered pairs,
-    plus the CV bias: M dihedrals computed once and once more per role, the
-    MLP forward and backward, the hills sum), state in and out once, the
-    (N, N) tables once, ``frames`` frames out."""
-    pairs = N * (N - 1)
-    flops = pairs * sum(f for f, _ in PAIR_OPS.values())
-    sfu = pairs * sum(t for _, t in PAIR_OPS.values())
+    replicas of N atoms, plus the CV bias (M dihedrals computed once and
+    once more per role, the MLP forward and backward, the hills sum), state
+    in and out once, the (N, N) tables once, ``frames`` frames out. A force
+    evaluation is the three GB sweeps of NEWTON_OPS over the N (N - 1) / 2
+    unordered pairs, each once: the least work of the function, as for the
+    pair kernels (the fused kernels take every ordered pair, with IEEE
+    special functions, which a bound does not count); the Born sweep at its
+    far-pair count, the lower, since the positions move from step to step."""
+    pairs = N * (N - 1) / 2
+    flops = pairs * sum(f for f, _ in NEWTON_OPS.values())
+    sfu = pairs * sum(t for _, t in NEWTON_OPS.values())
     if n_dih:
         mlp = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
         flops += 5 * n_dih * 150 + 4 * mlp + n_hills * 20
@@ -672,9 +689,11 @@ def phase_pair(system, x_min) -> dict:
     fn = build_pair_force_fn(system)
     Ip = fn.born_reference(x)
     Ik = fn.born(x)
+    Ik2 = fn.born(x)
     B, dB = fn.born_radii(Ip)
     ep, dp = fn.energy_rows_reference(x, B)
     ek, dk = fn.energy_rows(x, B)
+    ek2, dk2 = fn.energy_rows(x, B)
     _, c = fn.gb_terms(B, dB, dp)
     Fp = fn.pair_forces_reference(x, B, c)
     Fk = fn.pair_forces(x, B, c)
@@ -685,8 +704,18 @@ def phase_pair(system, x_min) -> dict:
     Fn = newton.pair_forces(x, B, c)
     Ek, Gk = fn(x)
     Ep, Gp = fn.reference(x)
-    # how close each float32 path comes to a float64 evaluation
-    E64, G64 = build_pair_force_fn(system, dtype=torch.float64).reference(x.double())
+    # how close each float32 path comes to a float64 evaluation (exact ke
+    # and gb_pref: the float32 path takes them rounded), and where the
+    # kernels' distance from it comes from: their Born integrals, or their
+    # energy rows, each with the rest of the evaluation plain
+    fn64 = build_pair_force_fn(system, dtype=torch.float64)
+    E64, G64 = fn64.reference(x.double())
+    I64 = fn64.born_reference(x.double())
+    E_bk, _ = fn._evaluate(x, fn.born, fn.energy_rows_reference, fn.pair_forces_reference,
+                           fn.bonded_reference)
+    E_ek, _ = fn._evaluate(x, fn.born_reference, fn.energy_rows, fn.pair_forces_reference,
+                           fn.bonded_reference)
+    pairs, near = _pair_counts(fn, x)
     torch.cuda.synchronize()
     out = {
         "atoms": system.n_atoms, "replicas": R, "band": fn.band_D,
@@ -701,20 +730,30 @@ def phase_pair(system, x_min) -> dict:
         "total_force_rel_err": _rel(Gk, Gp),
         "energy_vs_float64": _rel(Ek.double(), E64),
         "plain_energy_vs_float64": _rel(Ep.double(), E64),
+        "born_vs_float64": _rel(Ik.double(), I64),
+        "plain_born_vs_float64": _rel(Ip.double(), I64),
+        "born_kernel_energy_vs_float64": _rel(E_bk.double(), E64),
+        "rows_kernel_energy_vs_float64": _rel(E_ek.double(), E64),
         "force_vs_float64": _rel(Gk.double(), G64),
         "plain_force_vs_float64": _rel(Gp.double(), G64),
+        "born_two_launches_bitwise_equal": bool(torch.equal(Ik, Ik2)),
+        "energy_two_launches_bitwise_equal": bool(torch.equal(ek, ek2) and torch.equal(dk, dk2)),
         "force_two_launches_bitwise_equal": bool(torch.equal(Fk, Fk2)),
         "newton_force_rel_err": _rel(Fn, Fp),
+        "born_pairs": pairs / 2, "born_near_directions": near,
     }
     for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err"):
         _check(out[key] <= 1e-5, f"{key} {out[key]}")
     for key in ("force_rel_err", "total_force_rel_err"):
         _check(out[key] <= 1e-4, f"{key} {out[key]}")
     _check(bool(torch.isfinite(Gk).all()), "pair forces finite")
-    _check(out["force_two_launches_bitwise_equal"], "dense force kernel reproducible")
+    for sweep in ("born", "energy", "force"):
+        _check(out[f"{sweep}_two_launches_bitwise_equal"], f"dense {sweep} kernel reproducible")
     _check(out["newton_force_rel_err"] <= 1e-4, f"newton_force_rel_err {out['newton_force_rel_err']}")
     _check(out["force_vs_float64"] <= FORCE_VS_FLOAT64_MAX,
            f"force_vs_float64 {out['force_vs_float64']}")
+    _check(out["energy_vs_float64"] <= ENERGY_VS_FLOAT64_MAX,
+           f"energy_vs_float64 {out['energy_vs_float64']}")
     out["born_ms"] = _cuda_ms(lambda: fn.born(x), 20)
     out["born_plain_ms"] = _cuda_ms(lambda: fn.born_reference(x), 3)
     out["energy_ms"] = _cuda_ms(lambda: fn.energy_rows(x, B), 20)
@@ -1804,30 +1843,42 @@ def _large_system(copies):
                         dense_scales=False)
 
 
-def _pairs_within_gb_cutoff(fn, xs: torch.Tensor, close: torch.Tensor) -> int:
-    """Ordered pairs of the stored positions ``xs (R, N, 3)`` inside the GB
-    cutoff, counted by the ordered plain version's own pair mask."""
-    return int(sum(float(one.sum()) for *_, one in fn._blocks(xs, close)))
+def _pair_counts(fn, xs: torch.Tensor, close=None):
+    """``(pairs, near)`` at the stored positions ``xs (R, N, 3)``: the
+    ordered pairs that the ordered plain version's own pair mask counts
+    (inside the GB cutoff where there is one), and those of them whose HCT
+    value takes the near form (csrc/gb_force.cuh hct_value: not |sr_j / r|
+    <= 0.3 with r - sr_j >= rho_i), each BORN_NEAR_SFU results more."""
+    pairs = near = 0
+    for s, e, cols, _, r, one in fn._blocks(xs, close):
+        sr_j = fn._at(fn.sr, cols)[None, :]
+        far = ((sr_j / r).abs() <= 0.3) & (r - sr_j >= fn.rho[s:e, None])
+        pairs += int(one.sum())
+        near += int((one * ~far).sum())
+    return pairs, near
 
 
-def _culled_bound(tag: str, within: float, R: int, N: int) -> dict:
+def _culled_bound(tag: str, within: float, near: float, R: int, N: int) -> dict:
     """Bound of one culled or Newton sweep: the ``within`` ordered pairs
-    inside the cutoff, each unordered pair once at NEWTON_OPS; positions,
-    five per-atom rows, class and index rows, Born radii and chain
-    coefficients in, one to three rows out."""
+    inside the cutoff, each unordered pair once at NEWTON_OPS, and for the
+    Born sweep the ``near`` directions' special functions; positions, five
+    per-atom rows, class and index rows, Born radii and chain coefficients
+    in, one to three rows out."""
     flops, sfu = NEWTON_OPS[tag]
+    extra = near * BORN_NEAR_SFU if tag == "born" else 0.0
     n_bytes = R * N * (12 + 8 + 12) + 28 * N
-    return _bound(0.5 * within * flops, 0.5 * within * sfu, n_bytes)
+    return _bound(0.5 * within * flops, 0.5 * within * sfu + extra, n_bytes)
 
 
 def _visited_within(fo, xs: torch.Tensor, close: torch.Tensor):
-    """Ordered pairs in the tile blocks that ``close`` keeps, and those of
-    them inside the cutoff, at the stored positions ``xs (1, N, 3)``."""
+    """Ordered pairs in the tile blocks that ``close`` keeps, those of them
+    inside the cutoff, and those of these whose HCT value takes the near
+    form, at the stored positions ``xs (1, N, 3)``."""
     N = xs.shape[1]
     sizes = torch.full((fo.n_tiles,), float(fo.tile), device="cuda")
     sizes[-1] = N - (fo.n_tiles - 1) * fo.tile
     visited = float((close[0].double() * sizes[:, None] * sizes[None, :]).sum())
-    return visited, _pairs_within_gb_cutoff(fo, xs, close)
+    return (visited, *_pair_counts(fo, xs, close))
 
 
 def _patch_shares(fn, xs: torch.Tensor, close: torch.Tensor, chunk: int = 512) -> dict:
@@ -1904,7 +1955,7 @@ def _sweeps_vs_plain(out: dict, prefix: str, fn, x: torch.Tensor, max_abs: bool)
     return B, c
 
 
-def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, within) -> None:
+def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, within, near) -> None:
     """ms of each sweep of ``fn`` and of its plain version at the stored
     positions ``xs (1, N, 3)``, beside the bound from this run's pairs."""
     for tag, kernel, plain in (
@@ -1916,7 +1967,7 @@ def _time_sweeps(out: dict, mode: str, fn, xs, B, c, close, within) -> None:
     ):
         out[f"{mode}_{tag}_ms"] = _cuda_ms(kernel, 20)
         out[f"{mode}_{tag}_plain_ms"] = _cuda_ms(plain, 1)
-        bound = _culled_bound(tag, within, 1, xs.shape[1])
+        bound = _culled_bound(tag, within, near, 1, xs.shape[1])
         out[f"{mode}_{tag}_bound_ms"] = bound["bound_ms"]
         out[f"{mode}_{tag}_bound_by"] = bound["bound_by"]
 
@@ -1953,13 +2004,14 @@ def phase_large_kernels() -> dict:
     fo = fns["culled"]
     xs = fo.to_storage(x1)
     close = fo.close_tiles(xs)
-    visited, within = _visited_within(fo, xs, close)
+    visited, within, near = _visited_within(fo, xs, close)
     out.update({
         "tile_blocks": fo.n_tiles ** 2,
         "tile_blocks_computed": int(close.sum()),
         "tile_block_share": float(close.float().mean()),
         "pairs_visited_share": visited / (N * N),
         "pairs_within_cutoff": within,
+        "born_near_directions": near,
         "pairs_within_share_of_visited": within / visited,
         "newton_force_walk": _patch_shares(fo, xs, close),
     })
@@ -2004,7 +2056,7 @@ def phase_large_kernels() -> dict:
 
     out["tile_table_ms"] = _cuda_ms(lambda: fo.close_tiles(xs), 20)
     for mode, fn in fns.items():
-        _time_sweeps(out, mode, fn, xs, B1, c1, close, within)
+        _time_sweeps(out, mode, fn, xs, B1, c1, close, within, near)
         out[f"{mode}_eval_ms"] = _cuda_ms(lambda: fn(x1), 10)
     # the dense kernels at the same N (their own Born radii: other physics, same work)
     Bd, dBd = dense.born_radii(dense.born(x1))
@@ -2178,13 +2230,14 @@ def phase_large_path() -> dict:
     x_end = state.positions.reshape(1, N, 3)
     xs = fn_ord.to_storage(x_end)
     close = fn_ord.close_tiles(xs)
-    visited, within = _visited_within(fn_ord, xs, close)
+    visited, within, near = _visited_within(fn_ord, xs, close)
     out.update({"end_tile_block_share": float(close.float().mean()),
                 "end_pairs_within_cutoff": within,
+                "end_born_near_directions": near,
                 "end_pairs_within_share_of_visited": within / visited})
     for mode, f in (("newton", fn_md), ("culled", fn_ord)):
         B, c = _sweeps_vs_plain(out, mode, f, x_end, max_abs=True)
-        _time_sweeps(out, mode, f, xs, B, c, close, within)
+        _time_sweeps(out, mode, f, xs, B, c, close, within, near)
     out["tile_table_ms"] = _cuda_ms(lambda: fn_ord.close_tiles(xs), 20)
     bonded = fn_md._bonded_kernel
     e_b, g_b = bonded(x_end, energy_dtype=torch.float64)
@@ -2340,6 +2393,7 @@ def main() -> None:
         Rp = PROTEIN_REPLICAS
         flops, sfu = NEWTON_OPS[tag]
         pairs = Rp * Np * (Np - 1) / 2
+        near = pair["born_near_directions"] if tag == "born" else 0
         kernels.append({
             "name": name, **cuda,
             "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
@@ -2350,7 +2404,7 @@ def main() -> None:
             "plain_ms": pair[f"{tag}_plain_ms"],
             "timed": f"one sweep, R={Rp}, N={Np}",
             # positions, per-atom rows and Born radii in, one row a atom out
-            **_bound(pairs * flops, pairs * sfu, 4 * Rp * Np * 12),
+            **_bound(pairs * flops, pairs * sfu + near * BORN_NEAR_SFU, 4 * Rp * Np * 12),
         })
     shape = f"R={R}, N={Nc}"
     kernels += [{
@@ -2459,7 +2513,9 @@ def main() -> None:
         "fused_ptxas": build["fused_ptxas"],
         "pair_ptxas": build["pair_ptxas"],
         "pair": {k: pair[k] for k in (
-            "force_rel_err", "force_vs_float64", "force_two_launches_bitwise_equal",
+            "born_rel_err", "e_rows_rel_err", "total_energy_rel_err", "energy_vs_float64",
+            "force_rel_err", "force_vs_float64", "born_two_launches_bitwise_equal",
+            "energy_two_launches_bitwise_equal", "force_two_launches_bitwise_equal",
             "born_ms", "energy_ms", "force_ms", "newton_force_ms", "eval_ms")},
         "fused": {
             "chunk100_ms": kern["chunk100_ms"], "chunk100_n138_ms": bias["unbiased_chunk100_ms"],
@@ -2489,8 +2545,9 @@ def main() -> None:
             "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},
         "script_s": time.perf_counter() - t_start,
     })
-    _line("one-thread-an-atom design, ms at the same timed shapes, copied from "
-          "PERF.md, not measured here",
+    _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "
+          "Born and energy sweeps), ms at the same timed shapes, copied from PERF.md, "
+          "not measured here",
           EARLIER_MS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,10 @@
 //
 // Replaces: pmarlo_tpu/md/pallas_pair.py build_pair_force_fn, its three
 // dense Pallas sweeps and their ordered tile-culled forms (newton=False):
-//   pair_born_kernel<false>   <- sweep1 (:465) / born_kernel
-//   pair_energy_kernel<false> <- sweep2 (:486) / energy_kernel
+//   pair_born_kernel          <- sweep1 (:465) / born_kernel
+//   pair_energy_kernel        <- sweep2 (:486) / energy_kernel
 //   pair_force_kernel         <- sweep3 (:513) / force_kernel
-//   pair_born_kernel<true>, pair_energy_kernel<true>, pair_force_culled_kernel
+//   pair_born_culled_kernel, pair_energy_culled_kernel, pair_force_culled_kernel
 //                             <- sweep1_c / sweep2_c / sweep3_c (born_culled,
 //                                energy_culled, force_culled)
 // The glue between the sweeps (tanh rescale, 1/B clamp, self and SA terms,
@@ -19,51 +19,82 @@
 // three passes over the pairs (R = 8, N = 3,726: 55.5 M unordered pairs);
 // the force pass's pair function (gb_force.cuh) holds two HCT derivatives,
 // the GB f-function, LJ + Coulomb and the neck, ten special-function results
-// and ~150 other instructions. Per-atom data is O(N) and stays in L2;
-// nothing of size N^2 is ever stored. The dense force sweep takes about
-// three times its bound (ten SFU results for each unordered pair once;
-// PERF.md section 6): the other instructions of a pair, issued beside them.
+// and ~150 other instructions; the Born pass two HCT values and the neck
+// (two special-function results where both directions are far and take the
+// series, eight where both are near), the energy pass LJ + Coulomb and the
+// GB f-function (three). Per-atom data is O(N) and stays in L2; nothing of
+// size N^2 is ever stored. PERF.md section 6 has each sweep's time against
+// its bound.
 //
-// Born and energy sweeps (both modes) and the culled force sweep: row-owned.
-// - grid (row tiles, replicas); a CTA owns kRows row atoms and has
-//   kRows x kSplit threads: thread (tx, ty) owns row atom tx and the
-//   columns ty, ty + kSplit, ... of each staged column tile. The kSplit
-//   partial sums of a row are added in a fixed order at the end, through
-//   shared memory, so a launch is bit-reproducible (no atomics).
-// - column tiles of kThreads atoms are staged in shared memory, one atom a
-//   thread; a warp reads one column entry at a time, a broadcast.
-// - the GBn2 neck's (C, C) radius-class tables sit in shared memory and are
-//   indexed by the two atoms' class indices (where the TPU kernel multiplied
-//   one-hot class matrices on its matrix unit).
-//
-// Dense force sweep (pair_force_kernel): each unordered pair once, and
-// bit-reproducible. The row-owned design evaluated every unordered pair
-// twice, once in each atom's row, and each evaluation already held both
-// HCT directions: half its work was repeated. Now:
-// - one CTA a block (row tile r, column tile c >= r) of kForceTile atoms
-//   each, grid (G (G + 1) / 2, replicas), the block from the CTA's index by
+// Dense sweeps (pair_born_kernel, pair_energy_kernel, pair_force_kernel):
+// each unordered pair once, and bit-reproducible. The row-owned design they
+// replace evaluated every unordered pair twice, once in each atom's row,
+// though its distance, LJ + Coulomb, GB f-function and neck are symmetric
+// (only the HCT term is not, and each evaluation of the force pass already
+// held both directions). One skeleton (dense_blocks) walks the pairs for all
+// three, with a small per-sweep functor for what a pair adds:
+// - one CTA a block (row tile r, column tile c >= r) of kTile atoms each,
+//   grid (G (G + 1) / 2, replicas), the block from the CTA's index by
 //   arithmetic (triangle_block). Both tiles are staged in shared memory as
-//   three float4 an atom (gb_force.cuh).
+//   the sweep's float4s an atom (gb_force.cuh: three for the force sweep,
+//   two for Born and energy).
 // - a warp takes 32 x 32 patches: lane l owns row l and at step k the column
 //   (l + k) mod 32 (no two lanes read one bank); row sums stay in the lane's
 //   registers, column sums travel to the next lane by a shuffle after each
 //   step. A diagonal block takes the pairs with column > row only.
 // - each patch's row and column sums go to their own slot in shared memory
 //   (by partner group), and are added in a fixed group order: no atomics.
-// - a block's sums go to the scratch buffer `slots` (R, G, N, 3): atom a of
-//   tile r to slot c, atom b of tile c to slot r. Each slot is written by
-//   exactly one block; pair_force_slots_kernel then adds an atom's G slots
-//   in slot order. Every sum has a fixed order, so two launches give the
-//   same bits; float atomics to global memory, the other way to take a pair
-//   once, would not (the row-owned sweeps are the port's bit-reproducible
-//   path). The scratch is 8 x 30 x 3,726 x 12 B = 10.7 MB at the protein
-//   shape, in L2. This was chosen over one CTA a row tile walking c >= r
-//   (no scratch, but the column atoms' sums would need atomics).
-// - the pair function (gb_force.cuh) takes its special functions as single
-//   SFU results: rsqrt.approx, rcp.approx, lg2.approx, ex2.approx. Measured
-//   by chip_smoke.py phase 6 on the H100 at R=8, N=3,726: the sweep against
-//   its IEEE plain version 1.34-1.39e-6 of max |F|, the whole evaluation
-//   against float64 4.57-5.08e-7 (the IEEE plain evaluation: the same).
+// - a block's sums go to the scratch buffer `slots` (R, G, N, K) with the
+//   sweep's K components: atom a of tile r to slot c, atom b of tile c to
+//   slot r. Each slot is written by exactly one block; dense_slots_kernel
+//   then adds an atom's G slots in slot order and writes the sweep's
+//   outputs. Every sum has a fixed order, so two launches give the same
+//   bits; float atomics to global memory, the other way to take a pair once,
+//   would not. This was chosen over one CTA a row tile walking c >= r (no
+//   scratch, but the column atoms' sums would need atomics).
+// - sums: the force sweep's in float32 throughout; the Born and energy
+//   sweeps' in float32 within a patch (32 terms) and in float64 from there
+//   (block, slots; a protein's total energy is ~1% of its components,
+//   below): 32 float32 terms hold phase 6's gates (PERF.md section 6, PR 8),
+//   and the conversion to float64 is a low-rate instruction on the H100.
+// - slot scratch at R = 8, N = 3,726 (G = 30): force 10.7 MB, Born 7.2 MB,
+//   energy 14.3 MB, in L2. The wrapper allocates it and refuses a shape
+//   whose scratch exceeds a quarter of the card's memory.
+// - the pair functions (gb_force.cuh) take their special functions as
+//   single SFU results: rsqrt.approx, rcp.approx, lg2.approx, ex2.approx.
+//   Measured by chip_smoke.py phase 6 on the H100 at R=8, N=3,726 (PERF.md
+//   section 6 has the Born and energy sweeps' errors): the force sweep
+//   against its IEEE plain version 1.34-1.39e-6 of max |F|, the whole
+//   evaluation against float64 4.57-5.08e-7 (the IEEE plain evaluation: the
+//   same).
+//
+// Culled sweeps (pair_born_culled_kernel, pair_energy_culled_kernel,
+// pair_force_culled_kernel): row-owned, every ordered pair, IEEE special
+// functions in the Born and energy sweeps (gb_pair.cuh, pair_common.cuh).
+// - grid (row tiles of kRows, replicas); a CTA owns kRows row atoms and has
+//   kRows x kSplit threads: thread (tx, ty) owns row atom tx and the
+//   columns ty, ty + kSplit, ... of each staged column tile. The kSplit
+//   partial sums of a row are added in a fixed order at the end, through
+//   shared memory, so a launch is bit-reproducible (no atomics).
+// - atoms are stored in tiles of `tile` atoms (a Morton order makes them
+//   compact); the wrapper computes each tile's bounding box from the live
+//   positions and the (G, G) table of tile pairs whose box gap is within
+//   the cutoff, on every call. A CTA's 32 rows lie in one row tile (tile %
+//   32 == 0); it walks the column tiles and skips one that the table
+//   excludes: every pair of a skipped tile is farther apart than the cutoff,
+//   and every pair term is cut at r > cutoff, so a skip drops exact zeros.
+//   There is no list of tiles, so nothing can overflow. The band mask keys
+//   on the atoms' original indices (`orig`), since storage order is a
+//   permutation. The pair test is r^2 + 1e-12 <= cut_r2 with r^2 free of
+//   fused multiply-adds (pair_r2.cuh) and cut_r2 the wrapper's exact
+//   threshold (the same pairs as sqrt(r^2 + 1e-12) <= cutoff, no root for a
+//   pair that is cut): the force jumps at the cutoff, and the plain version
+//   must cut the same pairs.
+// - column tiles of kThreads atoms are staged in shared memory, one atom a
+//   thread; a warp reads one column entry at a time, a broadcast.
+// - the GBn2 neck's (C, C) radius-class tables sit in shared memory and are
+//   indexed by the two atoms' class indices (where the TPU kernel multiplied
+//   one-hot class matrices on its matrix unit).
 //
 // Common to all sweeps:
 // - exclusions: LJ and Coulomb are masked for |i - j| <= band (index band);
@@ -74,76 +105,317 @@
 //   passes sum: the same expressions, including both Born chain directions
 //   c_i dI_i/dr_ij + c_j dI_j/dr_ji, so F = -grad E.
 // - ragged last tiles are masked in the kernel; no padding atoms exist.
-// - culled sweeps (kCull): atoms are stored in tiles of `tile` atoms (a
-//   Morton order makes them compact); the wrapper computes each tile's
-//   bounding box from the live positions and the (G, G) table of tile pairs
-//   whose box gap is within the cutoff, on every call. A CTA's 32 rows lie
-//   in one row tile (tile % 32 == 0); it walks the column tiles and skips
-//   one that the table excludes: every pair of a skipped tile is farther
-//   apart than the cutoff, and every pair term is cut at r > cutoff, so a
-//   skip drops exact zeros. There is no list of tiles, so nothing can
-//   overflow. The band mask keys on the atoms' original indices (`orig`),
-//   since storage order is a permutation. The pair test is
-//   r^2 + 1e-12 <= cut_r2 with r^2 free of fused multiply-adds (pair_r2.cuh)
-//   and cut_r2 the wrapper's exact threshold (the same pairs as
-//   sqrt(r^2 + 1e-12) <= cutoff, no root for a pair that is cut): the force
-//   jumps at the cutoff, and the plain version must cut the same pairs.
-// - pair arithmetic is float32; the Born and energy sums accumulate in
-//   float64, and the energy rows are written as float64. A protein's total
-//   energy is ~1% of its summed components (3,726 atoms near a minimum:
-//   -300 to -1,400 kJ/mol against ~1e5 in each of the pair and GB-self
-//   sums), and float32 sums left errors of ~1e-4 of the total. Forces keep
-//   float32 sums: they do not cancel that far.
+// - pair arithmetic is float32; the energy rows are summed (past a dense
+//   patch's 32 terms) and written as float64. A protein's total energy is
+//   ~1% of its summed components (3,726 atoms near a minimum: -300 to -1,400
+//   kJ/mol against ~1e5 in each of the pair and GB-self sums), and float32
+//   sums over whole rows left errors of ~1e-4 of the total. The culled Born
+//   and energy sweeps sum in float64 throughout. Forces keep float32 sums:
+//   they do not cancel that far.
 
 #include "gb_force.cuh"
 #include "pair_common.cuh"
 
 namespace {
 
+// the culled row-owned sweeps
 constexpr int kRows = 32;                 // row atoms a CTA
 constexpr int kSplit = 8;                 // column lanes a row
 constexpr int kThreads = kRows * kSplit;  // threads a CTA = staged columns
-// the dense force sweep
-constexpr int kForceTile = 128;                  // atoms a tile
-constexpr int kForceGroups = kForceTile / 32;    // 32-atom groups a tile
-constexpr int kForceWarps = 8;
-constexpr int kForceThreads = 32 * kForceWarps;  // = 2 x kForceTile: one staged atom a thread
+// the dense block sweeps
+constexpr int kTile = 128;                       // atoms a tile
+constexpr int kGroups = kTile / 32;              // 32-atom groups a tile
+constexpr int kDenseWarps = 8;
+constexpr int kDenseThreads = 32 * kDenseWarps;  // = 2 x kTile: one staged atom a thread
 
-// The column range a CTA walks: the dense sweep takes [0, n) as one tile,
-// the culled sweep the G tiles of `tile` atoms, less those its row tile's
-// line of the close table excludes.
-template <bool kCull>
+// ---- dense sweeps: each unordered pair once, in (r, c >= r) tile blocks ----
+
+// the block (row tile r, column tile c >= r) of index b, the upper triangle
+// taken column by column: b = c (c + 1) / 2 + r
+__device__ __forceinline__ void triangle_block(long long b, int* r, int* c) {
+  long long cc = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) * 0.5);
+  while (cc * (cc + 1) / 2 > b) --cc;
+  while ((cc + 1) * (cc + 2) / 2 <= b) ++cc;
+  *c = static_cast<int>(cc);
+  *r = static_cast<int>(b - cc * (cc + 1) / 2);
+}
+
+// An atom of the sweep's type (a struct of float4s) from shared memory
+template <typename Atom>
+__device__ __forceinline__ Atom read_atom(float4 (*parts)[kTile], int slot) {
+  Atom t;
+  float4* p = reinterpret_cast<float4*>(&t);
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(Atom) / sizeof(float4)); ++k) p[k] = parts[k][slot];
+  return t;
+}
+
+// A sweep functor gives the skeleton below:
+//   Atom                 the staged atom (float4s), load(a, rbase, j) builds it
+//   Slot, kSums          the slots' type and components (scratch (R, G, N, kSums))
+//   Acc                  a lane's sums within a patch: from_lane(src) takes
+//                        lane src's (a shuffle), store(part) writes them as
+//                        Slot to part[d * kTile]
+//   pair(...)            adds one unordered pair's terms to the row's and
+//                        the column's Acc
+//   finish(a, k, sums)   writes atom k's (k = rep * N + atom) outputs from
+//                        the sum of its G slots
+//
+// dense_blocks: one CTA, block (rt, ct) of blockIdx.x, replica blockIdx.y.
+template <typename Sweep>
+__device__ __forceinline__ void dense_blocks(const PairArgs& a) {
+  using Atom = typename Sweep::Atom;
+  using Slot = typename Sweep::Slot;
+  using Acc = typename Sweep::Acc;
+  constexpr int kParts = sizeof(Atom) / sizeof(float4);
+  constexpr int kSums = Sweep::kSums;
+  __shared__ float4 s_atom[2][kParts][kTile];              // rows, columns
+  __shared__ Slot s_part[2][kGroups][kSums][kTile];        // side, partner group, sum, atom
+  extern __shared__ float s_neck[];
+  const int n = a.n;
+  int rt, ct;
+  triangle_block(blockIdx.x, &rt, &ct);
+  const bool diagonal = rt == ct;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  const int tid = threadIdx.x;
+  if (a.use_neck) load_neck(a, s_neck, tid, kDenseThreads);
+  for (int k = tid; k < 2 * kTile; k += kDenseThreads) {
+    const int side = k / kTile, slot = k % kTile;
+    const int j = (side ? ct : rt) * kTile + slot;
+    Atom t = {};
+    if (j < n) t = Sweep::load(a, rbase, j);
+    const float4* p = reinterpret_cast<const float4*>(&t);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) s_atom[side][q][slot] = p[q];
+  }
+  Slot* part = &s_part[0][0][0][0];
+  for (int k = tid; k < 2 * kGroups * kSums * kTile; k += kDenseThreads) part[k] = Slot(0);
+  __syncthreads();
+
+  // warp w takes the 32 x 32 patches w, w + 8, ...: lane l owns row g * 32 + l
+  // and at step k the column h * 32 + (l + k) mod 32; the column sums travel
+  // to the next lane after each step and arrive, after 32 steps, at the lane
+  // whose index is the column's
+  const int n_rows = min(kTile, n - rt * kTile);
+  const int n_cols = min(kTile, n - ct * kTile);
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int item = warp; item < kGroups * kGroups; item += kDenseWarps) {
+    const int g = item / kGroups, h = item % kGroups;
+    if ((diagonal && h < g) || g * 32 >= n_rows || h * 32 >= n_cols) continue;  // warp-uniform
+    const bool upper_only = diagonal && g == h;   // each unordered pair once
+    const int i = g * 32 + lane;
+    const bool row_ok = i < n_rows;
+    const Atom ai = read_atom<Atom>(s_atom[0], i);
+    Acc row = {}, col = {};
+    for (int k = 0; k < 32; ++k) {
+      const int j = h * 32 + ((lane + k) & 31);
+      const Atom aj = read_atom<Atom>(s_atom[1], j);
+      const float dx = ai.p0.x - aj.p0.x, dy = ai.p0.y - aj.p0.y, dz = ai.p0.z - aj.p0.z;
+      const float r2 = pair_r2(dx, dy, dz);
+      // self and coincident pairs (r^2 <= 1e-8) are skipped
+      if (row_ok && j < n_cols && (!upper_only || j > i) && r2 > 1e-8f) {
+        Sweep::pair(a, s_neck, __fadd_rn(r2, kEps), dx, dy, dz, ai, aj, rt * kTile + i,
+                    ct * kTile + j, row, col);
+      }
+      col.from_lane((lane + 1) & 31);
+    }
+    row.store(&s_part[0][h][0][i]);
+    col.store(&s_part[1][g][0][h * 32 + lane]);
+  }
+  __syncthreads();
+
+  // each atom's partial of this block, summed over the partner groups in a
+  // fixed order, goes to the slot of the partner tile: the row atoms' to
+  // slot c, the column atoms' to slot r (a diagonal block: both to slot r)
+  for (int k = tid; k < 2 * kTile; k += kDenseThreads) {
+    const int side = k / kTile, slot = k % kTile;
+    if (slot >= (side ? n_cols : n_rows) || (diagonal && side == 1)) continue;
+    const int atom = (side ? ct : rt) * kTile + slot;
+    const int partner = side ? rt : ct;
+    Slot* out = static_cast<Slot*>(a.slots) +
+                ((static_cast<size_t>(blockIdx.y) * a.n_tiles + partner) * n + atom) * kSums;
+#pragma unroll
+    for (int d = 0; d < kSums; ++d) {
+      Slot v = Slot(0);
+      for (int p = 0; p < kGroups; ++p) v += s_part[side][p][d][slot];
+      if (diagonal) {
+        for (int p = 0; p < kGroups; ++p) v += s_part[1][p][d][slot];
+      }
+      out[d] = v;
+    }
+  }
+}
+
+// each atom's outputs from its G slots, summed in slot order
+template <typename Sweep>
+__global__ void dense_slots_kernel(PairArgs a) {
+  using Slot = typename Sweep::Slot;
+  constexpr int kSums = Sweep::kSums;
+  const int atom = blockIdx.x * blockDim.x + threadIdx.x;
+  if (atom >= a.n) return;
+  const size_t rep = blockIdx.y;
+  Slot v[kSums];
+#pragma unroll
+  for (int d = 0; d < kSums; ++d) v[d] = Slot(0);
+  for (int s = 0; s < a.n_tiles; ++s) {
+    const Slot* p = static_cast<const Slot*>(a.slots) + ((rep * a.n_tiles + s) * a.n + atom) * kSums;
+#pragma unroll
+    for (int d = 0; d < kSums; ++d) v[d] += p[d];
+  }
+  Sweep::finish(a, rep * a.n + atom, v);
+}
+
+// ---- sweep 1: Born integral I_i = 1/2 sum_j H(r; rho_i, sr_j) + sum_j neck ----
+struct BornSweep {
+  using Atom = BornAtom;
+  using Slot = double;
+  static constexpr int kSums = 1;
+  struct Acc {
+    float I;
+    __device__ void from_lane(int src) { I = __shfl_sync(0xffffffffu, I, src); }
+    __device__ void store(Slot* part) const { part[0] = I; }
+  };
+  __device__ static Atom load(const PairArgs& a, size_t rbase, int j) {
+    const float* xj = a.x + (rbase + j) * 3;
+    const float rho = a.atom_p[kRho * a.n + j];
+    Atom t;
+    t.p0 = make_float4(xj[0], xj[1], xj[2], rho);
+    t.p1 = make_float4(a.atom_p[kSr * a.n + j], 1.0f / rho, __int_as_float(a.cls[j]), 0.0f);
+    return t;
+  }
+  __device__ static void pair(const PairArgs& a, const float* s_neck, float s, float, float, float,
+                              const Atom& ai, const Atom& aj, int, int, Acc& row, Acc& col) {
+    const BornPair p = born_pair_values(a, s_neck, s, ai, aj);
+    row.I += 0.5f * p.h_ij + p.neck;
+    col.I += 0.5f * p.h_ji + p.neck;
+  }
+  __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
+    a.out0[k] = static_cast<float>(v[0]);
+  }
+};
+
+// ---- sweep 2: pair energy rows and the pairwise part of dE/dB_i ----
+// each unordered pair adds 0.5 e_nb + e_gb to both atoms' rows, as the
+// row-owned rows did (half of each ordered direction), and each atom's own
+// dE/dB term to it (energy_pair in gb_force.cuh: Coulomb + GB with the
+// charge product factored out)
+struct EnergySweep {
+  using Atom = EnergyAtom;
+  using Slot = double;
+  static constexpr int kSums = 2;   // energy row, dE/dB
+  struct Acc {
+    float e, dedb;
+    __device__ void from_lane(int src) {
+      e = __shfl_sync(0xffffffffu, e, src);
+      dedb = __shfl_sync(0xffffffffu, dedb, src);
+    }
+    __device__ void store(Slot* part) const {
+      part[0] = e;
+      part[kTile] = dedb;
+    }
+  };
+  __device__ static Atom load(const PairArgs& a, size_t rbase, int j) {
+    const int n = a.n;
+    const float* xj = a.x + (rbase + j) * 3;
+    const float B = a.use_gb ? a.B[rbase + j] : 1.0f;
+    Atom t;
+    t.p0 = make_float4(xj[0], xj[1], xj[2], a.atom_p[kQ * n + j]);
+    t.p1 = make_float4(a.atom_p[kSig * n + j], a.atom_p[kSeps * n + j], B, 1.0f / B);
+    return t;
+  }
+  __device__ static void pair(const PairArgs& a, const float*, float s, float, float, float,
+                              const Atom& ai, const Atom& aj, int i, int j, Acc& row, Acc& col) {
+    // the dense path stores atoms in the caller's order: the band keys on i, j
+    const EnergyPair p = energy_pair(a, s, ai, aj, abs(i - j) > a.band);
+    row.e += p.e;
+    col.e += p.e;
+    row.dedb += p.dedb_i;
+    col.dedb += p.dedb_j;
+  }
+  __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
+    a.rows[k] = v[0];
+    a.out0[k] = static_cast<float>(v[1]);
+  }
+};
+
+// ---- sweep 3: F_i = -sum_j W_ij (x_i - x_j) / r, -W d to the row atom, +W d to the column ----
+struct ForceSweep {
+  using Atom = ForceAtom;
+  using Slot = float;
+  static constexpr int kSums = 3;
+  struct Acc {
+    float f[3];
+    __device__ void from_lane(int src) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) f[d] = __shfl_sync(0xffffffffu, f[d], src);
+    }
+    __device__ void store(Slot* part) const {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) part[d * kTile] = f[d];
+    }
+  };
+  __device__ static Atom load(const PairArgs& a, size_t rbase, int j) {
+    return load_force_atom(a, rbase, j);
+  }
+  __device__ static void pair(const PairArgs& a, const float* s_neck, float s, float dx, float dy,
+                              float dz, const Atom& ai, const Atom& aj, int, int, Acc& row,
+                              Acc& col) {
+    const float w = force_pair(a, s_neck, s, ai, aj);
+    row.f[0] -= w * dx;
+    row.f[1] -= w * dy;
+    row.f[2] -= w * dz;
+    col.f[0] += w * dx;
+    col.f[1] += w * dy;
+    col.f[2] += w * dz;
+  }
+  __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) a.out0[k * 3 + d] = v[d];
+  }
+};
+
+__global__ void __launch_bounds__(kDenseThreads, 2) pair_born_kernel(PairArgs a) {
+  dense_blocks<BornSweep>(a);
+}
+
+__global__ void __launch_bounds__(kDenseThreads, 2) pair_energy_kernel(PairArgs a) {
+  dense_blocks<EnergySweep>(a);
+}
+
+__global__ void __launch_bounds__(kDenseThreads, 2) pair_force_kernel(PairArgs a) {
+  dense_blocks<ForceSweep>(a);
+}
+
+// ---- culled sweeps: row-owned over the column tiles the close table keeps ----
+
+// The column tiles a CTA walks: the G tiles of `tile` atoms, less those its
+// row tile's line of the close table excludes.
 struct ColumnTiles {
   const uint8_t* close;
   int n_tiles, tile, n;
-  __device__ ColumnTiles(const PairArgs& a)
-      : close(nullptr), n_tiles(kCull ? a.n_tiles : 1), tile(kCull ? a.tile : a.n), n(a.n) {
-    if (kCull) {
-      const int row_tile = (blockIdx.x * kRows) / a.tile;
-      close = a.close + (static_cast<size_t>(blockIdx.y) * a.n_tiles + row_tile) * a.n_tiles;
-    }
+  __device__ ColumnTiles(const PairArgs& a) : n_tiles(a.n_tiles), tile(a.tile), n(a.n) {
+    const int row_tile = (blockIdx.x * kRows) / a.tile;
+    close = a.close + (static_cast<size_t>(blockIdx.y) * a.n_tiles + row_tile) * a.n_tiles;
   }
-  __device__ bool skip(int t) const { return kCull && !close[t]; }
+  __device__ bool skip(int t) const { return !close[t]; }
   __device__ int lo(int t) const { return t * tile; }
   __device__ int hi(int t) const { return min((t + 1) * tile, n); }
 };
 
 // A pair's r from two positions, or false for a pair that contributes
-// nothing: a self or coincident slot, or (culled) a pair beyond the cutoff.
-template <bool kCull>
+// nothing: a self or coincident slot, or a pair beyond the cutoff.
 __device__ __forceinline__ bool pair_distance(const PairArgs& a, float dx, float dy, float dz,
                                               float* r) {
   const float r2 = pair_r2(dx, dy, dz);
   if (r2 <= 1e-8f) return false;
   const float s = __fadd_rn(r2, kEps);
-  if (kCull && s > a.cut_r2) return false;
+  if (s > a.cut_r2) return false;
   *r = sqrtf(s);
   return true;
 }
 
-// ---- sweep 1: Born integral I_i = 1/2 sum_j H(r; rho_i, sr_j) + sum_j neck ----
-template <bool kCull>
-__global__ void __launch_bounds__(kThreads) pair_born_kernel(PairArgs a) {
+// ---- sweep 1, culled: Born integral ----
+__global__ void __launch_bounds__(kThreads) pair_born_culled_kernel(PairArgs a) {
   __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads], s_sr[kThreads];
   __shared__ int s_cls[kThreads];
   __shared__ double s_red[2][kSplit][kRows];
@@ -167,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) pair_born_kernel(PairArgs a) {
     ci = a.cls[i] * a.n_classes;
   }
   double h_acc = 0.0, nk_acc = 0.0;
-  const ColumnTiles<kCull> tiles(a);
+  const ColumnTiles tiles(a);
   for (int t = 0; t < tiles.n_tiles; ++t) {
     if (tiles.skip(t)) continue;
     const int hi = tiles.hi(t);
@@ -186,7 +458,7 @@ __global__ void __launch_bounds__(kThreads) pair_born_kernel(PairArgs a) {
       if (!own) continue;
       for (int jj = ty; jj < cnt; jj += kSplit) {
         float r;
-        if (!pair_distance<kCull>(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
+        if (!pair_distance(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
         float H, dH;
         born_pair(r, 1.0f / r, rho_i, s_sr[jj], &H, &dH);
         h_acc += H;
@@ -212,13 +484,12 @@ __global__ void __launch_bounds__(kThreads) pair_born_kernel(PairArgs a) {
   }
 }
 
-// ---- sweep 2: pair energy rows and the pairwise part of dE/dB_i ----
-template <bool kCull>
-__global__ void __launch_bounds__(kThreads) pair_energy_kernel(PairArgs a) {
+// ---- sweep 2, culled: pair energy rows and the pairwise part of dE/dB_i ----
+__global__ void __launch_bounds__(kThreads) pair_energy_culled_kernel(PairArgs a) {
   __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads];
   __shared__ float s_q[kThreads], s_sig[kThreads], s_seps[kThreads], s_B[kThreads];
   __shared__ int s_orig[kThreads];
-  __shared__ double s_red[3][kSplit][kRows];
+  __shared__ double s_red[2][kSplit][kRows];
   const int n = a.n;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRows + tx;
@@ -237,10 +508,10 @@ __global__ void __launch_bounds__(kThreads) pair_energy_kernel(PairArgs a) {
     sig_i = a.atom_p[kSig * n + i];
     seps_i = a.atom_p[kSeps * n + i];
     if (a.use_gb) B_i = a.B[rbase + i];
-    if (kCull) orig_i = a.orig[i];
+    orig_i = a.orig[i];
   }
-  double e_nb = 0.0, e_gb = 0.0, dedb = 0.0;
-  const ColumnTiles<kCull> tiles(a);
+  double e_row = 0.0, dedb = 0.0;
+  const ColumnTiles tiles(a);
   for (int t = 0; t < tiles.n_tiles; ++t) {
     if (tiles.skip(t)) continue;
     const int hi = tiles.hi(t);
@@ -255,167 +526,35 @@ __global__ void __launch_bounds__(kThreads) pair_energy_kernel(PairArgs a) {
         s_sig[tid] = a.atom_p[kSig * n + j];
         s_seps[tid] = a.atom_p[kSeps * n + j];
         s_B[tid] = a.use_gb ? a.B[rbase + j] : 1.0f;
-        if (kCull) s_orig[tid] = a.orig[j];
+        s_orig[tid] = a.orig[j];
       }
       __syncthreads();
       const int cnt = min(kThreads, hi - t0);
       if (!own) continue;
       for (int jj = ty; jj < cnt; jj += kSplit) {
         float r;
-        if (!pair_distance<kCull>(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
-        const float inv_r = 1.0f / r;
-        const float qq = q_i * s_q[jj];
-        // the band keys on the caller's indices: storage order is a permutation
-        // of them on the culled path only
-        if (abs(orig_i - (kCull ? s_orig[jj] : t0 + jj)) > a.band) {
-          e_nb += nb_energy(lj_sr6(sig_i, s_sig[jj], inv_r), seps_i * s_seps[jj], a.ke, qq,
-                            inv_r);
-        }
-        if (a.use_gb) {
-          const float B_j = s_B[jj];
-          const float rsq = r * r;
-          float expu, inv_f;
-          gb_f(rsq, B_i * B_j, &expu, &inv_f);
-          const float qq_gb = a.gb_pref * qq;
-          e_gb += qq_gb * inv_f;
-          dedb += gb_dedb(qq_gb, inv_f, expu, rsq, B_i, B_j);
-        }
+        if (!pair_distance(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
+        float dedb_i, dedb_j;
+        // the band keys on the caller's indices: storage order is a permutation of them
+        e_row += pair_energy_ieee(a.ke, a.gb_pref, a.use_gb, r, 1.0f / r, q_i * s_q[jj], sig_i,
+                                  s_sig[jj], seps_i * s_seps[jj], B_i, s_B[jj],
+                                  abs(orig_i - s_orig[jj]) > a.band, &dedb_i, &dedb_j);
+        dedb += dedb_i;
       }
     }
   }
-  s_red[0][ty][tx] = e_nb;
-  s_red[1][ty][tx] = e_gb;
-  s_red[2][ty][tx] = dedb;
+  s_red[0][ty][tx] = e_row;
+  s_red[1][ty][tx] = dedb;
   __syncthreads();
   if (ty == 0 && own) {
-    double nb = 0.0, gb = 0.0, db = 0.0;
+    double e = 0.0, db = 0.0;
     for (int s = 0; s < kSplit; ++s) {
-      nb += s_red[0][s][tx];
-      gb += s_red[1][s][tx];
-      db += s_red[2][s][tx];
+      e += s_red[0][s][tx];
+      db += s_red[1][s][tx];
     }
-    a.rows[rbase + i] = 0.5 * nb + gb;
+    a.rows[rbase + i] = e;
     a.out0[rbase + i] = static_cast<float>(db);
   }
-}
-
-// ---- sweep 3, dense: F_i = -sum_j W_ij (x_i - x_j) / r, each unordered pair once ----
-
-// the block (row tile r, column tile c >= r) of index b, the upper triangle
-// taken column by column: b = c (c + 1) / 2 + r
-__device__ __forceinline__ void triangle_block(long long b, int* r, int* c) {
-  long long cc = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) * 0.5);
-  while (cc * (cc + 1) / 2 > b) --cc;
-  while ((cc + 1) * (cc + 2) / 2 <= b) ++cc;
-  *c = static_cast<int>(cc);
-  *r = static_cast<int>(b - cc * (cc + 1) / 2);
-}
-
-__global__ void __launch_bounds__(kForceThreads, 2) pair_force_kernel(PairArgs a) {
-  __shared__ float4 s_atom[2][3][kForceTile];                // rows, columns: p0 p1 p2
-  __shared__ float s_part[2][kForceGroups][3][kForceTile];   // side, partner group, axis, atom
-  extern __shared__ float s_neck[];
-  const int n = a.n;
-  int rt, ct;
-  triangle_block(blockIdx.x, &rt, &ct);
-  const bool diagonal = rt == ct;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const int tid = threadIdx.x;
-  if (a.use_neck) load_neck(a, s_neck, tid, kForceThreads);
-  for (int k = tid; k < 2 * kForceTile; k += kForceThreads) {
-    const int side = k / kForceTile, slot = k % kForceTile;
-    const int j = (side ? ct : rt) * kForceTile + slot;
-    ForceAtom t = {};
-    if (j < n) t = load_force_atom(a, rbase, j);
-    s_atom[side][0][slot] = t.p0;
-    s_atom[side][1][slot] = t.p1;
-    s_atom[side][2][slot] = t.p2;
-  }
-  float* part = &s_part[0][0][0][0];
-  for (int k = tid; k < 2 * kForceGroups * 3 * kForceTile; k += kForceThreads) part[k] = 0.0f;
-  __syncthreads();
-
-  // warp w takes the 32 x 32 patches w, w + 8, ...: lane l owns row g * 32 + l
-  // and at step k the column h * 32 + (l + k) mod 32; the column sums travel
-  // to the next lane after each step and arrive, after 32 steps, at the lane
-  // whose index is the column's
-  const int n_rows = min(kForceTile, n - rt * kForceTile);
-  const int n_cols = min(kForceTile, n - ct * kForceTile);
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int item = warp; item < kForceGroups * kForceGroups; item += kForceWarps) {
-    const int g = item / kForceGroups, h = item % kForceGroups;
-    if ((diagonal && h < g) || g * 32 >= n_rows || h * 32 >= n_cols) continue;  // warp-uniform
-    const bool upper_only = diagonal && g == h;   // each unordered pair once
-    const int i = g * 32 + lane;
-    const bool row_ok = i < n_rows;
-    const ForceAtom ai = {s_atom[0][0][i], s_atom[0][1][i], s_atom[0][2][i]};
-    float fr[3] = {0.0f, 0.0f, 0.0f}, fc[3] = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < 32; ++k) {
-      const int j = h * 32 + ((lane + k) & 31);
-      const ForceAtom aj = {s_atom[1][0][j], s_atom[1][1][j], s_atom[1][2][j]};
-      const float dx = ai.p0.x - aj.p0.x, dy = ai.p0.y - aj.p0.y, dz = ai.p0.z - aj.p0.z;
-      const float r2 = pair_r2(dx, dy, dz);
-      // self and coincident pairs (r^2 <= 1e-8) are skipped
-      if (row_ok && j < n_cols && (!upper_only || j > i) && r2 > 1e-8f) {
-        const float w = force_pair(a, s_neck, __fadd_rn(r2, kEps), ai, aj);
-        fr[0] -= w * dx;
-        fr[1] -= w * dy;
-        fr[2] -= w * dz;
-        fc[0] += w * dx;
-        fc[1] += w * dy;
-        fc[2] += w * dz;
-      }
-#pragma unroll
-      for (int d = 0; d < 3; ++d) fc[d] = __shfl_sync(0xffffffffu, fc[d], (lane + 1) & 31);
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      s_part[0][h][d][i] = fr[d];
-      s_part[1][g][d][h * 32 + lane] = fc[d];
-    }
-  }
-  __syncthreads();
-
-  // each atom's partial of this block, summed over the partner groups in a
-  // fixed order, goes to the slot of the partner tile: the row atoms' to
-  // slot c, the column atoms' to slot r (a diagonal block: both to slot r)
-  for (int k = tid; k < 2 * kForceTile; k += kForceThreads) {
-    const int side = k / kForceTile, slot = k % kForceTile;
-    if (slot >= (side ? n_cols : n_rows) || (diagonal && side == 1)) continue;
-    float f[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      f[d] = 0.0f;
-      for (int p = 0; p < kForceGroups; ++p) f[d] += s_part[side][p][d][slot];
-      if (diagonal) {
-        for (int p = 0; p < kForceGroups; ++p) f[d] += s_part[1][p][d][slot];
-      }
-    }
-    const int atom = (side ? ct : rt) * kForceTile + slot;
-    const int partner = side ? rt : ct;
-    float* out = a.slots + ((static_cast<size_t>(blockIdx.y) * a.n_tiles + partner) * n + atom) * 3;
-    out[0] = f[0];
-    out[1] = f[1];
-    out[2] = f[2];
-  }
-}
-
-// F of each atom: its G slots summed in slot order
-__global__ void pair_force_slots_kernel(PairArgs a) {
-  const int atom = blockIdx.x * blockDim.x + threadIdx.x;
-  if (atom >= a.n) return;
-  const size_t rep = blockIdx.y;
-  float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-  for (int s = 0; s < a.n_tiles; ++s) {
-    const float* p = a.slots + ((rep * a.n_tiles + s) * a.n + atom) * 3;
-    f0 += p[0];
-    f1 += p[1];
-    f2 += p[2];
-  }
-  float* fo = a.out0 + (rep * a.n + atom) * 3;
-  fo[0] = f0;
-  fo[1] = f1;
-  fo[2] = f2;
 }
 
 // ---- sweep 3, culled: row-owned, F_i = -sum_j W_ij (x_i - x_j) / r ----
@@ -434,7 +573,7 @@ __global__ void __launch_bounds__(kThreads) pair_force_culled_kernel(PairArgs a)
   ForceAtom ai = {};
   if (own) ai = load_force_atom(a, rbase, i);
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  const ColumnTiles<true> tiles(a);
+  const ColumnTiles tiles(a);
   for (int t = 0; t < tiles.n_tiles; ++t) {
     if (tiles.skip(t)) continue;
     const int hi = tiles.hi(t);
@@ -482,44 +621,56 @@ __global__ void __launch_bounds__(kThreads) pair_force_culled_kernel(PairArgs a)
   }
 }
 
-int launch_force(PairArgs a, bool cull, int n_replicas, cudaStream_t s) {
-  const int neck = a.use_neck ? 2 * sizeof(float) * a.n_classes * a.n_classes : 0;
-  if (cull) {
-    pair_force_culled_kernel<<<dim3((a.n + kRows - 1) / kRows, n_replicas), dim3(kRows, kSplit),
-                               neck, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
+// the block sweep `kernel` of Sweep and its slot sum, on tiles of kTile atoms
+template <typename Sweep>
+int launch_dense(const void* kernel, PairArgs a, int n_replicas, size_t neck, cudaStream_t s) {
   if (a.slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  a.tile = kForceTile;
-  a.n_tiles = (a.n + kForceTile - 1) / kForceTile;
+  a.tile = kTile;
+  a.n_tiles = (a.n + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>(a.n_tiles) * (a.n_tiles + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(pair_force_kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, neck);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(neck));
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_force_kernel<<<dim3(static_cast<unsigned>(blocks), n_replicas), kForceThreads, neck, s>>>(a);
+  void* args[] = {&a};
+  err = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(blocks), n_replicas),
+                         dim3(kDenseThreads), args, neck, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_force_slots_kernel<<<dim3((a.n + 255) / 256, n_replicas), 256, 0, s>>>(a);
+  dense_slots_kernel<Sweep><<<dim3((a.n + 255) / 256, n_replicas), 256, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCull>
-int launch(int sweep, const PairArgs& a, int n_replicas, void* stream) {
-  if (kCull && (a.tile < kRows || a.tile % kRows != 0 || a.close == nullptr ||
-                a.orig == nullptr || !a.has_cut)) {
+int launch(int sweep, int mode, const PairArgs& a, int n_replicas, void* stream) {
+  const size_t neck = a.use_neck ? 2 * sizeof(float) * a.n_classes * a.n_classes : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kDense) {
+    switch (sweep) {
+      case kBorn:
+        return launch_dense<BornSweep>(reinterpret_cast<const void*>(pair_born_kernel), a,
+                                       n_replicas, neck, s);
+      case kEnergy:
+        return launch_dense<EnergySweep>(reinterpret_cast<const void*>(pair_energy_kernel), a,
+                                         n_replicas, neck, s);
+      case kForce:
+        return launch_dense<ForceSweep>(reinterpret_cast<const void*>(pair_force_kernel), a,
+                                        n_replicas, neck, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (mode != kCulled || a.tile < kRows || a.tile % kRows != 0 || a.close == nullptr ||
+      a.orig == nullptr || !a.has_cut) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((a.n + kRows - 1) / kRows, n_replicas);
   const dim3 block(kRows, kSplit);
-  const size_t neck = a.use_neck ? 2 * sizeof(float) * a.n_classes * a.n_classes : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sweep == kBorn) {
-    pair_born_kernel<kCull><<<grid, block, neck, s>>>(a);
+    pair_born_culled_kernel<<<grid, block, neck, s>>>(a);
   } else if (sweep == kEnergy) {
-    pair_energy_kernel<kCull><<<grid, block, 0, s>>>(a);
+    pair_energy_culled_kernel<<<grid, block, 0, s>>>(a);
   } else if (sweep == kForce) {
-    return launch_force(a, kCull, n_replicas, s);
+    pair_force_culled_kernel<<<grid, block, neck, s>>>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -532,20 +683,21 @@ extern "C" {
 
 int pmarlo_pair_max_classes() { return kMaxClasses; }
 
-// atoms a tile of the dense force sweep: its scratch `slots` is
-// (R, ceil(N / tile), N, 3) float32
-int pmarlo_pair_force_tile() { return kForceTile; }
+// atoms a tile of the dense sweeps: their scratch `slots` is (R,
+// ceil(N / tile), N, K): K = 1 float32 (Born), 2 float64 (energy: row,
+// dE/dB), 3 float32 (force)
+int pmarlo_pair_force_tile() { return kTile; }
 
 // One sweep (`sweep`: 0 Born integral into `out0`, 1 energy rows into
 // `rows` and dE/dB into `out0`, 2 forces into `out0`) in `mode` 0 (dense;
-// the force sweep needs `slots`) or 1 (tile-culled: `orig`, `close`, `tile`
-// and `cut_r2` are read). Returns cudaGetLastError() after the launch on
-// `stream` (0 = launched).
+// needs `slots`) or 1 (tile-culled: `orig`, `close`, `tile` and `cut_r2`
+// are read). Returns cudaGetLastError() after the launch on `stream` (0 =
+// launched).
 int pmarlo_pair_sweep(int sweep, int mode, const float* x, const float* atom_p, const int* cls,
                       const int* orig, const float* d0c, const float* m0c, int n_classes,
                       const float* B, const float* chain, const uint8_t* close, int n_replicas,
                       int n_atoms, int tile, int band, float ke, float gb_pref, float cut_r2,
-                      int use_gb, int use_neck, float* out0, double* rows, float* slots,
+                      int use_gb, int use_neck, float* out0, double* rows, void* slots,
                       void* stream) {
   // (n_atoms < 2^25: the force sweeps pack orig * 64 + class into 32 bits)
   if (n_atoms < 1 || n_atoms >= (1 << 25) || n_replicas < 1 || n_replicas > 65535 ||
@@ -576,9 +728,7 @@ int pmarlo_pair_sweep(int sweep, int mode, const float* x, const float* atom_p, 
   a.gb_pref = gb_pref;
   a.use_gb = use_gb;
   a.use_neck = use_neck && sweep != kEnergy;
-  if (mode == kDense) return launch<false>(sweep, a, n_replicas, stream);
-  if (mode == kCulled) return launch<true>(sweep, a, n_replicas, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(sweep, mode, a, n_replicas, stream);
 }
 
 }  // extern "C"

@@ -373,24 +373,16 @@ __global__ void __launch_bounds__(kThreads) newton_energy_kernel(PairArgs a) {
     walk<1>(a, b, rows, cols,
             [&](int i, int j, float r, float, float, float, float* row_sum, float* col_sum,
                 double& e_sum) {
-              const float inv_r = 1.0f / r;
-              const float qq = rows.q[i] * cols.q[j];
-              if (abs(rows.orig[i] - cols.orig[j]) > a.band) {
-                e_sum += nb_energy(lj_sr6(rows.sig[i], cols.sig[j], inv_r),
-                                   rows.seps[i] * cols.seps[j], a.ke, qq, inv_r);
-              }
-              if (a.use_gb) {
-                const float B_i = rows.B[i], B_j = cols.B[j];
-                const float rsq = r * r;
-                float expu, inv_f;
-                gb_f(rsq, B_i * B_j, &expu, &inv_f);
-                const float qq_gb = a.gb_pref * qq;
-                // the unordered pair's cross energy: both ordered directions
-                e_sum += 2.0f * qq_gb * inv_f;
-                // the ordered quantity on each side; the glue doubles it
-                row_sum[0] += gb_dedb(qq_gb, inv_f, expu, rsq, B_i, B_j);
-                col_sum[0] += gb_dedb(qq_gb, inv_f, expu, rsq, B_j, B_i);
-              }
+              float dedb_i, dedb_j;
+              const float e = pair_energy_ieee(
+                  a.ke, a.gb_pref, a.use_gb, r, 1.0f / r, rows.q[i] * cols.q[j], rows.sig[i],
+                  cols.sig[j], rows.seps[i] * cols.seps[j], rows.B[i], cols.B[j],
+                  abs(rows.orig[i] - cols.orig[j]) > a.band, &dedb_i, &dedb_j);
+              // the unordered pair's energy, both rows' shares, to the row atom
+              e_sum += 2.0f * e;
+              // the ordered quantity on each side; the glue doubles it
+              row_sum[0] += dedb_i;
+              col_sum[0] += dedb_j;
             },
             [&](int i, double e_sum) { atomicAdd(&s_energy[i], e_sum); });
     __syncthreads();

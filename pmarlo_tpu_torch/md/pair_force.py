@@ -23,13 +23,13 @@ Sweeps 1, 3 and 5 are CUDA kernels on CUDA tensors and their twins
 a CUDA tensor launches the kernel or raises. Three sets of kernels compute
 the same sums:
 
-- dense (``gb_cutoff=None``): ``csrc/pair_force.cu``, every ordered pair;
-  the force sweep takes each unordered pair once, in blocks of
-  ``FORCE_TILE``-atom tiles whose sums are added in a fixed order (the
-  same bits from every launch);
-- culled (``gb_cutoff``, ``newton=False``): the same Born and energy
-  kernels and a row-owned force kernel, walking only the column tiles
-  within reach of the row tile;
+- dense (``gb_cutoff=None``): ``csrc/pair_force.cu``, each unordered pair
+  once, in blocks of ``FORCE_TILE``-atom tiles whose per-slot sums go to a
+  scratch the wrapper allocates and are added in a fixed order (the same
+  bits from every launch);
+- culled (``gb_cutoff``, ``newton=False``): row-owned kernels of the same
+  file, every ordered pair, walking only the column tiles within reach of
+  the row tile;
 - Newton (``newton=True``, the default with ``gb_cutoff``):
   ``csrc/pair_newton.cu``, each unordered tile block once, results to both
   atoms (atomic adds: the last bits change from run to run).
@@ -66,6 +66,7 @@ evaluates its pair terms in float64 outright (see
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -135,9 +136,37 @@ ROW_BLOCK = 32
 #: largest tile of the Newton kernels (two tiles in shared memory), a
 #: multiple of 32 (csrc/pair_newton.cu)
 NEWTON_MAX_TILE = 256
-#: atoms a tile of the dense force kernel, which takes each (row tile,
-#: column tile >= row tile) block once (csrc/pair_force.cu)
+#: atoms a tile of the dense kernels, which take each (row tile, column
+#: tile >= row tile) block once (csrc/pair_force.cu)
 FORCE_TILE = 128
+#: per-atom components and type of each dense sweep's slots: its scratch is
+#: (R, ceil(N / FORCE_TILE), N, *components) (csrc/pair_force.cu)
+_DENSE_SLOTS = {"born": ((), torch.float64), "energy": ((2,), torch.float64),
+               "force": ((3,), torch.float32)}
+
+
+def dense_scratch(sweep: str, R: int, n: int) -> Tuple[tuple, torch.dtype, int]:
+    """``(shape, dtype, bytes)`` of the slot scratch of one dense sweep of R
+    replicas of n atoms: ~R n^2 / 8 bytes for the energy sweep (the
+    largest), 14.3 MB at R = 8, n = 3,726."""
+    components, dtype = _DENSE_SLOTS[sweep]
+    shape = (R, -(-n // FORCE_TILE), n) + components
+    return shape, dtype, math.prod(shape) * torch.finfo(dtype).bits // 8
+
+
+def _electrostatic_constants(system: System, dtype: torch.dtype) -> Tuple[float, float]:
+    """``(ke, gb_pref)``: Coulomb's constant over the solute dielectric and
+    the GB prefactor. The kernels take both as float (their C interface),
+    and JAX's float32 kernels round them so too (a Python float in float32
+    arithmetic), so the float32 path, plain versions included, takes the
+    float32 values; a float64 twin keeps them exact, so that it measures
+    the float32 path's rounding of them too."""
+    ke = COULOMB_CONSTANT_KJ_NM_PER_MOL_E2 / system.solute_dielectric
+    gb_pref = (-0.5 * COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
+               * (1.0 / system.solute_dielectric - 1.0 / system.solvent_dielectric))
+    if dtype == torch.float32:
+        return float(np.float32(ke)), float(np.float32(gb_pref))
+    return ke, gb_pref
 
 
 def _morton_order(x: np.ndarray, bits: int = 10) -> np.ndarray:
@@ -339,11 +368,7 @@ class PairForce:
         rho = radii - system.gb_offset
         sr = host(system.gb_screen) * rho
         self.use_gb = bool(system.use_gb)
-        self.ke = COULOMB_CONSTANT_KJ_NM_PER_MOL_E2 / system.solute_dielectric
-        self.gb_pref = (
-            -0.5 * COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
-            * (1.0 / system.solute_dielectric - 1.0 / system.solvent_dielectric)
-        )
+        self.ke, self.gb_pref = _electrostatic_constants(system, dtype)
         probe = 0.14
         if system.gb_alpha is not None:
             ab, bb, gb = (host(system.gb_alpha), host(system.gb_beta),
@@ -512,35 +537,80 @@ class PairForce:
         cj = self._at(self._cls_long, cols)[None, :]
         return self._d0c[ci, cj], self._m0c[ci, cj]
 
+    def born_pair_terms(self, s, e, cols, r, one, columns: bool = False):
+        """What each pair of the row atoms s:e and the column atoms ``cols``
+        (``None``: all) adds to the Born integrals, ``(R, e - s, m)``: to the
+        row atom's ``H(r; rho_i, sr_j) / 2 + neck``, and with ``columns`` to
+        the column atom's ``H(r; rho_j, sr_i) / 2 + neck`` (else ``None``);
+        ``r`` the distances, ``one`` the mask of the pairs to count."""
+        inv_r = 1.0 / r
+        H, _ = _hct(r, inv_r, self.rho[s:e, None], self._at(self.sr, cols)[None, :],
+                    derivative=False)
+        to_row = 0.5 * H * one
+        to_col = None
+        if columns:
+            Hc, _ = _hct(r, inv_r, self._at(self.rho, cols)[None, :], self.sr[s:e, None],
+                         derivative=False)
+            to_col = 0.5 * Hc * one
+        if self.use_neck:
+            d0, m0 = self._neck_tables(s, e, cols)
+            nv, _ = _neck(r, d0, m0)
+            # the class tables are symmetric: one neck value serves both atoms
+            neck = nv * one
+            to_row = to_row + neck
+            if columns:
+                to_col = to_col + neck
+        return to_row, to_col
+
     def born_reference(self, x: torch.Tensor, close=None) -> torch.Tensor:
         """Born integral ``I (R, N)`` (twin of the Born kernels)."""
         x = self._batch(x)
         f64 = torch.float64
         out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
         for s, e, cols, _, r, one in self._blocks(x, close):
-            inv_r = 1.0 / r
-            H, _ = _hct(r, inv_r, self.rho[s:e, None], self._at(self.sr, cols)[None, :],
-                        derivative=False)
-            terms = 0.5 * H * one
-            out[:, s:e] += terms.sum(-1, dtype=f64)
-            if self.use_neck:
-                d0, m0 = self._neck_tables(s, e, cols)
-                nv, _ = _neck(r, d0, m0)
-                neck = nv * one
-                out[:, s:e] += neck.sum(-1, dtype=f64)
+            to_row, to_col = self.born_pair_terms(s, e, cols, r, one, columns=self.newton)
+            out[:, s:e] += to_row.sum(-1, dtype=f64)
             if self.newton:
-                Hc, _ = _hct(r, inv_r, self._at(self.rho, cols)[None, :],
-                             self.sr[s:e, None], derivative=False)
-                part = (0.5 * Hc * one).sum(-2, dtype=f64)
-                if self.use_neck:
-                    part = part + neck.sum(-2, dtype=f64)
-                out.index_add_(1, cols, part)   # the column atoms' share
+                out.index_add_(1, cols, to_col.sum(-2, dtype=f64))   # the column atoms' share
         return out.to(x.dtype)
 
     def _band_mask(self, s, e, cols):
         ii = self._orig_long[s:e, None]
         jj = self._at(self._orig_long, cols)[None, :]
         return (ii - jj).abs() > self.band_D
+
+    def energy_pair_terms(self, B, s, e, cols, r, one, columns: bool = False):
+        """Each pair's energy terms ``(R, e - s, m)`` in the type of ``r``:
+        ``(e_pair, dEdB_row, dEdB_col)``, with e_pair = 0.5 e_nb + e_gb the
+        energy the unordered pair adds to each of its two atoms' rows (LJ +
+        Coulomb outside the index band, the GB cross term), dEdB_row the
+        row atom's d(e_gb)/dB and, with ``columns``, dEdB_col the column
+        atom's (else ``None``; both ``None`` without GB)."""
+        dt = r.dtype
+        q, sig, seps = self.q.to(dt), self.sig.to(dt), self.seps.to(dt)
+        inv_r = 1.0 / r
+        ob = self._band_mask(s, e, cols).to(dt)
+        sr6 = _sr6(0.5 * (sig[s:e, None] + self._at(sig, cols)[None, :]), inv_r)
+        eps = seps[s:e, None] * self._at(seps, cols)[None, :]
+        qq = q[s:e, None] * self._at(q, cols)[None, :]
+        e_nb = (4.0 * eps * (sr6 * sr6 - sr6) + self.ke * qq * inv_r) * ob
+        e_pair = 0.5 * e_nb * one
+        db_row = db_col = None
+        if self.use_gb:
+            B = B.to(dt)
+            Bi = B[:, s:e, None]
+            Bj = self._at(B, cols)[:, None, :]
+            BB = Bi * Bj
+            rsq = r * r
+            expu = torch.exp(-rsq / (4.0 * BB))
+            inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
+            qq_gb = self.gb_pref * qq
+            e_pair = e_pair + qq_gb * inv_f * one
+            dEdf = -qq_gb * inv_f * inv_f * one
+            db_row = dEdf * (expu * (Bj + rsq / (4.0 * Bi)) * (0.5 * inv_f))
+            if columns:
+                db_col = dEdf * (expu * (Bi + rsq / (4.0 * Bj)) * (0.5 * inv_f))
+        return e_pair, db_row, db_col
 
     def energy_rows_reference(self, x: torch.Tensor, B: torch.Tensor, close=None):
         """``(e_rows (R, N) float64, dEdB_pair (R, N))`` (twin of the energy
@@ -553,36 +623,19 @@ class PairForce:
         errors add up instead of averaging out)."""
         x = self._batch(x)
         f64 = torch.float64
-        q, sig, seps = self.q.to(f64), self.sig.to(f64), self.seps.to(f64)
-        B = B.to(f64)
         e_out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
         b_out = torch.zeros(x.shape[:2], dtype=f64, device=x.device)
-        # each unordered pair once (Newton) or both ordered directions, halved
-        share = 1.0 if self.newton else 0.5
+        # each unordered pair once, all of it to the row atom (Newton), or
+        # both ordered directions, each atom's row half of each
+        share = 2.0 if self.newton else 1.0
         for s, e, cols, _, r, one in self._blocks(x.to(f64), close):
-            inv_r = 1.0 / r
-            ob = self._band_mask(s, e, cols).to(f64)
-            sr6 = _sr6(0.5 * (sig[s:e, None] + self._at(sig, cols)[None, :]), inv_r)
-            eps = seps[s:e, None] * self._at(seps, cols)[None, :]
-            qq = q[s:e, None] * self._at(q, cols)[None, :]
-            e_nb = (4.0 * eps * (sr6 * sr6 - sr6) + self.ke * qq * inv_r) * ob
-            e_row = share * (e_nb * one).sum(-1)
+            e_pair, db_row, db_col = self.energy_pair_terms(B, s, e, cols, r, one,
+                                                            columns=self.newton)
+            e_out[:, s:e] = share * e_pair.sum(-1)
             if self.use_gb:
-                Bi = B[:, s:e, None]
-                Bj = self._at(B, cols)[:, None, :]
-                BB = Bi * Bj
-                rsq = r * r
-                expu = torch.exp(-rsq / (4.0 * BB))
-                inv_f = 1.0 / torch.sqrt(rsq + BB * expu)
-                qq_gb = self.gb_pref * qq
-                e_row = e_row + 2.0 * share * (qq_gb * inv_f * one).sum(-1)
-                dEdf = -qq_gb * inv_f * inv_f * one
-                dfdBi = expu * (Bj + rsq / (4.0 * Bi)) * (0.5 * inv_f)
-                b_out[:, s:e] += (dEdf * dfdBi).sum(-1)
+                b_out[:, s:e] += db_row.sum(-1)
                 if self.newton:
-                    dfdBj = expu * (Bi + rsq / (4.0 * Bj)) * (0.5 * inv_f)
-                    b_out.index_add_(1, cols, (dEdf * dfdBj).sum(-2))
-            e_out[:, s:e] = e_row
+                    b_out.index_add_(1, cols, db_col.sum(-2))
         return e_out, b_out.to(x.dtype)
 
     def pair_forces_reference(self, x: torch.Tensor, B: torch.Tensor,
@@ -667,6 +720,15 @@ class PairForce:
         self._check_cuda(name, x, *(t for t in (B, c) if t is not None))
         lib = _library()
         R, n = x.shape[0], x.shape[1]
+        if self.mode == "dense":
+            need = dense_scratch(sweep, R, n)[2]
+            limit = torch.cuda.get_device_properties(x.device).total_memory // 4
+            if need > limit:
+                raise ValueError(
+                    f"{name}: the dense sweep's slot scratch for R={R}, N={n} takes "
+                    f"{need / 2**30:.1f} GiB, more than a quarter of the card's memory "
+                    f"({limit / 2**30:.1f} GiB); evaluate fewer replicas a call, or "
+                    f"use gb_cutoff")
         if self.gb_cutoff is not None:
             if close is None:
                 close = self.close_tiles(x)
@@ -679,17 +741,17 @@ class PairForce:
         out0 = new(shape, dtype=torch.float32, device=x.device)
         rows = (new((R, n), dtype=torch.float64, device=x.device)
                 if sweep == "energy" else None)
-        # scratch the kernels fill: the dense force sweep's per-slot
-        # partials (R, G, N, 3), or the Newton sweeps' work list (room for
-        # every block, or every 32 x 32 patch, of the upper triangle)
+        # scratch the kernels fill: the dense sweeps' per-slot partials
+        # (dense_scratch), or the Newton sweeps' work list (room for every
+        # block, or every 32 x 32 patch, of the upper triangle)
         scratch = None
         code = _SWEEPS.index(sweep)
         if self.newton:
             size = lib.pmarlo_pair_newton_work_size(code, R, n, self.tile)
             scratch = torch.empty(size, dtype=torch.int64, device=x.device)
-        elif self.mode == "dense" and sweep == "force":
-            G = -(-n // FORCE_TILE)
-            scratch = torch.empty((R, G, n, 3), dtype=torch.float32, device=x.device)
+        elif self.mode == "dense":
+            slots, dtype, _ = dense_scratch(sweep, R, n)
+            scratch = torch.empty(slots, dtype=dtype, device=x.device)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -892,5 +954,5 @@ def build_pair_force_fn(
 
 
 __all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
-           "cutoff_r2", "tile_boxes", "tiles_within", "MAX_CLASSES", "NEWTON_MAX_TILE",
-           "FORCE_TILE"]
+           "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "MAX_CLASSES",
+           "NEWTON_MAX_TILE", "FORCE_TILE"]
