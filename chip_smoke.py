@@ -33,8 +33,9 @@ Phases, one line of numbers each:
              Born or only the energy kernel in the evaluation); the pairs
              whose HCT value takes the near form (the Born bound); two
              launches of each of the three kernels bitwise equal; ms per sweep and per
-             evaluation, and of the Newton force kernel over the whole
-             upper triangle at the same shape (a point of comparison).
+             evaluation, and of the three Newton kernels over the whole
+             upper triangle at the same shape against their plain versions
+             (a point of comparison).
 7. protein - the protein-scale path: 8-rung 300-330 K REMD of the assembly
              with every X-H bond constrained at 4 fs, through
              ``run_replica_exchange`` (pair kernels, FIRE, SHAKE/RATTLE,
@@ -95,11 +96,12 @@ Phases, one line of numbers each:
              batch of 3: each of the six sweeps against its plain version,
              Newton against ordered, Newton run to run (its sums are atomic),
              a huge cutoff against the dense kernels, Morton against identity
-             order; the share of tile blocks computed; of the Newton force
-             kernel's work items and of their 32 x 32 patches, the share its
-             group-box test keeps and the share that holds a pair inside the
-             cutoff; ms a sweep beside the dense kernels' at the same N;
-             bounds from this run's pairs.
+             order; the share of tile blocks computed; of the 32 x 32
+             patches of the kept blocks, the share that the group-box test
+             lists (the work items of all three Newton kernels) and the
+             share of items that holds a pair inside the cutoff; ms a sweep
+             beside the dense kernels' at the same N, and of the patch
+             list's build; bounds from this run's pairs.
 16. bonded - the bonded kernel on the same assembly against
              ``bonded_energy_and_forces`` and float64 autograd; ms a call.
 17. large path - the large implicit-solvent path at full width: 61,824
@@ -114,16 +116,17 @@ Phases, one line of numbers each:
              the six sweeps and the bonded kernel against their plain
              versions at this width, at the positions the run arrived at
              (the ``kernels`` line takes their errors, times and bounds from
-             here). Two temperatures are printed: ``run_md``'s reported one
-             over the second half, which at 4 fs settles ~12% under the
-             target, and the state's mid-step one, which is gated to
-             [0.9, 1.1] at 3.2 and 4.2 ps (``--temperature-study`` measures
-             both at 4 fs and 2 fs).
+             here), and ms of the patch list's build. Two temperatures
+             are printed: ``run_md``'s reported one over the second half,
+             which at 4 fs settles ~12% under the target, and the state's
+             mid-step one, which is gated to [0.9, 1.1] at 3.2 and 4.2 ps
+             (``--temperature-study`` measures both at 4 fs and 2 fs).
 
 Then a summary line that repeats the headline numbers of phases 1 and
 15-17, the card's name and power limit, a line of the kernels' times
 before their redesign (the one-thread-an-atom fused kernels, the row-owned
-dense Born and energy sweeps) copied from PERF.md (for comparison; not
+dense Born and energy sweeps, the Newton Born and energy sweeps' block
+walk) copied from PERF.md (for comparison; not
 measured here), one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``. A failed check raises and the script
 exits non-zero without that line. It needs a CUDA card and
@@ -201,13 +204,15 @@ SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
                  "fused_remd_bias_kernel")
 # ms of the kernels before their redesign at the same timed shapes: the
-# one-thread-an-atom fused kernels (PR 5) and the row-owned dense Born and
-# energy sweeps (PR 7), copied from PERF.md section 6 (not measured by this
-# script): printed on a line of their own beside the kernels line
+# one-thread-an-atom fused kernels, the row-owned dense Born and energy
+# sweeps and the Newton Born and energy sweeps' block walk, copied from
+# PERF.md section 6 (not measured by this script): printed on a line of
+# their own beside the kernels line
 EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
               "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14,
-              "pair_born": 0.7112, "pair_energy": 0.6614}
+              "pair_born": 0.7112, "pair_energy": 0.6614,
+              "pair_born_newton": 0.7583, "pair_energy_newton": 0.6720}
 SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
@@ -698,10 +703,14 @@ def phase_pair(system, x_min) -> dict:
     Fp = fn.pair_forces_reference(x, B, c)
     Fk = fn.pair_forces(x, B, c)
     Fk2 = fn.pair_forces(x, B, c)
-    # the Newton force kernel over the whole upper triangle (no cutoff), as a
-    # point of comparison for the dense force kernel's block design
+    # the Newton kernels over the whole upper triangle (no cutoff: every
+    # patch listed, every row near), as a point of comparison for the dense
+    # kernels' block design
     newton = build_pair_force_fn(system, newton=True)
     Fn = newton.pair_forces(x, B, c)
+    In = newton.born(x)
+    en, dn = newton.energy_rows(x, B)
+    enp, dnp = newton.energy_rows_reference(x, B)
     Ek, Gk = fn(x)
     Ep, Gp = fn.reference(x)
     # how close each float32 path comes to a float64 evaluation (exact ke
@@ -740,9 +749,13 @@ def phase_pair(system, x_min) -> dict:
         "energy_two_launches_bitwise_equal": bool(torch.equal(ek, ek2) and torch.equal(dk, dk2)),
         "force_two_launches_bitwise_equal": bool(torch.equal(Fk, Fk2)),
         "newton_force_rel_err": _rel(Fn, Fp),
+        "newton_born_rel_err": _rel(In, Ip),
+        "newton_e_rows_rel_err": _rel(en, enp),
+        "newton_dEdB_rel_err": _rel(dn, dnp),
         "born_pairs": pairs / 2, "born_near_directions": near,
     }
-    for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err"):
+    for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err",
+                "newton_born_rel_err", "newton_e_rows_rel_err", "newton_dEdB_rel_err"):
         _check(out[key] <= 1e-5, f"{key} {out[key]}")
     for key in ("force_rel_err", "total_force_rel_err"):
         _check(out[key] <= 1e-4, f"{key} {out[key]}")
@@ -761,6 +774,8 @@ def phase_pair(system, x_min) -> dict:
     out["force_ms"] = _cuda_ms(lambda: fn.pair_forces(x, B, c), 20)
     out["force_plain_ms"] = _cuda_ms(lambda: fn.pair_forces_reference(x, B, c), 3)
     out["newton_force_ms"] = _cuda_ms(lambda: newton.pair_forces(x, B, c), 20)
+    out["newton_born_ms"] = _cuda_ms(lambda: newton.born(x), 20)
+    out["newton_energy_ms"] = _cuda_ms(lambda: newton.energy_rows(x, B), 20)
     out["eval_ms"] = _cuda_ms(lambda: fn(x), 20)
     out["eval_plain_ms"] = _cuda_ms(lambda: fn.reference(x), 3)
     _line("phase 6 pair", out)
@@ -1881,15 +1896,16 @@ def _visited_within(fo, xs: torch.Tensor, close: torch.Tensor):
     return (visited, *_pair_counts(fo, xs, close))
 
 
-def _patch_shares(fn, xs: torch.Tensor, close: torch.Tensor, chunk: int = 512) -> dict:
-    """What the Newton kernels meet at the stored positions ``xs (R, N, 3)``:
-    the Born and energy kernels' work items (the blocks (r, c >= r) that
-    ``close`` keeps) against the (G, G, R) grid of CTAs of the earlier
-    design, and the share of them that holds a pair inside the cutoff; the
-    32 x 32 patches of those blocks (a diagonal block's on or above its
-    diagonal), the share of them that the force kernel's group-box test
-    lists (its work items), and the share of its work items that holds a
-    pair inside the cutoff."""
+def _patch_shares(fn, xs: torch.Tensor, close: torch.Tensor, within: float,
+                  chunk: int = 512) -> dict:
+    """What the three Newton kernels meet at the stored positions ``xs (R,
+    N, 3)``: they all walk one list (``PairForce.patch_list``), the 32 x 32
+    patches of the blocks (r, c >= r) that ``close`` keeps (a diagonal
+    block's on or above its diagonal) that the group-box test lists; the
+    blocks and their patches, the share of the patches listed (the work
+    items), the share of the items that holds a pair inside the cutoff, and
+    the unordered pairs inside the cutoff an item (``within``: the ordered
+    pairs inside it)."""
     from pmarlo_tpu_torch.md.pair_force import cutoff_pairs, tile_boxes, tiles_within
 
     R, N = xs.shape[:2]
@@ -1898,30 +1914,23 @@ def _patch_shares(fn, xs: torch.Tensor, close: torch.Tensor, chunk: int = 512) -
     for s in range(0, N, chunk):
         e = min(s + chunk, N)
         d = xs[:, s:e, None, :] - xs[:, None, :, :]
-        within = cutoff_pairs(d, fn.gb_cutoff) & ((d * d).sum(-1) > 1e-8)
+        inside = cutoff_pairs(d, fn.gb_cutoff) & ((d * d).sum(-1) > 1e-8)
         rows = -(-(e - s) // 32) * 32
-        within = torch.nn.functional.pad(within, (0, ng * 32 - N, 0, rows - (e - s)))
-        hit[:, s // 32:s // 32 + rows // 32] = within.reshape(
+        inside = torch.nn.functional.pad(inside, (0, ng * 32 - N, 0, rows - (e - s)))
+        hit[:, s // 32:s // 32 + rows // 32] = inside.reshape(
             R, rows // 32, 32, ng, 32).any(4).any(2)
     group_tile = torch.arange(ng, device=xs.device) // (fn.tile // 32)
     g = torch.arange(ng, device=xs.device)
     computed = close[:, group_tile][:, :, group_tile] & (g[None, :] >= g[:, None])
     listed = computed & tiles_within(*tile_boxes(xs, 32), fn.gb_cutoff)
-    blocks = torch.triu(close)
-    G, per = close.shape[1], fn.tile // 32
-    pad = G * per - ng
-    block_hit = torch.nn.functional.pad(computed & hit, (0, pad, 0, pad)).reshape(
-        R, G, per, G, per).any(4).any(2)
-    n_blocks, n_computed, n_listed = int(blocks.sum()), int(computed.sum()), int(listed.sum())
+    n_computed, n_listed = int(computed.sum()), int(listed.sum())
     return {
-        "grid_ctas_before": R * G * G,
-        "block_items": n_blocks,
-        "block_item_share_of_grid_before": n_blocks / (R * G * G),
-        "block_item_share_with_pair_within": int((blocks & block_hit).sum()) / n_blocks,
+        "blocks": int(torch.triu(close).sum()),
         "patches_of_blocks": n_computed,
-        "force_items": n_listed,
-        "force_item_share_of_patches": n_listed / n_computed,
-        "force_item_share_with_pair_within": int((listed & hit).sum()) / n_listed,
+        "items": n_listed,
+        "item_share_of_patches": n_listed / n_computed,
+        "item_share_with_pair_within": int((listed & hit).sum()) / n_listed,
+        "pairs_within_per_item": 0.5 * within / n_listed,
     }
 
 
@@ -2013,12 +2022,19 @@ def phase_large_kernels() -> dict:
         "pairs_within_cutoff": within,
         "born_near_directions": near,
         "pairs_within_share_of_visited": within / visited,
-        "newton_force_walk": _patch_shares(fo, xs, close),
+        "newton_walk": _patch_shares(fo, xs, close, within),
     })
 
     for mode, fn in fns.items():
         B1, c1 = _sweeps_vs_plain(out, f"{mode}_r1", fn, x1, max_abs=True)
         _sweeps_vs_plain(out, f"{mode}_r3", fn, x3, max_abs=False)
+    # the Newton Born kernel's share of newton_r1_total_energy_rel_err: the
+    # evaluation with that kernel and the other sweeps plain
+    fn = fns["newton"]
+    E_bk, _ = fn._evaluate(x1, fn.born, fn.energy_rows_reference, fn.pair_forces_reference,
+                           fn.bonded_reference)
+    out["newton_r1_born_kernel_total_energy_rel_err"] = _rel(E_bk.double(),
+                                                             fn.reference(x1)[0].double())
 
     # the Newton sweeps against the ordered ones, and against themselves:
     # their sums are atomic, so two runs differ in the last bits
@@ -2055,6 +2071,7 @@ def phase_large_kernels() -> dict:
     out["identity_tile_block_share"] = float(ident.close_tiles(x1).float().mean())
 
     out["tile_table_ms"] = _cuda_ms(lambda: fo.close_tiles(xs), 20)
+    out["newton_patch_list_ms"] = _cuda_ms(lambda: fns["newton"].patch_list(xs, close), 20)
     for mode, fn in fns.items():
         _time_sweeps(out, mode, fn, xs, B1, c1, close, within, near)
         out[f"{mode}_eval_ms"] = _cuda_ms(lambda: fn(x1), 10)
@@ -2239,6 +2256,7 @@ def phase_large_path() -> dict:
         B, c = _sweeps_vs_plain(out, mode, f, x_end, max_abs=True)
         _time_sweeps(out, mode, f, xs, B, c, close, within, near)
     out["tile_table_ms"] = _cuda_ms(lambda: fn_ord.close_tiles(xs), 20)
+    out["newton_patch_list_ms"] = _cuda_ms(lambda: fn_md.patch_list(xs, close), 20)
     bonded = fn_md._bonded_kernel
     e_b, g_b = bonded(x_end, energy_dtype=torch.float64)
     e_p, g_p = bonded.reference(x_end, energy_dtype=torch.float64)
@@ -2516,7 +2534,8 @@ def main() -> None:
             "born_rel_err", "e_rows_rel_err", "total_energy_rel_err", "energy_vs_float64",
             "force_rel_err", "force_vs_float64", "born_two_launches_bitwise_equal",
             "energy_two_launches_bitwise_equal", "force_two_launches_bitwise_equal",
-            "born_ms", "energy_ms", "force_ms", "newton_force_ms", "eval_ms")},
+            "born_ms", "energy_ms", "force_ms", "newton_force_ms", "newton_born_ms",
+            "newton_energy_ms", "eval_ms")},
         "fused": {
             "chunk100_ms": kern["chunk100_ms"], "chunk100_n138_ms": bias["unbiased_chunk100_ms"],
             "harmonic_chunk100_ms": bias["harmonic_chunk100_ms"],
@@ -2529,8 +2548,10 @@ def main() -> None:
                 "mtd_wall_s")},
         },
         "large_kernels": {k: large[k] for k in (
-            "atoms", "tile_block_share", "pairs_within_share_of_visited", "newton_force_walk",
+            "atoms", "tile_block_share", "pairs_within_share_of_visited", "newton_walk",
             "newton_born_ms", "newton_energy_ms", "newton_force_ms", "tile_table_ms",
+            "newton_patch_list_ms", "newton_r1_total_energy_rel_err",
+            "newton_r1_born_kernel_total_energy_rel_err",
             "culled_eval_ms", "newton_eval_ms", "dense_eval_ms", "dense_born_ms",
             "dense_energy_ms", "dense_force_ms")},
         "bonded": {k: bonded[k] for k in ("atoms", "incidences", "bonded_ms",
@@ -2539,15 +2560,16 @@ def main() -> None:
             "atoms", "system_build_s", "force_fn_build_s", "minimize_s", "tile_block_share",
             "ms_per_step", "ns_per_day", "eval_ms", "ordered_ms_per_step", "ordered_eval_ms",
             "newton_born_ms", "newton_energy_ms", "newton_force_ms", "culled_force_ms",
-            "newton_force_bound_ms",
+            "newton_force_bound_ms", "newton_born_bound_ms", "newton_energy_bound_ms",
+            "newton_patch_list_ms",
             "reported_kinetic_over_target_second_half", "kinetic_over_target_state_by_ps",
             "max_constraint_deviation_nm", "peak_device_memory_gib",
             "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "
-          "Born and energy sweeps), ms at the same timed shapes, copied from PERF.md, "
-          "not measured here",
+          "Born and energy sweeps, the Newton Born and energy block walk), ms at the "
+          "same timed shapes, copied from PERF.md, not measured here",
           EARLIER_MS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

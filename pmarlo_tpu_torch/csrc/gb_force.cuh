@@ -4,7 +4,8 @@
 // culled sweep of pair_force.cu and the Newton sweep of pair_newton.cu, so
 // that all three compute the same pair function; and born_pair_values and
 // energy_pair, one unordered pair's Born and energy terms, for the dense
-// block sweeps of pair_force.cu (at the end of this file).
+// block sweeps of pair_force.cu and the Newton sweeps of pair_newton.cu (at
+// the end of this file).
 //
 // force_pair is the derivative that born_pair, neck_pair (gb_pair.cuh), gb_f
 // and the LJ + Coulomb terms (pair_common.cuh) give, with every special
@@ -151,13 +152,14 @@ __device__ __forceinline__ float force_pair(const PairArgs& a, const float* s_ne
   return W * inv_r;
 }
 
-// ---- the dense Born and energy sweeps' pair functions ----
+// ---- the dense and Newton Born and energy sweeps' pair functions ----
 // Each is its IEEE counterpart (born_pair's and neck_pair's values,
 // pair_energy_ieee with gb_f and gb_dedb) term by term, with the special
 // functions of force_pair: 1/r from one rsqrt.approx (the energy terms need
-// no r: r^2 is s), 1/L, 1/U and 1/denom by rcp.approx, log by lg2.approx,
-// exp by ex2.approx with the staged 1/B, 1/f by rsqrt.approx, and the per
-// atom 1/rho staged; two rearrangements, exact in real arithmetic, keep
+// no r: r^2 is s), 1/L, 1/U and 1/denom by rcp.approx, exp by ex2.approx
+// with the staged 1/B, 1/f by rsqrt.approx, and the per atom 1/rho staged;
+// the HCT value's log alone is IEEE logf (hct_value says why). Two
+// rearrangements, exact in real arithmetic, keep
 // float32 rounding from adding up over a protein's millions of pairs (a far
 // pair's HCT value as a series, Coulomb + GB with the charge product
 // factored out: at each function). The plain versions (md/pair_force.py
@@ -167,13 +169,36 @@ __device__ __forceinline__ float force_pair(const PairArgs& a, const float* s_ne
 //   Born:   p0 = (x, y, z, rho), p1 = (sr, 1/rho, class bits, 0)
 //   energy: p0 = (x, y, z, q),   p1 = (sigma, sqrt(eps), B, 1/B)
 // The dense path stores atoms in the caller's order, so the energy sweep's
-// band mask keys on the atoms' indices and needs no staged index.
+// band mask keys on the atoms' indices and needs no staged index; the
+// Newton energy sweep (Morton order) keeps each atom's original index in a
+// register and decides the band when it queues a pair (pair_newton.cu).
 struct BornAtom {
   float4 p0, p1;
 };
 struct EnergyAtom {
   float4 p0, p1;
 };
+
+// stored atom j of replica row `rbase` (= rep * n) as the Born sweeps stage it
+__device__ __forceinline__ BornAtom load_born_atom(const PairArgs& a, size_t rbase, int j) {
+  const float* xj = a.x + (rbase + j) * 3;
+  const float rho = a.atom_p[kRho * a.n + j];
+  BornAtom t;
+  t.p0 = make_float4(xj[0], xj[1], xj[2], rho);
+  t.p1 = make_float4(a.atom_p[kSr * a.n + j], 1.0f / rho, __int_as_float(a.cls[j]), 0.0f);
+  return t;
+}
+
+// the same for the energy sweeps
+__device__ __forceinline__ EnergyAtom load_energy_atom(const PairArgs& a, size_t rbase, int j) {
+  const int n = a.n;
+  const float* xj = a.x + (rbase + j) * 3;
+  const float B = (a.use_gb && a.B) ? a.B[rbase + j] : 1.0f;
+  EnergyAtom t;
+  t.p0 = make_float4(xj[0], xj[1], xj[2], a.atom_p[kQ * n + j]);
+  t.p1 = make_float4(a.atom_p[kSig * n + j], a.atom_p[kSeps * n + j], B, 1.0f / B);
+  return t;
+}
 
 // H(r; rho_i, sr_j) of born_pair, zero for an inactive pair.
 //
@@ -190,9 +215,16 @@ struct EnergyAtom {
 // so H = (t / (1 - t^2) - atanh t) / r = (t^3 / r) sum_k>=1 2k/(2k+1) t^(2k-2),
 // eight terms (the next is < 1e-8 of the sum at |t| = 0.3), no special
 // function and no cancellation. t < 0 (negative screening) is the same
-// series. Near pairs take born_pair's form with the single SFU results;
-// the engulfed and inactive branches are selects (the discarded h may be
-// NaN where U <= 0: a select, not a product).
+// series. Near pairs take born_pair's form with rcp.approx for 1/L and 1/U
+// and IEEE logf for log(L/U): lg2.approx's error does not average out over
+// the near pairs. With a cutoff 12% of the directions inside it are near
+// (0.8% of all at 3,726 atoms without one), and with lg2.approx
+// chip_smoke.py phase 15 on an H100 (24,840 atoms, cutoff 1.5 nm) read the
+// Newton evaluation's total energy 4.0e-6 to 8.8e-6 from its plain
+// version's in two development runs, against a gate of 1e-5 (PERF.md
+// section 6 has the readings with logf, and the Born kernel's share of
+// them). The engulfed and inactive branches are selects (the discarded
+// h may be NaN where U <= 0: a select, not a product).
 __device__ __forceinline__ float hct_value(float r, float inv_r, float rho_i, float inv_rho_i,
                                            float sr_j) {
   const float u = r + sr_j;
@@ -214,7 +246,7 @@ __device__ __forceinline__ float hct_value(float r, float inv_r, float rho_i, fl
   const float L = absd < rho_i ? rho_i : absd;
   const float inv_L = rcp_approx(L);
   const float inv_U = rcp_approx(u);
-  const float log_LU = log_approx(L * inv_U);
+  const float log_LU = logf(L * inv_U);
   const float quad = r - sr_j * sr_j * inv_r;
   float h = inv_L - inv_U + 0.25f * quad * (inv_U * inv_U - inv_L * inv_L) + 0.5f * log_LU * inv_r;
   // atom i engulfed by the descreening sphere of j
@@ -264,9 +296,10 @@ struct EnergyPair {
 // types (a few dozen charges), so they add up instead of averaging out,
 // against a total energy of ~1% of the components. Factored, the
 // cancellation happens in the per-pair factor and the repeated rounding of
-// qq scales only what is left of it. The culled and Newton energy sweeps
-// take the same form (pair_energy_ieee): chip_smoke.py phase 15 holds them
-// to the dense sweeps with a cutoff beyond every pair.
+// qq scales only what is left of it. The Newton energy sweep takes this
+// function too, the culled one the same form with IEEE special functions
+// (pair_energy_ieee): chip_smoke.py phase 15 holds both to the dense sweeps
+// with a cutoff beyond every pair.
 __device__ __forceinline__ EnergyPair energy_pair(const PairArgs& a, float s, const EnergyAtom& ai,
                                                   const EnergyAtom& aj, bool nonbonded) {
   const float inv_r = rsqrt_approx(s);

@@ -1,9 +1,10 @@
 // What the GB pair sweeps of pair_force.cu (dense blocks and row-owned
-// tile-culled) and pair_newton.cu (each tile block once) share: the launch
-// arguments, the per-atom table's rows, the neck tables' load, and the pair
-// terms that are symmetric in (i, j) in their IEEE forms: Lennard-Jones +
-// Coulomb and the GB f-function. The HCT and neck terms are in gb_pair.cuh,
-// the single-SFU forms of the dense sweeps in gb_force.cuh.
+// tile-culled) and pair_newton.cu (each unordered pair once) share: the
+// launch arguments, the per-atom table's rows, the neck tables' load, and
+// the pair terms that are symmetric in (i, j) in their IEEE forms:
+// Lennard-Jones + Coulomb and the GB f-function. The HCT and neck terms are
+// in gb_pair.cuh, the single-SFU forms of the dense and Newton sweeps in
+// gb_force.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,8 +41,8 @@ struct PairArgs {
   // type, G = n_tiles (pair_force.cu)
   void* slots;
   // the Newton sweeps' work list: [0] items in it, [1] items taken, then
-  // the items: blocks rep << 32 | r << 16 | c (Born, energy) or 32 x 32
-  // patches (rep * NG + g) * NG + h (force)
+  // the items, 32 x 32 patches (rep * NG + g) * NG + h of NG = ceil(n / 32)
+  // atom groups, then the groups' boxes (pair_newton.cu)
   unsigned long long* work;
   int n;
   int n_classes;
@@ -93,9 +94,9 @@ __device__ __forceinline__ float gb_dedb(float qq_gb, float inv_f, float expu, f
 
 // The energy one pair adds to each of its two atoms' rows, 0.5 e_nb + e_gb
 // (LJ + Coulomb outside the index band, `nonbonded`, and the GB cross
-// term), with IEEE special functions, for the culled and Newton energy
-// sweeps; the charge product is factored out of Coulomb + GB as the dense
-// sweep's energy_pair (gb_force.cuh) does, which says why. *dedb_i and
+// term), with IEEE special functions, for the culled energy sweep; the
+// charge product is factored out of Coulomb + GB as energy_pair
+// (gb_force.cuh) does, which says why. *dedb_i and
 // *dedb_j: d(e_gb)/dB of each atom, the ordered quantity.
 __device__ __forceinline__ float pair_energy_ieee(float ke, float gb_pref, bool use_gb, float r,
                                                   float inv_r, float qq, float sig_i, float sig_j,

@@ -1,6 +1,6 @@
 // GB pair sweeps for implicit solvent: dense (NoCutoff) and tile-culled
-// (gb_cutoff). pair_newton.cu holds the culled sweeps that take each tile
-// block once.
+// (gb_cutoff). pair_newton.cu holds the culled sweeps that take each
+// unordered pair once.
 //
 // Replaces: pmarlo_tpu/md/pallas_pair.py build_pair_force_fn, its three
 // dense Pallas sweeps and their ordered tile-culled forms (newton=False):
@@ -61,7 +61,8 @@
 //   energy 14.3 MB, in L2. The wrapper allocates it and refuses a shape
 //   whose scratch exceeds a quarter of the card's memory.
 // - the pair functions (gb_force.cuh) take their special functions as
-//   single SFU results: rsqrt.approx, rcp.approx, lg2.approx, ex2.approx.
+//   single SFU results: rsqrt.approx, rcp.approx, lg2.approx, ex2.approx
+//   (the Born sweep's HCT value takes IEEE logf, gb_force.cuh says why).
 //   Measured by chip_smoke.py phase 6 on the H100 at R=8, N=3,726 (PERF.md
 //   section 6 has the Born and energy sweeps' errors): the force sweep
 //   against its IEEE plain version 1.34-1.39e-6 of max |F|, the whole
@@ -276,12 +277,7 @@ struct BornSweep {
     __device__ void store(Slot* part) const { part[0] = I; }
   };
   __device__ static Atom load(const PairArgs& a, size_t rbase, int j) {
-    const float* xj = a.x + (rbase + j) * 3;
-    const float rho = a.atom_p[kRho * a.n + j];
-    Atom t;
-    t.p0 = make_float4(xj[0], xj[1], xj[2], rho);
-    t.p1 = make_float4(a.atom_p[kSr * a.n + j], 1.0f / rho, __int_as_float(a.cls[j]), 0.0f);
-    return t;
+    return load_born_atom(a, rbase, j);
   }
   __device__ static void pair(const PairArgs& a, const float* s_neck, float s, float, float, float,
                               const Atom& ai, const Atom& aj, int, int, Acc& row, Acc& col) {
@@ -315,13 +311,7 @@ struct EnergySweep {
     }
   };
   __device__ static Atom load(const PairArgs& a, size_t rbase, int j) {
-    const int n = a.n;
-    const float* xj = a.x + (rbase + j) * 3;
-    const float B = a.use_gb ? a.B[rbase + j] : 1.0f;
-    Atom t;
-    t.p0 = make_float4(xj[0], xj[1], xj[2], a.atom_p[kQ * n + j]);
-    t.p1 = make_float4(a.atom_p[kSig * n + j], a.atom_p[kSeps * n + j], B, 1.0f / B);
-    return t;
+    return load_energy_atom(a, rbase, j);
   }
   __device__ static void pair(const PairArgs& a, const float*, float s, float, float, float,
                               const Atom& ai, const Atom& aj, int i, int j, Acc& row, Acc& col) {

@@ -31,8 +31,10 @@ the same sums:
   file, every ordered pair, walking only the column tiles within reach of
   the row tile;
 - Newton (``newton=True``, the default with ``gb_cutoff``):
-  ``csrc/pair_newton.cu``, each unordered tile block once, results to both
-  atoms (atomic adds: the last bits change from run to run).
+  ``csrc/pair_newton.cu``, each unordered pair once, results to both atoms
+  (atomic adds: the last bits change from run to run), over a list of the
+  32 x 32 atom patches within reach that the card builds from the live
+  positions (``patch_list``): once an evaluation, for its three sweeps.
 
 Steps 2, 4 and 6 are plain PyTorch on either device. ``launches`` counts
 kernel launches by kernel name.
@@ -108,23 +110,27 @@ def _library() -> ctypes.CDLL:
         # x, atom_p, cls, orig, d0c, m0c, n_classes, B, chain, close, R, n,
         # tile, band, ke, gb_pref, cutoff_r2
         common = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, f, f, f]
-        # ..., use_gb, use_neck, out0, rows, slots or work, stream
+        # ..., use_gb, use_neck, out0, rows, slots, stream
         lib.pmarlo_pair_sweep.argtypes = [i, i] + common + [i, i, p, p, p, p]
-        lib.pmarlo_pair_newton_sweep.argtypes = [i] + common + [i, i, i, p, p, p, p]
-        sizes = (lib.pmarlo_pair_max_classes, lib.pmarlo_pair_newton_max_tile,
-                 lib.pmarlo_pair_force_tile)
-        for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep, *sizes):
+        # sweep, x, atom_p, cls, orig, d0c, m0c, n_classes, B, chain, R, n,
+        # band, ke, gb_pref, cutoff_r2, has_cut, use_gb, use_neck, out0,
+        # rows, work, stream
+        lib.pmarlo_pair_newton_sweep.argtypes = (
+            [i, p, p, p, p, p, p, i, p, p, i, i, i, f, f, f, i, i, i, p, p, p, p])
+        # x, close, R, n, tile, cutoff_r2, has_cut, work, stream
+        lib.pmarlo_pair_newton_list.argtypes = [p, p, i, i, i, f, i, p, p]
+        sizes = (lib.pmarlo_pair_max_classes, lib.pmarlo_pair_force_tile)
+        for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep,
+                   lib.pmarlo_pair_newton_list, *sizes):
             fn.restype = i
         for fn in sizes:
             fn.argtypes = []
-        lib.pmarlo_pair_newton_work_size.argtypes = [i, i, i, i]
+        lib.pmarlo_pair_newton_work_size.argtypes = [i, i]
         lib.pmarlo_pair_newton_work_size.restype = ctypes.c_longlong
         if lib.pmarlo_pair_max_classes() != MAX_CLASSES:
             raise RuntimeError("kernel library and wrapper disagree on MAX_CLASSES")
         if lib.pmarlo_pair_force_tile() != FORCE_TILE:
             raise RuntimeError("kernel library and wrapper disagree on FORCE_TILE")
-        if lib.pmarlo_pair_newton_max_tile() != NEWTON_MAX_TILE:
-            raise RuntimeError("kernel library and wrapper disagree on NEWTON_MAX_TILE")
         _configured = True
     return lib
 
@@ -133,9 +139,6 @@ def _library() -> ctypes.CDLL:
 MAX_CLASSES = 64
 #: rows of a CTA of the row-owned kernels: a culled tile is a multiple of it
 ROW_BLOCK = 32
-#: largest tile of the Newton kernels (two tiles in shared memory), a
-#: multiple of 32 (csrc/pair_newton.cu)
-NEWTON_MAX_TILE = 256
 #: atoms a tile of the dense kernels, which take each (row tile, column
 #: tile >= row tile) block once (csrc/pair_force.cu)
 FORCE_TILE = 128
@@ -705,17 +708,55 @@ class PairForce:
             raise ValueError(
                 f"{what}: the culled kernels take tiles that are multiples of "
                 f"{ROW_BLOCK} atoms, got tile={self.tile}")
-        if self.mode == "newton" and (self.tile % 32 or self.tile > NEWTON_MAX_TILE):
+        if self.mode == "newton" and self.tile % 32:
             raise ValueError(
                 f"{what}: the Newton kernels take tiles that are multiples of 32 "
-                f"atoms up to {NEWTON_MAX_TILE}, got tile={self.tile}")
+                f"atoms, got tile={self.tile}")
         if self.n_tiles > 65535:
             raise ValueError(f"{what}: {self.n_tiles} tiles exceed the grid's 65,535")
 
-    def _launch(self, sweep: str, x, B=None, c=None, close=None):
+    def _close_table(self, what: str, x, close):
+        """``close`` as the kernels read it: ``(R, G, G)`` bytes, from the
+        stored positions ``x`` when not given; ``None`` without a cutoff."""
+        if self.gb_cutoff is None:
+            return None
+        if close is None:
+            close = self.close_tiles(x)
+        close = close.contiguous().view(torch.uint8)   # bool is one byte
+        if tuple(close.shape) != (x.shape[0], self.n_tiles, self.n_tiles):
+            raise ValueError(f"{what}: close table {tuple(close.shape)}")
+        return close
+
+    def patch_list(self, xs: torch.Tensor, close=None) -> torch.Tensor:
+        """The Newton kernels' work list at the stored positions ``xs (R, N,
+        3)`` on the card: the 32 x 32 patches of 32-atom groups (row group,
+        column group at or after it) of the tile blocks ``close`` keeps
+        (``close_tiles(xs)`` when not given) whose groups' bounding boxes
+        are within the cutoff (every patch without one), built on the
+        device, with the groups' boxes beside it. Pass it as ``patches=``
+        to the three sweeps of the same positions, as ``__call__`` does;
+        a sweep called without one builds its own."""
+        name = "pair_newton_list"
+        self._check_cuda(name, xs)
+        if not self.newton:
+            raise ValueError(f"{name}: only the Newton kernels walk a patch list")
+        R, n = xs.shape[0], xs.shape[1]
+        close = self._close_table(name, xs, close)
+        lib = _library()
+        work = torch.empty(lib.pmarlo_pair_newton_work_size(R, n), dtype=torch.int64,
+                           device=xs.device)
+        rc = lib.pmarlo_pair_newton_list(
+            xs.data_ptr(), None if close is None else close.data_ptr(), R, n, self.tile,
+            self._cut_r2, int(self.gb_cutoff is not None), work.data_ptr(),
+            torch.cuda.current_stream(xs.device).cuda_stream)
+        _kernels.check_launch(rc, name)
+        return work
+
+    def _launch(self, sweep: str, x, B=None, c=None, close=None, patches=None):
         """One sweep of this object's mode on the card: ``born`` gives
         ``I (R, N)``, ``energy`` ``(e_rows float64, dEdB)``, ``force``
-        ``F (R, N, 3)``."""
+        ``F (R, N, 3)``. ``patches``: the Newton sweeps' ``patch_list`` of
+        these positions (built here when not given)."""
         name = kernel_name(sweep, self.mode)
         self._check_cuda(name, x, *(t for t in (B, c) if t is not None))
         lib = _library()
@@ -729,70 +770,69 @@ class PairForce:
                     f"{need / 2**30:.1f} GiB, more than a quarter of the card's memory "
                     f"({limit / 2**30:.1f} GiB); evaluate fewer replicas a call, or "
                     f"use gb_cutoff")
-        if self.gb_cutoff is not None:
-            if close is None:
-                close = self.close_tiles(x)
-            close = close.contiguous().view(torch.uint8)   # bool is one byte
-            if tuple(close.shape) != (R, self.n_tiles, self.n_tiles):
-                raise ValueError(f"{name}: close table {tuple(close.shape)}")
         # the Newton kernels add into their outputs
         new = torch.zeros if self.newton else torch.empty
         shape = (R, n, 3) if sweep == "force" else (R, n)
         out0 = new(shape, dtype=torch.float32, device=x.device)
         rows = (new((R, n), dtype=torch.float64, device=x.device)
                 if sweep == "energy" else None)
-        # scratch the kernels fill: the dense sweeps' per-slot partials
-        # (dense_scratch), or the Newton sweeps' work list (room for every
-        # block, or every 32 x 32 patch, of the upper triangle)
-        scratch = None
         code = _SWEEPS.index(sweep)
-        if self.newton:
-            size = lib.pmarlo_pair_newton_work_size(code, R, n, self.tile)
-            scratch = torch.empty(size, dtype=torch.int64, device=x.device)
-        elif self.mode == "dense":
-            slots, dtype, _ = dense_scratch(sweep, R, n)
-            scratch = torch.empty(slots, dtype=dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        common = (
-            x.data_ptr(), self._atom_p.data_ptr(), self._cls.data_ptr(),
-            self._orig.data_ptr(), self._d0c_k.data_ptr(), self._m0c_k.data_ptr(),
-            self._d0c_k.shape[0], ptr(B), ptr(c), ptr(close), R, n, self.tile,
-            self.band_D, self.ke, self.gb_pref, self._cut_r2,
-        )
-        tail = (int(self.use_gb), int(self.use_neck), out0.data_ptr(), ptr(rows), ptr(scratch),
-                torch.cuda.current_stream(x.device).cuda_stream)
+        atoms = (x.data_ptr(), self._atom_p.data_ptr(), self._cls.data_ptr(),
+                 self._orig.data_ptr(), self._d0c_k.data_ptr(), self._m0c_k.data_ptr(),
+                 self._d0c_k.shape[0], ptr(B), ptr(c))
+        terms = (self.band_D, self.ke, self.gb_pref, self._cut_r2)
+        flags = (int(self.use_gb), int(self.use_neck), out0.data_ptr(), ptr(rows))
         if self.newton:
-            rc = lib.pmarlo_pair_newton_sweep(code, *common,
-                                              int(self.gb_cutoff is not None), *tail)
+            if patches is None:
+                patches = self.patch_list(x, close)
+            elif (patches.device != x.device or patches.dtype != torch.int64
+                  or patches.numel() != lib.pmarlo_pair_newton_work_size(R, n)):
+                raise ValueError(f"{name}: patches are not a patch list of R={R}, N={n}")
+            rc = lib.pmarlo_pair_newton_sweep(code, *atoms, R, n, *terms,
+                                              int(self.gb_cutoff is not None), *flags,
+                                              patches.data_ptr(), stream)
         else:
-            rc = lib.pmarlo_pair_sweep(code, _MODES.index(self.mode), *common, *tail)
+            close = self._close_table(name, x, close)
+            # the dense sweeps' per-slot partials (dense_scratch)
+            slots = None
+            if self.mode == "dense":
+                shape, dtype, _ = dense_scratch(sweep, R, n)
+                slots = torch.empty(shape, dtype=dtype, device=x.device)
+            rc = lib.pmarlo_pair_sweep(code, _MODES.index(self.mode), *atoms, ptr(close), R, n,
+                                       self.tile, *terms, *flags, ptr(slots), stream)
         _kernels.check_launch(rc, name)
         launches[name] += 1
         return (rows, out0) if sweep == "energy" else out0
 
     # --- per-sweep entry points: the twin on the CPU, the kernel on CUDA ----------
+    # ``patches``: a Newton ``patch_list`` of the same positions, which the
+    # kernel walks instead of building its own (the plain versions need none)
 
-    def born(self, x: torch.Tensor, close=None) -> torch.Tensor:
+    def born(self, x: torch.Tensor, close=None, patches=None) -> torch.Tensor:
         x = self._batch(x)
         if x.device.type == "cpu":
             return self.born_reference(x, close)
-        return self._launch("born", x.contiguous(), close=close)
+        return self._launch("born", x.contiguous(), close=close, patches=patches)
 
-    def energy_rows(self, x: torch.Tensor, B: torch.Tensor, close=None):
+    def energy_rows(self, x: torch.Tensor, B: torch.Tensor, close=None, patches=None):
         x = self._batch(x)
         if x.device.type == "cpu":
             return self.energy_rows_reference(x, B, close)
-        return self._launch("energy", x.contiguous(), B.contiguous(), close=close)
+        return self._launch("energy", x.contiguous(), B.contiguous(), close=close,
+                            patches=patches)
 
-    def pair_forces(self, x: torch.Tensor, B: torch.Tensor, c: torch.Tensor, close=None):
+    def pair_forces(self, x: torch.Tensor, B: torch.Tensor, c: torch.Tensor, close=None,
+                    patches=None):
         x = self._batch(x)
         if x.device.type == "cpu":
             return self.pair_forces_reference(x, B, c, close)
         return self._launch("force", x.contiguous(), B.contiguous(), c.contiguous(),
-                            close=close)
+                            close=close, patches=patches)
 
     # --- glue, correction, assembly -------------------------------------------------
 
@@ -859,23 +899,26 @@ class PairForce:
         energy, grad = self._bonded_kernel(x, energy_dtype=torch.float64)
         return energy, -grad
 
-    def _evaluate(self, x, born, energy_rows, pair_forces, bonded_terms):
+    def _evaluate(self, x, born, energy_rows, pair_forces, bonded_terms, share_list=False):
+        """Energy and forces from the given sweeps; ``share_list``: build
+        the Newton kernels' ``patch_list`` once and hand it to the three."""
         lead = tuple(x.shape[:-2])
         xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
-        xs = self.to_storage(xb)
+        xs = self.to_storage(xb).contiguous()
         close = self.close_tiles(xs)
+        kw = {"patches": self.patch_list(xs, close)} if share_list else {}
         if self.use_gb:
-            B, dB = self.born_radii(born(xs, close))
+            B, dB = self.born_radii(born(xs, close, **kw))
         else:
             B = torch.ones(xs.shape[:2], dtype=xs.dtype, device=xs.device)
-        e_rows, dEdB_pair = energy_rows(xs, B, close)
+        e_rows, dEdB_pair = energy_rows(xs, B, close, **kw)
         energy = e_rows.sum(-1)
         if self.use_gb:
             e_gb, c = self.gb_terms(B, dB, dEdB_pair)
             energy = energy + e_gb
         else:
             c = torch.zeros_like(B)
-        forces = self.from_storage(pair_forces(xs, B, c, close))
+        forces = self.from_storage(pair_forces(xs, B, c, close, **kw))
         e_c, f_c = self.correction(xb)
         e_b, f_b = bonded_terms(xb)
         energy = (energy + e_c + e_b).to(xb.dtype)
@@ -886,7 +929,8 @@ class PairForce:
         """Energy and forces: the kernels on a CUDA tensor, the twins on a
         CPU tensor."""
         return self._evaluate(x, self.born, self.energy_rows, self.pair_forces,
-                              self.bonded_terms)
+                              self.bonded_terms,
+                              share_list=self.newton and x.device.type == "cuda")
 
     def reference(self, x: torch.Tensor):
         """The plain twin of the whole evaluation, on any device (the
@@ -928,7 +972,7 @@ def build_pair_force_fn(
 
     ``tile`` is the row chunk of the plain twins (their memory is
     O(tile * N) a sweep) and, with ``gb_cutoff`` or ``newton``, the atoms a
-    tile: a multiple of 32 on the card, at most 256 for the Newton kernels.
+    tile: a multiple of 32 on the card.
     ``dtype=torch.float64`` gives a float64 twin (a precision reference; the
     kernels take float32 only). ``band`` overrides the exclusion band built
     from the system (``ExclusionBand.from_numpy`` carries JAX's)."""
@@ -955,4 +999,4 @@ def build_pair_force_fn(
 
 __all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
            "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "MAX_CLASSES",
-           "NEWTON_MAX_TILE", "FORCE_TILE"]
+           "FORCE_TILE"]

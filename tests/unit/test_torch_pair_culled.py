@@ -480,7 +480,7 @@ def test_cpu_tensors_never_launch_and_odd_tiles_raise_on_launch(systems):
     checks = lambda fn: fn._check_cuda("k", torch.empty(0))  # noqa: E731
     for kw, what in ((dict(gb_cutoff=2.0, newton=False, tile=48), "multiples of 32"),
                      (dict(gb_cutoff=2.0, tile=48), "multiples of 32"),
-                     (dict(newton=True, tile=512), "up to 256")):
+                     (dict(newton=True, tile=48), "multiples of 32")):
         fn = build_pair_force_fn(system, **kw)
         fn(x)                                   # the plain versions take any tile
         with pytest.raises((ValueError, RuntimeError), match=what + "|CUDA"):

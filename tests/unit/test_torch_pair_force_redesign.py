@@ -109,8 +109,8 @@ def block_forces(fn, x, B, c):
 
 
 def newton_blocks(close):
-    """The blocks (rep, r, c >= r) that ``close (R, G, G)`` keeps: the work
-    list of the Newton Born and energy kernels."""
+    """The blocks (rep, r, c >= r) that ``close (R, G, G)`` keeps, whose
+    32 x 32 patches the Newton kernels' patch list draws from."""
     rep, r, c = torch.nonzero(torch.triu(close), as_tuple=True)
     return list(zip(rep.tolist(), r.tolist(), c.tolist()))
 
