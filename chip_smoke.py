@@ -9,8 +9,10 @@ Phases, one line of numbers each:
              nvcc a source, all started together; the registers and spills
              ptxas reports for the four fused kernels, the three dense GB
              block kernels (``pair_born_kernel``, ``pair_energy_kernel``,
-             ``pair_force_kernel``) and the three Newton kernels (no spill
-             allowed).
+             ``pair_force_kernel``), the three Newton kernels and the
+             explicit-solvent kernels (``periodic_force_kernel``,
+             ``cell_force_kernel``, ``periodic_slots_kernel``,
+             ``cell_pack_kernel``) (no spill allowed).
 2. kernel  - the fused Langevin kernel against its plain PyTorch twin at
              R=32 on alanine dipeptide in GBn2: energies and forces, then
              100 steps at friction 0 and at friction 1/ps, two launches
@@ -68,15 +70,22 @@ Phases, one line of numbers each:
              and switched LJ: against its plain version and against
              autograd of the dense periodic energy (float64: atoms with a
              pair on the cutoff, which float32 may cut the other way, are
-             counted and left out); ms per sweep and per evaluation.
+             counted and left out); two launches bitwise equal; the walk's
+             32 x 32 patches, pairs queued and pairs a batch; ms per sweep
+             and per evaluation; the bound from the walk's pairs (each
+             unordered pair inside the cutoff once).
 12. cells  - the cell-list kernel: (a) on the same inputs against its
              plain version, the dense oracle and the periodic kernel, in
              reaction-field, switched and real-space Ewald mode (phase 11's
              atoms on the cutoff left out against the oracle and the
-             periodic kernel, whose r^2 round differently); (b) on a
-             sheared 375-atom water box against the oracle; (c) on the
-             27,783-atom water box at R=1 and R=4 against its plain
-             version, ms per sweep, per binning pass and per evaluation;
+             periodic kernel, whose r^2 round differently), and in
+             reaction-field mode at R=8 (phase 13's shape, 3 x 3 x 2
+             cells) two launches bitwise equal, the walk's figures, ms a
+             sweep against its bound; (b) on a sheared 375-atom water box
+             against the oracle; (c) on the 27,783-atom water box at R=1
+             and R=4 against its plain version, two launches bitwise
+             equal, the walk's figures, ms per sweep, per binning pass and
+             per evaluation, the bound from the walk's pairs;
              (d) 200 MD steps under the displacement rule (``_SkinRule``):
              ``evaluate`` on the kept assignment equals a fresh evaluation.
 13. explicit remd - ``run_replica_exchange`` on the solvated chignolin
@@ -87,7 +96,8 @@ Phases, one line of numbers each:
 14. water md - ``thermalize`` + ``run_md`` on the 27,783-atom water box
              through the cell kernel (a sort every step): ms a step,
              ns/day, temperature, constraint deviation; the energy drift of
-             500 steps at friction 0; the same path under the displacement
+             500 steps at friction 0 (under 1 kT per degree of freedom per
+             ns); the same path under the displacement
              rule, three stretches of each from one start, alternating.
 
 15. large kernels - the tile-culled and the Newton pair kernels on the
@@ -122,12 +132,12 @@ Phases, one line of numbers each:
              mid-step one, which is gated to [0.9, 1.1] at 3.2 and 4.2 ps
              (``--temperature-study`` measures both at 4 fs and 2 fs).
 
-Then a summary line that repeats the headline numbers of phases 1 and
-15-17, the card's name and power limit, a line of the kernels' times
-before their redesign (the one-thread-an-atom fused kernels, the row-owned
-dense Born and energy sweeps, the Newton Born and energy sweeps' block
-walk) copied from PERF.md (for comparison; not
-measured here), one JSON line of the kernels, and the last line
+Then a summary line that repeats the headline numbers of phases 1,
+11-14 and 15-17, the card's name and power limit, a line of the kernels'
+times before their redesign (the one-thread-an-atom fused kernels, the
+row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
+block walk, the row-owned periodic and cell sweeps) copied from PERF.md
+(for comparison; not measured here), one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``. A failed check raises and the script
 exits non-zero without that line. It needs a CUDA card and
 imports nothing of JAX.
@@ -189,6 +199,9 @@ WATER_STEPS = 1_000
 WATER_REBIN_STEPS = 300          # a stretch of the rebin comparison
 WATER_REBIN_ROUNDS = 3           # stretches of each policy, alternating
 WATER_NVE_STEPS = 500
+# phase 14's bound on the energy drift of those steps, kT per degree of
+# freedom per ns (read 0.056-0.209 in PR 4-10's runs, PERF.md)
+NVE_DRIFT_MAX = 1.0
 SKIN_STEPS = 200
 LARGE_CHECK_COPIES = (6, 6, 5)   # 180 chignolins, 24,840 atoms
 LARGE_COPIES = (8, 8, 7)         # 448 chignolins, 61,824 atoms
@@ -205,14 +218,15 @@ FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_ke
                  "fused_remd_bias_kernel")
 # ms of the kernels before their redesign at the same timed shapes: the
 # one-thread-an-atom fused kernels, the row-owned dense Born and energy
-# sweeps and the Newton Born and energy sweeps' block walk, copied from
-# PERF.md section 6 (not measured by this script): printed on a line of
-# their own beside the kernels line
+# sweeps, the Newton Born and energy sweeps' block walk and the row-owned
+# periodic and cell sweeps, copied from PERF.md section 6 (not measured by
+# this script): printed on a line of their own beside the kernels line
 EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
               "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14,
               "pair_born": 0.7112, "pair_energy": 0.6614,
-              "pair_born_newton": 0.7583, "pair_energy_newton": 0.6720}
+              "pair_born_newton": 0.7583, "pair_energy_newton": 0.6720,
+              "periodic_force": 0.1327, "cell_force": 0.1831, "cell_force_r4": 0.6593}
 SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
@@ -255,14 +269,17 @@ BORN_NEAR_SFU = 3
 # kernels whose registers and spills phase 1 reads and gates (no spill)
 PAIR_PTXAS_KERNELS = ("pair_born_kernel", "pair_energy_kernel", "pair_force_kernel",
                       "newton_born_kernel", "newton_energy_kernel", "newton_force_kernel")
-# The periodic sweeps, counted from csrc/periodic_pair.cuh and the two
-# kernels: every ordered candidate pair pays the displacement, r^2, the band
-# and the cutoff test (with the per-axis minimum image in the dense sweep,
-# with none in the cell sweep); a pair inside the cutoff pays the pair term
-# on top: (float32 operations, special-function results) with shifted LJ and
-# reaction field, and the extra of the switch and of the Ewald term (erfcf
-# counted as a polynomial and one exponential).
-PERIODIC_CANDIDATE_OPS = {"dense": 22, "cells": 12}
+PERIODIC_PTXAS_KERNELS = ("periodic_force_kernel", "cell_force_kernel", "periodic_slots_kernel",
+                          "cell_pack_kernel")
+# The bound of a periodic sweep (rows 8-9) counts the least work of its
+# function, as the GB rows do: each unordered pair inside the cutoff once
+# (counted on the run's positions by the kernels' own walk, _dense_walk and
+# _cell_walk), its pair term from csrc/periodic_pair.cuh: (float32
+# operations, special-function results) with shifted LJ and reaction field,
+# and the extra of the switch and of the Ewald term (erfcf counted as a
+# polynomial and one exponential). A candidate outside the cutoff needs no
+# work but its test, which a design that does not visit it avoids, so
+# candidates are not charged.
 PERIODIC_PAIR_OPS = (53, 1)
 PERIODIC_SWITCH_OPS = (20, 0)
 PERIODIC_EWALD_OPS = (30, 2)
@@ -393,8 +410,10 @@ def phase_build() -> dict:
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     out = {"build_s": secs, "library": path.name,
            "fused_ptxas": _ptxas(log, FUSED_KERNELS),
-           "pair_ptxas": _ptxas(log, PAIR_PTXAS_KERNELS), "ptxas": ptxas}
-    for key, names in (("fused_ptxas", FUSED_KERNELS), ("pair_ptxas", PAIR_PTXAS_KERNELS)):
+           "pair_ptxas": _ptxas(log, PAIR_PTXAS_KERNELS),
+           "periodic_ptxas": _ptxas(log, PERIODIC_PTXAS_KERNELS), "ptxas": ptxas}
+    for key, names in (("fused_ptxas", FUSED_KERNELS), ("pair_ptxas", PAIR_PTXAS_KERNELS),
+                       ("periodic_ptxas", PERIODIC_PTXAS_KERNELS)):
         found = out[key]
         _check(sorted(found) == sorted(names) and all(
             {"registers", "spill_stores", "spill_loads"} <= set(k) for k in found.values()),
@@ -1361,36 +1380,81 @@ def phase_learned_cv(cx: dict) -> dict:
     return out
 
 
-def _pairs_within(x: torch.Tensor, box, rc: float, band: int, chunk: int = 1024) -> int:
-    """Ordered pairs of ``x (R, N, 3)`` in an orthorhombic ``box`` with
-    ``|i - j| > band`` inside the cutoff: the pairs whose term the sweeps
-    evaluate in this run (for the bound)."""
+def _walk_figures(counts: torch.Tensor, patches: int) -> dict:
+    """The walk's figures from the pairs inside the cutoff of each patch
+    that holds any (``counts``): patches walked, pairs queued, batches of 32
+    (a patch's last batch may be short) and pairs a batch."""
+    pairs = int(counts.sum())
+    batches = int(((counts + 31) // 32).sum())
+    return {"patches": patches, "pairs_queued": pairs, "batches": batches,
+            "pairs_a_batch": pairs / max(batches, 1)}
+
+
+def _dense_walk(fn, x: torch.Tensor) -> dict:
+    """``periodic_force_kernel``'s walk on ``x (R, N, 3)``: every patch (row
+    group g, column group h >= g of 32-atom groups), the unordered pairs it
+    queues (band-masked, inside the cutoff on the kernel's float32 minimum
+    image and r^2), in batches of 32 a patch."""
+    from pmarlo_tpu_torch.md.periodic_force import cutoff_mask
+
     R, n = x.shape[0], x.shape[1]
-    b = torch.as_tensor(box, dtype=x.dtype, device=x.device)
-    jj = torch.arange(n, device=x.device)[None, :]
-    total = 0
+    NG = -(-n // 32)
+    box = fn._box32
+    inv_box = 1.0 / box
+    jj = torch.arange(n, device=x.device)
+    counts = torch.zeros((R, NG, NG), dtype=torch.int64, device=x.device)
     for r in range(R):
-        for s in range(0, n, chunk):
-            e = min(s + chunk, n)
-            d = x[r, s:e, None, :] - x[r, None, :, :]
-            d = d - b * torch.round(d / b)
-            ii = torch.arange(s, e, device=x.device)[:, None]
-            total += int((((d * d).sum(-1) < rc * rc) & ((ii - jj).abs() > band)).sum())
-    return total
+        for s0 in range(0, n, 256):
+            s1 = min(s0 + 256, n)
+            d = x[r, s0:s1, None, :] - x[r, None, :, :]
+            d = d - box * torch.round(d * inv_box)
+            ii = torch.arange(s0, s1, device=x.device)[:, None]
+            keep = (jj[None, :] > ii) & ((ii - jj[None, :]).abs() > fn.band_D) & cutoff_mask(
+                d, fn.phys.rc)
+            keep = torch.nn.functional.pad(keep.int(), (0, NG * 32 - n, 0, (-(s1 - s0)) % 32))
+            counts[r, s0 // 32:s0 // 32 + keep.shape[0] // 32] = keep.reshape(
+                keep.shape[0] // 32, 32, NG, 32).sum((1, 3))
+    return _walk_figures(counts, R * NG * (NG + 1) // 2)
 
 
-def _periodic_bound(kind: str, candidates: float, within: float, R: int, N: int, *,
-                    switch: bool = False, ewald: bool = False, extra_bytes: int = 0) -> dict:
-    """Bound of one periodic sweep: ``candidates`` ordered candidate pairs,
-    ``within`` of them inside the cutoff; positions and the three per-atom
-    rows in, float64 energy rows and float32 forces out."""
+def _cell_walk(fn, xw: torch.Tensor, order: torch.Tensor, cell_start: torch.Tensor) -> dict:
+    """``cell_force_kernel``'s walk on a binning: the 32 x 32 patches of its
+    items (the own cell g <= h, each forward neighbour every pair of
+    groups), and the pairs the plain version's ``half_shell`` yields (the
+    kernel's pairs), in batches of 32 a patch."""
+    from pmarlo_tpu_torch.md.cell_force import HALF_SHELL
+
+    R = xw.shape[0]
+    counts, patches = [], 0
+    for r in range(R):
+        cs = cell_start[r].long()
+        groups = (cs[1:] - cs[:-1] + 31) // 32                       # (C,)
+        patches += int((groups * (groups + 1) // 2).sum())
+        for k in HALF_SHELL[1:]:
+            patches += int((groups * groups[fn._nb[k]]).sum())
+        MG = max(int(groups.max()), 1)
+        keys = []
+        for ai, aj, _, pi, pj, cells, k in fn.half_shell(xw[r], order[r], cell_start[r]):
+            gi = (pi - cs[cells]) // 32
+            gj = (pj - cs[fn._nb[k][cells]]) // 32
+            keys.append(((cells * 14 + (k - 13)) * MG + gi) * MG + gj)
+        if keys:
+            counts.append(torch.bincount(torch.cat(keys)))
+    counts = torch.cat(counts) if counts else torch.zeros(1, dtype=torch.int64)
+    return _walk_figures(counts, patches)
+
+
+def _periodic_bound(pairs: float, R: int, N: int, *, switch: bool = False,
+                    ewald: bool = False, extra_bytes: int = 0) -> dict:
+    """Bound of one periodic sweep: ``pairs`` unordered pairs inside the
+    cutoff, each once; positions and the three per-atom rows in, float64
+    energy rows and float32 forces out."""
     flops, sfu = PERIODIC_PAIR_OPS
     for on, (f, t) in ((switch, PERIODIC_SWITCH_OPS), (ewald, PERIODIC_EWALD_OPS)):
         if on:
             flops, sfu = flops + f, sfu + t
     n_bytes = R * N * (12 + 8 + 12) + 12 * N + extra_bytes
-    return _bound(candidates * PERIODIC_CANDIDATE_OPS[kind] + within * flops,
-                  within * sfu, n_bytes)
+    return _bound(pairs * flops, pairs * sfu, n_bytes)
 
 
 def _noisy(x_min: torch.Tensor, R: int, seed: int, sigma: float = 0.005) -> torch.Tensor:
@@ -1520,12 +1584,19 @@ def phase_periodic() -> dict:
             shifted_fn = fn
     system, fn = keep["shifted"][0], shifted_fn
     N = system.n_atoms
-    out["pairs_within_cutoff"] = _pairs_within(x, system.box, EXPLICIT_CUTOFF, fn.band_D)
+    ek, fk = fn.sweep(x)
+    ek2, fk2 = fn.sweep(x)
+    out["periodic_two_launches_bitwise_equal"] = bool(torch.equal(ek, ek2)
+                                                      and torch.equal(fk, fk2))
+    _check(out["periodic_two_launches_bitwise_equal"], "periodic kernel run to run")
+    # the walk's patches and batches; its pairs are the bound's
+    walk = _dense_walk(fn, x)
+    out.update({f"walk_{k}": v for k, v in walk.items()})
     out["sweep_ms"] = _cuda_ms(lambda: fn.sweep(x), 20)
     out["sweep_plain_ms"] = _cuda_ms(lambda: fn.sweep_reference(x), 3)
     out["eval_ms"] = _cuda_ms(lambda: fn(x), 20)
     out["eval_plain_ms"] = _cuda_ms(lambda: fn.reference(x), 3)
-    out.update(_periodic_bound("dense", R * N * N, out["pairs_within_cutoff"], R, N))
+    out.update(_periodic_bound(walk["pairs_queued"], R, N))
     out["bound_share"] = out["bound_ms"] / out["sweep_ms"]
     _line("phase 11 periodic kernel", out)
     out.update(x_min=x_min, x=x, keep=keep, clear=clear)
@@ -1595,12 +1666,22 @@ def phase_cells(periodic: dict, water) -> dict:
             out["ewald_minus_rf_energy"] = float((e - e_rf).abs().max())
             _check(out["ewald_minus_rf_energy"] > 1.0, "the Ewald term differs from RF")
         if tag == "rf":
+            # the shape of phase 13's launches: R=8, 3 x 3 x 2 cells
             e_rf = e
             g = fn.grid
             out["chignolin_grid"] = [g.nx, g.ny, g.nz]
             binned = sweeps(fn, x)[2]
+            _bitwise(out, "chignolin", fn, binned)
+            walk = _cell_walk(fn, *binned)
+            out.update({f"chignolin_walk_{k}": v for k, v in walk.items()})
             out["chignolin_sweep_ms"] = _cuda_ms(lambda: fn.sweep(*binned), 20)
+            out["chignolin_sweep_plain_ms"] = _cuda_ms(lambda: fn.sweep_reference(*binned), 3)
             out["chignolin_eval_ms"] = _cuda_ms(lambda: fn(x), 20)
+            bound = _periodic_bound(walk["pairs_queued"], R, system.n_atoms,
+                                    extra_bytes=4 * R * (system.n_atoms + g.n_cells + 1))
+            out["chignolin_bound_ms"] = bound["bound_ms"]
+            out["chignolin_bound_by"] = bound["bound_by"]
+            out["chignolin_bound_share"] = bound["bound_ms"] / out["chignolin_sweep_ms"]
 
     # (b) a sheared 375-atom water box (the JAX package's triclinic test cell)
     s5, box5 = water_box_structure(5)
@@ -1631,18 +1712,15 @@ def phase_cells(periodic: dict, water) -> dict:
         er, fr = fn.reference(xw_in)
         _gate(out, f"{tag}_eval", e, f, er, fr)
         counts = (binned[2][:, 1:] - binned[2][:, :-1]).double()
-        # every atom meets the atoms of its 27 neighbour cells
-        per_cell = counts.reshape(Rw, g.nx, g.ny, g.nz)
-        candidates = float((per_cell * _neighbour_counts(per_cell)).sum())
-        within = _pairs_within(xw_in, wsys.box, EXPLICIT_CUTOFF, fn.band_D)
-        out[f"{tag}_candidate_pairs"] = candidates
-        out[f"{tag}_pairs_within_cutoff"] = within
         out[f"{tag}_max_cell_occupancy"] = int(counts.max())
+        _bitwise(out, tag, fn, binned)
+        walk = _cell_walk(fn, *binned)
+        out.update({f"{tag}_walk_{k}": v for k, v in walk.items()})
         out[f"{tag}_sweep_ms"] = _cuda_ms(lambda: fn.sweep(*binned), 20)
         out[f"{tag}_sweep_plain_ms"] = _cuda_ms(lambda: fn.sweep_reference(*binned), 2)
         out[f"{tag}_bin_ms"] = _cuda_ms(lambda: bin_atoms(fn.grid, xw_in), 20)
         out[f"{tag}_eval_ms"] = _cuda_ms(lambda: fn(xw_in), 20)
-        bound = _periodic_bound("cells", candidates, within, Rw, N,
+        bound = _periodic_bound(walk["pairs_queued"], Rw, N,
                                 extra_bytes=4 * Rw * (N + g.n_cells + 1))
         out[f"{tag}_bound_ms"] = bound["bound_ms"]
         out[f"{tag}_bound_by"] = bound["bound_by"]
@@ -1672,15 +1750,13 @@ def phase_cells(periodic: dict, water) -> dict:
     return out
 
 
-def _neighbour_counts(counts: torch.Tensor) -> torch.Tensor:
-    """For each cell of ``counts (R, nx, ny, nz)`` the atoms in its 27
-    periodic neighbour cells (itself included)."""
-    total = torch.zeros_like(counts)
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                total += counts.roll((dx, dy, dz), (1, 2, 3))
-    return total
+def _bitwise(out: dict, tag: str, fn, binned) -> None:
+    """Two launches of the cell kernel on one binning give the same bits."""
+    ek, fk = fn.sweep(*binned)
+    ek2, fk2 = fn.sweep(*binned)
+    key = f"{tag}_cell_two_launches_bitwise_equal"
+    out[key] = bool(torch.equal(ek, ek2) and torch.equal(fk, fk2))
+    _check(out[key], f"{tag}: cell kernel run to run")
 
 
 def phase_explicit_remd() -> dict:
@@ -1816,6 +1892,10 @@ def phase_water_md(water) -> dict:
         "launches": counts["cell_force"],
     })
     _check(bool(np.isfinite(e_tot).all()), "NVE energies finite")
+    # each force is the exact gradient of its kernel's energy: the drift
+    # stays under NVE_DRIFT_MAX
+    _check(abs(out["nve_drift_kT_per_dof_per_ns"]) < NVE_DRIFT_MAX,
+           f"NVE drift {out['nve_drift_kT_per_dof_per_ns']} kT per degree of freedom per ns")
     # one launch per step and per report; the minimization ran before the reset
     expected = (WATER_WARM_STEPS + 1 + WATER_STEPS + WATER_STEPS // 100
                 + WATER_NVE_STEPS + WATER_NVE_STEPS // 50)
@@ -2481,6 +2561,7 @@ def main() -> None:
         "plain_ms": periodic["sweep_plain_ms"],
         "timed": f"one sweep, R={Re}, N={Ne}",
         "bound_ms": periodic["bound_ms"], "bound_by": periodic["bound_by"],
+        "bound_share": periodic["bound_share"],
     }, {
         "name": "cell_force", **cuda,
         "source": "pmarlo_tpu_torch/csrc/cell_force.cu",
@@ -2491,6 +2572,10 @@ def main() -> None:
         "plain_ms": cells["water_r1_sweep_plain_ms"],
         "timed": f"one sweep, R=1, N={Nw}",
         "bound_ms": cells["water_r1_bound_ms"], "bound_by": cells["water_r1_bound_by"],
+        "bound_share": cells["water_r1_bound_share"],
+        "ms_r4": cells["water_r4_sweep_ms"], "bound_ms_r4": cells["water_r4_bound_ms"],
+        "ms_chignolin_r8": cells["chignolin_sweep_ms"],
+        "bound_ms_chignolin_r8": cells["chignolin_bound_ms"],
     }]
     Nl = large_path["atoms"]
     for mode, lines, path_counts in (
@@ -2530,6 +2615,22 @@ def main() -> None:
         "build_s": build["build_s"],
         "fused_ptxas": build["fused_ptxas"],
         "pair_ptxas": build["pair_ptxas"],
+        "periodic_ptxas": build["periodic_ptxas"],
+        "periodic": {k: periodic[k] for k in (
+            "sweep_ms", "bound_ms", "bound_share", "periodic_two_launches_bitwise_equal",
+            "walk_patches", "walk_pairs_queued", "walk_pairs_a_batch", "eval_ms",
+            "shifted_sweep_force_rel_err", "shifted_vs_oracle_force_rel_err")},
+        "cells": {k: cells[k] for k in (
+            "water_r1_sweep_ms", "water_r1_bound_share", "water_r4_sweep_ms",
+            "water_r4_bound_share", "chignolin_sweep_ms", "chignolin_bound_share",
+            "water_r1_cell_two_launches_bitwise_equal",
+            "water_r4_cell_two_launches_bitwise_equal",
+            "chignolin_cell_two_launches_bitwise_equal", "water_r1_walk_pairs_a_batch",
+            "chignolin_walk_pairs_a_batch", "water_r1_eval_ms",
+            "rf_vs_periodic_kernel_force_rel_err")},
+        "explicit_ms_per_step": {k: explicit[k]["ms_per_step"] for k in ("dense", "cells")},
+        "water_md": {k: water_md[k] for k in (
+            "ms_per_step", "nve_drift_kT_per_dof_per_ns", "launches")},
         "pair": {k: pair[k] for k in (
             "born_rel_err", "e_rows_rel_err", "total_energy_rel_err", "energy_vs_float64",
             "force_rel_err", "force_vs_float64", "born_two_launches_bitwise_equal",
@@ -2568,8 +2669,9 @@ def main() -> None:
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "
-          "Born and energy sweeps, the Newton Born and energy block walk), ms at the "
-          "same timed shapes, copied from PERF.md, not measured here",
+          "Born and energy sweeps, the Newton Born and energy block walk, row-owned "
+          "periodic and cell sweeps), ms at the same timed shapes, copied from PERF.md, "
+          "not measured here",
           EARLIER_MS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // O(N) cell-list sweep for explicit solvent: energy rows and forces of the
-// periodic LJ + reaction-field (or real-space Ewald) potential over the
-// 27-cell neighbourhood of every atom.
+// periodic LJ + reaction-field (or real-space Ewald) potential over every
+// pair within the cutoff, found through the cells.
 //
 // Replaces: pmarlo_tpu/md/pallas_cells.py _build_cell_sweep, its one Pallas
 // sweep (kernel at :118, pallas_call at :232). The TPU kernel walked a
@@ -10,60 +10,92 @@
 // which hold any occupancy, so no cell can overflow. What is carried over:
 // wrapped coordinates plus a lattice shift per neighbour cell across a face
 // (so the kernel does no minimum-image arithmetic, orthorhombic or
-// triclinic; r^2 without fused multiply-adds, so the plain twin decides the
-// cutoff on the same number), the index-band mask |i - j| <= band on the atom index (the
+// triclinic), the index-band mask |i - j| <= band on the atom index (the
 // wrapper adds the band back at its wanted value), within = r^2 < rc^2, and
 // the pair physics of periodic_pair.cuh: the force is the exact gradient of
 // the kernel's own energy, in Ewald mode through erfcf and its exact
 // derivative.
 //
-// What bounds it on an H100: arithmetic. A sweep is R * N * 27 * (mean cell
-// occupancy) ordered candidate pairs (27,783-atom water box, 7^3 cells of 81
-// atoms: 61 M a replica); a pair inside the cutoff costs ~50 float32
-// operations and one rsqrt (three special-function results in Ewald mode).
+// What bounds it on an H100: instructions. A sweep is R N 27 (mean cell
+// occupancy) / 2 unordered candidate pairs (27,783-atom water box, 7^3 cells
+// of 81 atoms: 30 M a replica), each needing its r^2 (~15 instructions), and
+// ~13% of them lie inside the cutoff and need the pair term (~55 float32
+// operations and one rsqrt, three special-function results in Ewald mode).
 // All inputs are O(N) and stay in L2.
 //
 // Design:
-// - grid (cells, row tiles, replicas), CTA of kRows x kSplit threads. A CTA
-//   takes kRows row atoms of its cell at a time: thread (tx, ty) owns row
-//   atom tx and the staged columns ty, ty + kSplit, ... The row-tile grid
-//   dimension is a provision (the grid's capacity); a CTA strides over its
-//   cell's row tiles by that dimension, so a cell fuller than provided for is
-//   still covered, and a CTA past its cell's last row tile exits at once.
-// - the 27 neighbour cells are one stream of column atoms: the prefix sums of
-//   their counts sit in shared memory, and each loading thread finds its
-//   cell by a search over 27 entries, gathers the atom through the sort
-//   permutation and adds the cell's lattice shift. Tiles of kThreads columns
-//   are staged as structure-of-arrays.
-// - the kSplit partial sums of a row are added in a fixed order through
-//   shared memory: no atomics, a launch is bit-reproducible. Rows are written
-//   straight to their atom index (the scatter back through the permutation).
-// - energy rows accumulate in float64 and are written as float64; forces
-//   keep float32 sums.
+// - half shell: d = 0 is a cell's own pairs, column after row in sorted
+//   order; d = 1..13 are the 13 forward neighbour offsets (those after
+//   (0, 0, 0) in the order of the wrapper's shift table, offset index
+//   13 + d), each neighbour displaced by the lattice shift of the faces it
+//   is reached across. The 27-cell neighbourhood finds each ordered image
+//   pair (i, j, image) within the cutoff exactly once (the wrapper refuses a
+//   box under two cutoffs wide, so of the images a 1- or 2-cell axis puts in
+//   the neighbourhood at most one lies inside); its reverse (j, i, -image) is
+//   found through the opposite offset, from j's cell, with the negated
+//   shift. The half shell keeps the one of the two whose offset is forward,
+//   and on the own cell the one whose column comes after its row, so each
+//   unordered image pair is taken once, also where an axis has 1 or 2 cells
+//   and a direction and its opposite reach the same cell.
+// - work items: (replica, cell c, direction d, split s), one warp an item,
+//   R C 14 3 items, CTAs of 4 warps (a CTA's slots free as its items end).
+//   Split s takes the cell's row groups of 32 atoms s, s + 3, ... against
+//   every column group of the neighbour: the water box's cells hold ~81
+//   atoms (3 groups: an item is 3 patches of 32 x 32), solvated chignolin's
+//   3 x 3 x 2 cells ~129 (5 groups: 2, 2 and 1 row groups a split). A
+//   warp a (cell, direction) was too few warps to hide the walk's latency
+//   (1.14 waves of them on the water box at R = 1); strided splits keep a
+//   cell's ragged last group off one item.
+// - one orientation: a pair is displaced once, from its item's side,
+//   xi - (xj + shift), and both atoms take that one r^2, so a pair within
+//   rounding of the cutoff is kept or cut for both (md/cell_force.py
+//   sweep_reference computes it so too).
+// - stage once, in sorted order: cell_pack_kernel gathers the atoms through
+//   the sort permutation into PeriodicAtom (x, y, z, index | q, sigma,
+//   sqrt(eps)) by sorted position; an item stages its row groups and each
+//   column group from there in its warp's shared memory (the neighbour's
+//   with the shift added), and walks the patches (the own cell: column
+//   group >= row group, a diagonal patch column > row) as
+//   periodic_patch.cuh does: the pairs inside the cutoff compacted onto
+//   full warps before periodic_pair.
+// - fixed-order sums, no float atomics: a slot scratch (R, 56, N) of float4
+//   (force, energy half-sum) by sorted position: for each direction d a row
+//   slot (an atom's sums as a row of the items (c, d)) and a column slot a
+//   split (its sums as a column of the item (c - offset, d, s)). Each slot
+//   belongs to one item, which writes it once (a column atom the item takes
+//   no pair of gets a zero); in a cell of more than 96 atoms a split adds
+//   its later row groups' column sums to the slot from the lane that wrote
+//   it. periodic_slots_kernel adds an atom's 56 slots in slot order,
+//   the energy in float64, and writes the outputs by atom index. Two
+//   launches give the same bits.
+// - scratch: the packed atoms (32 B) and 56 slots of 16 B an atom, 928 B:
+//   25.8 MB at R = 1 and 103 MB at R = 4 on the water box, 17.2 MB at R = 8
+//   on solvated chignolin. The wrapper allocates it and refuses a shape
+//   whose scratch exceeds a quarter of the card's memory.
+// - energy: half of each pair's energy to each atom's row, so the rows are
+//   the half-summed rows of the row-owned sweep up to summation order.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "periodic_pair.cuh"
+#include "periodic_patch.cuh"
 
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kSplit = 8;
-constexpr int kThreads = kRows * kSplit;
-constexpr int kNeighbors = 27;
+constexpr int kWarps = 4;   // small CTAs: a warp's item ends on its own
+constexpr int kThreads = 32 * kWarps;
+constexpr int kDirections = 14;   // the own cell and 13 forward neighbours
+constexpr int kSplits = 3;        // items a direction: row groups s, s + 3, ... each
+constexpr int kSlots = kDirections * (1 + kSplits);   // a row slot and kSplits column slots
 
 struct CellArgs {
-  const float* xw;        // (R, N, 3) wrapped coordinates, by atom index
-  const float* atom_p;    // (3, N): q, sigma, sqrt(eps)
-  const int* order;       // (R, N) atom indices sorted by cell
-  const int* cell_start;  // (R, n_cells + 1) CSR offsets into order
-  double* e_rows;         // (R, N) half-summed row energies, by atom index
-  float* forces;          // (R, N, 3), by atom index
+  const PeriodicAtom* packed;   // (R, N) by sorted position
+  const int* cell_start;        // (R, n_cells + 1) CSR offsets into the sorted order
+  float4* slots;                // (R, kSlots, N) by sorted position: force, e / 2
+  const float* shifts;          // (27, 3) lattice shift of the wrap (wx, wy, wz) in {-1, 0, 1}^3
+  long long n_items;            // R n_cells kDirections kSplits
   int n;
   int nx, ny, nz;
   int band;
-  const float* shifts;    // (27, 3) lattice shift of the wrap (wx, wy, wz) in {-1, 0, 1}^3
   PairPhys p;
 };
 
@@ -80,124 +112,115 @@ __device__ __forceinline__ int wrap_cell(int c, int n, int* w) {
   return c;
 }
 
-__global__ void __launch_bounds__(kThreads) cell_force_kernel(CellArgs a) {
-  __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads];
-  __shared__ float s_q[kThreads], s_sig[kThreads], s_seps[kThreads];
-  __shared__ int s_idx[kThreads];
-  __shared__ int s_nb_start[kNeighbors], s_nb_pre[kNeighbors + 1];
-  __shared__ float s_shift[kNeighbors][3];
-  __shared__ double s_e[kSplit][kRows];
-  __shared__ float s_f[3][kSplit][kRows];
+// The atoms by sorted position: packed[rep, p] of atom order[rep, p]
+// (PeriodicAtom: x, y, z, index | q, sigma, sqrt(eps)).
+__global__ void cell_pack_kernel(const float* xw, const float* atom_p, const int* order, int n,
+                                 PeriodicAtom* packed) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  const int atom = order[rbase + p];
+  const float* x = xw + (rbase + atom) * 3;
+  PeriodicAtom t;
+  t.p = make_float4(x[0], x[1], x[2], __int_as_float(atom));
+  t.m = make_float4(atom_p[atom], atom_p[n + atom], atom_p[2 * n + atom], 0.0f);
+  packed[rbase + p] = t;
+}
+
+// a slot's first write stores, a later one (a split's later row group in a
+// cell of more than 96 atoms) adds
+__device__ __forceinline__ void put_slot(float4* slot, const float4& v, bool first) {
+  if (first) {
+    *slot = v;
+    return;
+  }
+  float4 o = *slot;
+  o.x += v.x;
+  o.y += v.y;
+  o.z += v.z;
+  o.w += v.w;
+  *slot = o;
+}
+
+// (launch bounds of eight CTAs an SM, 32 warps: 64 registers; ten CTAs left
+// 48 registers and 24 bytes of spills)
+__global__ void __launch_bounds__(kThreads, 8) cell_force_kernel(CellArgs a) {
+  __shared__ PeriodicAtom s_rows[kWarps][32], s_cols[kWarps][32];
+  __shared__ PatchScratch s_w[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  PatchScratch& w = s_w[warp];
+  PeriodicAtom* rows = s_rows[warp];
+  PeriodicAtom* cols = s_cols[warp];
+  w.cmask[lane] = 0u;
+  const long long item = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (item >= a.n_items) return;   // the whole warp; no CTA barrier follows
   const int n = a.n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kRows + tx;
   const int n_cells = a.nx * a.ny * a.nz;
-  const int cell = blockIdx.x;
-  const size_t rbase = static_cast<size_t>(blockIdx.z) * n;
-  const int* cs = a.cell_start + static_cast<size_t>(blockIdx.z) * (n_cells + 1);
-  const int* ord = a.order + rbase;
-  const float* xr = a.xw + rbase * 3;
+  const int split = static_cast<int>(item % kSplits);
+  const int d = static_cast<int>((item / kSplits) % kDirections);
+  const int cell = static_cast<int>((item / (kSplits * kDirections)) % n_cells);
+  const long long rep = item / (static_cast<long long>(kSplits * kDirections) * n_cells);
+  const int* cs = a.cell_start + rep * (n_cells + 1);
 
-  const int row_start = cs[cell];
-  const int row_cnt = cs[cell + 1] - row_start;
-  if (static_cast<int>(blockIdx.y) * kRows >= row_cnt) return;   // the whole CTA
-
-  if (tid < kNeighbors) {
+  int nc = cell;
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  if (d > 0) {
+    const int k = 13 + d;   // the offset (k / 9 - 1, (k / 3) % 3 - 1, k % 3 - 1)
     const int cz = cell % a.nz;
     const int cy = (cell / a.nz) % a.ny;
     const int cx = cell / (a.nz * a.ny);
     int wx, wy, wz;
-    const int ncx = wrap_cell(cx + tid / 9 - 1, a.nx, &wx);
-    const int ncy = wrap_cell(cy + (tid / 3) % 3 - 1, a.ny, &wy);
-    const int ncz = wrap_cell(cz + tid % 3 - 1, a.nz, &wz);
-    const int nc = (ncx * a.ny + ncy) * a.nz + ncz;
-    s_nb_start[tid] = cs[nc];
-    s_nb_pre[tid + 1] = cs[nc + 1] - cs[nc];
-    // a neighbour reached across a face appears displaced by that face's
-    // lattice vector (the wrapper's table, so the twin adds the same float)
+    const int ncx = wrap_cell(cx + k / 9 - 1, a.nx, &wx);
+    const int ncy = wrap_cell(cy + (k / 3) % 3 - 1, a.ny, &wy);
+    const int ncz = wrap_cell(cz + k % 3 - 1, a.nz, &wz);
+    nc = (ncx * a.ny + ncy) * a.nz + ncz;
+    // the wrapper's table, so the plain version adds the same float
     const float* sh = a.shifts + 3 * ((wx + 1) * 9 + (wy + 1) * 3 + (wz + 1));
-    s_shift[tid][0] = sh[0];
-    s_shift[tid][1] = sh[1];
-    s_shift[tid][2] = sh[2];
+    sx = sh[0];
+    sy = sh[1];
+    sz = sh[2];
   }
-  __syncthreads();
-  if (tid == 0) {
-    s_nb_pre[0] = 0;
-    for (int c = 0; c < kNeighbors; ++c) s_nb_pre[c + 1] += s_nb_pre[c];
-  }
-  __syncthreads();
-  const int total = s_nb_pre[kNeighbors];
-
-  for (int rt = blockIdx.y; rt * kRows < row_cnt; rt += gridDim.y) {
-    const int slot = rt * kRows + tx;
-    const bool own = slot < row_cnt;
-    int ai = 0;
-    float xi = 0.0f, yi = 0.0f, zi = 0.0f, q_i = 0.0f, sig_i = 0.0f, seps_i = 0.0f;
-    if (own) {
-      ai = ord[row_start + slot];
-      xi = xr[3 * ai];
-      yi = xr[3 * ai + 1];
-      zi = xr[3 * ai + 2];
-      q_i = a.atom_p[ai];
-      sig_i = a.atom_p[n + ai];
-      seps_i = a.atom_p[2 * n + ai];
-    }
-    double e_acc = 0.0;
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-    for (int t0 = 0; t0 < total; t0 += kThreads) {
-      __syncthreads();
-      const int f = t0 + tid;
-      if (f < total) {
-        int c = 0;
-        while (f >= s_nb_pre[c + 1]) ++c;
-        const int aj = ord[s_nb_start[c] + (f - s_nb_pre[c])];
-        s_x[tid] = xr[3 * aj] + s_shift[c][0];
-        s_y[tid] = xr[3 * aj + 1] + s_shift[c][1];
-        s_z[tid] = xr[3 * aj + 2] + s_shift[c][2];
-        s_q[tid] = a.atom_p[aj];
-        s_sig[tid] = a.atom_p[n + aj];
-        s_seps[tid] = a.atom_p[2 * n + aj];
-        s_idx[tid] = aj;
+  const int r0 = cs[cell], nr = cs[cell + 1] - r0;
+  const int c0 = cs[nc], ncl = cs[nc + 1] - c0;
+  const PeriodicAtom* pk = a.packed + static_cast<size_t>(rep) * n;
+  float4* slots = a.slots + static_cast<size_t>(rep) * kSlots * n;
+  float4* row_slot = slots + static_cast<size_t>(d * (1 + kSplits)) * n + r0;
+  float4* col_slot = slots + static_cast<size_t>(d * (1 + kSplits) + 1 + split) * n + c0;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // this split's row groups: split, split + kSplits, ...
+  const int g_first = 32 * split;
+  // column atoms this split takes no pair of get a zero in its column slot:
+  // all of them when it has no rows, on the own cell those before its rows
+  const int unpaired = g_first >= nr ? ncl : (d == 0 ? min(g_first, ncl) : 0);
+  for (int o = lane; o < unpaired; o += 32) col_slot[o] = zero;
+  for (int g0 = g_first; g0 < nr; g0 += 32 * kSplits) {
+    const int n_rows = min(32, nr - g0);
+    __syncwarp();   // the last patch's readers of the staged rows are done
+    if (lane < n_rows) rows[lane] = pk[r0 + g0 + lane];
+    float4 racc = zero;
+    for (int h0 = d == 0 ? g0 : 0; h0 < ncl; h0 += 32) {
+      const int n_cols = min(32, ncl - h0);
+      __syncwarp();   // the last patch's readers of the staged columns are done
+      if (lane < n_cols) {
+        PeriodicAtom t = pk[c0 + h0 + lane];
+        t.p.x = __fadd_rn(t.p.x, sx);
+        t.p.y = __fadd_rn(t.p.y, sy);
+        t.p.z = __fadd_rn(t.p.z, sz);
+        cols[lane] = t;
       }
-      __syncthreads();
-      const int cnt = min(kThreads, total - t0);
-      if (!own) continue;
-      for (int jj = ty; jj < cnt; jj += kSplit) {
-        if (abs(ai - s_idx[jj]) <= a.band) continue;
-        const float dx = xi - s_x[jj], dy = yi - s_y[jj], dz = zi - s_z[jj];
-        const float r2 = pair_r2(dx, dy, dz);
-        if (r2 >= a.p.rc2 || r2 <= 1e-8f) continue;
-        double e;
-        float w;
-        periodic_pair(a.p, r2, q_i, s_q[jj], 0.5f * (sig_i + s_sig[jj]), seps_i * s_seps[jj],
-                      &e, &w);
-        e_acc += e;
-        fx -= w * dx;
-        fy -= w * dy;
-        fz -= w * dz;
-      }
+      __syncwarp();
+      float4 col;
+      walk_patch(a.p, Difference(), rows, cols, n_rows, n_cols, d == 0 && h0 == g0, a.band, w,
+                 col);
+      const float4 r = w.racc[lane];
+      racc.x += r.x;
+      racc.y += r.y;
+      racc.z += r.z;
+      racc.w += r.w;
+      // a column atom's first patch in this split is the one of its first row group
+      if (lane < n_cols) put_slot(col_slot + h0 + lane, col, g0 == g_first);
     }
-    s_e[ty][tx] = e_acc;
-    s_f[0][ty][tx] = fx;
-    s_f[1][ty][tx] = fy;
-    s_f[2][ty][tx] = fz;
-    __syncthreads();
-    if (ty == 0 && own) {
-      double e = 0.0;
-      float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-      for (int s = 0; s < kSplit; ++s) {
-        e += s_e[s][tx];
-        f0 += s_f[0][s][tx];
-        f1 += s_f[1][s][tx];
-        f2 += s_f[2][s][tx];
-      }
-      a.e_rows[rbase + ai] = 0.5 * e;
-      float* fo = a.forces + (rbase + ai) * 3;
-      fo[0] = f0;
-      fo[1] = f1;
-      fo[2] = f2;
-    }
-    __syncthreads();   // the sums are read before the next row tile writes them
+    if (lane < n_rows) row_slot[g0 + lane] = racc;
   }
 }
 
@@ -207,33 +230,45 @@ extern "C" {
 
 // dims: nx, ny, nz (host memory); shifts: (27, 3) device table of the lattice
 // shifts wx a + wy b + wz c, indexed (wx + 1) 9 + (wy + 1) 3 + (wz + 1); phys
-// as in pmarlo_periodic_force. row_tiles: grid provision of row
-// tiles a cell. Returns cudaGetLastError() after the launch on `stream`.
+// as in pmarlo_periodic_force; scratch: R N (8 + 4 kSlots) floats, the packed
+// atoms (R, N, 8) and then the slots (R, kSlots, N, 4) (md/cell_force.py
+// cell_scratch), written before they are read. Returns cudaGetLastError()
+// after the launches on `stream`.
 int pmarlo_cell_force(const float* xw, const float* atom_p, const int* order,
                       const int* cell_start, int n_replicas, int n_atoms, const int* dims,
-                      int row_tiles, int band, const float* shifts, const float* phys,
-                      int ewald, double* e_rows, float* forces, void* stream) {
-  if (n_atoms < 1 || n_replicas < 1 || n_replicas > 65535 || band < 0 || row_tiles < 1 ||
-      row_tiles > 65535 || dims[0] < 1 || dims[1] < 1 || dims[2] < 1) {
+                      int band, const float* shifts, const float* phys, int ewald,
+                      double* e_rows, float* forces, float* scratch, void* stream) {
+  if (n_atoms < 1 || n_replicas < 1 || n_replicas > 65535 || band < 0 || dims[0] < 1 ||
+      dims[1] < 1 || dims[2] < 1 || scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_items = static_cast<long long>(n_replicas) * dims[0] * dims[1] * dims[2] *
+                            kDirections * kSplits;
+  if ((n_items + kWarps - 1) / kWarps > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CellArgs a = {};
-  a.xw = xw;
-  a.atom_p = atom_p;
-  a.order = order;
+  a.packed = reinterpret_cast<const PeriodicAtom*>(scratch);
   a.cell_start = cell_start;
-  a.e_rows = e_rows;
-  a.forces = forces;
+  a.slots = reinterpret_cast<float4*>(scratch + static_cast<size_t>(n_replicas) * n_atoms * 8);
+  a.shifts = shifts;
+  a.n_items = n_items;
   a.n = n_atoms;
   a.nx = dims[0];
   a.ny = dims[1];
   a.nz = dims[2];
   a.band = band;
-  a.shifts = shifts;
   a.p = make_pair_phys(phys, ewald);
-  const dim3 grid(dims[0] * dims[1] * dims[2], row_tiles, n_replicas);
-  const dim3 block(kRows, kSplit);
-  cell_force_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 per_atom((n_atoms + 255) / 256, n_replicas);
+  cell_pack_kernel<<<per_atom, 256, 0, s>>>(xw, atom_p, order, n_atoms,
+                                            reinterpret_cast<PeriodicAtom*>(scratch));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cell_force_kernel<<<static_cast<unsigned>((n_items + kWarps - 1) / kWarps), kThreads, 0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  periodic_slots_kernel<<<per_atom, 256, 0, s>>>(a.slots, kSlots, n_atoms, order, e_rows, forces);
   return static_cast<int>(cudaGetLastError());
 }
 

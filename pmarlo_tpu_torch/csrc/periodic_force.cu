@@ -8,158 +8,207 @@
 // pair of a residue, waters included) and md/periodic_force.py adds the
 // band and the far scaled pairs back at their wanted value from the pair
 // lists, so nothing of size N^2 is stored. The bonded terms are plain
-// PyTorch in the wrapper, which also holds this sweep's plain twin.
+// PyTorch in the wrapper, which also holds this sweep's plain version.
 //
-// What bounds it on an H100: arithmetic. A sweep is R * N^2 ordered
-// candidate pairs (solvated chignolin, R = 8, N = 2,315: 43 M); a pair
-// inside the cutoff costs ~50 float32 operations and one rsqrt, one
-// outside ~15. Positions and three per-atom rows are O(N) and stay in L2.
+// What bounds it on an H100: instructions. A sweep is R N (N - 1) / 2
+// unordered candidate pairs (solvated chignolin, R = 8, N = 2,315: 21 M),
+// each of which needs its minimum image and r^2 (~25 instructions), and
+// ~12% of them lie inside the cutoff and need the pair term (~55 float32
+// operations, one rsqrt, a float64 energy). Positions and three per-atom
+// rows are O(N) and stay in L2.
 //
-// Design (the shape of pair_force.cu):
-// - grid (row tiles, replicas); a CTA owns kRows row atoms and has
-//   kRows x kSplit threads: thread (tx, ty) owns row atom tx and the
-//   columns ty, ty + kSplit, ... of each staged column tile. The kSplit
-//   partial sums of a row are added in a fixed order through shared memory:
-//   no atomics, a launch is bit-reproducible.
-// - column tiles of kThreads atoms in shared memory, structure-of-arrays.
-// - orthorhombic minimum image per axis, d - L * rintf(d / L): rintf rounds
-//   half to even, as jnp.round does, so a pair at exactly L / 2 picks the
-//   same image as the reference. The image and r^2 are computed without
-//   fused multiply-adds (periodic_pair.cuh pair_r2), so the plain twin
-//   reproduces them bit for bit and decides the cutoff on the same number.
-// - energy and force come from one function (periodic_pair.cuh), so the
-//   force is the exact gradient of the energy. Energy rows accumulate in
-//   float64 and are written as float64 (the Coulomb terms of a water box
-//   cancel to ~1e-3 of their magnitudes); forces keep float32 sums.
-// - the ragged last row tile and column tile are masked in the kernel; no
-//   padding atoms exist, and the self pair falls inside the band.
+// Design:
+// - each unordered pair once, in the blocks (row tile r, column tile
+//   c >= r) of kTile atoms of the dense GB sweeps (pair_force.cu): one CTA a
+//   block, grid (G (G + 1) / 2, replicas), the block from the CTA's index by
+//   triangle_block arithmetic; both tiles staged in shared memory as
+//   PeriodicAtom (x, y, z, index | q, sigma, sqrt(eps)); the block's shared
+//   memory (49.6 KB with the warps' pair lists) is dynamic.
+// - inside a block, warp w takes the 32 x 32 patches w and w + 8 of the 16
+//   (a diagonal block: the 10 with column group >= row group; a diagonal
+//   patch only column > row) and walks each as periodic_patch.cuh does: the
+//   pairs inside the cutoff compacted onto full warps before periodic_pair.
+//   No patch is culled: at this box size (2.9 nm against a 0.9 nm cutoff)
+//   every pair of 32-atom groups has a minimum-image gap under the cutoff.
+// - minimum image per axis, d - L rintf(d / L), and r^2 without fused
+//   multiply-adds (periodic_patch.cuh MinImage, pair_r2.cuh): the plain
+//   version reproduces every r^2 bit for bit and cuts the same pairs (the
+//   force jumps at the cutoff). The minimum image is an exact negation, so
+//   the orientation in which a pair is taken does not matter.
+// - fixed-order sums: a patch's row and column sums (periodic_patch.cuh)
+//   go to their own entry of the block's partials (side, partner group,
+//   atom), which are added in group order; a block's sums go to the slot
+//   scratch (R, G, N): the row atoms' to slot c, the column atoms' to slot
+//   r (a diagonal block: both to slot r). Each slot is written by exactly
+//   one block, and periodic_slots_kernel adds an atom's G slots in slot
+//   order (float64 energy): two launches give the same bits.
+// - slot scratch: G = ceil(N / 128) slots an atom of a float4 (force, energy
+//   half-sum), 16 B: 5.6 MB at R = 8, N = 2,315 (G = 19). The wrapper
+//   allocates it and refuses a shape whose scratch exceeds a quarter of the
+//   card's memory.
+// - energy: half of each pair's energy to each atom's row, so the rows are
+//   the half-summed rows of the row-owned sweep up to summation order.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "periodic_pair.cuh"
+#include <mutex>
+#include <vector>
+
+#include "periodic_patch.cuh"
 
 namespace {
 
-constexpr int kRows = 32;                 // row atoms a CTA
-constexpr int kSplit = 8;                 // column lanes a row
-constexpr int kThreads = kRows * kSplit;  // threads a CTA = column tile
+constexpr int kTile = 128;                  // atoms a tile
+constexpr int kGroups = kTile / 32;         // 32-atom groups a tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;       // = 2 x kTile: one staged atom a thread
 
 struct PeriodicArgs {
   const float* x;       // (R, N, 3)
   const float* atom_p;  // (3, N): q, sigma, sqrt(eps)
-  double* e_rows;       // (R, N) half-summed row energies
-  float* forces;        // (R, N, 3)
+  float4* slots;        // (R, G, N) per-block partials: force, e / 2
   int n;
+  int n_tiles;          // G
   int band;
-  float box[3];
+  MinImage geo;
   PairPhys p;
 };
 
-__global__ void __launch_bounds__(kThreads) periodic_force_kernel(PeriodicArgs a) {
-  __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads];
-  __shared__ float s_q[kThreads], s_sig[kThreads], s_seps[kThreads];
-  __shared__ double s_e[kSplit][kRows];
-  __shared__ float s_f[3][kSplit][kRows];
-  const int n = a.n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kRows + tx;
-  const int i = blockIdx.x * kRows + tx;
-  const bool own = i < n;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const float* xr = a.x + rbase * 3;
-  const float bx = a.box[0], by = a.box[1], bz = a.box[2];
-  const float inv_bx = 1.0f / bx, inv_by = 1.0f / by, inv_bz = 1.0f / bz;
+// the block (row tile r, column tile c >= r) of index b, the upper triangle
+// taken column by column: b = c (c + 1) / 2 + r
+__device__ __forceinline__ void triangle_block(long long b, int* r, int* c) {
+  long long cc = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) * 0.5);
+  while (cc * (cc + 1) / 2 > b) --cc;
+  while ((cc + 1) * (cc + 2) / 2 <= b) ++cc;
+  *c = static_cast<int>(cc);
+  *r = static_cast<int>(b - cc * (cc + 1) / 2);
+}
 
-  float xi = 0.0f, yi = 0.0f, zi = 0.0f, q_i = 0.0f, sig_i = 0.0f, seps_i = 0.0f;
-  if (own) {
-    xi = xr[3 * i];
-    yi = xr[3 * i + 1];
-    zi = xr[3 * i + 2];
-    q_i = a.atom_p[i];
-    sig_i = a.atom_p[n + i];
-    seps_i = a.atom_p[2 * n + i];
-  }
-  double e_acc = 0.0;
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  for (int t0 = 0; t0 < n; t0 += kThreads) {
-    __syncthreads();
-    const int j = t0 + tid;
+// a block's shared memory (dynamic: past the 48 KB of static shared memory)
+struct BlockSmem {
+  PeriodicAtom atom[2][kTile];            // rows, columns
+  float4 part[2][kGroups][kTile];         // side, partner group, atom
+  PatchScratch warp[kWarps];
+};
+
+__global__ void __launch_bounds__(kThreads) periodic_force_kernel(PeriodicArgs a) {
+  extern __shared__ float4 smem4[];
+  BlockSmem& sm = *reinterpret_cast<BlockSmem*>(smem4);
+  auto& s_atom = sm.atom;
+  auto& s_part = sm.part;
+  PatchScratch* s_w = sm.warp;
+  const int n = a.n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int rt, ct;
+  triangle_block(blockIdx.x, &rt, &ct);
+  const bool diagonal = rt == ct;
+  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
+  for (int k = tid; k < 2 * kTile; k += kThreads) {
+    const int side = k / kTile, slot = k % kTile;
+    const int j = (side ? ct : rt) * kTile + slot;
+    PeriodicAtom t = {};
     if (j < n) {
-      s_x[tid] = xr[3 * j];
-      s_y[tid] = xr[3 * j + 1];
-      s_z[tid] = xr[3 * j + 2];
-      s_q[tid] = a.atom_p[j];
-      s_sig[tid] = a.atom_p[n + j];
-      s_seps[tid] = a.atom_p[2 * n + j];
+      const float* xj = a.x + (rbase + j) * 3;
+      t.p = make_float4(xj[0], xj[1], xj[2], __int_as_float(j));
+      t.m = make_float4(a.atom_p[j], a.atom_p[n + j], a.atom_p[2 * n + j], 0.0f);
     }
-    __syncthreads();
-    const int cnt = min(kThreads, n - t0);
-    if (!own) continue;
-    for (int jj = ty; jj < cnt; jj += kSplit) {
-      if (abs(i - (t0 + jj)) <= a.band) continue;
-      float dx = xi - s_x[jj], dy = yi - s_y[jj], dz = zi - s_z[jj];
-      dx = __fsub_rn(dx, __fmul_rn(bx, rintf(__fmul_rn(dx, inv_bx))));
-      dy = __fsub_rn(dy, __fmul_rn(by, rintf(__fmul_rn(dy, inv_by))));
-      dz = __fsub_rn(dz, __fmul_rn(bz, rintf(__fmul_rn(dz, inv_bz))));
-      const float r2 = pair_r2(dx, dy, dz);
-      if (r2 >= a.p.rc2 || r2 <= 1e-8f) continue;
-      double e;
-      float w;
-      periodic_pair(a.p, r2, q_i, s_q[jj], 0.5f * (sig_i + s_sig[jj]), seps_i * s_seps[jj], &e,
-                    &w);
-      e_acc += e;
-      fx -= w * dx;
-      fy -= w * dy;
-      fz -= w * dz;
-    }
+    s_atom[side][slot] = t;
   }
-  s_e[ty][tx] = e_acc;
-  s_f[0][ty][tx] = fx;
-  s_f[1][ty][tx] = fy;
-  s_f[2][ty][tx] = fz;
+  float4* part = &s_part[0][0][0];
+  for (int k = tid; k < 2 * kGroups * kTile; k += kThreads) {
+    part[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  s_w[warp].cmask[lane] = 0u;
   __syncthreads();
-  if (ty == 0 && own) {
-    double e = 0.0;
-    float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-    for (int s = 0; s < kSplit; ++s) {
-      e += s_e[s][tx];
-      f0 += s_f[0][s][tx];
-      f1 += s_f[1][s][tx];
-      f2 += s_f[2][s][tx];
-    }
-    a.e_rows[rbase + i] = 0.5 * e;
-    float* fo = a.forces + (rbase + i) * 3;
-    fo[0] = f0;
-    fo[1] = f1;
-    fo[2] = f2;
+
+  const int n_rows = min(kTile, n - rt * kTile);
+  const int n_cols = min(kTile, n - ct * kTile);
+  for (int item = warp; item < kGroups * kGroups; item += kWarps) {
+    const int g = item / kGroups, h = item % kGroups;
+    if ((diagonal && h < g) || g * 32 >= n_rows || h * 32 >= n_cols) continue;  // warp-uniform
+    float4 col;
+    walk_patch(a.p, a.geo, &s_atom[0][g * 32], &s_atom[1][h * 32], min(32, n_rows - g * 32),
+               min(32, n_cols - h * 32), diagonal && g == h, a.band, s_w[warp], col);
+    s_part[0][h][g * 32 + lane] = s_w[warp].racc[lane];
+    s_part[1][g][h * 32 + lane] = col;
   }
+  __syncthreads();
+
+  // each atom's partial of this block, summed over the partner groups in a
+  // fixed order, goes to the slot of the partner tile: the row atoms' to
+  // slot c, the column atoms' to slot r (a diagonal block: both to slot r)
+  for (int k = tid; k < 2 * kTile; k += kThreads) {
+    const int side = k / kTile, slot = k % kTile;
+    if (slot >= (side ? n_cols : n_rows) || (diagonal && side == 1)) continue;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = side; s < (diagonal ? 2 : side + 1); ++s) {
+      for (int pg = 0; pg < kGroups; ++pg) {
+        const float4 o = s_part[s][pg][slot];
+        v.x += o.x;
+        v.y += o.y;
+        v.z += o.z;
+        v.w += o.w;
+      }
+    }
+    const int atom = (side ? ct : rt) * kTile + slot;
+    const int partner = side ? rt : ct;
+    a.slots[(static_cast<size_t>(blockIdx.y) * a.n_tiles + partner) * n + atom] = v;
+  }
+}
+
+// Raises the kernel's dynamic shared-memory limit to a block's, once per
+// device.
+cudaError_t allow_block_smem() {
+  static std::mutex mu;
+  static std::vector<int> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int d : done) {
+    if (d == device) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(periodic_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sizeof(BlockSmem)));
+  if (err == cudaSuccess) done.push_back(device);
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// phys: see make_pair_phys (reaction field: the dense sweep has no Ewald mode).
-// Returns cudaGetLastError() after the launch on `stream`.
+// phys: see make_pair_phys (reaction field: the dense sweep has no Ewald
+// mode). slots: (R, ceil(N / 128), N) float4, written before they are read.
+// Returns cudaGetLastError() after the launches on `stream`.
 int pmarlo_periodic_force(const float* x, const float* atom_p, int n_replicas, int n_atoms,
-                          int band, const float* box, const float* phys,
-                          double* e_rows, float* forces, void* stream) {
-  if (n_atoms < 1 || n_replicas < 1 || n_replicas > 65535 || band < 0) {
+                          int band, const float* box, const float* phys, double* e_rows,
+                          float* forces, float* slots, void* stream) {
+  if (n_atoms < 1 || n_replicas < 1 || n_replicas > 65535 || band < 0 || slots == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PeriodicArgs a = {};
   a.x = x;
   a.atom_p = atom_p;
-  a.e_rows = e_rows;
-  a.forces = forces;
+  a.slots = reinterpret_cast<float4*>(slots);
   a.n = n_atoms;
+  a.n_tiles = (n_atoms + kTile - 1) / kTile;
   a.band = band;
-  for (int k = 0; k < 3; ++k) a.box[k] = box[k];
+  for (int k = 0; k < 3; ++k) {
+    a.geo.b[k] = box[k];
+    a.geo.inv_b[k] = 1.0f / box[k];
+  }
   a.p = make_pair_phys(phys, 0);
-  const dim3 grid((n_atoms + kRows - 1) / kRows, n_replicas);
-  const dim3 block(kRows, kSplit);
-  periodic_force_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaError_t err = allow_block_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = static_cast<long long>(a.n_tiles) * (a.n_tiles + 1) / 2;
+  periodic_force_kernel<<<dim3(static_cast<unsigned>(blocks), n_replicas), kThreads,
+                          sizeof(BlockSmem), s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  periodic_slots_kernel<<<dim3((n_atoms + 255) / 256, n_replicas), 256, 0, s>>>(
+      a.slots, a.n_tiles, n_atoms, nullptr, e_rows, forces);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,17 +4,28 @@ with its plain PyTorch twin.
 Port of ``pmarlo_tpu/md/pallas_cells.py build_cell_force_fn``: the same
 physics as the dense sweep (``md/periodic_force.py``: shifted or switched
 LJ, reaction-field Coulomb, OpenMM CutoffPeriodic semantics, 1-4 pairs as
-uncut scaled Coulomb), orthorhombic or triclinic, evaluated over the
-27-cell neighbourhood of every atom. A force evaluation is
+uncut scaled Coulomb), orthorhombic or triclinic, evaluated over the cells'
+neighbourhoods. A force evaluation is
 
 1. binning (``cells.bin_atoms``): wrapped coordinates, a stable sort of
    the atoms by cell and CSR offsets. No slot array, no capacity and no
    ghost copies: any occupancy fits, so nothing can overflow;
 2. the sweep (``csrc/cell_force.cu`` on CUDA tensors, ``sweep_reference``
-   on CPU tensors: a CUDA tensor launches the kernel or raises): per atom
-   the 27 neighbour cells, each displaced by the lattice vector of the
-   face it is reached across, the index band ``|i - j| <= D`` masked,
-   half-summed energy rows and row forces;
+   on CPU tensors: a CUDA tensor launches the kernel or raises) over the
+   half shell: for every cell its own pairs (column after row in sorted
+   order) and its atoms against the 13 forward neighbour cells
+   (``HALF_SHELL``), each displaced by the lattice vector of the faces it
+   is reached across, so each unordered image pair within the cutoff is
+   taken once, from one side, ``xi - (xj + shift)``; the index band
+   ``|i - j| <= D`` masked; half of each pair's energy to each atom's row.
+   The kernel gives a warp a (cell, direction, row group) item, walks its
+   32 x 32 patches, compacts the pairs inside the cutoff onto full warps
+   before the pair term, and writes its sums to per-atom slots
+   (``cell_scratch``: 56 slots of 16 bytes and a packed copy of the atoms,
+   928 bytes an atom, 25.8 MB on the 27,783-atom water box at R = 1; refused
+   past a quarter of the card's memory), which a second kernel adds in slot
+   order, so two launches give the same bits. It is bound by instructions:
+   every candidate's r^2 and the pair term of the ~13% inside the cutoff;
 3. the band add-back and far-pair correction from the pair lists
    (``periodic_force.PairListCorrection``), the bonded terms
    (``md/analytic.py``) and, if asked for, the dispersion tail 2 pi C / V.
@@ -34,9 +45,9 @@ The kernel has a real-space Ewald mode (``erfcf`` and its exact
 derivative, shifted to zero at the cutoff) for a smooth-PME path that is
 not ported yet; it is reached through the private ``_ewald_alpha``.
 
-Pair arithmetic in the kernel is float32; energy rows accumulate in
-float64 and the plain twin evaluates in float64 outright. Energies come
-back as float32. ``launches`` counts kernel launches.
+Pair arithmetic in the kernel is float32; energy rows are summed in float64
+past a patch and the plain twin evaluates in float64 outright. Energies
+come back as float32. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -63,11 +74,22 @@ from .periodic_force import (
     atom_rows,
     cutoff_mask,
     pair_terms,
+    refuse_scratch,
 )
 from .system import System, require_no_vsites
 
 #: kernel launches made by this process (chip_smoke.py resets and reads it)
 launches = {"cell_force": 0}
+
+#: the offsets of the half shell, rows of ``_neighbor_tables``' 27: the own
+#: cell (13, offset (0, 0, 0)) and the 13 after it, (k // 9 - 1, (k // 3) % 3
+#: - 1, k % 3 - 1) for k = 14..26; offset k's opposite is 26 - k
+HALF_SHELL = tuple(range(13, 27))
+#: work items of a (cell, direction): split s takes row groups s, s + 3, ...
+CELL_SPLITS = 3
+#: per-atom slots of the kernel's scratch: for each direction of the half
+#: shell a row slot and a column slot a split
+CELL_SLOTS = len(HALF_SHELL) * (1 + CELL_SPLITS)
 
 _configured = False
 
@@ -77,7 +99,7 @@ def _library() -> ctypes.CDLL:
     lib = _kernels.library()
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pmarlo_cell_force.argtypes = [p, p, p, p, i, i, p, i, i, p, p, i, p, p, p]
+        lib.pmarlo_cell_force.argtypes = [p, p, p, p, i, i, p, i, p, p, i, p, p, p, p]
         lib.pmarlo_cell_force.restype = i
         _configured = True
     return lib
@@ -139,7 +161,6 @@ class CellForce:
             volume = float(np.prod(system.box))
             self.e_dispersion = 2.0 * math.pi * dispersion_coefficient(system) / volume
         self._dims = (ctypes.c_int * 3)(grid.nx, grid.ny, grid.nz)
-        self._row_tiles = max((grid.capacity + 31) // 32, 1)
         shifts, nb, wrap = _neighbor_tables(grid)
         self._shifts = torch.as_tensor(shifts, device=system.device).contiguous()
         self._nb = torch.as_tensor(nb, device=system.device)
@@ -165,56 +186,70 @@ class CellForce:
 
     # --- the sweep: plain twin and kernel ---------------------------------------------
 
+    def half_shell(self, x: torch.Tensor, order: torch.Tensor, cell_start: torch.Tensor):
+        """The pairs of one replica that the sweep takes, chunk by chunk:
+        ``x (N, 3)`` the swept coordinates, ``order (N,)`` and ``cell_start
+        (n_cells + 1,)`` its binning. Yields ``(ai, aj, d, pi, pj, cell, k)``
+        for each chunk of cells and each offset ``k`` of ``HALF_SHELL``: the
+        row atoms ``ai`` of ``cell`` and the column atoms ``aj`` of its
+        neighbour through ``k``, their sorted positions ``pi``, ``pj``, and
+        the float32 displacement ``d = x[ai] - (x[aj] + shift)`` as the
+        kernel computes it, of every pair with ``|ai - aj| > D`` and
+        ``1e-8 < r^2 < rc^2`` (on the own cell column after row). Each
+        unordered image pair within the cutoff is yielded once."""
+        n, dev = x.shape[0], x.device
+        cs, ordr = cell_start.long(), order.long()
+        counts = cs[1:] - cs[:-1]
+        M = int(counts.max())
+        if M == 0:
+            return
+        slots = torch.arange(M, device=dev)
+        valid = slots[None, :] < counts[:, None]                      # (C, M)
+        pos = (cs[:-1, None] + slots[None, :]).clamp(max=n - 1)       # (C, M)
+        atoms = ordr[pos]
+        later = slots[None, :] > slots[:, None]                       # column after row
+        for c0 in range(0, self.grid.n_cells, self.cell_chunk):
+            c1 = min(c0 + self.cell_chunk, self.grid.n_cells)
+            ai, vi, pi = atoms[c0:c1], valid[c0:c1], pos[c0:c1]
+            xi = x[ai]                                                # (c, M, 3)
+            for k in HALF_SHELL:
+                nb = self._nb[k, c0:c1]
+                aj, vj, pj = atoms[nb], valid[nb], pos[nb]
+                xj = x[aj] + self._shifts[self._wrap[k, c0:c1]][:, None, :]
+                d = xi[:, :, None, :] - xj[:, None, :, :]             # (c, M, M, 3)
+                mask = (vi[:, :, None] & vj[:, None, :]
+                        & ((ai[:, :, None] - aj[:, None, :]).abs() > self.band_D)
+                        & cutoff_mask(d, self.phys.rc))
+                if k == 13:
+                    mask = mask & later
+                c, r, col = mask.nonzero(as_tuple=True)
+                yield (ai[c, r], aj[c, col], d[c, r, col], pi[c, r], pj[c, col], c + c0, k)
+
     def sweep_reference(self, xw: torch.Tensor, order: torch.Tensor,
                         cell_start: torch.Tensor):
         """``(e_rows (R, N) float64, forces (R, N, 3))`` by atom index (twin
-        of ``cell_force_kernel``): for every cell its atoms against the
-        atoms of the 27 neighbour cells, displaced by their lattice shifts,
-        band-masked, over chunks of cells. The displacement and r^2 are
-        float32, computed as the kernel computes them, so both cut the same
-        pairs; the pair terms are evaluated in float64."""
+        of ``cell_force_kernel``): every pair of ``half_shell`` once, half
+        its energy to each atom's row, ``-W d`` to the row atom and ``+W d``
+        to the column atom. The displacement and r^2 are float32 in the
+        kernel's one orientation, so both cut the same pairs, and a pair on
+        the cutoff is kept or cut for both of its atoms; the pair terms are
+        evaluated in float64."""
         xw = self._batch(xw)
         R, n = xw.shape[0], xw.shape[1]
         dev = xw.device
         q, sig, seps = (row.double() for row in self._atom_p)
-        C = self.grid.n_cells
         e_rows = torch.zeros((R, n), dtype=torch.float64, device=dev)
         forces = torch.zeros((R, n, 3), dtype=torch.float64, device=dev)
         for rep in range(R):
-            x = xw[rep]
-            cs = cell_start[rep].long()
-            ordr = order[rep].long()
-            counts = cs[1:] - cs[:-1]
-            M = int(counts.max())
-            slots = torch.arange(M, device=dev)[None, :]
-            valid = slots < counts[:, None]                            # (C, M)
-            atoms = ordr[(cs[:-1, None] + slots).clamp(max=n - 1)]     # (C, M)
-            for c0 in range(0, C, self.cell_chunk):
-                c1 = min(c0 + self.cell_chunk, C)
-                ai, vi = atoms[c0:c1], valid[c0:c1]
-                xi = x[ai]                                             # (c, M, 3)
-                e_acc = torch.zeros(ai.shape, dtype=torch.float64, device=dev)
-                f_acc = torch.zeros(ai.shape + (3,), dtype=torch.float64, device=dev)
-                for k in range(27):
-                    nb = self._nb[k, c0:c1]
-                    aj, vj = atoms[nb], valid[nb]
-                    xj = x[aj] + self._shifts[self._wrap[k, c0:c1]][:, None, :]
-                    d = xi[:, :, None, :] - xj[:, None, :, :]          # (c, M, M, 3)
-                    mask = (vi[:, :, None] & vj[:, None, :]
-                            & ((ai[:, :, None] - aj[:, None, :]).abs() > self.band_D)
-                            & cutoff_mask(d, self.phys.rc))
-                    d = d.double()
-                    e_lj, e_el, w_lj, w_el, inv_r = pair_terms(
-                        self.phys, torch.where(mask, (d * d).sum(-1), 1.0),
-                        q[ai][:, :, None] * q[aj][:, None, :],
-                        0.5 * (sig[ai][:, :, None] + sig[aj][:, None, :]),
-                        seps[ai][:, :, None] * seps[aj][:, None, :])
-                    m = mask.to(torch.float64)
-                    e_acc += ((e_lj + e_el) * m).sum(-1)
-                    w = (w_lj + w_el) * inv_r * m
-                    f_acc -= (w[..., None] * d).sum(-2)
-                e_rows[rep, ai[vi]] = 0.5 * e_acc[vi]
-                forces[rep, ai[vi]] = f_acc[vi]
+            for ai, aj, d, *_ in self.half_shell(xw[rep], order[rep], cell_start[rep]):
+                d = d.double()
+                e_lj, e_el, w_lj, w_el, inv_r = pair_terms(
+                    self.phys, (d * d).sum(-1), q[ai] * q[aj], 0.5 * (sig[ai] + sig[aj]),
+                    seps[ai] * seps[aj])
+                half = 0.5 * (e_lj + e_el)
+                f = ((w_lj + w_el) * inv_r)[:, None] * d
+                e_rows[rep].index_add_(0, ai, half).index_add_(0, aj, half)
+                forces[rep].index_add_(0, ai, -f).index_add_(0, aj, f)
         return e_rows, forces.to(xw.dtype)
 
     def _launch(self, xw, order, cell_start):
@@ -227,14 +262,17 @@ class CellForce:
         R, n = xw.shape[0], xw.shape[1]
         if tuple(order.shape) != (R, n) or tuple(cell_start.shape) != (R, self.grid.n_cells + 1):
             raise ValueError("cell_force: order / cell_start do not match xw and the grid")
+        shape, need = cell_scratch(R, n)
+        refuse_scratch("cell_force", need, xw.device, R, n)
         lib = _library()
         e_rows = torch.empty((R, n), dtype=torch.float64, device=xw.device)
         forces = torch.empty_like(xw)
+        scratch = torch.empty(shape, dtype=torch.float32, device=xw.device)
         phys, ewald = self.phys.kernel_args()
         rc = lib.pmarlo_cell_force(
             xw.data_ptr(), self._atom_p.data_ptr(), order.data_ptr(), cell_start.data_ptr(),
-            R, n, self._dims, self._row_tiles, self.band_D, self._shifts.data_ptr(), phys, ewald,
-            e_rows.data_ptr(), forces.data_ptr(),
+            R, n, self._dims, self.band_D, self._shifts.data_ptr(), phys, ewald,
+            e_rows.data_ptr(), forces.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(xw.device).cuda_stream,
         )
         _kernels.check_launch(rc, "cell_force")
@@ -314,6 +352,15 @@ class CellForce:
         return self.dynamic(x, box)
 
 
+def cell_scratch(R: int, n: int):
+    """``(shape, bytes)`` of the kernel's float32 scratch for R replicas of n
+    atoms: the atoms packed by sorted position (8 floats) and ``CELL_SLOTS``
+    slots of a float4 (force, energy half-sum) an atom, 928 bytes; 25.8 MB
+    at R = 1 on the 27,783-atom water box."""
+    floats = R * n * (8 + 4 * CELL_SLOTS)
+    return (floats,), 4 * floats
+
+
 def build_cell_force_fn(
     system: System,
     *,
@@ -332,8 +379,8 @@ def build_cell_force_fn(
     sweep): the same LJ shift or switch, reaction field and 1-4 semantics.
     The grid has the most cells whose layers are at least one cutoff thick
     (no skin is bought: every call bins afresh); ``occupancy_margin`` sizes
-    ``grid.capacity``, the row tiles a launch provides for each cell (a
-    fuller cell is still covered). ``dispersion_correction`` adds the
+    ``grid.capacity`` as JAX's grid does (the kernel takes any occupancy and
+    reads no capacity). ``dispersion_correction`` adds the
     isotropic LJ tail energy 2 pi C / V (``md/dispersion.py``). The result
     carries ``grid``, ``electrostatics``, ``init_state`` / ``apply`` /
     ``init_state_batched`` / ``apply_batched`` and ``evaluate``.
@@ -387,4 +434,5 @@ def build_cell_force_fn(
                      dispersion_correction=dispersion_correction)
 
 
-__all__ = ["CellForce", "build_cell_force_fn", "launches"]
+__all__ = ["CELL_SLOTS", "CELL_SPLITS", "CellForce", "HALF_SHELL", "build_cell_force_fn",
+           "cell_scratch", "launches"]

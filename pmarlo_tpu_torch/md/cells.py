@@ -160,8 +160,8 @@ class CellGrid:
     nx: int
     ny: int
     nz: int
-    #: rows a launch provisions for each cell (mean occupancy with margin):
-    #: a hint for the launch shape only; a fuller cell is still covered
+    #: mean occupancy with margin, as the JAX grid sizes its slot arrays; the
+    #: port's kernel takes any occupancy and reads no capacity
     capacity: int
     #: triclinic off-diagonals (bx, cx, cy), ``md/box.py`` reduced form;
     #: None -> orthorhombic. Cells are then parallelepipeds binned in

@@ -8,10 +8,18 @@ with OpenMM CutoffPeriodic semantics (``forces.periodic_nonbonded_energy``
 is the dense autograd reference), plus the bonded terms. A force
 evaluation is
 
-1. the sweep over all N^2 pairs with the index band ``|i - j| <= D``
-   masked: half-summed energy rows and row forces
-   (``csrc/periodic_force.cu`` on CUDA tensors, ``sweep_reference`` on CPU
-   tensors: a CUDA tensor launches the kernel or raises);
+1. the sweep over all pairs with the index band ``|i - j| <= D`` masked:
+   half-summed energy rows and forces (``csrc/periodic_force.cu`` on CUDA
+   tensors, ``sweep_reference`` on CPU tensors: a CUDA tensor launches the
+   kernel or raises). The kernel takes each unordered pair once, in blocks
+   (row tile, column tile >= row tile) of ``PERIODIC_TILE`` atoms: its warps
+   walk 32 x 32 patches, compact the pairs inside the cutoff onto full
+   warps before the pair term, and write each block's sums to a slot
+   scratch (``periodic_scratch``: R x ceil(N / 128) x N slots of 16 bytes,
+   5.6 MB at R = 8, N = 2,315; refused past a quarter of the card's
+   memory), which a second kernel adds in slot order, so two launches give
+   the same bits. It is bound by instructions: every candidate pair's
+   minimum image and r^2, and the pair term of the ~12% inside the cutoff;
 2. the band add-back and the far-pair correction from the pair lists
    (``PairListCorrection``): every band pair at its wanted, scaled value,
    1-4 pairs as uncut bare Coulomb x ``scale_elec``, excluded pairs an
@@ -20,10 +28,10 @@ evaluation is
 
 ``PairPhysics``, ``pair_terms`` and ``PairListCorrection`` are shared with
 the cell-list path (``md/cell_force.py``), which runs the same physics
-over 27-cell neighbourhoods.
+over the cells' half shell.
 
-Pair arithmetic in the kernel is float32; energy rows accumulate in
-float64 (the Coulomb terms of a water box cancel to ~1e-3 of their
+Pair arithmetic in the kernel is float32; energy rows are summed in float64
+past a patch (the Coulomb terms of a water box cancel to ~1e-3 of their
 magnitudes) and the plain twin evaluates in float64 outright, as the
 reference the kernel is held to. Energies come back as float32.
 ``launches`` counts kernel launches.
@@ -51,6 +59,9 @@ _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 #: kernel launches made by this process (chip_smoke.py resets and reads it)
 launches = {"periodic_force": 0}
 
+#: atoms a tile of the kernel's blocks (``csrc/periodic_force.cu`` kTile)
+PERIODIC_TILE = 128
+
 _configured = False
 
 
@@ -59,7 +70,7 @@ def _library() -> ctypes.CDLL:
     lib = _kernels.library()
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pmarlo_periodic_force.argtypes = [p, p, i, i, i, p, p, p, p, p]
+        lib.pmarlo_periodic_force.argtypes = [p, p, i, i, i, p, p, p, p, p, p]
         lib.pmarlo_periodic_force.restype = i
         _configured = True
     return lib
@@ -301,10 +312,13 @@ class PeriodicForce:
 
     def sweep_reference(self, x: torch.Tensor):
         """``(e_rows (R, N) float64, forces (R, N, 3))`` of the band-masked
-        sweep (twin of ``periodic_force_kernel``), row-chunked. The
-        minimum-image displacement and r^2 are float32, computed as the
-        kernel computes them, so both cut the same pairs (the force jumps
-        at the cutoff); the pair terms are evaluated in float64."""
+        sweep (twin of ``periodic_force_kernel``), row-chunked over ordered
+        pairs. The minimum-image displacement and r^2 are float32, computed
+        as the kernel computes them, so both cut the same pairs (the force
+        jumps at the cutoff): the minimum image is an exact negation, so the
+        kernel, which takes each unordered pair once in one orientation,
+        decides each pair on the same r^2 as both of its ordered rows here.
+        The pair terms are evaluated in float64."""
         x = self._batch(x)
         n = x.shape[1]
         q, sig, seps = (row.double() for row in self._atom_p)
@@ -335,14 +349,17 @@ class PeriodicForce:
             raise RuntimeError(f"periodic_force runs on CUDA tensors, got {x.device}")
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise TypeError("periodic_force takes contiguous float32 tensors")
-        lib = _library()
         R, n = x.shape[0], x.shape[1]
+        shape, need = periodic_scratch(R, n)
+        refuse_scratch("periodic_force", need, x.device, R, n)
+        lib = _library()
         e_rows = torch.empty((R, n), dtype=torch.float64, device=x.device)
         forces = torch.empty_like(x)
+        slots = torch.empty(shape, dtype=torch.float32, device=x.device)
         phys, _ = self.phys.kernel_args()
         rc = lib.pmarlo_periodic_force(
             x.data_ptr(), self._atom_p.data_ptr(), R, n, self.band_D, self._box, phys,
-            e_rows.data_ptr(), forces.data_ptr(),
+            e_rows.data_ptr(), forces.data_ptr(), slots.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         _kernels.check_launch(rc, "periodic_force")
@@ -376,6 +393,25 @@ class PeriodicForce:
         return self._evaluate(x, self.sweep_reference)
 
 
+def periodic_scratch(R: int, n: int):
+    """``(shape, bytes)`` of the dense kernel's float32 slot scratch for R
+    replicas of n atoms: ceil(n / 128) slots an atom of a float4 (force,
+    energy half-sum), 5.6 MB at R = 8, n = 2,315."""
+    shape = (R, -(-n // PERIODIC_TILE), n, 4)
+    return shape, 4 * math.prod(shape)
+
+
+def refuse_scratch(name: str, need: int, device: torch.device, R: int, n: int) -> None:
+    """Raise ``ValueError`` when a sweep's scratch of ``need`` bytes exceeds
+    a quarter of the card's memory."""
+    limit = torch.cuda.get_device_properties(device).total_memory // 4
+    if need > limit:
+        raise ValueError(
+            f"{name}: the sweep's slot scratch for R={R}, N={n} takes "
+            f"{need / 2**30:.1f} GiB, more than a quarter of the card's memory "
+            f"({limit / 2**30:.1f} GiB); evaluate fewer replicas a call")
+
+
 def atom_rows(system: System) -> torch.Tensor:
     """The sweeps' per-atom table ``(3, N)`` float32: charge, sigma and
     sqrt(epsilon) (the Lorentz-Berthelot mean is then a product)."""
@@ -390,7 +426,7 @@ def build_periodic_force_fn(system: System, *, tile: int = 128,
     """The dense periodic force function of ``system`` (tensors on
     ``system.device``), as ``pallas_periodic.build_periodic_force_fn``
     builds it. ``tile`` is the row chunk of the plain twin (its memory is
-    O(tile * N)); the kernel's block shape is fixed in
+    O(tile * N)); the kernel's blocks are ``PERIODIC_TILE`` atoms, fixed in
     ``csrc/periodic_force.cu``. ``band`` overrides the exclusion band built
     from the system (``ExclusionBand.from_numpy`` carries JAX's). The
     system needs no (N, N) scale matrices."""
@@ -398,6 +434,7 @@ def build_periodic_force_fn(system: System, *, tile: int = 128,
 
 
 __all__ = [
-    "PairListCorrection", "PairPhysics", "PeriodicForce", "atom_rows",
+    "PERIODIC_TILE", "PairListCorrection", "PairPhysics", "PeriodicForce", "atom_rows",
     "build_periodic_force_fn", "cutoff_mask", "launches", "make_min_image", "pair_terms",
+    "periodic_scratch", "refuse_scratch",
 ]
