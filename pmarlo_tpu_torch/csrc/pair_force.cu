@@ -70,29 +70,53 @@
 //   same).
 //
 // Culled sweeps (pair_born_culled_kernel, pair_energy_culled_kernel,
-// pair_force_culled_kernel): row-owned, every ordered pair, IEEE special
-// functions in the Born and energy sweeps (gb_pair.cuh, pair_common.cuh).
-// - grid (row tiles of kRows, replicas); a CTA owns kRows row atoms and has
-//   kRows x kSplit threads: thread (tx, ty) owns row atom tx and the
-//   columns ty, ty + kSplit, ... of each staged column tile. The kSplit
-//   partial sums of a row are added in a fixed order at the end, through
-//   shared memory, so a launch is bit-reproducible (no atomics).
+// pair_force_culled_kernel): row-owned, every ordered pair, no atomics, so
+// a launch is bit-reproducible (the Newton sweeps of pair_newton.cu take
+// each pair once and add with atomics). IEEE special functions in the Born
+// and energy sweeps (gb_pair.cuh, pair_common.cuh).
 // - atoms are stored in tiles of `tile` atoms (a Morton order makes them
 //   compact); the wrapper computes each tile's bounding box from the live
-//   positions and the (G, G) table of tile pairs whose box gap is within
-//   the cutoff, on every call. A CTA's 32 rows lie in one row tile (tile %
-//   32 == 0); it walks the column tiles and skips one that the table
-//   excludes: every pair of a skipped tile is farther apart than the cutoff,
-//   and every pair term is cut at r > cutoff, so a skip drops exact zeros.
-//   There is no list of tiles, so nothing can overflow. The band mask keys
-//   on the atoms' original indices (`orig`), since storage order is a
-//   permutation. The pair test is r^2 + 1e-12 <= cut_r2 with r^2 free of
-//   fused multiply-adds (pair_r2.cuh) and cut_r2 the wrapper's exact
-//   threshold (the same pairs as sqrt(r^2 + 1e-12) <= cutoff, no root for a
-//   pair that is cut): the force jumps at the cutoff, and the plain version
-//   must cut the same pairs.
-// - column tiles of kThreads atoms are staged in shared memory, one atom a
-//   thread; a warp reads one column entry at a time, a broadcast.
+//   positions and the (G, G) table `close` of tile pairs whose box gap is
+//   within the cutoff, on every call. A sweep skips a column tile that its
+//   row tile's line of the table excludes: every pair of a skipped tile is
+//   farther apart than the cutoff, and every pair term is cut at r >
+//   cutoff, so a skip drops exact zeros. There is no list of tiles, so
+//   nothing can overflow. The band mask keys on the atoms' original indices
+//   (`orig`), since storage order is a permutation. The pair test is r^2 +
+//   1e-12 <= cut_r2 with r^2 free of fused multiply-adds (pair_r2.cuh) and
+//   cut_r2 the wrapper's exact threshold (the same pairs as sqrt(r^2 +
+//   1e-12) <= cutoff, no root for a pair that is cut): the force jumps at
+//   the cutoff, and the plain version must cut the same pairs.
+// - Born and energy: grid (row tiles of kRows, replicas); a CTA owns kRows
+//   row atoms (in one row tile: tile % 32 == 0) and has kRows x kSplit
+//   threads: thread (tx, ty) owns row atom tx and the columns ty, ty +
+//   kSplit, ... of each column tile the table keeps, staged in shared
+//   memory kThreads atoms at a time (a warp reads one column entry at a
+//   time, a broadcast). The kSplit partial sums of a row are added in a
+//   fixed order at the end, through shared memory.
+// - force: the Newton force sweep's walk (pair_newton.cu) made ordered. At
+//   61,824 atoms 3.9% of the pairs of the tile blocks within reach lie
+//   inside the cutoff, and the force pair function (force_pair, 143 flops
+//   and 10 special-function results) is the cost, so lanes run it only on
+//   pairs inside the cutoff. One warp an item: a 32-atom row group g and a
+//   segment s of its column groups (h = s, s + kSegments, ... in increasing
+//   order, kSegments items a row group, for warps enough to fill the card).
+//   The warp stages its 32 row atoms once and walks the column groups 32 at
+//   a time, a lane each: it takes those whose tile `close` keeps and whose
+//   box (group_boxes_kernel, pair_groups.cuh) is within the cutoff of g's
+//   box (the test of tiles_within at 32-atom groups, so a skip drops only
+//   exact zeros). In each such 32 x 32 patch the rows within the cutoff of
+//   the column group's box are found by one ballot, each is tested against
+//   the 32 columns on r^2 (a diagonal patch too: only coincident pairs are
+//   left out), and the pairs inside the cutoff are compacted by ballot into
+//   the warp's queue; every 32 of them run force_pair on a full warp, the
+//   row atom's share -W d. The queue carries across patches (the column
+//   atoms of two patches are staged), so batches stay full. A row's pairs
+//   sit in consecutive lanes of a batch: segmented shuffles add them and
+//   the segment's first lane adds the sum to the row's shared slot. Every
+//   order is fixed (column groups, rows, columns, batches), the item writes
+//   its own slot of a scratch (R, kSegments, N, 3), and dense_slots_kernel
+//   adds an atom's kSegments slots in slot order: no atomics.
 // - the GBn2 neck's (C, C) radius-class tables sit in shared memory and are
 //   indexed by the two atoms' class indices (where the TPU kernel multiplied
 //   one-hot class matrices on its matrix unit).
@@ -116,13 +140,18 @@
 
 #include "gb_force.cuh"
 #include "pair_common.cuh"
+#include "pair_groups.cuh"
 
 namespace {
 
-// the culled row-owned sweeps
+// the culled row-owned Born and energy sweeps
 constexpr int kRows = 32;                 // row atoms a CTA
 constexpr int kSplit = 8;                 // column lanes a row
 constexpr int kThreads = kRows * kSplit;  // threads a CTA = staged columns
+// the culled force sweep
+constexpr int kCulledWarps = 3;           // warps (work items) a CTA
+constexpr int kSegments = 4;              // items a row group: its column groups split by h mod 4
+constexpr int kCulledQueue = 64;          // a warp's queue: < 32 left over + 32 new
 // the dense block sweeps
 constexpr int kTile = 128;                       // atoms a tile
 constexpr int kGroups = kTile / 32;              // 32-atom groups a tile
@@ -547,68 +576,192 @@ __global__ void __launch_bounds__(kThreads) pair_energy_culled_kernel(PairArgs a
   }
 }
 
-// ---- sweep 3, culled: row-owned, F_i = -sum_j W_ij (x_i - x_j) / r ----
-__global__ void __launch_bounds__(kThreads) pair_force_culled_kernel(PairArgs a) {
-  __shared__ float4 s_col[3][kThreads];
-  __shared__ float s_red[3][kSplit][kRows];
-  extern __shared__ float s_neck[];
-  const int n = a.n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kRows + tx;
-  const int i = blockIdx.x * kRows + tx;
-  const bool own = i < n;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  if (a.use_neck) load_neck(a, s_neck, tid, kThreads);
+// ---- sweep 3, culled: the ordered walk on full warps ----
 
-  ForceAtom ai = {};
-  if (own) ai = load_force_atom(a, rbase, i);
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  const ColumnTiles tiles(a);
-  for (int t = 0; t < tiles.n_tiles; ++t) {
-    if (tiles.skip(t)) continue;
-    const int hi = tiles.hi(t);
-    for (int t0 = tiles.lo(t); t0 < hi; t0 += kThreads) {
-      __syncthreads();
-      const int j = t0 + tid;
-      if (j < hi) {
-        const ForceAtom aj = load_force_atom(a, rbase, j);
-        s_col[0][tid] = aj.p0;
-        s_col[1][tid] = aj.p1;
-        s_col[2][tid] = aj.p2;
-      }
-      __syncthreads();
-      const int cnt = min(kThreads, hi - t0);
-      if (!own) continue;
-      for (int jj = ty; jj < cnt; jj += kSplit) {
-        const ForceAtom aj = {s_col[0][jj], s_col[1][jj], s_col[2][jj]};
-        const float dx = ai.p0.x - aj.p0.x, dy = ai.p0.y - aj.p0.y, dz = ai.p0.z - aj.p0.z;
-        const float r2 = pair_r2(dx, dy, dz);
-        if (r2 <= 1e-8f) continue;
-        const float s = __fadd_rn(r2, kEps);
-        if (s > a.cut_r2) continue;
-        const float w = force_pair(a, s_neck, s, ai, aj);
-        fx -= w * dx;
-        fy -= w * dy;
-        fz -= w * dz;
-      }
+// a warp's shared memory in the culled force sweep
+struct CulledWarp {
+  float4 row[3][32];        // the row group's atoms (ForceAtom parts)
+  float4 col[2][3][32];     // the column atoms of this patch and of the one before
+  float acc[3][32];         // the row atoms' force sums
+  int queue[kCulledQueue];  // column buffer << 16 | row slot << 8 | column slot
+};
+// the warps' parts and the largest neck tables within the default 48 KB
+static_assert(kCulledWarps * sizeof(CulledWarp) +
+                  2 * sizeof(float) * kMaxClasses * kMaxClasses <= 48 * 1024,
+              "the culled force sweep's shared memory exceeds 48 KB");
+
+// A batch of queued pairs, one a lane (`valid` false: no pair), called by
+// the whole warp: each pair's force on its row atom, -(W / r) d from
+// force_pair, added over the lanes of one (patch, row) segment by a
+// segmented shuffle reduction (the queue holds a patch's pairs in row
+// order, so a row's pairs of one patch sit in consecutive lanes) and to the
+// row's sum by the segment's first lane: one writer a row at a time, no
+// atomics. A batch spans at most two patches, so a row heads at most two
+// segments; the older patch's (its pairs come first) adds first.
+__device__ __forceinline__ void culled_batch(const PairArgs& a, CulledWarp& w,
+                                             const float* s_neck, int entry, bool valid) {
+  const int lane = threadIdx.x & 31;
+  const int key = valid ? entry >> 8 : -1;   // column buffer << 8 | row slot
+  const int i = key & 0xff;
+  float f[3] = {0.0f, 0.0f, 0.0f};
+  if (valid) {
+    const int j = entry & 0xff, b = entry >> 16;
+    const ForceAtom ai = {w.row[0][i], w.row[1][i], w.row[2][i]};
+    const ForceAtom aj = {w.col[b][0][j], w.col[b][1][j], w.col[b][2][j]};
+    const float dx = ai.p0.x - aj.p0.x, dy = ai.p0.y - aj.p0.y, dz = ai.p0.z - aj.p0.z;
+    const float wr = force_pair(a, s_neck, __fadd_rn(pair_r2(dx, dy, dz), kEps), ai, aj);
+    f[0] = -wr * dx;
+    f[1] = -wr * dy;
+    f[2] = -wr * dz;
+  }
+  // each lane ends with the sum over its lane and the later lanes of its segment
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ko = __shfl_down_sync(0xffffffffu, key, off);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float o = __shfl_down_sync(0xffffffffu, f[d], off);
+      if (lane + off < 32 && ko == key) f[d] += o;
     }
   }
-  s_red[0][ty][tx] = fx;
-  s_red[1][ty][tx] = fy;
-  s_red[2][ty][tx] = fz;
+  const int key_before = __shfl_up_sync(0xffffffffu, key, 1);
+  const bool head = valid && (lane == 0 || key_before != key);
+  const bool older = (key >> 8) == (__shfl_sync(0xffffffffu, key, 0) >> 8);
+  if (head && older) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) w.acc[d][i] += f[d];
+  }
+  __syncwarp();
+  if (head && !older) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) w.acc[d][i] += f[d];
+  }
+}
+
+// One warp an item (row group g, segment s) of replica blockIdx.y: the
+// ordered pairs of g's 32 row atoms with the column groups h = s, s +
+// kSegments, ... in increasing order whose tile `close` keeps and whose box
+// is within the cutoff of g's box; their force on the row atoms to the
+// item's slot of `seg_out` (R, kSegments, N, 3).
+__global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(PairArgs a,
+                                                                            const float* boxes,
+                                                                            float* seg_out) {
+  __shared__ CulledWarp s_warp[kCulledWarps];
+  extern __shared__ float s_neck[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  if (a.use_neck) load_neck(a, s_neck, threadIdx.x, blockDim.x);
   __syncthreads();
-  if (ty == 0 && own) {
-    float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-    for (int s = 0; s < kSplit; ++s) {
-      f0 += s_red[0][s][tx];
-      f1 += s_red[1][s][tx];
-      f2 += s_red[2][s][tx];
+  const long long NG = (a.n + 31) / 32;
+  const long long item = static_cast<long long>(blockIdx.x) * kCulledWarps + warp;
+  if (item >= NG * kSegments) return;   // warp-uniform
+  const int seg = static_cast<int>(item % kSegments);
+  const long long g = item / kSegments;
+  const long long rep = blockIdx.y;
+  CulledWarp& w = s_warp[warp];
+  const size_t rbase = static_cast<size_t>(rep) * a.n;
+  const int row0 = static_cast<int>(g) * 32, n_rows = min(32, a.n - row0);
+  ForceAtom ti = {};
+  if (lane < n_rows) ti = load_force_atom(a, rbase, row0 + lane);
+  w.row[0][lane] = ti.p0;
+  w.row[1][lane] = ti.p1;
+  w.row[2][lane] = ti.p2;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) w.acc[d][lane] = 0.0f;
+  const float* rep_boxes = boxes + rep * NG * 6;
+  const uint8_t* close_row = a.close + (rep * a.n_tiles + row0 / a.tile) * a.n_tiles;
+  const int per_tile = a.tile / 32;
+  // queue state, the same in every lane: entries queued, those of them
+  // from before the current patch, and the column buffer of the patch
+  int queued = 0, carried = 0, buf = 0;
+  __syncwarp();
+  // 32 candidate column groups at a time, one a lane
+  for (long long base = seg; base < NG; base += 32LL * kSegments) {
+    const long long hl = base + static_cast<long long>(lane) * kSegments;
+    const bool take = hl < NG && close_row[hl / per_tile] &&
+                      !boxes_apart(a, rep_boxes + g * 6, rep_boxes + hl * 6);
+    unsigned groups = __ballot_sync(0xffffffffu, take);
+    while (groups) {
+      const long long h = base + static_cast<long long>(__ffs(groups) - 1) * kSegments;
+      groups &= groups - 1;
+      // queued pairs of two patches back refer to the buffer this patch
+      // overwrites: run them first, as a short batch
+      if (carried > 0) {
+        __syncwarp();
+        culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued);
+        queued = 0;
+      }
+      carried = queued;
+      const int col0 = static_cast<int>(h) * 32, n_cols = min(32, a.n - col0);
+      ForceAtom tj = {};
+      if (lane < n_cols) tj = load_force_atom(a, rbase, col0 + lane);
+      __syncwarp();
+      w.col[buf][0][lane] = tj.p0;
+      w.col[buf][1][lane] = tj.p1;
+      w.col[buf][2][lane] = tj.p2;
+      // the rows within the cutoff of the column group's box
+      unsigned rows =
+          __ballot_sync(0xffffffffu, lane < n_rows && near_box(a, ti.p0, rep_boxes + h * 6));
+      __syncwarp();
+      // each near row against the 32 columns, one column a lane; the pairs
+      // inside the cutoff go to the queue, and every 32 of them to the lanes
+      while (rows) {
+        const int i = __ffs(rows) - 1;
+        rows &= rows - 1;
+        const float4 pi = w.row[0][i];
+        const float r2 = pair_r2(pi.x - tj.p0.x, pi.y - tj.p0.y, pi.z - tj.p0.z);
+        // self and coincident pairs (r^2 <= 1e-8) are skipped
+        const bool keep = lane < n_cols && r2 > 1e-8f && __fadd_rn(r2, kEps) <= a.cut_r2;
+        const unsigned mask = __ballot_sync(0xffffffffu, keep);
+        if (keep) w.queue[queued + __popc(mask & below)] = (buf << 16) | (i << 8) | lane;
+        queued += __popc(mask);
+        if (queued >= 32) {
+          __syncwarp();
+          culled_batch(a, w, s_neck, w.queue[lane], true);
+          __syncwarp();
+          queued -= 32;
+          carried = max(carried - 32, 0);
+          if (lane < queued) w.queue[lane] = w.queue[32 + lane];
+          __syncwarp();
+        }
+      }
+      buf ^= 1;
     }
-    float* fo = a.out0 + (rbase + i) * 3;
-    fo[0] = f0;
-    fo[1] = f1;
-    fo[2] = f2;
   }
+  __syncwarp();
+  if (queued > 0) culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued);
+  __syncwarp();
+  if (lane < n_rows) {
+    float* out = seg_out + ((rep * kSegments + seg) * a.n + row0 + lane) * 3;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[d] = w.acc[d][lane];
+  }
+}
+
+// The culled force sweep: the groups' boxes, the walk into per-segment
+// slots, and each atom's kSegments slots added in slot order
+// (dense_slots_kernel); `a.slots` is the scratch of
+// pmarlo_pair_culled_force_scratch floats.
+int launch_culled_force(PairArgs a, int n_replicas, size_t neck, cudaStream_t s) {
+  if (a.slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long NG = (a.n + 31) / 32;
+  const long long ctas = (NG * kSegments + kCulledWarps - 1) / kCulledWarps;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  float* boxes = static_cast<float*>(a.slots);
+  float* seg_out = boxes + n_replicas * NG * 6;
+  group_boxes_kernel<<<static_cast<unsigned>((n_replicas * NG * 32 + 255) / 256), 256, 0, s>>>(
+      a, boxes, n_replicas);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_force_culled_kernel<<<dim3(static_cast<unsigned>(ctas), n_replicas), 32 * kCulledWarps, neck,
+                             s>>>(a, boxes, seg_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  PairArgs b = a;
+  b.slots = seg_out;
+  b.n_tiles = kSegments;
+  dense_slots_kernel<ForceSweep><<<dim3((a.n + 255) / 256, n_replicas), 256, 0, s>>>(b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the block sweep `kernel` of Sweep and its slot sum, on tiles of kTile atoms
@@ -653,14 +806,13 @@ int launch(int sweep, int mode, const PairArgs& a, int n_replicas, void* stream)
       a.orig == nullptr || !a.has_cut) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (sweep == kForce) return launch_culled_force(a, n_replicas, neck, s);
   const dim3 grid((a.n + kRows - 1) / kRows, n_replicas);
   const dim3 block(kRows, kSplit);
   if (sweep == kBorn) {
     pair_born_culled_kernel<<<grid, block, neck, s>>>(a);
   } else if (sweep == kEnergy) {
     pair_energy_culled_kernel<<<grid, block, 0, s>>>(a);
-  } else if (sweep == kForce) {
-    pair_force_culled_kernel<<<grid, block, neck, s>>>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -678,11 +830,22 @@ int pmarlo_pair_max_classes() { return kMaxClasses; }
 // dE/dB), 3 float32 (force)
 int pmarlo_pair_force_tile() { return kTile; }
 
+// items a row group of the culled force sweep: its per-atom slots are
+// (R, segments, N, 3) float32
+int pmarlo_pair_culled_segments() { return kSegments; }
+
+// float32 scratch of the culled force sweep (`slots`): the 32-atom groups'
+// boxes (R, ceil(N / 32), 6), then the per-segment slots (R, segments, N, 3)
+long long pmarlo_pair_culled_force_scratch(int n_replicas, int n_atoms) {
+  const long long groups = (n_atoms + 31) / 32;
+  return static_cast<long long>(n_replicas) * (groups * 6 + kSegments * 3LL * n_atoms);
+}
+
 // One sweep (`sweep`: 0 Born integral into `out0`, 1 energy rows into
 // `rows` and dE/dB into `out0`, 2 forces into `out0`) in `mode` 0 (dense;
 // needs `slots`) or 1 (tile-culled: `orig`, `close`, `tile` and `cut_r2`
-// are read). Returns cudaGetLastError() after the launch on `stream` (0 =
-// launched).
+// are read; the force sweep needs `slots`, its scratch). Returns
+// cudaGetLastError() after the launches on `stream` (0 = launched).
 int pmarlo_pair_sweep(int sweep, int mode, const float* x, const float* atom_p, const int* cls,
                       const int* orig, const float* d0c, const float* m0c, int n_classes,
                       const float* B, const float* chain, const uint8_t* close, int n_replicas,

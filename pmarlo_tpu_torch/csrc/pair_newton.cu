@@ -25,9 +25,9 @@
 //   blocks that the wrapper's `close` table keeps (tile pairs whose boxes
 //   are within the cutoff, from the live positions; null without a cutoff:
 //   every block), less those whose two groups' bounding boxes are farther
-//   apart than the cutoff. newton_group_boxes_kernel computes the boxes,
-//   newton_patch_list_kernel writes the patches that pass, warp by warp
-//   (ballot, one atomic add a warp), and their count beside them. The test
+//   apart than the cutoff. group_boxes_kernel (pair_groups.cuh) computes
+//   the boxes, newton_patch_list_kernel writes the patches that pass, warp
+//   by warp (ballot, one atomic add a warp), and their count beside them. The test
 //   on the boxes is tiles_within's (md/pair_force.py) at 32-atom tiles, so a
 //   patch left out holds no pair inside the cutoff. At 24,840 atoms 39% of
 //   the patches of the kept blocks pass it. The list's room is the whole
@@ -84,6 +84,7 @@
 
 #include "gb_force.cuh"
 #include "pair_common.cuh"
+#include "pair_groups.cuh"
 
 namespace {
 
@@ -110,47 +111,6 @@ __device__ void append_kept(unsigned long long* work, long long total, Keep keep
     if (lane == 0 && mask) first = atomicAdd(work, static_cast<unsigned long long>(__popc(mask)));
     first = __shfl_sync(0xffffffffu, first, 0);
     if (take) work[2 + first + __popc(mask & ((1u << lane) - 1u))] = code(idx);
-  }
-}
-
-// true when two boxes (lo xyz, hi xyz) are farther apart than the cutoff,
-// tested as tiles_within (md/pair_force.py) tests tiles: the per-axis gap is
-// no larger than any pair's |dx| and every later operation is monotonic, so
-// no pair of the two boxes lies inside the cutoff
-__device__ __forceinline__ bool boxes_apart(const PairArgs& a, const float* bg, const float* bh) {
-  const float gx = fmaxf(fmaxf(bg[0] - bh[3], bh[0] - bg[3]), 0.0f);
-  const float gy = fmaxf(fmaxf(bg[1] - bh[4], bh[1] - bg[4]), 0.0f);
-  const float gz = fmaxf(fmaxf(bg[2] - bh[5], bh[2] - bg[5]), 0.0f);
-  return __fadd_rn(pair_r2(gx, gy, gz), kEps) > a.cut_r2;
-}
-
-// The bounding box (lo xyz, hi xyz) of each 32-atom group of each replica
-// into boxes (R, NG, 6): a warp a group.
-__global__ void newton_group_boxes_kernel(PairArgs a, float* boxes, int n_replicas) {
-  const long long NG = (a.n + 31) / 32;
-  const long long group = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (group >= n_replicas * NG) return;   // the same in the whole warp
-  const int lane = threadIdx.x & 31;
-  const long long atom = (group % NG) * 32 + lane;
-  const bool ok = atom < a.n;
-  const float* x = a.x + ((group / NG) * a.n + (ok ? atom : 0)) * 3;
-  float lo[3], hi[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    lo[d] = ok ? x[d] : __int_as_float(0x7f800000);
-    hi[d] = ok ? x[d] : -__int_as_float(0x7f800000);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo[d] = fminf(lo[d], __shfl_xor_sync(0xffffffffu, lo[d], off));
-      hi[d] = fmaxf(hi[d], __shfl_xor_sync(0xffffffffu, hi[d], off));
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      boxes[group * 6 + d] = lo[d];
-      boxes[group * 6 + 3 + d] = hi[d];
-    }
   }
 }
 
@@ -342,11 +302,7 @@ __device__ __forceinline__ void patch(const PairArgs& a, const float* boxes,
   // boxes_apart tests two boxes): a row beyond it has no pair in the patch
   bool near = lane < n_rows;
   if (a.has_cut && near) {
-    const float* bh = boxes + (static_cast<size_t>(rep) * ((a.n + 31) / 32) + h) * 6;
-    const float gx = fmaxf(fmaxf(bh[0] - ti.p0.x, ti.p0.x - bh[3]), 0.0f);
-    const float gy = fmaxf(fmaxf(bh[1] - ti.p0.y, ti.p0.y - bh[4]), 0.0f);
-    const float gz = fmaxf(fmaxf(bh[2] - ti.p0.z, ti.p0.z - bh[5]), 0.0f);
-    near = __fadd_rn(pair_r2(gx, gy, gz), kEps) <= a.cut_r2;
+    near = near_box(a, ti.p0, boxes + (static_cast<size_t>(rep) * ((a.n + 31) / 32) + h) * 6);
   }
   unsigned rows = __ballot_sync(0xffffffffu, near);
   // each near row against the 32 columns, one column a lane; the pairs
@@ -567,8 +523,8 @@ int pmarlo_pair_newton_list(const float* x, const uint8_t* close, int n_replicas
   const long long NG = (n_atoms + 31) / 32;
   float* boxes = list_boxes(work, n_replicas, n_atoms);
   if (has_cut) {
-    newton_group_boxes_kernel<<<static_cast<unsigned>((n_replicas * NG * 32 + 255) / 256), 256, 0,
-                                s>>>(a, boxes, n_replicas);
+    group_boxes_kernel<<<static_cast<unsigned>((n_replicas * NG * 32 + 255) / 256), 256, 0, s>>>(
+        a, boxes, n_replicas);
   }
   newton_patch_list_kernel<<<list_ctas(n_replicas * NG * NG), 256, 0, s>>>(a, boxes, n_replicas);
   return static_cast<int>(cudaGetLastError());

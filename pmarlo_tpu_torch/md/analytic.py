@@ -190,20 +190,20 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
-def _bond_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
+def bond_terms(p, x):
+    """Each bond's energy ``(..., NB)`` and the force on its atoms 0 and 1,
+    ``(..., NB, 3)`` each."""
     x1 = x[..., p.bond_idx[:, 0], :]
     x2 = x[..., p.bond_idx[:, 1], :]
     d = x1 - x2
     r = torch.sqrt(_dot(d, d) + _EPS)
     dr = r - p.bond_r0
-    energy = (0.5 * p.bond_k * dr * dr).sum(-1, dtype=energy_dtype)
     f1 = -(p.bond_k * dr / r)[..., None] * d
-    forces.index_add_(-2, p.bond_idx[:, 0], f1)
-    forces.index_add_(-2, p.bond_idx[:, 1], -f1)
-    return energy
+    return 0.5 * p.bond_k * dr * dr, (f1, -f1)
 
 
-def _angle_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
+def angle_terms(p, x):
+    """Each angle's energy ``(..., NA)`` and the force on its atoms 0-2."""
     xi = x[..., p.angle_idx[:, 0], :]
     xj = x[..., p.angle_idx[:, 1], :]
     xk = x[..., p.angle_idx[:, 2], :]
@@ -217,19 +217,16 @@ def _angle_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     theta = torch.arccos(cos_t)
     sin_t = torch.sqrt(1.0 - cos_t * cos_t)
     dE = p.angle_k * (theta - p.angle_t0)              # dE/dtheta
-    energy = (0.5 * p.angle_k * (theta - p.angle_t0) ** 2).sum(-1, dtype=energy_dtype)
     # dtheta/dxi = (cos*nu - nw) / (lu sin); symmetric for xk
     gi = (cos_t[..., None] * nu - nw) / (lu * sin_t)[..., None]
     gk = (cos_t[..., None] * nw - nu) / (lw * sin_t)[..., None]
     fi = -dE[..., None] * gi
     fk = -dE[..., None] * gk
-    forces.index_add_(-2, p.angle_idx[:, 0], fi)
-    forces.index_add_(-2, p.angle_idx[:, 1], -(fi + fk))
-    forces.index_add_(-2, p.angle_idx[:, 2], fk)
-    return energy
+    return 0.5 * p.angle_k * (theta - p.angle_t0) ** 2, (fi, -(fi + fk), fk)
 
 
-def _torsion_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
+def torsion_terms(p, x):
+    """Each torsion's energy ``(..., NT)`` and the force on its atoms 0-3."""
     x1 = x[..., p.tor_idx[:, 0], :]
     x2 = x[..., p.tor_idx[:, 1], :]
     x3 = x[..., p.tor_idx[:, 2], :]
@@ -247,7 +244,6 @@ def _torsion_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     xx = _dot(m, n)
     phi = torch.atan2(yy, xx)
     arg = p.tor_n * phi - p.tor_phase
-    energy = (p.tor_k * (1.0 + torch.cos(arg))).sum(-1, dtype=energy_dtype)
     dE = -p.tor_k * p.tor_n * torch.sin(arg)           # dE/dphi
     # dphi/dx for this sign: d1 = -(|b2|/|m|^2) m ; d4 = (|b2|/|n|^2) n ;
     # d2 = -(1+s12) d1 + s32 d4 ; d3 = s12 d1 - (1+s32) d4
@@ -258,11 +254,12 @@ def _torsion_energy_forces(p: DenseParams, x, forces, energy_dtype=None):
     d2 = -(1.0 + s12) * d1 + s32 * d4
     d3 = s12 * d1 - (1.0 + s32) * d4
     c = -dE[..., None]
-    forces.index_add_(-2, p.tor_idx[:, 0], c * d1)
-    forces.index_add_(-2, p.tor_idx[:, 1], c * d2)
-    forces.index_add_(-2, p.tor_idx[:, 2], c * d3)
-    forces.index_add_(-2, p.tor_idx[:, 3], c * d4)
-    return energy
+    return p.tor_k * (1.0 + torch.cos(arg)), (c * d1, c * d2, c * d3, c * d4)
+
+
+#: each bonded term type's function and its (terms, atoms) index table
+_TERM_TYPES = ((bond_terms, "bond_idx"), (angle_terms, "angle_idx"),
+               (torsion_terms, "tor_idx"))
 
 
 def bonded_energy_and_forces(p, x: torch.Tensor, energy_dtype=None):
@@ -270,11 +267,12 @@ def bonded_energy_and_forces(p, x: torch.Tensor, energy_dtype=None):
     (``p``: ``BondedParams`` or ``DenseParams``); ``energy_dtype`` is the
     type the energies are summed in (default: that of ``x``)."""
     forces = torch.zeros_like(x)
-    energy = (
-        _bond_energy_forces(p, x, forces, energy_dtype)
-        + _angle_energy_forces(p, x, forces, energy_dtype)
-        + _torsion_energy_forces(p, x, forces, energy_dtype)
-    )
+    energy = 0.0
+    for terms, idx in _TERM_TYPES:
+        e, role_forces = terms(p, x)
+        energy = energy + e.sum(-1, dtype=energy_dtype)
+        for k, f in enumerate(role_forces):
+            forces.index_add_(-2, getattr(p, idx)[:, k], f)
     return energy, forces
 
 

@@ -10,11 +10,12 @@ gather path (``fn.far_terms`` is 0); arccos and atan2 are the hardware's,
 so torsions take any periodicity and phase, in the IUPAC sign of
 ``forces.dihedral_angles``.
 
-On CUDA tensors ``fn`` launches ``csrc/bonded.cu`` (one thread an atom
-walking a per-atom CSR of the terms that touch it: row-owned gradient, no
-atomics, float64 energy partials a CTA) or raises; on CPU tensors it runs
-the plain version, ``md/analytic.py bonded_energy_and_forces``.
-``launches`` counts kernel launches.
+On CUDA tensors ``fn`` launches ``csrc/bonded.cu`` or raises: a term pass
+(one thread a term, every role's gradient to the incidence's slot in the
+per-atom CSR, float64 energy partials a CTA) and an atom pass (each atom's
+slots added in CSR order); no atomics. On CPU tensors it runs the plain
+version, ``md/analytic.py bonded_energy_and_forces``. ``launches`` counts
+calls that launched the kernel, one an evaluation.
 """
 
 from __future__ import annotations
@@ -40,19 +41,17 @@ def _library() -> ctypes.CDLL:
     lib = _kernels.library()
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pmarlo_bonded.argtypes = [p] * 9 + [i, i, p, p, p]
+        lib.pmarlo_bonded.argtypes = [p] * 7 + [i, i, i, p, p, i, i, p, p, p, p]
         lib.pmarlo_bonded.restype = i
-        lib.pmarlo_bonded_blocks.argtypes = [i]
+        lib.pmarlo_bonded_blocks.argtypes = [i, i, i]
         lib.pmarlo_bonded_blocks.restype = i
         _configured = True
     return lib
 
 
-def bonded_csr(bond_idx, angle_idx, torsion_idx, n_atoms: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-atom incidence lists of bonded terms: ``ptr (N + 1,)`` and
-    ``entries (M, 2)`` of ``(type << 2 | role, term)``, type 0 bond, 1 angle,
-    2 torsion, role = the atom's position in the term. An atom's entries are
-    ordered by type, then term, then role, so its sum has a fixed order."""
+def _incidences(bond_idx, angle_idx, torsion_idx):
+    """Atoms, codes ``type << 2 | role`` and terms of every (term, role)
+    incidence, type-major (bonds, angles, torsions), then term, then role."""
     atoms, codes, terms = [], [], []
     for ttype, idx in enumerate((bond_idx, angle_idx, torsion_idx)):
         idx = np.asarray(idx, np.int64).reshape(-1, ttype + 2)
@@ -60,12 +59,41 @@ def bonded_csr(bond_idx, angle_idx, torsion_idx, n_atoms: int) -> Tuple[np.ndarr
         atoms.append(idx.reshape(-1))
         codes.append(np.tile(ttype << 2 | np.arange(width), n_terms))
         terms.append(np.repeat(np.arange(n_terms), width))
-    atoms = np.concatenate(atoms)
-    order = np.argsort(atoms, kind="stable")
+    return np.concatenate(atoms), np.concatenate(codes), np.concatenate(terms)
+
+
+def _csr_order(atoms: np.ndarray, n_atoms: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``ptr (N + 1,)`` of the per-atom CSR and the stable order that puts
+    the incidences of ``atoms`` into it."""
     ptr = np.zeros(n_atoms + 1, dtype=np.int32)
     ptr[1:] = np.cumsum(np.bincount(atoms, minlength=n_atoms))
-    ent = np.stack([np.concatenate(codes)[order], np.concatenate(terms)[order]], 1)
+    return ptr, np.argsort(atoms, kind="stable")
+
+
+def bonded_csr(bond_idx, angle_idx, torsion_idx, n_atoms: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-atom incidence lists of bonded terms: ``ptr (N + 1,)`` and
+    ``entries (M, 2)`` of ``(type << 2 | role, term)``, type 0 bond, 1 angle,
+    2 torsion, role = the atom's position in the term. An atom's entries are
+    ordered by type, then term, then role, so its sum has a fixed order."""
+    atoms, codes, terms = _incidences(bond_idx, angle_idx, torsion_idx)
+    ptr, order = _csr_order(atoms, n_atoms)
+    ent = np.stack([codes[order], terms[order]], 1)
     return ptr, ent.astype(np.int32).reshape(-1, 2)
+
+
+def bonded_slots(bond_idx, angle_idx, torsion_idx,
+                 n_atoms: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``bonded_csr``'s ``ptr`` and ``slot (M,)`` int32: the position in its
+    entries of each (term, role) incidence, incidences type-major, then
+    term, then role (bond b's role k is incidence 2 b + k, angle a's
+    2 NB + 3 a + k, torsion t's 2 NB + 3 NA + 4 t + k). The kernel's term
+    pass writes role k's gradient there, so that each atom's range holds
+    its shares."""
+    atoms, _, _ = _incidences(bond_idx, angle_idx, torsion_idx)
+    ptr, order = _csr_order(atoms, n_atoms)
+    slot = np.empty(atoms.shape[0], dtype=np.int32)
+    slot[order] = np.arange(atoms.shape[0], dtype=np.int32)
+    return ptr, slot
 
 
 class BondedKernel:
@@ -87,10 +115,15 @@ class BondedKernel:
         self._angle_p = torch.stack([p.angle_k, p.angle_t0], 1).contiguous()
         self._tors_i = system.torsion_idx.to(torch.int32).contiguous()
         self._tors_p = torch.stack([p.tor_k, p.tor_n, p.tor_phase], 1).contiguous()
-        ptr, ent = bonded_csr(system.bond_idx.cpu().numpy(), system.angle_idx.cpu().numpy(),
-                              system.torsion_idx.cpu().numpy(), system.n_atoms)
+        tables = [t.cpu().numpy() for t in (system.bond_idx, system.angle_idx,
+                                             system.torsion_idx)]
+        self._counts = tuple(int(t.shape[0]) for t in tables)
+        ptr, slot = bonded_slots(*tables, system.n_atoms)
         self._csr_ptr = torch.as_tensor(ptr, device=dev)
-        self._csr_ent = torch.as_tensor(ent, device=dev).contiguous()
+        self._slot_of = torch.as_tensor(slot, device=dev)
+        #: (term, role) incidences: the rows of the kernel's slot scratch
+        self.incidences = int(self._slot_of.shape[0])
+        self._blocks = None
 
     def reference(self, x: torch.Tensor, energy_dtype=None):
         """The plain version on any device."""
@@ -106,19 +139,22 @@ class BondedKernel:
         xb = x.reshape(-1, n, 3).contiguous()
         lib = _library()
         R = xb.shape[0]
+        if self._blocks is None:
+            self._blocks = lib.pmarlo_bonded_blocks(*self._counts)
+        slots = torch.empty((R, self.incidences, 4), dtype=torch.float32, device=x.device)
         grad = torch.empty_like(xb)
-        partial = torch.empty((R, lib.pmarlo_bonded_blocks(n)), dtype=torch.float64,
-                              device=x.device)
+        # each term-pass CTA's energy, then their sum
+        partial = torch.empty((R, self._blocks + 1), dtype=torch.float64, device=x.device)
         rc = lib.pmarlo_bonded(
             xb.data_ptr(), self._bond_i.data_ptr(), self._bond_p.data_ptr(),
             self._angle_i.data_ptr(), self._angle_p.data_ptr(), self._tors_i.data_ptr(),
-            self._tors_p.data_ptr(), self._csr_ptr.data_ptr(), self._csr_ent.data_ptr(),
-            R, n, grad.data_ptr(), partial.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            self._tors_p.data_ptr(), *self._counts, self._slot_of.data_ptr(),
+            self._csr_ptr.data_ptr(), R, n, slots.data_ptr(), grad.data_ptr(),
+            partial.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )
         _kernels.check_launch(rc, "bonded")
         launches["bonded"] += 1
-        energy = partial.sum(-1).to(energy_dtype or x.dtype)
+        energy = partial[:, -1].to(energy_dtype or x.dtype)
         return energy.reshape(x.shape[:-2]), grad.reshape(x.shape)
 
     def __call__(self, x: torch.Tensor, energy_dtype=None):
@@ -141,4 +177,4 @@ def build_bonded_window(system: System) -> Optional[BondedKernel]:
     return BondedKernel(system)
 
 
-__all__ = ["BondedKernel", "bonded_csr", "build_bonded_window", "launches"]
+__all__ = ["BondedKernel", "bonded_csr", "bonded_slots", "build_bonded_window", "launches"]

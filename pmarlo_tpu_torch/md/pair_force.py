@@ -29,7 +29,10 @@ the same sums:
   bits from every launch);
 - culled (``gb_cutoff``, ``newton=False``): row-owned kernels of the same
   file, every ordered pair, walking only the column tiles within reach of
-  the row tile;
+  the row tile, bit-reproducible; the force sweep walks the 32 x 32 atom
+  patches within reach a warp a row group, compacts the pairs inside the
+  cutoff onto full warps and adds per-segment sums in a fixed order
+  (``culled_force_scratch``);
 - Newton (``newton=True``, the default with ``gb_cutoff``):
   ``csrc/pair_newton.cu``, each unordered pair once, results to both atoms
   (atomic adds: the last bits change from run to run), over a list of the
@@ -119,18 +122,22 @@ def _library() -> ctypes.CDLL:
             [i, p, p, p, p, p, p, i, p, p, i, i, i, f, f, f, i, i, i, p, p, p, p])
         # x, close, R, n, tile, cutoff_r2, has_cut, work, stream
         lib.pmarlo_pair_newton_list.argtypes = [p, p, i, i, i, f, i, p, p]
-        sizes = (lib.pmarlo_pair_max_classes, lib.pmarlo_pair_force_tile)
+        sizes = (lib.pmarlo_pair_max_classes, lib.pmarlo_pair_force_tile,
+                 lib.pmarlo_pair_culled_segments)
         for fn in (lib.pmarlo_pair_sweep, lib.pmarlo_pair_newton_sweep,
                    lib.pmarlo_pair_newton_list, *sizes):
             fn.restype = i
         for fn in sizes:
             fn.argtypes = []
-        lib.pmarlo_pair_newton_work_size.argtypes = [i, i]
-        lib.pmarlo_pair_newton_work_size.restype = ctypes.c_longlong
+        for fn in (lib.pmarlo_pair_newton_work_size, lib.pmarlo_pair_culled_force_scratch):
+            fn.argtypes = [i, i]
+            fn.restype = ctypes.c_longlong
         if lib.pmarlo_pair_max_classes() != MAX_CLASSES:
             raise RuntimeError("kernel library and wrapper disagree on MAX_CLASSES")
         if lib.pmarlo_pair_force_tile() != FORCE_TILE:
             raise RuntimeError("kernel library and wrapper disagree on FORCE_TILE")
+        if lib.pmarlo_pair_culled_segments() != CULLED_SEGMENTS:
+            raise RuntimeError("kernel library and wrapper disagree on CULLED_SEGMENTS")
         _configured = True
     return lib
 
@@ -146,6 +153,19 @@ FORCE_TILE = 128
 #: (R, ceil(N / FORCE_TILE), N, *components) (csrc/pair_force.cu)
 _DENSE_SLOTS = {"born": ((), torch.float64), "energy": ((2,), torch.float64),
                "force": ((3,), torch.float32)}
+
+
+#: work items a 32-atom row group of the culled force kernel: its column
+#: groups h split by h mod CULLED_SEGMENTS, each item's sums to its own slot
+CULLED_SEGMENTS = 4
+
+
+def culled_force_scratch(R: int, n: int) -> int:
+    """float32 entries of the culled force kernel's scratch for R replicas
+    of n atoms: the 32-atom groups' boxes ``(R, ceil(n / 32), 6)``, then the
+    per-segment slots ``(R, CULLED_SEGMENTS, n, 3)`` (3 MB at R = 1, n =
+    61,824)."""
+    return R * (-(-n // 32) * 6 + CULLED_SEGMENTS * n * 3)
 
 
 def dense_scratch(sweep: str, R: int, n: int) -> Tuple[tuple, torch.dtype, int]:
@@ -798,11 +818,15 @@ class PairForce:
                                               patches.data_ptr(), stream)
         else:
             close = self._close_table(name, x, close)
-            # the dense sweeps' per-slot partials (dense_scratch)
+            # the dense sweeps' per-slot partials (dense_scratch), the
+            # culled force sweep's boxes and slots (culled_force_scratch)
             slots = None
             if self.mode == "dense":
                 shape, dtype, _ = dense_scratch(sweep, R, n)
                 slots = torch.empty(shape, dtype=dtype, device=x.device)
+            elif sweep == "force":
+                slots = torch.empty(culled_force_scratch(R, n), dtype=torch.float32,
+                                    device=x.device)
             rc = lib.pmarlo_pair_sweep(code, _MODES.index(self.mode), *atoms, ptr(close), R, n,
                                        self.tile, *terms, *flags, ptr(slots), stream)
         _kernels.check_launch(rc, name)
@@ -998,5 +1022,5 @@ def build_pair_force_fn(
 
 
 __all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
-           "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "MAX_CLASSES",
-           "FORCE_TILE"]
+           "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "culled_force_scratch",
+           "MAX_CLASSES", "FORCE_TILE", "CULLED_SEGMENTS"]
