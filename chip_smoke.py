@@ -9,9 +9,9 @@ Phases, one line of numbers each:
              nvcc a source, all started together; the registers and spills
              ptxas reports for the four fused kernels, the three dense GB
              block kernels (``pair_born_kernel``, ``pair_energy_kernel``,
-             ``pair_force_kernel``), the three Newton kernels, the ordered
-             culled force kernel and the bonded kernel's two passes
-             (``pair_force_culled_kernel``, ``bonded_term_kernel``,
+             ``pair_force_kernel``), the three Newton kernels, the three
+             ordered culled kernels (``pair_{born,energy,force}_culled_kernel``),
+             the bonded kernel's two passes (``bonded_term_kernel``,
              ``bonded_atom_kernel``) and the explicit-solvent kernels
              (``periodic_force_kernel``, ``cell_force_kernel``,
              ``periodic_slots_kernel``, ``cell_pack_kernel``) (no spill
@@ -131,10 +131,11 @@ Phases, one line of numbers each:
              the six sweeps and the bonded kernel against their plain
              versions at this width, at the positions the run arrived at
              (the ``kernels`` line takes their errors, times and bounds from
-             here), the bonded kernel and the ordered force sweep alone (a
-             CUDA graph of 50 calls) beside a call, the ordered force
-             sweep's walk (patches, pairs queued, pairs a batch), and ms of
-             the patch list's build. Two temperatures
+             here), the bonded kernel and the three ordered sweeps alone (a
+             CUDA graph of 50 calls) beside a call and each twice bitwise
+             equal, the ordered sweeps' walk replayed on the host (patches,
+             pairs queued, pairs a batch), and ms of the patch list's build.
+             Two temperatures
              are printed: ``run_md``'s reported one over the second half,
              which at 4 fs settles ~12% under the target, and the state's
              mid-step one, which is gated to [0.9, 1.1] at 3.2 and 4.2 ps
@@ -145,7 +146,7 @@ Then a summary line that repeats the headline numbers of phases 1,
 times before their redesign (the one-thread-an-atom fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
-kernel and the row-owned culled force sweep) copied from PERF.md
+kernel and the row-owned culled sweeps) copied from PERF.md
 (for comparison; not measured here), one JSON line of the kernels, and the last line
 ``{"ok": true, "device": {...}}``. A failed check raises and the script
 exits non-zero without that line. It needs a CUDA card and
@@ -230,8 +231,8 @@ FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_ke
 # sweeps, the Newton Born and energy sweeps' block walk and the row-owned
 # periodic and cell sweeps, copied from PERF.md section 6 (not measured by
 # this script): printed on a line of their own beside the kernels line;
-# the one-pass bonded kernel and the row-owned culled force sweep, a call
-# and alone (``*_graph``: a CUDA graph of the calls), from
+# the one-pass bonded kernel and the row-owned culled sweeps, a call and
+# alone (``*_graph``: a CUDA graph of the calls), from
 # scripts/time_port_kernels.py on their last commit
 EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
@@ -240,7 +241,9 @@ EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "pair_born_newton": 0.7583, "pair_energy_newton": 0.6720,
               "periodic_force": 0.1327, "cell_force": 0.1831, "cell_force_r4": 0.6593,
               "bonded": 0.0901, "bonded_graph": 0.0805,
-              "pair_force_culled": 1.0637, "pair_force_culled_graph": 1.0627}
+              "pair_force_culled": 1.0637, "pair_force_culled_graph": 1.0627,
+              "pair_born_culled": 1.0439, "pair_born_culled_graph": 1.0465,
+              "pair_energy_culled": 0.9322, "pair_energy_culled_graph": 0.9268}
 SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
@@ -283,6 +286,7 @@ BORN_NEAR_SFU = 3
 # kernels whose registers and spills phase 1 reads and gates (no spill)
 PAIR_PTXAS_KERNELS = ("pair_born_kernel", "pair_energy_kernel", "pair_force_kernel",
                       "newton_born_kernel", "newton_energy_kernel", "newton_force_kernel",
+                      "pair_born_culled_kernel", "pair_energy_culled_kernel",
                       "pair_force_culled_kernel", "bonded_term_kernel", "bonded_atom_kernel")
 PERIODIC_PTXAS_KERNELS = ("periodic_force_kernel", "cell_force_kernel", "periodic_slots_kernel",
                           "cell_pack_kernel")
@@ -2135,8 +2139,9 @@ def _bonded_bound(system, R: int = 1) -> dict:
 
 
 def _ordered_walk(fn, xs: torch.Tensor, close: torch.Tensor, chunk: int = 512) -> dict:
-    """``pair_force_culled_kernel``'s walk at the stored positions ``xs (1,
-    N, 3)``: the 32 x 32 patches its items walk (row group g, column group h
+    """The ordered culled kernels' walk (one for the three sweeps), replayed
+    on the host at the stored positions ``xs (1, N, 3)``: the 32 x 32
+    patches its items walk (row group g, column group h
     of the item's segment, tile kept by ``close``, group boxes within the
     cutoff), the ordered pairs it queues (inside the cutoff, coincident ones
     left out), and its batches of 32, replayed item by item as the kernel
@@ -2231,7 +2236,7 @@ def phase_large_kernels() -> dict:
     out["newton_run_to_run_energy_rel"] = _rel(En2.double(), En.double())
     _check(out["newton_run_to_run_force_rel"] <= 1e-4, "Newton forces run to run")
     _check(out["newton_run_to_run_energy_rel"] <= 1e-5, "Newton energy run to run")
-    # the ordered sweeps are row-owned: the same bits from a second launch
+    # the ordered sweeps add in a fixed order: the same bits from a second launch
     xs3 = fo.to_storage(x3)
     B3, dB3 = fo.born_radii(fo.born(xs3))
     _, c3 = fo.gb_terms(B3, dB3, fo.energy_rows(xs3, B3)[1])
@@ -2442,14 +2447,17 @@ def phase_large_path() -> dict:
     for mode, f in (("newton", fn_md), ("culled", fn_ord)):
         B, c = _sweeps_vs_plain(out, mode, f, x_end, max_abs=True)
         _time_sweeps(out, mode, f, xs, B, c, close, within, near)
-    # the ordered force sweep: bit-reproducible, alone on the card, its walk
-    F1, F2 = fn_ord.pair_forces(xs, B, c, close), fn_ord.pair_forces(xs, B, c, close)
-    out["culled_force_two_launches_bitwise_equal"] = torch.equal(F1, F2)
-    _check(out["culled_force_two_launches_bitwise_equal"], "ordered force sweep reproducible")
-    out["culled_force_graph_ms"] = _graph_ms(lambda: fn_ord.pair_forces(xs, B, c, close))
-    out["culled_force_walk"] = _ordered_walk(fn_ord, xs, close)
-    _check(out["culled_force_walk"]["pairs_queued"] == within,
-           f"the ordered walk queues {out['culled_force_walk']} of {within} pairs")
+    # the ordered sweeps: bit-reproducible, alone on the card, their walk
+    for tag, sweep in (("born", lambda: (fn_ord.born(xs, close),)),
+                       ("energy", lambda: fn_ord.energy_rows(xs, B, close)),
+                       ("force", lambda: (fn_ord.pair_forces(xs, B, c, close),))):
+        same = all(torch.equal(u, v) for u, v in zip(sweep(), sweep()))
+        out[f"culled_{tag}_two_launches_bitwise_equal"] = same
+        _check(same, f"ordered {tag} sweep reproducible")
+        out[f"culled_{tag}_graph_ms"] = _graph_ms(sweep)
+    out["culled_walk_host_replay"] = _ordered_walk(fn_ord, xs, close)
+    _check(out["culled_walk_host_replay"]["pairs_queued"] == within,
+           f"the ordered walk queues {out['culled_walk_host_replay']} of {within} pairs")
     out["tile_table_ms"] = _cuda_ms(lambda: fn_ord.close_tiles(xs), 20)
     out["newton_patch_list_ms"] = _cuda_ms(lambda: fn_md.patch_list(xs, close), 20)
     bonded = fn_md._bonded_kernel
@@ -2705,8 +2713,8 @@ def main() -> None:
                                      ("energy", "dEdB_max_abs_err"),
                                      ("force", "force_max_abs_err")), lines):
             name = f"pair_{tag}_{mode}"
-            alone = ({"graph_ms": large_path["culled_force_graph_ms"]}
-                     if name == "pair_force_culled" else {})
+            alone = ({"graph_ms": large_path[f"culled_{tag}_graph_ms"]}
+                     if mode == "culled" else {})
             kernels.append({
                 "name": name, **cuda,
                 "source": ("pmarlo_tpu_torch/csrc/pair_newton.cu" if mode == "newton"
@@ -2785,8 +2793,12 @@ def main() -> None:
         "large_path": {k: large_path[k] for k in (
             "atoms", "system_build_s", "force_fn_build_s", "minimize_s", "tile_block_share",
             "ms_per_step", "ns_per_day", "eval_ms", "ordered_ms_per_step", "ordered_eval_ms",
-            "newton_born_ms", "newton_energy_ms", "newton_force_ms", "culled_force_ms",
-            "culled_force_graph_ms", "culled_force_walk", "culled_force_bound_ms",
+            "newton_born_ms", "newton_energy_ms", "newton_force_ms", "culled_born_ms",
+            "culled_born_graph_ms", "culled_born_bound_ms",
+            "culled_born_two_launches_bitwise_equal", "culled_energy_ms",
+            "culled_energy_graph_ms", "culled_energy_bound_ms",
+            "culled_energy_two_launches_bitwise_equal", "culled_force_ms",
+            "culled_force_graph_ms", "culled_walk_host_replay", "culled_force_bound_ms",
             "culled_force_two_launches_bitwise_equal", "bonded_graph_ms", "bonded_ms",
             "bonded_bound_ms", "bonded_two_launches_bitwise_equal",
             "newton_force_bound_ms", "newton_born_bound_ms", "newton_energy_bound_ms",
@@ -2799,7 +2811,7 @@ def main() -> None:
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "
           "Born and energy sweeps, the Newton Born and energy block walk, row-owned "
           "periodic and cell sweeps, the one-pass bonded kernel and the row-owned culled "
-          "force sweep), ms at the same timed shapes, copied from PERF.md, not measured here",
+          "sweeps), ms at the same timed shapes, copied from PERF.md, not measured here",
           EARLIER_MS)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

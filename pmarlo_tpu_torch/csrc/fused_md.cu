@@ -690,7 +690,7 @@ __device__ __forceinline__ RowTables row_tables(const Args& a, const Smem& s, co
   return rt;
 }
 
-// born_pair (gb_pair.cuh) with the same arithmetic and no branch: the
+// The HCT term and dH/dr (md/pair_force.py _hct) with no branch: the
 // inactive pair and the engulfed atom are chosen by selects, so that the
 // pairs of one iteration stay in one basic block and their chains overlap
 __device__ __forceinline__ void born_pair_sel(float r, float inv_r, float rho_i, float sr_j,

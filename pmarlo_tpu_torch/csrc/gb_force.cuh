@@ -4,12 +4,14 @@
 // culled sweep of pair_force.cu and the Newton sweep of pair_newton.cu, so
 // that all three compute the same pair function; and born_pair_values and
 // energy_pair, one unordered pair's Born and energy terms, for the dense
-// block sweeps of pair_force.cu and the Newton sweeps of pair_newton.cu (at
-// the end of this file).
+// block sweeps and (the row atom's share) the ordered culled sweeps of
+// pair_force.cu and the Newton sweeps of pair_newton.cu (at the end of this
+// file).
 //
-// force_pair is the derivative that born_pair, neck_pair (gb_pair.cuh), gb_f
-// and the LJ + Coulomb terms (pair_common.cuh) give, with every special
-// function a single special-function-unit result (PTX .approx,
+// force_pair is the derivative that the HCT term (md/pair_force.py _hct),
+// neck_pair (gb_pair.cuh), the GB f-function and the LJ + Coulomb terms
+// (pair_common.cuh) give, with every special function a single
+// special-function-unit result (PTX .approx,
 // flush-to-zero; the arguments are positive and far from denormal):
 //   1/r and r           rsqrt.approx, r = s * (1/r)      (s = r^2 + 1e-12)
 //   1/L, 1/U (HCT x 2)  rcp.approx
@@ -84,7 +86,7 @@ __device__ __forceinline__ ForceAtom load_force_atom(const PairArgs& a, size_t r
   return t;
 }
 
-// dH/dr of the HCT term H(r; rho_i, sr_j) (born_pair's derivative), zero for
+// dH/dr of the HCT term H(r; rho_i, sr_j) (_hct's derivative), zero for
 // an inactive pair; branch-free
 __device__ __forceinline__ float hct_dr(float r, float inv_r, float inv_r2, float rho_i,
                                         float sr_j) {
@@ -93,7 +95,7 @@ __device__ __forceinline__ float hct_dr(float r, float inv_r, float inv_r2, floa
   const float absd = fabsf(diff);
   const bool use_rho = absd < rho_i;
   const float L = use_rho ? rho_i : absd;
-  // rho_i > 0, so diff == 0 takes use_rho and dL = 0 as born_pair's sign does
+  // rho_i > 0, so diff == 0 takes use_rho and dL = 0 as _hct's sign does
   const float dL = use_rho ? 0.0f : copysignf(1.0f, diff);
   const float inv_L = rcp_approx(L);
   const float inv_U = rcp_approx(u);
@@ -153,8 +155,8 @@ __device__ __forceinline__ float force_pair(const PairArgs& a, const float* s_ne
 }
 
 // ---- the dense and Newton Born and energy sweeps' pair functions ----
-// Each is its IEEE counterpart (born_pair's and neck_pair's values,
-// pair_energy_ieee with gb_f and gb_dedb) term by term, with the special
+// Each is its IEEE counterpart (_hct's and neck_pair's values, the
+// plain version's energy_pair_terms in md/pair_force.py) term by term, with the special
 // functions of force_pair: 1/r from one rsqrt.approx (the energy terms need
 // no r: r^2 is s), 1/L, 1/U and 1/denom by rcp.approx, exp by ex2.approx
 // with the staged 1/B, 1/f by rsqrt.approx, and the per atom 1/rho staged;
@@ -170,8 +172,9 @@ __device__ __forceinline__ float force_pair(const PairArgs& a, const float* s_ne
 //   energy: p0 = (x, y, z, q),   p1 = (sigma, sqrt(eps), B, 1/B)
 // The dense path stores atoms in the caller's order, so the energy sweep's
 // band mask keys on the atoms' indices and needs no staged index; the
-// Newton energy sweep (Morton order) keeps each atom's original index in a
-// register and decides the band when it queues a pair (pair_newton.cu).
+// Newton and the ordered culled energy sweeps (Morton order) keep each
+// atom's original index in a register and decide the band when they queue
+// a pair (pair_newton.cu) or run it (pair_force.cu).
 struct BornAtom {
   float4 p0, p1;
 };
@@ -200,10 +203,10 @@ __device__ __forceinline__ EnergyAtom load_energy_atom(const PairArgs& a, size_t
   return t;
 }
 
-// H(r; rho_i, sr_j) of born_pair, zero for an inactive pair.
+// H(r; rho_i, sr_j) of _hct, zero for an inactive pair.
 //
 // Far pairs (|t| <= 0.3 with t = sr_j / r, and r - sr_j >= rho_i, so that
-// L = r - sr_j, U = r + sr_j): born_pair's terms cancel to ~1e-3 of each
+// L = r - sr_j, U = r + sr_j): _hct's terms cancel to ~1e-3 of each
 // (1/L - 1/U ~ 0.06 against an H of ~1e-4 at 2 nm), so the errors of the
 // single SFU results (rcp.approx up to 1 ulp, lg2.approx ~1e-7 absolute)
 // add up over the thousands of far partners of an atom, and I feeds the
@@ -215,7 +218,7 @@ __device__ __forceinline__ EnergyAtom load_energy_atom(const PairArgs& a, size_t
 // so H = (t / (1 - t^2) - atanh t) / r = (t^3 / r) sum_k>=1 2k/(2k+1) t^(2k-2),
 // eight terms (the next is < 1e-8 of the sum at |t| = 0.3), no special
 // function and no cancellation. t < 0 (negative screening) is the same
-// series. Near pairs take born_pair's form with rcp.approx for 1/L and 1/U
+// series. Near pairs take _hct's form with rcp.approx for 1/L and 1/U
 // and IEEE logf for log(L/U): lg2.approx's error does not average out over
 // the near pairs. With a cutoff 12% of the directions inside it are near
 // (0.8% of all at 3,726 atoms without one), and with lg2.approx
@@ -296,10 +299,9 @@ struct EnergyPair {
 // types (a few dozen charges), so they add up instead of averaging out,
 // against a total energy of ~1% of the components. Factored, the
 // cancellation happens in the per-pair factor and the repeated rounding of
-// qq scales only what is left of it. The Newton energy sweep takes this
-// function too, the culled one the same form with IEEE special functions
-// (pair_energy_ieee): chip_smoke.py phase 15 holds both to the dense sweeps
-// with a cutoff beyond every pair.
+// qq scales only what is left of it. The Newton and the ordered culled
+// energy sweeps take this function too: chip_smoke.py phase 15 holds both to
+// the dense sweeps with a cutoff beyond every pair.
 __device__ __forceinline__ EnergyPair energy_pair(const PairArgs& a, float s, const EnergyAtom& ai,
                                                   const EnergyAtom& aj, bool nonbonded) {
   const float inv_r = rsqrt_approx(s);

@@ -1,10 +1,8 @@
-// What the GB pair sweeps of pair_force.cu (dense blocks and row-owned
-// tile-culled) and pair_newton.cu (each unordered pair once) share: the
+// What the GB pair sweeps of pair_force.cu (dense blocks and the ordered
+// culled walk) and pair_newton.cu (each unordered pair once) share: the
 // launch arguments, the per-atom table's rows, the neck tables' load, and
-// the pair terms that are symmetric in (i, j) in their IEEE forms:
-// Lennard-Jones + Coulomb and the GB f-function. The HCT and neck terms are
-// in gb_pair.cuh, the single-SFU forms of the dense and Newton sweeps in
-// gb_force.cuh.
+// the Lennard-Jones + Coulomb terms. The IEEE HCT and neck terms are in
+// gb_pair.cuh, the single-SFU pair functions of the sweeps in gb_force.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,53 +76,6 @@ __device__ __forceinline__ float lj_sr6(float sig_i, float sig_j, float inv_r) {
 // dE/dr of the LJ + Coulomb energy of the unordered pair; eps = sqrt(eps_i) sqrt(eps_j)
 __device__ __forceinline__ float nb_dedr(float sr6, float eps, float ke, float qq, float inv_r) {
   return 4.0f * eps * (-12.0f * sr6 * sr6 + 6.0f * sr6) * inv_r - ke * qq * inv_r * inv_r;
-}
-
-// GB f-function: exp(-r^2 / 4 B_i B_j) and 1 / sqrt(r^2 + B_i B_j exp(.))
-__device__ __forceinline__ void gb_f(float rsq, float BB, float* expu, float* inv_f) {
-  *expu = expf(-rsq / (4.0f * BB));
-  *inv_f = 1.0f / sqrtf(rsq + BB * (*expu));
-}
-
-// d(1/f energy)/dB_i of the ordered pair: dE/df * df/dB_i
-__device__ __forceinline__ float gb_dedb(float qq_gb, float inv_f, float expu, float rsq,
-                                         float B_i, float B_j) {
-  return (-qq_gb * inv_f * inv_f) * (expu * (B_j + rsq / (4.0f * B_i)) * (0.5f * inv_f));
-}
-
-// The energy one pair adds to each of its two atoms' rows, 0.5 e_nb + e_gb
-// (LJ + Coulomb outside the index band, `nonbonded`, and the GB cross
-// term), with IEEE special functions, for the culled energy sweep; the
-// charge product is factored out of Coulomb + GB as energy_pair
-// (gb_force.cuh) does, which says why. *dedb_i and
-// *dedb_j: d(e_gb)/dB of each atom, the ordered quantity.
-__device__ __forceinline__ float pair_energy_ieee(float ke, float gb_pref, bool use_gb, float r,
-                                                  float inv_r, float qq, float sig_i, float sig_j,
-                                                  float eps, float B_i, float B_j, bool nonbonded,
-                                                  float* dedb_i, float* dedb_j) {
-  float e = 0.0f, w = 0.0f;   // LJ / 2, and the pair's Coulomb + GB energy over qq
-  if (nonbonded) {
-    const float sr6 = lj_sr6(sig_i, sig_j, inv_r);
-    e = 2.0f * eps * (sr6 * sr6 - sr6);
-    w = (0.5f * ke) * inv_r;
-  }
-  *dedb_i = *dedb_j = 0.0f;
-  if (use_gb) {
-    const float rsq = r * r;
-    float expu, inv_f;
-    gb_f(rsq, B_i * B_j, &expu, &inv_f);
-    w += gb_pref * inv_f;
-    const float qq_gb = gb_pref * qq;
-    *dedb_i = gb_dedb(qq_gb, inv_f, expu, rsq, B_i, B_j);
-    *dedb_j = gb_dedb(qq_gb, inv_f, expu, rsq, B_j, B_i);
-  }
-  return e + qq * w;
-}
-
-// direct GB dE/dr at fixed Born radii, both ordered directions
-__device__ __forceinline__ float gb_dedr(float gb_pref, float qq, float r, float inv_f,
-                                         float expu) {
-  return (-(gb_pref * 2.0f * qq) * inv_f * inv_f) * (r * (1.0f - 0.25f * expu) * inv_f);
 }
 
 }  // namespace

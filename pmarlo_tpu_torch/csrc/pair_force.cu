@@ -70,10 +70,9 @@
 //   same).
 //
 // Culled sweeps (pair_born_culled_kernel, pair_energy_culled_kernel,
-// pair_force_culled_kernel): row-owned, every ordered pair, no atomics, so
-// a launch is bit-reproducible (the Newton sweeps of pair_newton.cu take
-// each pair once and add with atomics). IEEE special functions in the Born
-// and energy sweeps (gb_pair.cuh, pair_common.cuh).
+// pair_force_culled_kernel): every ordered pair, no atomics, so a launch is
+// bit-reproducible (the Newton sweeps of pair_newton.cu take each pair once
+// and add with atomics).
 // - atoms are stored in tiles of `tile` atoms (a Morton order makes them
 //   compact); the wrapper computes each tile's bounding box from the live
 //   positions and the (G, G) table `close` of tile pairs whose box gap is
@@ -87,36 +86,45 @@
 //   cut_r2 the wrapper's exact threshold (the same pairs as sqrt(r^2 +
 //   1e-12) <= cutoff, no root for a pair that is cut): the force jumps at
 //   the cutoff, and the plain version must cut the same pairs.
-// - Born and energy: grid (row tiles of kRows, replicas); a CTA owns kRows
-//   row atoms (in one row tile: tile % 32 == 0) and has kRows x kSplit
-//   threads: thread (tx, ty) owns row atom tx and the columns ty, ty +
-//   kSplit, ... of each column tile the table keeps, staged in shared
-//   memory kThreads atoms at a time (a warp reads one column entry at a
-//   time, a broadcast). The kSplit partial sums of a row are added in a
-//   fixed order at the end, through shared memory.
-// - force: the Newton force sweep's walk (pair_newton.cu) made ordered. At
-//   61,824 atoms 3.9% of the pairs of the tile blocks within reach lie
-//   inside the cutoff, and the force pair function (force_pair, 143 flops
-//   and 10 special-function results) is the cost, so lanes run it only on
-//   pairs inside the cutoff. One warp an item: a 32-atom row group g and a
-//   segment s of its column groups (h = s, s + kSegments, ... in increasing
-//   order, kSegments items a row group, for warps enough to fill the card).
-//   The warp stages its 32 row atoms once and walks the column groups 32 at
-//   a time, a lane each: it takes those whose tile `close` keeps and whose
-//   box (group_boxes_kernel, pair_groups.cuh) is within the cutoff of g's
-//   box (the test of tiles_within at 32-atom groups, so a skip drops only
-//   exact zeros). In each such 32 x 32 patch the rows within the cutoff of
-//   the column group's box are found by one ballot, each is tested against
-//   the 32 columns on r^2 (a diagonal patch too: only coincident pairs are
-//   left out), and the pairs inside the cutoff are compacted by ballot into
-//   the warp's queue; every 32 of them run force_pair on a full warp, the
-//   row atom's share -W d. The queue carries across patches (the column
-//   atoms of two patches are staged), so batches stay full. A row's pairs
-//   sit in consecutive lanes of a batch: segmented shuffles add them and
-//   the segment's first lane adds the sum to the row's shared slot. Every
-//   order is fixed (column groups, rows, columns, batches), the item writes
-//   its own slot of a scratch (R, kSegments, N, 3), and dense_slots_kernel
-//   adds an atom's kSegments slots in slot order: no atomics.
+// - one walk for the three (culled_walk, the Newton walk of pair_newton.cu
+//   made ordered), with the sweep's functor for what an ordered pair adds to
+//   its row atom. At 61,824 atoms 3.9% of the pairs of the tile blocks
+//   within reach lie inside the cutoff, and the pair function is the cost,
+//   so lanes run it only on pairs inside the cutoff. One warp an item: a
+//   32-atom row group g and a segment s of its column groups (h = s, s +
+//   kSegments, ... in increasing order, kSegments items a row group, for
+//   warps enough to fill the card). The warp stages its 32 row atoms once
+//   and walks the column groups 32 at a time, a lane each: it takes those
+//   whose tile `close` keeps and whose box (group_boxes_kernel,
+//   pair_groups.cuh) is within the cutoff of g's box (the test of
+//   tiles_within at 32-atom groups, so a skip drops only exact zeros). In
+//   each such 32 x 32 patch the rows within the cutoff of the column
+//   group's box are found by one ballot, each is tested against the 32
+//   columns on r^2 (a diagonal patch too: only coincident pairs are left
+//   out), and the pairs inside the cutoff are compacted by ballot into the
+//   warp's queue; every 32 of them run the pair function on a full warp.
+//   The queue carries across patches (the column atoms of two patches are
+//   staged), so batches stay full. A row's pairs sit in consecutive lanes
+//   of a batch: segmented shuffles add them and the segment's first lane
+//   adds the sum to the row's shared sum. Every order is fixed (column
+//   groups, rows, columns, batches), the item writes its own slot of a
+//   scratch (R, kSegments, N, kSums), and dense_slots_kernel adds an atom's
+//   kSegments slots in slot order: no atomics.
+// - the pair functions are the dense and Newton sweeps' (gb_force.cuh),
+//   the row atom's share of each: force_pair's -W d; born_pair_values'
+//   H_ij / 2 + neck (its HCT value a series for a far pair, IEEE logf in the
+//   near form); energy_pair's e = 0.5 e_nb + e_gb and dE/dB_i, the charge
+//   product factored out. The energy sweep tests the band in the batch, on
+//   the caller's indices held in registers (a lane's row atom, and its
+//   column atom of each column buffer) and read by shuffles: three a batch,
+//   where a test at queueing (the Newton energy sweep's) took one a near row
+//   (0.293 -> 0.274 ms at 61,824 atoms on an H100 at 700 W,
+//   scripts/time_port_kernels.py; PERF.md section 6). The force sweep reads
+//   the band from its atoms' meta.
+// - sums: float32 within a batch's row segment (at most 32 terms); the Born
+//   and energy sweeps' row sums and slots in float64 from there (a protein's
+//   total energy is ~1% of its components, below), the force sweep's in
+//   float32.
 // - the GBn2 neck's (C, C) radius-class tables sit in shared memory and are
 //   indexed by the two atoms' class indices (where the TPU kernel multiplied
 //   one-hot class matrices on its matrix unit).
@@ -131,12 +139,11 @@
 //   c_i dI_i/dr_ij + c_j dI_j/dr_ji, so F = -grad E.
 // - ragged last tiles are masked in the kernel; no padding atoms exist.
 // - pair arithmetic is float32; the energy rows are summed (past a dense
-//   patch's 32 terms) and written as float64. A protein's total energy is
-//   ~1% of its summed components (3,726 atoms near a minimum: -300 to -1,400
-//   kJ/mol against ~1e5 in each of the pair and GB-self sums), and float32
-//   sums over whole rows left errors of ~1e-4 of the total. The culled Born
-//   and energy sweeps sum in float64 throughout. Forces keep float32 sums:
-//   they do not cancel that far.
+//   patch's or a culled batch's 32 terms) and written as float64. A
+//   protein's total energy is ~1% of its summed components (3,726 atoms near
+//   a minimum: -300 to -1,400 kJ/mol against ~1e5 in each of the pair and
+//   GB-self sums), and float32 sums over whole rows left errors of ~1e-4 of
+//   the total. Forces keep float32 sums: they do not cancel that far.
 
 #include "gb_force.cuh"
 #include "pair_common.cuh"
@@ -144,11 +151,7 @@
 
 namespace {
 
-// the culled row-owned Born and energy sweeps
-constexpr int kRows = 32;                 // row atoms a CTA
-constexpr int kSplit = 8;                 // column lanes a row
-constexpr int kThreads = kRows * kSplit;  // threads a CTA = staged columns
-// the culled force sweep
+// the culled sweeps' walk
 constexpr int kCulledWarps = 3;           // warps (work items) a CTA
 constexpr int kSegments = 4;              // items a row group: its column groups split by h mod 4
 constexpr int kCulledQueue = 64;          // a warp's queue: < 32 left over + 32 new
@@ -180,7 +183,7 @@ __device__ __forceinline__ Atom read_atom(float4 (*parts)[kTile], int slot) {
   return t;
 }
 
-// A sweep functor gives the skeleton below:
+// A sweep functor gives the skeleton below and the culled walk:
 //   Atom                 the staged atom (float4s), load(a, rbase, j) builds it
 //   Slot, kSums          the slots' type and components (scratch (R, G, N, kSums))
 //   Acc                  a lane's sums within a patch: from_lane(src) takes
@@ -188,6 +191,9 @@ __device__ __forceinline__ Atom read_atom(float4 (*parts)[kTile], int slot) {
 //                        Slot to part[d * kTile]
 //   pair(...)            adds one unordered pair's terms to the row's and
 //                        the column's Acc
+//   ordered(..., v)      the culled walk's: one ordered pair's kSums terms
+//                        to its row atom into v; kBand: it takes the band
+//                        test's result, which the walk makes
 //   finish(a, k, sums)   writes atom k's (k = rep * N + atom) outputs from
 //                        the sum of its G slots
 //
@@ -314,6 +320,12 @@ struct BornSweep {
     row.I += 0.5f * p.h_ij + p.neck;
     col.I += 0.5f * p.h_ji + p.neck;
   }
+  static constexpr bool kBand = false;
+  __device__ static void ordered(const PairArgs& a, const float* s_neck, float s, float, float,
+                                 float, const Atom& ai, const Atom& aj, bool, float* v) {
+    const BornPair p = born_pair_values(a, s_neck, s, ai, aj);
+    v[0] = 0.5f * p.h_ij + p.neck;
+  }
   __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
     a.out0[k] = static_cast<float>(v[0]);
   }
@@ -351,6 +363,15 @@ struct EnergySweep {
     row.dedb += p.dedb_i;
     col.dedb += p.dedb_j;
   }
+  // the culled walk stores atoms in a Morton order: the walk tests the band
+  // on the atoms' `orig`
+  static constexpr bool kBand = true;
+  __device__ static void ordered(const PairArgs& a, const float*, float s, float, float, float,
+                                 const Atom& ai, const Atom& aj, bool nonbonded, float* v) {
+    const EnergyPair p = energy_pair(a, s, ai, aj, nonbonded);
+    v[0] = p.e;
+    v[1] = p.dedb_i;
+  }
   __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
     a.rows[k] = v[0];
     a.out0[k] = static_cast<float>(v[1]);
@@ -387,6 +408,15 @@ struct ForceSweep {
     col.f[1] += w * dy;
     col.f[2] += w * dz;
   }
+  static constexpr bool kBand = false;   // force_pair reads the band from the atoms' meta
+  __device__ static void ordered(const PairArgs& a, const float* s_neck, float s, float dx,
+                                 float dy, float dz, const Atom& ai, const Atom& aj, bool,
+                                 float* v) {
+    const float w = force_pair(a, s_neck, s, ai, aj);
+    v[0] = -w * dx;
+    v[1] = -w * dy;
+    v[2] = -w * dz;
+  }
   __device__ static void finish(const PairArgs& a, size_t k, const Slot* v) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) a.out0[k * 3 + d] = v[d];
@@ -405,223 +435,102 @@ __global__ void __launch_bounds__(kDenseThreads, 2) pair_force_kernel(PairArgs a
   dense_blocks<ForceSweep>(a);
 }
 
-// ---- culled sweeps: row-owned over the column tiles the close table keeps ----
+// ---- culled sweeps: the ordered walk on full warps ----
 
-// The column tiles a CTA walks: the G tiles of `tile` atoms, less those its
-// row tile's line of the close table excludes.
-struct ColumnTiles {
-  const uint8_t* close;
-  int n_tiles, tile, n;
-  __device__ ColumnTiles(const PairArgs& a) : n_tiles(a.n_tiles), tile(a.tile), n(a.n) {
-    const int row_tile = (blockIdx.x * kRows) / a.tile;
-    close = a.close + (static_cast<size_t>(blockIdx.y) * a.n_tiles + row_tile) * a.n_tiles;
-  }
-  __device__ bool skip(int t) const { return !close[t]; }
-  __device__ int lo(int t) const { return t * tile; }
-  __device__ int hi(int t) const { return min((t + 1) * tile, n); }
-};
-
-// A pair's r from two positions, or false for a pair that contributes
-// nothing: a self or coincident slot, or a pair beyond the cutoff.
-__device__ __forceinline__ bool pair_distance(const PairArgs& a, float dx, float dy, float dz,
-                                              float* r) {
-  const float r2 = pair_r2(dx, dy, dz);
-  if (r2 <= 1e-8f) return false;
-  const float s = __fadd_rn(r2, kEps);
-  if (s > a.cut_r2) return false;
-  *r = sqrtf(s);
-  return true;
-}
-
-// ---- sweep 1, culled: Born integral ----
-__global__ void __launch_bounds__(kThreads) pair_born_culled_kernel(PairArgs a) {
-  __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads], s_sr[kThreads];
-  __shared__ int s_cls[kThreads];
-  __shared__ double s_red[2][kSplit][kRows];
-  extern __shared__ float s_neck[];
-  const int n = a.n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kRows + tx;
-  const int i = blockIdx.x * kRows + tx;
-  const bool own = i < n;
-  const float* xr = a.x + static_cast<size_t>(blockIdx.y) * n * 3;
-  const int cc = a.n_classes * a.n_classes;
-  if (a.use_neck) load_neck(a, s_neck, tid, kThreads);
-
-  float xi = 0.0f, yi = 0.0f, zi = 0.0f, rho_i = 1.0f;
-  int ci = 0;
-  if (own) {
-    xi = xr[3 * i];
-    yi = xr[3 * i + 1];
-    zi = xr[3 * i + 2];
-    rho_i = a.atom_p[kRho * n + i];
-    ci = a.cls[i] * a.n_classes;
-  }
-  double h_acc = 0.0, nk_acc = 0.0;
-  const ColumnTiles tiles(a);
-  for (int t = 0; t < tiles.n_tiles; ++t) {
-    if (tiles.skip(t)) continue;
-    const int hi = tiles.hi(t);
-    for (int t0 = tiles.lo(t); t0 < hi; t0 += kThreads) {
-      __syncthreads();
-      const int j = t0 + tid;
-      if (j < hi) {
-        s_x[tid] = xr[3 * j];
-        s_y[tid] = xr[3 * j + 1];
-        s_z[tid] = xr[3 * j + 2];
-        s_sr[tid] = a.atom_p[kSr * n + j];
-        s_cls[tid] = a.cls[j];
-      }
-      __syncthreads();
-      const int cnt = min(kThreads, hi - t0);
-      if (!own) continue;
-      for (int jj = ty; jj < cnt; jj += kSplit) {
-        float r;
-        if (!pair_distance(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
-        float H, dH;
-        born_pair(r, 1.0f / r, rho_i, s_sr[jj], &H, &dH);
-        h_acc += H;
-        if (a.use_neck) {
-          const int k = ci + s_cls[jj];
-          float nv, dnv;
-          neck_pair(r, s_neck[k], s_neck[cc + k], &nv, &dnv);
-          nk_acc += nv;
-        }
-      }
-    }
-  }
-  s_red[0][ty][tx] = h_acc;
-  s_red[1][ty][tx] = nk_acc;
-  __syncthreads();
-  if (ty == 0 && own) {
-    double h = 0.0, nk = 0.0;
-    for (int s = 0; s < kSplit; ++s) {
-      h += s_red[0][s][tx];
-      nk += s_red[1][s][tx];
-    }
-    a.out0[static_cast<size_t>(blockIdx.y) * n + i] = static_cast<float>(0.5 * h + nk);
-  }
-}
-
-// ---- sweep 2, culled: pair energy rows and the pairwise part of dE/dB_i ----
-__global__ void __launch_bounds__(kThreads) pair_energy_culled_kernel(PairArgs a) {
-  __shared__ float s_x[kThreads], s_y[kThreads], s_z[kThreads];
-  __shared__ float s_q[kThreads], s_sig[kThreads], s_seps[kThreads], s_B[kThreads];
-  __shared__ int s_orig[kThreads];
-  __shared__ double s_red[2][kSplit][kRows];
-  const int n = a.n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kRows + tx;
-  const int i = blockIdx.x * kRows + tx;
-  const bool own = i < n;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const float* xr = a.x + rbase * 3;
-
-  float xi = 0.0f, yi = 0.0f, zi = 0.0f, q_i = 0.0f, sig_i = 0.0f, seps_i = 0.0f, B_i = 1.0f;
-  int orig_i = i;
-  if (own) {
-    xi = xr[3 * i];
-    yi = xr[3 * i + 1];
-    zi = xr[3 * i + 2];
-    q_i = a.atom_p[kQ * n + i];
-    sig_i = a.atom_p[kSig * n + i];
-    seps_i = a.atom_p[kSeps * n + i];
-    if (a.use_gb) B_i = a.B[rbase + i];
-    orig_i = a.orig[i];
-  }
-  double e_row = 0.0, dedb = 0.0;
-  const ColumnTiles tiles(a);
-  for (int t = 0; t < tiles.n_tiles; ++t) {
-    if (tiles.skip(t)) continue;
-    const int hi = tiles.hi(t);
-    for (int t0 = tiles.lo(t); t0 < hi; t0 += kThreads) {
-      __syncthreads();
-      const int j = t0 + tid;
-      if (j < hi) {
-        s_x[tid] = xr[3 * j];
-        s_y[tid] = xr[3 * j + 1];
-        s_z[tid] = xr[3 * j + 2];
-        s_q[tid] = a.atom_p[kQ * n + j];
-        s_sig[tid] = a.atom_p[kSig * n + j];
-        s_seps[tid] = a.atom_p[kSeps * n + j];
-        s_B[tid] = a.use_gb ? a.B[rbase + j] : 1.0f;
-        s_orig[tid] = a.orig[j];
-      }
-      __syncthreads();
-      const int cnt = min(kThreads, hi - t0);
-      if (!own) continue;
-      for (int jj = ty; jj < cnt; jj += kSplit) {
-        float r;
-        if (!pair_distance(a, xi - s_x[jj], yi - s_y[jj], zi - s_z[jj], &r)) continue;
-        float dedb_i, dedb_j;
-        // the band keys on the caller's indices: storage order is a permutation of them
-        e_row += pair_energy_ieee(a.ke, a.gb_pref, a.use_gb, r, 1.0f / r, q_i * s_q[jj], sig_i,
-                                  s_sig[jj], seps_i * s_seps[jj], B_i, s_B[jj],
-                                  abs(orig_i - s_orig[jj]) > a.band, &dedb_i, &dedb_j);
-        dedb += dedb_i;
-      }
-    }
-  }
-  s_red[0][ty][tx] = e_row;
-  s_red[1][ty][tx] = dedb;
-  __syncthreads();
-  if (ty == 0 && own) {
-    double e = 0.0, db = 0.0;
-    for (int s = 0; s < kSplit; ++s) {
-      e += s_red[0][s][tx];
-      db += s_red[1][s][tx];
-    }
-    a.rows[rbase + i] = e;
-    a.out0[rbase + i] = static_cast<float>(db);
-  }
-}
-
-// ---- sweep 3, culled: the ordered walk on full warps ----
-
-// a warp's shared memory in the culled force sweep
+// a warp's shared memory in a culled sweep
+template <typename Sweep>
 struct CulledWarp {
-  float4 row[3][32];        // the row group's atoms (ForceAtom parts)
-  float4 col[2][3][32];     // the column atoms of this patch and of the one before
-  float acc[3][32];         // the row atoms' force sums
-  int queue[kCulledQueue];  // column buffer << 16 | row slot << 8 | column slot
+  using Atom = typename Sweep::Atom;
+  static constexpr int kParts = sizeof(Atom) / sizeof(float4);
+  float4 row[kParts][32];                       // the row group's atoms
+  float4 col[2][kParts][32];                    // the column atoms of this patch and the one before
+  typename Sweep::Slot acc[Sweep::kSums][32];   // the row atoms' sums
+  // column buffer << 16 | row slot << 8 | column slot
+  int queue[kCulledQueue];
+
+  __device__ void put_row(int i, const Atom& t) {
+    const float4* p = reinterpret_cast<const float4*>(&t);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) row[q][i] = p[q];
+  }
+  __device__ void put_col(int b, int j, const Atom& t) {
+    const float4* p = reinterpret_cast<const float4*>(&t);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) col[b][q][j] = p[q];
+  }
+  __device__ Atom get_row(int i) const {
+    Atom t;
+    float4* p = reinterpret_cast<float4*>(&t);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) p[q] = row[q][i];
+    return t;
+  }
+  __device__ Atom get_col(int b, int j) const {
+    Atom t;
+    float4* p = reinterpret_cast<float4*>(&t);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) p[q] = col[b][q][j];
+    return t;
+  }
 };
-// the warps' parts and the largest neck tables within the default 48 KB
-static_assert(kCulledWarps * sizeof(CulledWarp) +
-                  2 * sizeof(float) * kMaxClasses * kMaxClasses <= 48 * 1024,
-              "the culled force sweep's shared memory exceeds 48 KB");
+
+// the warps' parts and the largest neck tables within the default 48 KB, so
+// that a launch sets no function attribute (a CUDA graph can capture it)
+template <typename Sweep>
+constexpr size_t culled_smem_most() {
+  return kCulledWarps * sizeof(CulledWarp<Sweep>) + 2 * sizeof(float) * kMaxClasses * kMaxClasses;
+}
+static_assert(culled_smem_most<BornSweep>() <= 48 * 1024, "culled Born sweep: shared > 48 KB");
+static_assert(culled_smem_most<EnergySweep>() <= 48 * 1024, "culled energy sweep: shared > 48 KB");
+static_assert(culled_smem_most<ForceSweep>() <= 48 * 1024, "culled force sweep: shared > 48 KB");
 
 // A batch of queued pairs, one a lane (`valid` false: no pair), called by
-// the whole warp: each pair's force on its row atom, -(W / r) d from
-// force_pair, added over the lanes of one (patch, row) segment by a
-// segmented shuffle reduction (the queue holds a patch's pairs in row
-// order, so a row's pairs of one patch sit in consecutive lanes) and to the
-// row's sum by the segment's first lane: one writer a row at a time, no
-// atomics. A batch spans at most two patches, so a row heads at most two
-// segments; the older patch's (its pairs come first) adds first.
-__device__ __forceinline__ void culled_batch(const PairArgs& a, CulledWarp& w,
-                                             const float* s_neck, int entry, bool valid) {
+// the whole warp: each pair's terms for its row atom (Sweep::ordered),
+// added over the lanes of one (patch, row) segment by a segmented shuffle
+// reduction (the queue holds a patch's pairs in row order, so a row's pairs
+// of one patch sit in consecutive lanes) and to the row's sum by the
+// segment's first lane: one writer a row at a time, no atomics. A batch
+// spans at most two patches, so a row heads at most two segments; the older
+// patch's (its pairs come first) adds first.
+// the caller's indices of the lane's row atom and of its column atom in
+// each column buffer (the energy sweep's band test)
+struct BandRegs {
+  int row, col0, col1;
+};
+
+template <typename Sweep>
+__device__ __forceinline__ void culled_batch(const PairArgs& a, CulledWarp<Sweep>& w,
+                                             const float* s_neck, int entry, bool valid,
+                                             const BandRegs& orig) {
+  using Slot = typename Sweep::Slot;
+  constexpr int kSums = Sweep::kSums;
   const int lane = threadIdx.x & 31;
   const int key = valid ? entry >> 8 : -1;   // column buffer << 8 | row slot
-  const int i = key & 0xff;
-  float f[3] = {0.0f, 0.0f, 0.0f};
+  const int i = key & 0xff, j = entry & 0xff;
+  bool nonbonded = false;
+  if constexpr (Sweep::kBand) {
+    const int oi = __shfl_sync(0xffffffffu, orig.row, i);
+    const int o0 = __shfl_sync(0xffffffffu, orig.col0, j);
+    const int o1 = __shfl_sync(0xffffffffu, orig.col1, j);
+    nonbonded = abs(oi - ((key >> 8) ? o1 : o0)) > a.band;
+  }
+  float v[kSums];
+#pragma unroll
+  for (int d = 0; d < kSums; ++d) v[d] = 0.0f;
   if (valid) {
-    const int j = entry & 0xff, b = entry >> 16;
-    const ForceAtom ai = {w.row[0][i], w.row[1][i], w.row[2][i]};
-    const ForceAtom aj = {w.col[b][0][j], w.col[b][1][j], w.col[b][2][j]};
+    const typename Sweep::Atom ai = w.get_row(i), aj = w.get_col(key >> 8, j);
     const float dx = ai.p0.x - aj.p0.x, dy = ai.p0.y - aj.p0.y, dz = ai.p0.z - aj.p0.z;
-    const float wr = force_pair(a, s_neck, __fadd_rn(pair_r2(dx, dy, dz), kEps), ai, aj);
-    f[0] = -wr * dx;
-    f[1] = -wr * dy;
-    f[2] = -wr * dz;
+    Sweep::ordered(a, s_neck, __fadd_rn(pair_r2(dx, dy, dz), kEps), dx, dy, dz, ai, aj,
+                   nonbonded, v);
   }
   // each lane ends with the sum over its lane and the later lanes of its segment
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const int ko = __shfl_down_sync(0xffffffffu, key, off);
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float o = __shfl_down_sync(0xffffffffu, f[d], off);
-      if (lane + off < 32 && ko == key) f[d] += o;
+    for (int d = 0; d < kSums; ++d) {
+      const float o = __shfl_down_sync(0xffffffffu, v[d], off);
+      if (lane + off < 32 && ko == key) v[d] += o;
     }
   }
   const int key_before = __shfl_up_sync(0xffffffffu, key, 1);
@@ -629,24 +538,27 @@ __device__ __forceinline__ void culled_batch(const PairArgs& a, CulledWarp& w,
   const bool older = (key >> 8) == (__shfl_sync(0xffffffffu, key, 0) >> 8);
   if (head && older) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) w.acc[d][i] += f[d];
+    for (int d = 0; d < kSums; ++d) w.acc[d][i] += static_cast<Slot>(v[d]);
   }
   __syncwarp();
   if (head && !older) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) w.acc[d][i] += f[d];
+    for (int d = 0; d < kSums; ++d) w.acc[d][i] += static_cast<Slot>(v[d]);
   }
 }
 
 // One warp an item (row group g, segment s) of replica blockIdx.y: the
 // ordered pairs of g's 32 row atoms with the column groups h = s, s +
 // kSegments, ... in increasing order whose tile `close` keeps and whose box
-// is within the cutoff of g's box; their force on the row atoms to the
-// item's slot of `seg_out` (R, kSegments, N, 3).
-__global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(PairArgs a,
-                                                                            const float* boxes,
-                                                                            float* seg_out) {
-  __shared__ CulledWarp s_warp[kCulledWarps];
+// is within the cutoff of g's box; their terms for the row atoms to the
+// item's slot of `seg_out` (R, kSegments, N, kSums).
+template <typename Sweep>
+__device__ __forceinline__ void culled_walk(const PairArgs& a, const float* boxes,
+                                            typename Sweep::Slot* seg_out) {
+  using Atom = typename Sweep::Atom;
+  using Slot = typename Sweep::Slot;
+  constexpr int kSums = Sweep::kSums;
+  __shared__ CulledWarp<Sweep> s_warp[kCulledWarps];
   extern __shared__ float s_neck[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -658,16 +570,19 @@ __global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(Pa
   const int seg = static_cast<int>(item % kSegments);
   const long long g = item / kSegments;
   const long long rep = blockIdx.y;
-  CulledWarp& w = s_warp[warp];
+  CulledWarp<Sweep>& w = s_warp[warp];
   const size_t rbase = static_cast<size_t>(rep) * a.n;
   const int row0 = static_cast<int>(g) * 32, n_rows = min(32, a.n - row0);
-  ForceAtom ti = {};
-  if (lane < n_rows) ti = load_force_atom(a, rbase, row0 + lane);
-  w.row[0][lane] = ti.p0;
-  w.row[1][lane] = ti.p1;
-  w.row[2][lane] = ti.p2;
+  Atom ti = {};
+  if (lane < n_rows) ti = Sweep::load(a, rbase, row0 + lane);
+  w.put_row(lane, ti);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) w.acc[d][lane] = 0.0f;
+  for (int d = 0; d < kSums; ++d) w.acc[d][lane] = Slot(0);
+  // the caller's index of the lane's row atom, for the band
+  BandRegs orig = {0, 0, 0};
+  if constexpr (Sweep::kBand) {
+    if (lane < n_rows) orig.row = a.orig[row0 + lane];
+  }
   const float* rep_boxes = boxes + rep * NG * 6;
   const uint8_t* close_row = a.close + (rep * a.n_tiles + row0 / a.tile) * a.n_tiles;
   const int per_tile = a.tile / 32;
@@ -688,17 +603,23 @@ __global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(Pa
       // overwrites: run them first, as a short batch
       if (carried > 0) {
         __syncwarp();
-        culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued);
+        culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued, orig);
         queued = 0;
       }
       carried = queued;
       const int col0 = static_cast<int>(h) * 32, n_cols = min(32, a.n - col0);
-      ForceAtom tj = {};
-      if (lane < n_cols) tj = load_force_atom(a, rbase, col0 + lane);
+      Atom tj = {};
+      if (lane < n_cols) tj = Sweep::load(a, rbase, col0 + lane);
+      if constexpr (Sweep::kBand) {
+        const int o = lane < n_cols ? a.orig[col0 + lane] : 0;
+        if (buf) {
+          orig.col1 = o;
+        } else {
+          orig.col0 = o;
+        }
+      }
       __syncwarp();
-      w.col[buf][0][lane] = tj.p0;
-      w.col[buf][1][lane] = tj.p1;
-      w.col[buf][2][lane] = tj.p2;
+      w.put_col(buf, lane, tj);
       // the rows within the cutoff of the column group's box
       unsigned rows =
           __ballot_sync(0xffffffffu, lane < n_rows && near_box(a, ti.p0, rep_boxes + h * 6));
@@ -712,12 +633,13 @@ __global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(Pa
         const float r2 = pair_r2(pi.x - tj.p0.x, pi.y - tj.p0.y, pi.z - tj.p0.z);
         // self and coincident pairs (r^2 <= 1e-8) are skipped
         const bool keep = lane < n_cols && r2 > 1e-8f && __fadd_rn(r2, kEps) <= a.cut_r2;
+        const int entry = (buf << 16) | (i << 8) | lane;
         const unsigned mask = __ballot_sync(0xffffffffu, keep);
-        if (keep) w.queue[queued + __popc(mask & below)] = (buf << 16) | (i << 8) | lane;
+        if (keep) w.queue[queued + __popc(mask & below)] = entry;
         queued += __popc(mask);
         if (queued >= 32) {
           __syncwarp();
-          culled_batch(a, w, s_neck, w.queue[lane], true);
+          culled_batch(a, w, s_neck, w.queue[lane], true, orig);
           __syncwarp();
           queued -= 32;
           carried = max(carried - 32, 0);
@@ -729,38 +651,61 @@ __global__ void __launch_bounds__(32 * kCulledWarps) pair_force_culled_kernel(Pa
     }
   }
   __syncwarp();
-  if (queued > 0) culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued);
+  if (queued > 0) {
+    culled_batch(a, w, s_neck, lane < queued ? w.queue[lane] : 0, lane < queued, orig);
+  }
   __syncwarp();
   if (lane < n_rows) {
-    float* out = seg_out + ((rep * kSegments + seg) * a.n + row0 + lane) * 3;
+    Slot* out = seg_out + ((rep * kSegments + seg) * a.n + row0 + lane) * kSums;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) out[d] = w.acc[d][lane];
+    for (int d = 0; d < kSums; ++d) out[d] = w.acc[d][lane];
   }
 }
 
-// The culled force sweep: the groups' boxes, the walk into per-segment
+// ---- sweep 1, culled: Born integral, the row atom's H_ij / 2 + neck ----
+__global__ void __launch_bounds__(32 * kCulledWarps)
+    pair_born_culled_kernel(PairArgs a, const float* boxes, double* seg_out) {
+  culled_walk<BornSweep>(a, boxes, seg_out);
+}
+
+// ---- sweep 2, culled: the row atom's energy 0.5 e_nb + e_gb and dE/dB_i ----
+__global__ void __launch_bounds__(32 * kCulledWarps)
+    pair_energy_culled_kernel(PairArgs a, const float* boxes, double* seg_out) {
+  culled_walk<EnergySweep>(a, boxes, seg_out);
+}
+
+// ---- sweep 3, culled: the row atom's force -W d ----
+__global__ void __launch_bounds__(32 * kCulledWarps)
+    pair_force_culled_kernel(PairArgs a, const float* boxes, float* seg_out) {
+  culled_walk<ForceSweep>(a, boxes, seg_out);
+}
+
+// A culled sweep: the groups' boxes, the walk `kernel` into per-segment
 // slots, and each atom's kSegments slots added in slot order
 // (dense_slots_kernel); `a.slots` is the scratch of
-// pmarlo_pair_culled_force_scratch floats.
-int launch_culled_force(PairArgs a, int n_replicas, size_t neck, cudaStream_t s) {
+// pmarlo_pair_culled_scratch bytes.
+template <typename Sweep>
+int launch_culled(void (*kernel)(PairArgs, const float*, typename Sweep::Slot*), PairArgs a,
+                  int n_replicas, size_t neck, cudaStream_t s) {
   if (a.slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long NG = (a.n + 31) / 32;
   const long long ctas = (NG * kSegments + kCulledWarps - 1) / kCulledWarps;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   float* boxes = static_cast<float*>(a.slots);
-  float* seg_out = boxes + n_replicas * NG * 6;
+  // R NG 6 floats: an even count, so the slots start 8-byte aligned
+  auto* seg_out = reinterpret_cast<typename Sweep::Slot*>(boxes + n_replicas * NG * 6);
   group_boxes_kernel<<<static_cast<unsigned>((n_replicas * NG * 32 + 255) / 256), 256, 0, s>>>(
       a, boxes, n_replicas);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_force_culled_kernel<<<dim3(static_cast<unsigned>(ctas), n_replicas), 32 * kCulledWarps, neck,
-                             s>>>(a, boxes, seg_out);
+  kernel<<<dim3(static_cast<unsigned>(ctas), n_replicas), 32 * kCulledWarps, neck, s>>>(
+      a, boxes, seg_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   PairArgs b = a;
   b.slots = seg_out;
   b.n_tiles = kSegments;
-  dense_slots_kernel<ForceSweep><<<dim3((a.n + 255) / 256, n_replicas), 256, 0, s>>>(b);
+  dense_slots_kernel<Sweep><<<dim3((a.n + 255) / 256, n_replicas), 256, 0, s>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,21 +747,17 @@ int launch(int sweep, int mode, const PairArgs& a, int n_replicas, void* stream)
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (mode != kCulled || a.tile < kRows || a.tile % kRows != 0 || a.close == nullptr ||
+  if (mode != kCulled || a.tile < 32 || a.tile % 32 != 0 || a.close == nullptr ||
       a.orig == nullptr || !a.has_cut) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (sweep == kForce) return launch_culled_force(a, n_replicas, neck, s);
-  const dim3 grid((a.n + kRows - 1) / kRows, n_replicas);
-  const dim3 block(kRows, kSplit);
-  if (sweep == kBorn) {
-    pair_born_culled_kernel<<<grid, block, neck, s>>>(a);
-  } else if (sweep == kEnergy) {
-    pair_energy_culled_kernel<<<grid, block, 0, s>>>(a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (sweep) {
+    case kBorn: return launch_culled<BornSweep>(pair_born_culled_kernel, a, n_replicas, neck, s);
+    case kEnergy:
+      return launch_culled<EnergySweep>(pair_energy_culled_kernel, a, n_replicas, neck, s);
+    case kForce: return launch_culled<ForceSweep>(pair_force_culled_kernel, a, n_replicas, neck, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -830,21 +771,31 @@ int pmarlo_pair_max_classes() { return kMaxClasses; }
 // dE/dB), 3 float32 (force)
 int pmarlo_pair_force_tile() { return kTile; }
 
-// items a row group of the culled force sweep: its per-atom slots are
-// (R, segments, N, 3) float32
+// items a row group of the culled sweeps: their per-atom slots are (R,
+// segments, N, K)
 int pmarlo_pair_culled_segments() { return kSegments; }
 
-// float32 scratch of the culled force sweep (`slots`): the 32-atom groups'
-// boxes (R, ceil(N / 32), 6), then the per-segment slots (R, segments, N, 3)
-long long pmarlo_pair_culled_force_scratch(int n_replicas, int n_atoms) {
+// bytes of a culled sweep's scratch (`slots`): the 32-atom groups' boxes
+// (R, ceil(N / 32), 6) float32, then the per-segment slots (R, segments,
+// N, K) of the sweep: Born 1 float64, energy 2 float64 (row, dE/dB), force
+// 3 float32; -1 for an unknown sweep
+long long pmarlo_pair_culled_scratch(int sweep, int n_replicas, int n_atoms) {
+  long long slot = 0;
+  switch (sweep) {
+    case kBorn: slot = sizeof(BornSweep::Slot) * BornSweep::kSums; break;
+    case kEnergy: slot = sizeof(EnergySweep::Slot) * EnergySweep::kSums; break;
+    case kForce: slot = sizeof(ForceSweep::Slot) * ForceSweep::kSums; break;
+    default: return -1;
+  }
   const long long groups = (n_atoms + 31) / 32;
-  return static_cast<long long>(n_replicas) * (groups * 6 + kSegments * 3LL * n_atoms);
+  return static_cast<long long>(n_replicas) *
+         (groups * 6 * static_cast<long long>(sizeof(float)) + kSegments * slot * n_atoms);
 }
 
 // One sweep (`sweep`: 0 Born integral into `out0`, 1 energy rows into
 // `rows` and dE/dB into `out0`, 2 forces into `out0`) in `mode` 0 (dense;
 // needs `slots`) or 1 (tile-culled: `orig`, `close`, `tile` and `cut_r2`
-// are read; the force sweep needs `slots`, its scratch). Returns
+// are read; `slots`: pmarlo_pair_culled_scratch bytes). Returns
 // cudaGetLastError() after the launches on `stream` (0 = launched).
 int pmarlo_pair_sweep(int sweep, int mode, const float* x, const float* atom_p, const int* cls,
                       const int* orig, const float* d0c, const float* m0c, int n_classes,

@@ -1,6 +1,6 @@
 // The 32-atom groups of the GB sweeps that walk 32 x 32 patches with a
 // cutoff (pair_newton.cu: the Newton sweeps; pair_force.cu: the ordered
-// culled force sweep): each group's bounding box from the live positions,
+// culled sweeps): each group's bounding box from the live positions,
 // and the test that leaves out a pair of groups with no pair inside the
 // cutoff.
 #pragma once

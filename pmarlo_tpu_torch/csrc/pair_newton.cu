@@ -7,7 +7,7 @@
 //   newton_born_kernel   <- sweep1_s (:1442) / born_sym
 //   newton_energy_kernel <- sweep2_s (:1461) / energy_sym
 //   newton_force_kernel  <- sweep3_s (:1479) / force_sym
-// They compute what the row-owned sweeps of pair_force.cu compute (same
+// They compute what the ordered sweeps of pair_force.cu compute (same
 // outputs, same glue around them in md/pair_force.py), at about half the
 // pair work: the distance, LJ + Coulomb, the GB f-function and the neck are
 // evaluated once a pair; only the HCT term is evaluated per direction.
@@ -64,11 +64,11 @@
 // - the patch's sums go to the outputs by global atomicAdd (float for I,
 //   dE/dB and F, double for the energy rows). The order of these additions
 //   changes from run to run, so results differ in the last bits between
-//   runs; the row-owned sweeps are the bit-reproducible path. The wrapper
+//   runs; the ordered sweeps are the bit-reproducible path. The wrapper
 //   zeroes the outputs before the launch.
 // - energy rows: the unordered pair's energy (both rows' shares) goes to its
 //   row atom (the lower storage index), so the rows sum to the total as the
-//   row-owned rows do, though atom by atom they differ from them; summed in
+//   ordered rows do, though atom by atom they differ from them; summed in
 //   float32 within a batch's row segment (at most 32 terms) and in float64
 //   from there (the warp's row slots, then the output). dE/dB keeps the
 //   ordered quantity on each side; the glue doubles it.

@@ -27,12 +27,13 @@ the same sums:
   once, in blocks of ``FORCE_TILE``-atom tiles whose per-slot sums go to a
   scratch the wrapper allocates and are added in a fixed order (the same
   bits from every launch);
-- culled (``gb_cutoff``, ``newton=False``): row-owned kernels of the same
-  file, every ordered pair, walking only the column tiles within reach of
-  the row tile, bit-reproducible; the force sweep walks the 32 x 32 atom
-  patches within reach a warp a row group, compacts the pairs inside the
-  cutoff onto full warps and adds per-segment sums in a fixed order
-  (``culled_force_scratch``);
+- culled (``gb_cutoff``, ``newton=False``): kernels of the same file, every
+  ordered pair, bit-reproducible: one walk for the three sweeps, a warp a
+  32-atom row group and a segment of its column groups, over the 32 x 32
+  atom patches of the tiles within reach whose group boxes are within the
+  cutoff; the pairs inside the cutoff run on full warps, each pair's terms
+  go to its row atom, and per-segment sums are added in a fixed order
+  (``culled_scratch``);
 - Newton (``newton=True``, the default with ``gb_cutoff``):
   ``csrc/pair_newton.cu``, each unordered pair once, results to both atoms
   (atomic adds: the last bits change from run to run), over a list of the
@@ -129,8 +130,9 @@ def _library() -> ctypes.CDLL:
             fn.restype = i
         for fn in sizes:
             fn.argtypes = []
-        for fn in (lib.pmarlo_pair_newton_work_size, lib.pmarlo_pair_culled_force_scratch):
-            fn.argtypes = [i, i]
+        lib.pmarlo_pair_newton_work_size.argtypes = [i, i]
+        lib.pmarlo_pair_culled_scratch.argtypes = [i, i, i]
+        for fn in (lib.pmarlo_pair_newton_work_size, lib.pmarlo_pair_culled_scratch):
             fn.restype = ctypes.c_longlong
         if lib.pmarlo_pair_max_classes() != MAX_CLASSES:
             raise RuntimeError("kernel library and wrapper disagree on MAX_CLASSES")
@@ -138,13 +140,17 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("kernel library and wrapper disagree on FORCE_TILE")
         if lib.pmarlo_pair_culled_segments() != CULLED_SEGMENTS:
             raise RuntimeError("kernel library and wrapper disagree on CULLED_SEGMENTS")
+        if any(lib.pmarlo_pair_culled_scratch(code, R, n) != culled_scratch(sweep, R, n)
+               for code, sweep in enumerate(_SWEEPS) for R, n in ((1, 61_824), (3, 33))):
+            raise RuntimeError("kernel library and wrapper disagree on the culled scratch")
         _configured = True
     return lib
 
 
 #: radius classes the kernels hold in shared memory (csrc/pair_force.cu)
 MAX_CLASSES = 64
-#: rows of a CTA of the row-owned kernels: a culled tile is a multiple of it
+#: atoms a row group of the culled and Newton kernels' walks: their tiles
+#: are multiples of it
 ROW_BLOCK = 32
 #: atoms a tile of the dense kernels, which take each (row tile, column
 #: tile >= row tile) block once (csrc/pair_force.cu)
@@ -155,9 +161,20 @@ _DENSE_SLOTS = {"born": ((), torch.float64), "energy": ((2,), torch.float64),
                "force": ((3,), torch.float32)}
 
 
-#: work items a 32-atom row group of the culled force kernel: its column
-#: groups h split by h mod CULLED_SEGMENTS, each item's sums to its own slot
+#: work items a 32-atom row group of the culled kernels: its column groups
+#: h split by h mod CULLED_SEGMENTS, each item's sums to its own slot
 CULLED_SEGMENTS = 4
+#: bytes of one atom's slot in each culled sweep's scratch: Born I and the
+#: energy row and dE/dB in float64, force F in float32 (csrc/pair_force.cu)
+_CULLED_SLOT_BYTES = {"born": 8, "energy": 16, "force": 12}
+
+
+def culled_scratch(sweep: str, R: int, n: int) -> int:
+    """Bytes of one culled kernel's scratch for R replicas of n atoms: the
+    32-atom groups' boxes ``(R, ceil(n / 32), 6)`` float32, then the
+    per-segment slots ``(R, CULLED_SEGMENTS, n, K)`` (Born 2.0 MB, energy
+    4.0 MB, force 3.0 MB at R = 1, n = 61,824)."""
+    return R * (-(-n // 32) * 6 * 4 + CULLED_SEGMENTS * n * _CULLED_SLOT_BYTES[sweep])
 
 
 def culled_force_scratch(R: int, n: int) -> int:
@@ -165,7 +182,7 @@ def culled_force_scratch(R: int, n: int) -> int:
     of n atoms: the 32-atom groups' boxes ``(R, ceil(n / 32), 6)``, then the
     per-segment slots ``(R, CULLED_SEGMENTS, n, 3)`` (3 MB at R = 1, n =
     61,824)."""
-    return R * (-(-n // 32) * 6 + CULLED_SEGMENTS * n * 3)
+    return culled_scratch("force", R, n) // 4
 
 
 def dense_scratch(sweep: str, R: int, n: int) -> Tuple[tuple, torch.dtype, int]:
@@ -243,7 +260,7 @@ def cutoff_r2(cutoff: float) -> float:
 def cutoff_pairs(d: torch.Tensor, cutoff: float) -> torch.Tensor:
     """Pairs within the GB cutoff: ``r^2 + 1e-12 <= cutoff_r2(cutoff)`` on
     the float32 r^2 of the float32 displacements ``d (..., 3)``, the number
-    the kernels test (``pair_distance`` in ``csrc/pair_force.cu``); the same
+    the kernels test (``csrc/pair_force.cu``, ``csrc/pair_newton.cu``); the same
     pairs as ``sqrt(r^2 + 1e-12) <= cutoff``."""
     d = d.float()
     return _r2(d) + _EPS <= cutoff_r2(cutoff)
@@ -724,14 +741,10 @@ class PairForce:
                 raise RuntimeError(f"{what} runs on CUDA tensors, got {t.device}")
             if t.dtype != torch.float32 or not t.is_contiguous():
                 raise TypeError(f"{what} takes contiguous float32 tensors")
-        if self.mode == "culled" and self.tile % ROW_BLOCK:
+        if self.mode != "dense" and self.tile % ROW_BLOCK:
             raise ValueError(
-                f"{what}: the culled kernels take tiles that are multiples of "
+                f"{what}: the {self.mode} kernels take tiles that are multiples of "
                 f"{ROW_BLOCK} atoms, got tile={self.tile}")
-        if self.mode == "newton" and self.tile % 32:
-            raise ValueError(
-                f"{what}: the Newton kernels take tiles that are multiples of 32 "
-                f"atoms, got tile={self.tile}")
         if self.n_tiles > 65535:
             raise ValueError(f"{what}: {self.n_tiles} tiles exceed the grid's 65,535")
 
@@ -819,13 +832,12 @@ class PairForce:
         else:
             close = self._close_table(name, x, close)
             # the dense sweeps' per-slot partials (dense_scratch), the
-            # culled force sweep's boxes and slots (culled_force_scratch)
-            slots = None
+            # culled sweeps' boxes and slots (culled_scratch)
             if self.mode == "dense":
                 shape, dtype, _ = dense_scratch(sweep, R, n)
                 slots = torch.empty(shape, dtype=dtype, device=x.device)
-            elif sweep == "force":
-                slots = torch.empty(culled_force_scratch(R, n), dtype=torch.float32,
+            else:
+                slots = torch.empty(culled_scratch(sweep, R, n), dtype=torch.uint8,
                                     device=x.device)
             rc = lib.pmarlo_pair_sweep(code, _MODES.index(self.mode), *atoms, ptr(close), R, n,
                                        self.tile, *terms, *flags, ptr(slots), stream)
@@ -1022,5 +1034,5 @@ def build_pair_force_fn(
 
 
 __all__ = ["PairForce", "build_pair_force_fn", "launches", "kernel_name", "cutoff_pairs",
-           "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "culled_force_scratch",
-           "MAX_CLASSES", "FORCE_TILE", "CULLED_SEGMENTS"]
+           "cutoff_r2", "tile_boxes", "tiles_within", "dense_scratch", "culled_scratch",
+           "culled_force_scratch", "MAX_CLASSES", "FORCE_TILE", "CULLED_SEGMENTS"]
