@@ -7,7 +7,9 @@ Phases, one line of numbers each:
 
 1. build   - compile ``pmarlo_tpu_torch/csrc`` with nvcc (sm_90a), one
              nvcc a source, all started together; the registers and spills
-             ptxas reports for the four fused kernels, the three dense GB
+             ptxas reports for the six fused kernels (the chunk and the
+             whole-run REMD kernel, each also as a *_single_kernel build,
+             and the two biased ones), the three dense GB
              block kernels (``pair_born_kernel``, ``pair_energy_kernel``,
              ``pair_force_kernel``), the three Newton kernels, the three
              ordered culled kernels (``pair_{born,energy,force}_culled_kernel``),
@@ -20,8 +22,9 @@ Phases, one line of numbers each:
              R=32 on alanine dipeptide in GBn2: energies and forces, then
              100 steps at friction 0 and at friction 1/ps, two launches
              bitwise equal; then us a step at R = 8, 32, 128, 512 with the
-             launch shape chosen (CTAs a replica C, lanes a row L,
-             threads), and ms per 100 steps of every shape at R=32.
+             launch shape chosen (CTAs a replica C, lanes an atom team L,
+             lanes a pair team T, steps a lane an iteration P, threads),
+             and ms per 100 steps of every shape at R=32.
 3. thermo  - 10,000 kernel steps at 1/ps on the 300-450 K ladder: the
              ladder-averaged kinetic/target temperature ratio.
 4. remd    - the main path: 32-replica REMD, 20,000 steps, one kernel
@@ -62,7 +65,9 @@ Phases, one line of numbers each:
              windowed path's; then both whole-run kernels against the
              plain version over launches of 2, 2 and 1 windows with
              swaps, each from the state the one before left. Unbiased
-             and with ``kernel_bias``.
+             and with ``kernel_bias``. Then the unbiased kernel timed on 2
+             windows: ms a call (CUDA events) beside its device time
+             (``torch.profiler``).
 10. cv     - the learned-CV path end to end: REMD frames -> phi/psi
              features -> ``train_deeptica`` -> biased windows and a biased
              ``run_fused`` -> ``run_fused_metadynamics`` -> sampling under
@@ -143,7 +148,7 @@ Phases, one line of numbers each:
 
 Then a summary line that repeats the headline numbers of phases 1,
 11-14 and 15-17, the card's name and power limit, a line of the kernels'
-times before their redesign (the one-thread-an-atom fused kernels, the
+times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
 kernel and the row-owned culled sweeps) copied from PERF.md
@@ -225,7 +230,8 @@ LARGE_DT_PS = 0.004
 STUDY_PS = 6                     # picoseconds at each time step of --temperature-study
 SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
-                 "fused_remd_bias_kernel")
+                 "fused_remd_bias_kernel", "fused_md_chunk_single_kernel",
+                 "fused_remd_single_kernel")
 # ms of the kernels before their redesign at the same timed shapes: the
 # one-thread-an-atom fused kernels, the row-owned dense Born and energy
 # sweeps, the Newton Born and energy sweeps' block walk and the row-owned
@@ -233,8 +239,14 @@ FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_ke
 # this script): printed on a line of their own beside the kernels line;
 # the one-pass bonded kernel and the row-owned culled sweeps, a call and
 # alone (``*_graph``: a CUDA graph of the calls), from
-# scripts/time_port_kernels.py on their last commit
-EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
+# scripts/time_port_kernels.py on their last commit; the fused kernels'
+# row-owned step (``*_row_owned``: every ordered pair from its row team,
+# this script's run on an H100 on the last commit before the pair items)
+EARLIER_MS = {"fused_remd_row_owned": 13.17, "fused_md_chunk_row_owned": 0.9187,
+              "fused_md_chunk_n138_row_owned": 5.861, "fused_md_bias_harmonic_row_owned": 6.942,
+              "fused_md_bias_metadynamics_row_owned": 7.453,
+              "fused_md_fused_metadynamics_row_owned": 7.514,
+              "fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "fused_md_bias_harmonic": 37.38, "fused_md_bias_metadynamics": 37.83,
               "fused_md_fused_metadynamics": 38.77, "fused_remd": 73.14,
               "pair_born": 0.7112, "pair_energy": 0.6614,
@@ -244,7 +256,7 @@ EARLIER_MS = {"fused_md_chunk": 7.108, "fused_md_chunk_n138": 36.01,
               "pair_force_culled": 1.0637, "pair_force_culled_graph": 1.0627,
               "pair_born_culled": 1.0439, "pair_born_culled_graph": 1.0465,
               "pair_energy_culled": 0.9322, "pair_energy_culled_graph": 0.9268}
-SHAPE_KEYS = ("cluster", "lanes", "threads", "staged")
+SHAPE_KEYS = ("cluster", "lanes", "team", "pairs", "threads", "staged", "slots_smem")
 
 # Roofline constants of one H100 SXM: HBM bandwidth and the float32 rate
 # outside the tensor cores (NVIDIA's data sheet), and the special-function
@@ -341,6 +353,26 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, kernel: str) -> float:
+    """Device milliseconds a call of ``fn()`` spends in CUDA kernels whose
+    name holds ``kernel``, from ``torch.profiler`` over ``reps`` calls
+    (warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            total += getattr(ev, "self_device_time_total", 0.0)
+    _check(total > 0.0, f"the profiler saw no device time of {kernel}")
+    return total / reps / 1e3
 
 
 def _graph_ms(fn, reps: int = 50) -> float:
@@ -508,15 +540,18 @@ def _replica_sweep(system, x_min, seed: int) -> list:
 
 
 def _shape_sweep(chunk, x, v, seeds, temps) -> list:
-    """[C, L, threads, staged, ms per 100 steps] of every launch shape the
-    kernel takes for ``chunk``'s system and replica count."""
-    from pmarlo_tpu_torch.md.fused_md import launch_shapes
+    """[C, L, T, P, threads, staged, slots in shared memory, ms per 100
+    steps, the chooser's cost] of every launch shape the kernel takes for
+    ``chunk``'s system and replica count."""
+    from pmarlo_tpu_torch.md.fused_md import launch_shapes, shape_cost
 
     rows = []
-    for shape in launch_shapes(chunk.system.n_atoms):
+    n = chunk.system.n_atoms
+    for shape in launch_shapes(n):
         ms = _cuda_ms(lambda: chunk._launch(x, v, seeds, temps, 100, 0, False, shape=shape), 3)
         last = chunk.last_launch
-        rows.append([last["cluster"], last["lanes"], last["threads"], last["staged"], ms])
+        rows.append([last[k] for k in ("cluster", "lanes", "team", "pairs", "threads", "staged",
+                                       "slots_smem")] + [ms, shape_cost(n, shape)])
     return rows
 
 
@@ -1279,6 +1314,8 @@ def phase_fused_remd(cx: dict, model) -> dict:
     r = ReplicaExchange(system, x_min, cfg, device="cuda", minimize=False)
     fpc = EXCHANGE_FREQUENCY // CV_REPORT
     out["fused_remd_ms"] = _cuda_ms(lambda: r.run_fused(n_timed), 5)
+    # the kernel alone: its device time beside the call's (host work in the call)
+    out["fused_remd_device_ms"] = _device_ms(lambda: r.run_fused(n_timed), 5, "fused_remd")
     out["fused_remd_shape"] = _shape(r._chunk)
     out["fused_remd_plain_ms"] = _cuda_ms(lambda: r._run_fused_reference(2, fpc), 1)
     _line("phase 9 fused remd", out)
@@ -2676,6 +2713,7 @@ def main() -> None:
         **_md_bound(R, Nc, fused["timed_steps"] + fused["timed_steps"] // CV_REPORT,
                     frames=fused["timed_steps"] // CV_REPORT),
         "launch_shape": fused["fused_remd_shape"],
+        "device_ms": fused["fused_remd_device_ms"],
     }]
     Re, Ne, Nw = EXPLICIT_REPLICAS, periodic["atoms"], cells["water_atoms"]
     kernels += [{
@@ -2774,6 +2812,8 @@ def main() -> None:
             "harmonic_chunk100_ms": bias["harmonic_chunk100_ms"],
             "metadynamics_chunk100_ms": bias["metadynamics_chunk100_ms"],
             "fused_mtd_ms": cv["fused_mtd_ms"], "fused_remd_ms": fused["fused_remd_ms"],
+            "fused_remd_device_ms": fused["fused_remd_device_ms"],
+            "fused_ptxas": build["fused_ptxas"],
             "alanine_ns_per_day": times["kernel_ns_per_day_aggregate"],
             "sweep_n22": kern["replica_sweep"], "sweep_n138": bias["replica_sweep"],
             "learned_cv_walls_s": {k: cv[k] for k in (

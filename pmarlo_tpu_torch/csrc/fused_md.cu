@@ -7,51 +7,64 @@
 // positions, which the REMD Metropolis step needs.
 //
 // What bounds it on an H100: latency, not bytes or FLOPs. Alanine
-// dipeptide has N = 22 atoms, so a step is ~N^2 = 484 pair evaluations per
-// replica in three dependent GB phases, and one step cannot start before
-// the last one ended. With one thread an atom (the first design) a replica
-// was one warp of 22 live lanes that walked ~63 dependent pair iterations a
-// step, 71 us, and 32 replicas used 32 of the 132 SMs. The design below
-// spreads each row over a team of lanes and each replica over a cluster of
-// CTAs, so a step walks ceil(N / L) pair iterations instead of N.
+// dipeptide has N = 22 atoms and chignolin 138, so a step is N (N - 1) / 2
+// pair evaluations per replica in three dependent GB phases, and one step
+// cannot start before the last one ended. What sets a step's time is how
+// many pairs one lane evaluates in a row in each phase, and how many warps
+// an SM has to hide each pair's chain of dependent instructions.
 //
 // Design:
-// - row teams: atom i's row (its sums over partners j) is split over L
-//   lanes of one warp (L a power of two); lane l takes j = l, l + L, ...,
-//   and the row sums (Born integral, dE/dB, force, energy) meet by
-//   __shfl_xor_sync in a fixed order, so every lane holds the same sum.
-//   Lane 0 of the team holds the atom's position and velocity and
-//   integrates it. A CTA has round_up(rows x L, 32) <= 512 threads. The
-//   unbiased kernels take two partners a lane an iteration, with no branch
-//   between them, so that their latency chains overlap (the biased ones,
-//   nearer the register bound, take one); the sums add the pairs in the
-//   same order either way.
-// - several CTAs a replica: a replica is a thread-block cluster of C CTAs
-//   (C in 1, 2, 4, 8); CTA k owns rows [k rows, (k + 1) rows). Every CTA
-//   keeps all N positions, Born radii and chain factors in its shared
-//   memory; after a phase writes its own rows, the CTAs meet at
-//   cluster.sync() and copy the other CTAs' rows through distributed shared
-//   memory (map_shared_rank). With C = 1 the barriers are __syncthreads().
-//   md/fused_md.py launch_shape chooses C and L from N, the replica count
-//   and the card's count of resident replicas of each shape
-//   (pmarlo_fused_md_plan), one shape for every kernel of a chunk, so that
-//   the windowed and the whole-run paths add in one order and stay bitwise
-//   equal.
-// - tables where they are read: each CTA copies its rows of the (N, N)
-//   pair tables (lj_a, lj_b, qq_scaled, qq_full, neck_d0, neck_m0) and its
-//   columns of the two neck tables (phase 3 reads them transposed) into
-//   shared memory once a launch, with a row stride that keeps the row
-//   teams of one warp on different banks, where that fits and costs no
-//   residency; otherwise they are read from global memory (L1/L2).
-// - GB per step, separated by the replica barrier:
-//     1. Born integral I_i = sum_j H_ij (+ neck) -> B_i, dB_i/dpsi_i
-//     2. dE/dB_i = sum_j ... -> chain_i = dE/dB_i dB_i/dpsi_i rho_i
-//     3. pair forces, row-owned: row i sums over j, including both
-//        chain_i dI_i/dr_ij and chain_j dI_j/dr_ji, so no atomics.
-// - bonded terms are row-owned too: each atom's team walks a CSR list of
-//   the (term, role) pairs it takes part in, one entry a lane, and
-//   recomputes the term. No atomics anywhere and fixed-order sums, so a
+// - each unordered pair once inside a replica: the atoms fall into groups
+//   of `team` atoms (T, a power of two, 2-32); a patch is a (row group g,
+//   column group h >= g) block, cut into items of S = T / 2 steps (an
+//   off-diagonal patch two items, a diagonal one item of its T / 2 steps
+//   above the diagonal). A team of T lanes of one warp takes an item: lane
+//   l holds row atom g T + l and at step k meets column h T + (l + k) mod T;
+//   its row sum stays in its registers, the column sums travel one lane on
+//   by a shuffle after each step (no two lanes meet one column in a step).
+//   So a lane evaluates S pairs an item, each pair once, with both atoms'
+//   terms (both HCT directions, both neck terms, the force on both).
+// - items are dealt to the teams of the replica's cluster in rounds, item
+//   m C + rank to team m mod (teams a CTA) of CTA rank; md/fused_md.py
+//   pair_items lists them and their slots.
+// - slots, no atomics: each item writes its row atoms' sums and its column
+//   atoms' sums to one slot each, in the shared memory of the CTA that owns
+//   the atom (map_shared_rank: distributed shared memory), or in a global
+//   scratch where the slots do not fit; an atom has 2 G slots (G groups),
+//   each written by exactly one item, and after the phase's replica barrier
+//   its owner adds them in slot order. Every sum has a fixed order, so a
 //   launch is bit-reproducible run to run.
+// - atom teams: CTA k of the replica's cluster of C CTAs (C in 1, 2, 4, 8)
+//   owns atoms [k rows, (k + 1) rows); each owned atom has a team of L
+//   lanes that adds its slots, walks its bonded (and bias) terms and meets
+//   by __shfl_xor_sync in a fixed order; lane 0 holds the atom's position
+//   and velocity, integrates it and writes the new position, the Born
+//   radius and the chain factor into every CTA of the cluster.
+// - tables where a pair reads them: the wrapper lays the pair parameters
+//   out in item order (md/fused_md.py item_tables: LJ A and B, the scaled
+//   and the full charge products, the neck tables of (i, j) and of (j, i)),
+//   and each CTA copies its items' tables into shared memory once a launch
+//   where that costs no residency (read from global memory in the same
+//   coalesced order otherwise). The values are the (N, N) tables' own.
+// - GB per evaluation, each phase an item sweep, a replica barrier, the
+//   owners' slot sums and a second barrier:
+//     1. Born integral I_i = sum_j H_ij / 2 + neck -> B_i, dB_i/dpsi_i
+//     2. dE/dB_i -> chain_i = dE/dB_i dB_i/dpsi_i rho_i
+//     3. pair forces (LJ + Coulomb, direct GB, both Born chain terms)
+//   then the bonded terms, each atom's team walking a CSR list of the
+//   (term, role) pairs it takes part in.
+// - one force evaluation a step: an evaluation's forces and energy serve
+//   the next step's kick and the frame or chunk energy at these positions;
+//   positions are double-buffered by step parity.
+// - launch shape (C, L, T, P): md/fused_md.py launch_shape chooses it from
+//   N, the replica count and the card's count of resident replicas of each
+//   shape (pmarlo_fused_md_plan), one shape for every kernel of a chunk, so
+//   that the windowed and the whole-run paths add in one order and stay
+//   bitwise equal. P is the steps a lane takes an iteration: P = 2 overlaps
+//   two pairs' chains (the *_kernel builds), P = 1 takes one (the
+//   *_single_kernel builds; the biased kernels take one in their one
+//   build). All add in the same order and take at most 128 registers a
+//   thread: with 64, 80 or 96 ptxas spills.
 // - the force is the exact gradient of this kernel's own energy: the same
 //   expressions as pmarlo_tpu_torch/md/analytic.py, general torsions
 //   k (1 + cos(n phi - gamma)) through atan2f, angles through acosf with the
@@ -67,21 +80,23 @@
 //   CTA 0 of the replica computes M dihedrals (cos/sin without atan2),
 //   standardises them, runs the tanh MLP with a team of lanes a unit that
 //   splits the unit's inputs (every thread of the CTA busy), whitens, takes
-//   E = k sum cv^2 or the sum over the hills ledger, and back-propagates by
-//   hand to dE/dphi; the other CTAs copy dE/dphi with the Born radii. Each
-//   atom's team then walks a CSR list of the (role, dihedral) pairs it
-//   takes part in, so the scatter needs no atomics. The weights and all
-//   activations live in shared memory; the hills ledger is read from global
-//   memory (L2) with a fixed-order block reduction.
+//   E = k sum cv^2 or the sum over the hills ledger, back-propagates by
+//   hand to dE/dphi and writes dE/dphi into the other CTAs. Each atom's
+//   team then walks a CSR list of the (role, dihedral) pairs it takes part
+//   in, so the scatter needs no atomics. The weights and all activations
+//   live in shared memory; the hills ledger is read from global memory (L2)
+//   with a fixed-order block reduction.
 // - fused metadynamics (build_pallas_chunk, mtd_deposit_interval): after
 //   every deposit window each replica publishes its CVs, the grid meets at
 //   a barrier, CTA 0 deposits the R hills serially in replica order (each
-//   sees the earlier ones), and a second barrier releases the next window.
+//   sees the earlier ones), a second barrier releases the next window, and
+//   the forces are evaluated again under the new ledger.
 // - fused REMD (build_pallas_remd): each cluster keeps its configuration
 //   for the whole run and carries its RUNG (temperature, frame slot, noise
 //   key); a swap exchanges the rung assignments of two clusters after one
 //   grid barrier on a double-buffered energy array, so no coordinates move
-//   between clusters. Outputs are rung-major, as the windowed path writes
+//   between clusters. A frame's energy and kinetic energy are summed in one
+//   replica reduction. Outputs are rung-major, as the windowed path writes
 //   them.
 // - the grid barrier is cooperative_groups' this_grid().sync(), which
 //   also orders the CTAs' global writes before the reads that follow it;
@@ -107,16 +122,23 @@ constexpr int kMaxCluster = 8;
 constexpr int kMaxLayers = 6;
 constexpr int kMaxCv = 8;
 enum BiasKind { kNoBias = 0, kHarmonic = 1, kMetadynamics = 2 };
+// what a kernel build compiles in: no bias, the harmonic CV bias only, or
+// the harmonic bias and the hills ledger
+enum BiasBuild { kUnbiased = 0, kHarmonicOnly = 1, kAnyBias = 2 };
 // second Philox key word of the swap uniforms (the noise streams use the
 // replica index there, far below this)
 constexpr uint32_t kSwapKey = 0x53574150u;
 // rows of the per-atom parameter table
 enum AtomRow { kInvM = 0, kQ, kRho, kSr, kRadii, kAlpha, kBeta, kGamma, kSa, kAtomRows };
-// (N, N) tables of the pair parameter block
-enum PairTable { kLjA = 0, kLjB, kQqScaled, kQqFull, kNeckD0, kNeckM0, kPairTables };
-// tables a CTA stages: its rows of the six, then its columns of the two
-// neck tables (entry (j, i) for its row i)
-enum StagedTable { kNeckD0T = kPairTables, kNeckM0T, kStagedTables };
+// tables of a pair in item order (md/fused_md.py item_tables): the LJ and
+// charge products, and the neck tables of (row, column) and (column, row)
+enum PairTab { kTabLjA = 0, kTabLjB, kTabQqScaled, kTabQqFull, kTabD0, kTabM0, kTabD0T, kTabM0T,
+               kPairTabs };
+// sums a phase's slots carry: 1 (Born integral, dE/dB) or 3 (force)
+constexpr int kSlotSums = 3;
+// atoms of a bonded term of type kBond, kAngle, kTorsion
+__device__ __forceinline__ int term_atoms(int type) { return type + 2; }
+enum Phase { kBornPhase = 0, kDedbPhase, kForcePhase };
 
 struct Args {
   float* x;                 // (R, N, 3) in/out
@@ -126,10 +148,16 @@ struct Args {
   const int* seeds;         // (R,)
   const float* kT;          // (R,) kB * T per replica
   const float* atom_p;      // (kAtomRows, N)
-  const float* pair_p;      // (kPairTables, N, N)
+  const int* items;         // (n_items, 4): row atom, column atom, first step | diagonal << 16,
+                            //   row slot | column slot << 16
+  const float* item_tab;    // (n_items, kPairTabs, steps, team)
+  float* slot_scratch;      // (R, cluster, slot floats) when the slots are not in shared memory
   BondedTables bonded;      // bond, angle and torsion terms
-  const int* csr_ptr;       // (N + 1,)
-  const int* csr_ent;       // (M, 2): (type << 2 | role, term)
+  const int* csr_ptr;       // (N + 1,) each atom's range of the (term, role) incidences
+  const int* bonded_slot;   // (M,) the CSR position of incidence (type, term, role),
+                            //   type-major, then term, then role
+  int n_terms[3];           // bonds, angles, torsions
+  int bonded_ld;            // incidences of the atoms a CTA owns, at most
   int n;
   int n_steps;
   unsigned long long step_offset;
@@ -137,15 +165,22 @@ struct Args {
   int use_gb, use_neck;
   // --- launch shape ---
   int cluster;              // CTAs a replica
-  int lanes;                // lanes a row
-  int rows;                 // rows a CTA, ceil(N / cluster)
-  int staged;               // pair tables in shared memory
-  int ld;                   // row stride of the staged tables
+  int lanes;                // lanes an atom team
+  int rows;                 // atoms a CTA owns, ceil(N / cluster)
+  int team;                 // lanes a pair team = atoms a group
+  int steps;                // steps an item, team / 2
+  int n_items;              // groups^2
+  int n_slots;              // slots an atom, 2 groups
+  int my_items;             // items a CTA at most, ceil(n_items / cluster)
+  int staged;               // the items' tables in shared memory
+  int slots_smem;           // the slots in shared memory (else slot_scratch)
   // --- CV bias (bias_kind != kNoBias) ---
   int bias_kind;
   int n_dih;                // M dihedrals -> 2M features
   int n_layers;             // linear layers of the MLP
   int widths[kMaxLayers + 1];   // 2M, hidden..., n_cv
+  int n_act;                // sum of the widths: the activations
+  int max_width;            // widest layer
   int n_cv;
   int use_whiten;
   float bias_strength;
@@ -187,6 +222,7 @@ struct BiasSmem {
   float* P;      // parameter blob
   float* act;    // activations: z (2M), then every layer's output
   float* y;      // (kMaxCv) whitened CVs
+  float* gcv;    // (kMaxCv) dE/d(CV)
   float* g0;     // (max width) gradient ping
   float* g1;     // (max width) gradient pong
   float* dphi;   // (M) dE/dphi
@@ -195,16 +231,16 @@ struct BiasSmem {
   float* red;    // (32) warp partials
 };
 
-// Where this thread sits: its CTA's rank in the replica's cluster and rows,
-// and its row and lane.
+// Where this thread sits: its CTA's rank in the replica's cluster and the
+// atoms it owns, and its atom team's atom and lane.
 struct Ctx {
   int rank;      // CTA rank in the cluster
-  int row0;      // first row of the CTA
-  int nrows;     // rows the CTA owns
-  int i;         // this thread's row (atom)
-  int lane;      // lane in the row team
-  bool own;      // the row exists and is this CTA's
-  bool lead;     // own and lane 0: holds the atom's position and velocity
+  int row0;      // first atom the CTA owns
+  int nrows;     // atoms the CTA owns
+  int i;         // this thread's atom team's atom
+  int lane;      // lane in the atom team
+  bool own;      // the atom exists and is this CTA's
+  bool lead;     // own and lane 0: integrates the atom
 };
 
 __device__ __forceinline__ Ctx make_ctx(const Args& a) {
@@ -268,23 +304,34 @@ __device__ __forceinline__ float team_sum(float v, int width) {
   return v;
 }
 
-// Sum of `v` over the block, the same value in every thread. Fixed order
+// Sums of two values over the block, the same in every thread. Fixed order
 // (xor shuffles, then the warps' partials in sequence), so a launch is
-// reproducible. Every thread of the block must call it.
-__device__ float block_sum(float v, float* red) {
-  v = team_sum(v, 32);
+// reproducible; each component adds as a block sum of it alone would.
+// Every thread of the block must call it.
+__device__ float2 block_sum2(float v0, float v1, float* red) {
+  v0 = team_sum(v0, 32);
+  v1 = team_sum(v1, 32);
   const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  if ((threadIdx.x & 31) == 0) {
+    red[2 * warp] = v0;
+    red[2 * warp + 1] = v1;
+  }
   __syncthreads();
-  float s = 0.0f;
+  float s0 = 0.0f, s1 = 0.0f;
   const int n_warps = blockDim.x >> 5;
-  for (int w = 0; w < n_warps; ++w) s += red[w];
+  for (int w = 0; w < n_warps; ++w) {
+    s0 += red[2 * w];
+    s1 += red[2 * w + 1];
+  }
   __syncthreads();
-  return s;
+  return make_float2(s0, s1);
 }
 
+__device__ float block_sum(float v, float* red) { return block_sum2(v, 0.0f, red).x; }
+
 // A barrier of the replica's CTAs: cluster.sync() (which also makes their
-// shared-memory writes visible to each other), or __syncthreads().
+// shared-memory and global writes visible to each other), or
+// __syncthreads().
 __device__ __forceinline__ void replica_sync(const Args& a) {
   if (a.cluster > 1) {
     cg::this_cluster().sync();
@@ -293,34 +340,16 @@ __device__ __forceinline__ void replica_sync(const Args& a) {
   }
 }
 
-// After each CTA wrote its own rows of `arr` (`width` floats a row; may be
-// null): a replica barrier, then every other CTA's rows copied from its
-// shared memory into this CTA's, and, when `extra` is given, `n_extra`
-// floats of it from CTA 0. Ends on a block barrier. The copied arrays are
-// written again only after the next replica barrier, which no CTA passes
-// before all have copied.
-__device__ void gather_rows(const Args& a, const Ctx& t, float* arr, int width, float* extra,
-                            int n_extra) {
-  replica_sync(a);
-  if (a.cluster == 1) return;
-  cg::cluster_group cl = cg::this_cluster();
-  if (arr != nullptr) {
-    for (int q = 0; q < a.cluster; ++q) {
-      if (q == t.rank) continue;
-      const float* rem = cl.map_shared_rank(arr, q);
-      const int hi = min(a.n, (q + 1) * a.rows) * width;
-      for (int k = q * a.rows * width + threadIdx.x; k < hi; k += blockDim.x) arr[k] = rem[k];
-    }
-  }
-  if (extra != nullptr && t.rank != 0) {
-    const float* rem = cl.map_shared_rank(extra, 0);
-    for (int k = threadIdx.x; k < n_extra; k += blockDim.x) extra[k] = rem[k];
-  }
-  __syncthreads();
+// `p` in the shared memory of CTA `rank` of the replica's cluster
+__device__ __forceinline__ float* in_cta(const Args& a, float* p, int rank) {
+  if (a.cluster == 1) return p;
+  return cg::this_cluster().map_shared_rank(p, rank);
 }
 
 // The replica's sums of two per-CTA totals, in rank order, the same in every
-// thread of every CTA. Every thread of the cluster must call it.
+// thread of every CTA, after one replica barrier. `part` is written again
+// only after a later barrier, which no CTA passes before all have read it.
+// Every thread of the cluster must call it.
 __device__ float2 replica_sum2(const Args& a, float* part, float v0, float v1) {
   if (a.cluster == 1) return make_float2(v0, v1);
   cg::cluster_group cl = cg::this_cluster();
@@ -335,7 +364,6 @@ __device__ float2 replica_sum2(const Args& a, float* part, float v0, float v1) {
     s0 += p[0];
     s1 += p[1];
   }
-  cl.sync();
   return make_float2(s0, s1);
 }
 
@@ -372,17 +400,13 @@ __device__ __forceinline__ void dihedral_geometry(const float* sx, const int* q,
 
 __device__ BiasSmem bias_smem(const Args& a, float* base) {
   BiasSmem s;
-  int n_act = 0, max_w = 0;
-  for (int l = 0; l <= a.n_layers; ++l) {
-    n_act += a.widths[l];
-    max_w = max(max_w, a.widths[l]);
-  }
   s.P = base;
   s.act = s.P + a.bias_p_len;
-  s.y = s.act + n_act;
-  s.g0 = s.y + kMaxCv;
-  s.g1 = s.g0 + max_w;
-  s.dphi = s.g1 + max_w;
+  s.y = s.act + a.n_act;
+  s.gcv = s.y + kMaxCv;
+  s.g0 = s.gcv + kMaxCv;
+  s.g1 = s.g0 + a.max_width;
+  s.dphi = s.g1 + a.max_width;
   s.cs = s.dphi + a.n_dih;
   s.sn = s.cs + a.n_dih;
   s.red = s.sn + a.n_dih;
@@ -478,36 +502,39 @@ __device__ void cv_forward(const Args& a, const float* sx, const BiasSmem& s) {
   __syncthreads();
 }
 
-// Bias energy of the hills ledger at the CVs in `cv` and, when `grad` is
-// non-null, its CV gradient: E = sum_h height_h exp(-1/2 |(cv - c_h)/sigma|^2)
-// over the valid prefix. Block-wide; the same values in every thread.
+// Bias energy of the hills ledger at the CVs in `cv` (shared memory) and,
+// when `grad` is non-null, its CV gradient into grad[0..n_cv) (shared
+// memory, visible after the next barrier): E = sum_h height_h exp(-1/2
+// |(cv - c_h)/sigma|^2) over the valid prefix. The gradient takes one more
+// pass over the hills a CV, so that no CV-sized array lives in registers.
+// Block-wide; the energy is the same in every thread.
 __device__ float hills_energy(const Args& a, const float* cv, int n_hills, float* red,
                               float* grad) {
   const int n_cv = a.n_cv;
-  float e = 0.0f, g[kMaxCv];
-#pragma unroll
-  for (int k = 0; k < kMaxCv; ++k) g[k] = 0.0f;
+  float e = 0.0f;
   for (int h = threadIdx.x; h < n_hills; h += blockDim.x) {
-    float d[kMaxCv], d2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) {
-      if (k < n_cv) {
-        d[k] = (cv[k] - __ldcg(a.mtd_centers + h * n_cv + k)) * a.mtd_inv_sigma[k];
-        d2 += d[k] * d[k];
-      }
+    float d2 = 0.0f;
+    for (int k = 0; k < n_cv; ++k) {
+      const float d = (cv[k] - __ldcg(a.mtd_centers + h * n_cv + k)) * a.mtd_inv_sigma[k];
+      d2 += d * d;
     }
-    const float wg = __ldcg(a.mtd_heights + h) * expf(-0.5f * d2);
-    e += wg;
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) {
-      if (k < n_cv) g[k] -= wg * d[k] * a.mtd_inv_sigma[k];
-    }
+    e += __ldcg(a.mtd_heights + h) * expf(-0.5f * d2);
   }
   e = block_sum(e, red);
   if (grad != nullptr) {
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) {
-      if (k < n_cv) grad[k] = block_sum(g[k], red);
+    for (int j = 0; j < n_cv; ++j) {
+      float g = 0.0f;
+      for (int h = threadIdx.x; h < n_hills; h += blockDim.x) {
+        float d2 = 0.0f, dj = 0.0f;
+        for (int k = 0; k < n_cv; ++k) {
+          const float d = (cv[k] - __ldcg(a.mtd_centers + h * n_cv + k)) * a.mtd_inv_sigma[k];
+          d2 += d * d;
+          dj = k == j ? d : dj;
+        }
+        g -= __ldcg(a.mtd_heights + h) * expf(-0.5f * d2) * dj * a.mtd_inv_sigma[j];
+      }
+      g = block_sum(g, red);
+      if (threadIdx.x == 0) grad[j] = g;
     }
   }
   return e;
@@ -515,41 +542,30 @@ __device__ float hills_energy(const Args& a, const float* cv, int n_hills, float
 
 // The CV bias at the positions in sx (pallas_md.py _bias_planes): returns
 // the bias energy (the same in every thread) and leaves dE/dphi of every
-// dihedral in s.dphi for the per-atom scatter. Block-wide.
+// dihedral in s.dphi for the per-atom scatter; kLedger compiles the hills
+// ledger in (the whole-run kernels take the harmonic bias only).
+// Block-wide.
+template <bool kLedger>
 __device__ float bias_energy_and_dphi(const Args& a, const float* sx, const BiasSmem& s,
                                       int n_hills) {
   const int tid = threadIdx.x, T = blockDim.x, M = a.n_dih, n_cv = a.n_cv;
   cv_forward(a, sx, s);
-  float e_bias = 0.0f, g_cv[kMaxCv];
-  if (a.bias_kind == kMetadynamics) {
-    float cv[kMaxCv];
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) cv[k] = k < n_cv ? s.y[k] : 0.0f;
-    e_bias = hills_energy(a, cv, n_hills, s.red, g_cv);
+  float e_bias = 0.0f;
+  if (kLedger && a.bias_kind == kMetadynamics) {
+    e_bias = hills_energy(a, s.y, n_hills, s.red, s.gcv);
   } else {
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) {
-      if (k < n_cv) {
-        e_bias += a.bias_strength * s.y[k] * s.y[k];
-        g_cv[k] = 2.0f * a.bias_strength * s.y[k];
-      }
-    }
+    for (int k = 0; k < n_cv; ++k) e_bias += a.bias_strength * s.y[k] * s.y[k];
+    if (tid < n_cv) s.gcv[tid] = 2.0f * a.bias_strength * s.y[tid];
   }
+  __syncthreads();
   // back through the whitening into the gradient of the raw outputs
   const float* w_end = s.P + a.bias_p_len;        // end of the blob
   const float* wmat = w_end - n_cv * n_cv;
   if (tid < n_cv) {
-    float acc = 0.0f;
+    float acc = s.gcv[tid];
     if (a.use_whiten) {
-#pragma unroll
-      for (int k = 0; k < kMaxCv; ++k) {
-        if (k < n_cv) acc += g_cv[k] * wmat[tid * n_cv + k];
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kMaxCv; ++k) {
-        if (k == tid) acc = g_cv[k];
-      }
+      acc = 0.0f;
+      for (int k = 0; k < n_cv; ++k) acc += s.gcv[k] * wmat[tid * n_cv + k];
     }
     s.g0[tid] = acc;
   }
@@ -600,94 +616,139 @@ __device__ void bias_atom_force(const Args& a, const float* sx, const BiasSmem& 
   }
 }
 
-// shared memory of one CTA: every position, Born radius, chain factor and
-// the partners' rho and scaled radius of the replica; the reductions; the
-// staged pair tables; then the bias work space
-struct Smem {
-  float* sx;      // (N, 3)
-  float* sB;      // (N,)
-  float* sChain;  // (N,)
-  float* sr;      // (N,) scaled radii
-  float* rho;     // (N,) offset radii
-  float* red;     // (32) warp partials
-  float* part;    // (2) this CTA's totals for the cluster sum
-  float* tab;     // (staged tables, rows, ld) or unused
-  BiasSmem bias;
-};
-
-__device__ __forceinline__ int staged_tables(const Args& a) {
-  return a.use_neck ? static_cast<int>(kStagedTables) : static_cast<int>(kNeckD0);
+__device__ __forceinline__ int slot_floats(const Args& a) {
+  return kSlotSums * a.n_slots * a.rows + 3 * a.bonded_ld;
 }
 
-// Carves the shared memory and fills what is constant for the launch: the
-// partners' parameters, this CTA's pair tables (when staged) and, in CTA 0,
-// the bias parameters. Visible after the next barrier.
-__device__ Smem carve_smem(const Args& a, const Ctx& t, float* base) {
+__device__ __forceinline__ int item_floats(const Args& a) {
+  return kPairTabs * a.steps * a.team;
+}
+
+// the CTA's dynamic shared memory
+__device__ __forceinline__ float* g_smem() {
+  extern __shared__ float smem[];
+  return smem;
+}
+
+// shared memory of one CTA: every position (two buffers, by step parity),
+// Born radius, chain factor and the atoms' rho and scaled radius of the
+// replica; the reductions; the velocities and forces of the atoms the CTA
+// owns; their slots (when in shared memory); its items' tables (when
+// staged); then the bias work space. Each array's address is computed from
+// the launch arguments where it is used, so that no pointer to it stays
+// in a register for the whole launch.
+struct Smem {
+  __device__ float* sx(const Args& a, int b) const { return g_smem() + 3 * a.n * b; }  // (N, 3)
+  __device__ float* sB(const Args& a) const { return g_smem() + 6 * a.n; }             // (N,)
+  __device__ float* sChain(const Args& a) const { return g_smem() + 7 * a.n; }         // (N,)
+  __device__ float* sr(const Args& a) const { return g_smem() + 8 * a.n; }   // scaled radii
+  __device__ float* rho(const Args& a) const { return g_smem() + 9 * a.n; }  // offset radii
+  __device__ float* red(const Args& a) const { return g_smem() + 10 * a.n; }           // (32)
+  __device__ float* part(const Args& a) const { return red(a) + 32; }                // (4)
+  __device__ float* sv(const Args& a) const { return part(a) + 4; }                  // (rows, 3)
+  __device__ float* sf(const Args& a) const { return sv(a) + 3 * a.rows; }           // (rows, 3)
+  // (kSlotSums, n_slots, rows) + (3, bonded_ld), when a.slots_smem
+  __device__ float* slots(const Args& a) const { return sf(a) + 3 * a.rows; }
+  // (my_items, kPairTabs, steps, team), when a.staged
+  __device__ float* tab(const Args& a) const {
+    return slots(a) + (a.slots_smem ? slot_floats(a) : 0);
+  }
+  // the bias work space (bias_smem carves it)
+  __device__ float* bias(const Args& a) const {
+    return tab(a) + (a.staged ? a.my_items * item_floats(a) : 0);
+  }
+};
+
+// Fills what is constant for the launch: the atoms' parameters, this CTA's
+// items' tables (when staged) and, in CTA 0, the bias parameters. Visible
+// after the next barrier.
+__device__ Smem carve_smem(const Args& a, const Ctx& t) {
   const int n = a.n;
-  Smem s;
-  s.sx = base;
-  s.sB = s.sx + 3 * n;
-  s.sChain = s.sB + n;
-  s.sr = s.sChain + n;
-  s.rho = s.sr + n;
-  s.red = s.rho + n;
-  s.part = s.red + 32;
-  s.tab = s.part + 4;
-  float* next = s.tab + (a.staged ? staged_tables(a) * a.rows * a.ld : 0);
+  const Smem s{};
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    s.sr[k] = a.atom_p[kSr * n + k];
-    s.rho[k] = a.atom_p[kRho * n + k];
+    s.sr(a)[k] = a.atom_p[kSr * n + k];
+    s.rho(a)[k] = a.atom_p[kRho * n + k];
   }
   if (a.staged) {
-    const int per_table = t.nrows * n;
-    const int total = staged_tables(a) * per_table;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx / per_table;
-      const int lr = (idx - k * per_table) / n;
-      const int j = idx - k * per_table - lr * n;
-      const int i = t.row0 + lr;
-      const size_t src = (k < kPairTables)
-          ? static_cast<size_t>(k) * n * n + static_cast<size_t>(i) * n + j
-          : static_cast<size_t>(k - kNeckD0T + kNeckD0) * n * n + static_cast<size_t>(j) * n + i;
-      s.tab[(k * a.rows + lr) * a.ld + j] = a.pair_p[src];
+    // this CTA's items m C + rank, m = 0, 1, ...
+    const int mine = (a.n_items - t.rank + a.cluster - 1) / a.cluster;
+    const int per = item_floats(a);
+    float* tab = s.tab(a);
+    for (int k = threadIdx.x; k < mine * per; k += blockDim.x) {
+      const int m = k / per;
+      const size_t src = static_cast<size_t>(m * a.cluster + t.rank) * per + (k - m * per);
+      tab[k] = __ldg(a.item_tab + src);
     }
   }
-  s.bias = BiasSmem();
-  if (a.bias_kind != kNoBias) {
-    s.bias = bias_smem(a, next);
-    if (t.rank == 0) {
-      for (int k = threadIdx.x; k < a.bias_p_len; k += blockDim.x) s.bias.P[k] = a.bias_p[k];
-    }
+  if (a.bias_kind != kNoBias && t.rank == 0) {
+    float* p = s.bias(a);
+    for (int k = threadIdx.x; k < a.bias_p_len; k += blockDim.x) p[k] = a.bias_p[k];
   }
   return s;
 }
 
-// Where this thread's row reads its pair parameters: entry (i, j) of row
-// table k at row[k kstride + j], entry (j, i) of neck table k at
-// col[(k - kNeckD0T) kstride + j jstride]; shared memory when the tables
-// are staged, else global memory (no branch in the pair loops).
-struct RowTables {
-  const float* row;
-  const float* col;
-  int kstride;
-  int jstride;
-};
+// The slots of CTA `owner`'s atoms: its shared memory, or its part of the
+// replica's global scratch
+__device__ __forceinline__ float* slot_block(const Args& a, const Smem& s, int owner) {
+  if (a.slots_smem) return in_cta(a, s.slots(a), owner);
+  const size_t replica = blockIdx.x / a.cluster;
+  return a.slot_scratch + (replica * a.cluster + owner) * static_cast<size_t>(slot_floats(a));
+}
 
-__device__ __forceinline__ RowTables row_tables(const Args& a, const Smem& s, const Ctx& t) {
-  RowTables rt;
-  if (a.staged) {
-    const int lr = t.i - t.row0;
-    rt.row = s.tab + lr * a.ld;
-    rt.col = s.tab + (kNeckD0T * a.rows + lr) * a.ld;
-    rt.kstride = a.rows * a.ld;
-    rt.jstride = 1;
-  } else {
-    rt.row = a.pair_p + t.i * a.n;
-    rt.col = a.pair_p + kNeckD0 * a.n * a.n + t.i;
-    rt.kstride = a.n * a.n;
-    rt.jstride = a.n;
+// writes the K sums of one slot of `atom` (in its owner's slot block)
+template <int K>
+__device__ __forceinline__ void put_slot(const Args& a, const Smem& s, int rank, int atom,
+                                         int slot, const float* v) {
+  const int owner = atom / a.rows;
+  float* blk = (a.slots_smem && owner == rank) ? s.slots(a) : slot_block(a, s, owner);
+  const int local = atom - owner * a.rows;
+#pragma unroll
+  for (int c = 0; c < K; ++c) blk[(c * a.n_slots + slot) * a.rows + local] = v[c];
+}
+
+// Sum K of this thread's atom's slots, the atom team's lanes taking slots
+// lane, lane + L, ... and meeting by xor shuffles: the same order every
+// evaluation. Every lane of the warp must call it.
+template <int K>
+__device__ __forceinline__ void fold_slots(const Args& a, const Smem& s, const Ctx& t,
+                                           float* out) {
+  const float* blk = a.slots_smem ? s.slots(a) : slot_block(a, s, t.rank);
+  const int local = t.i - t.row0;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    float acc = 0.0f;
+    if (t.own) {
+      for (int q = t.lane; q < a.n_slots; q += a.lanes) {
+        const float* p = blk + (c * a.n_slots + q) * a.rows + local;
+        acc += a.slots_smem ? *p : __ldcg(p);
+      }
+    }
+    out[c] = team_sum(acc, a.lanes);
   }
-  return rt;
+}
+
+// Special functions as single special-function-unit results (PTX .approx,
+// flush-to-zero; the arguments are positive and far from denormal), as the
+// pair sweeps' gb_force.cuh takes them: IEEE division, sqrtf and expf are
+// multi-instruction sequences on each pair's chain. The HCT logarithm stays
+// IEEE logf.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(-x) for x >= 0
+__device__ __forceinline__ float exp_neg_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(-1.4426950408889634f * x));
+  return y;
 }
 
 // The HCT term and dH/dr (md/pair_force.py _hct) with no branch: the
@@ -702,8 +763,8 @@ __device__ __forceinline__ void born_pair_sel(float r, float inv_r, float rho_i,
   const bool use_rho = absd < rho_i;
   const float L = use_rho ? rho_i : absd;
   const float dL = use_rho ? 0.0f : sgn;
-  const float inv_L = 1.0f / L;
-  const float inv_U = 1.0f / u_raw;
+  const float inv_L = rcp_approx(L);
+  const float inv_U = rcp_approx(u_raw);
   const float log_LU = logf(L * inv_U);
   const float quad = r - sr_j * sr_j * inv_r;
   float h = inv_L - inv_U + 0.25f * quad * (inv_U * inv_U - inv_L * inv_L) + 0.5f * log_LU * inv_r;
@@ -714,91 +775,255 @@ __device__ __forceinline__ void born_pair_sel(float r, float inv_r, float rho_i,
              - 0.5f * log_LU * inv_r * inv_r
              + 0.5f * inv_r * (dL * inv_L - inv_U);
   const bool engulfed = (sr_j - r) > rho_i;
-  h = engulfed ? h + 2.0f * (1.0f / rho_i - inv_L) : h;
+  h = engulfed ? h + 2.0f * (rcp_approx(rho_i) - inv_L) : h;
   dh = engulfed ? dh + 2.0f * dL * inv_L * inv_L : dh;
   const bool active = !(u_raw <= rho_i);
   *H = active ? h : 0.0f;
   *dH = active ? dh : 0.0f;
 }
 
-// displacement from partner j to this row's atom, and their distance
+// displacement from atom j to the row atom, their distance and its inverse
+// (one rsqrt.approx and a Newton step: 1/r^12 of the LJ energy magnifies
+// its error twelvefold)
 __device__ __forceinline__ float pair_geometry(const float* sx, const float xi[3], int j,
-                                               float d[3]) {
+                                               float d[3], float* inv_r) {
   float xj[3];
   load3(sx, j, xj);
   for (int c = 0; c < 3; ++c) d[c] = xi[c] - xj[c];
-  return sqrtf(dot3(d, d) + kEps);
+  const float r2 = dot3(d, d) + kEps;
+  const float y = rsqrt_approx(r2);
+  *inv_r = y * (1.5f - 0.5f * r2 * y * y);
+  return r2 * *inv_r;
 }
 
-// Forces on atom t.i at the replica's positions (every lane of the row
-// team gets them); the atom's energy share in *e when `e` is non-null,
-// valid in the team's lead (thread 0 of CTA 0 also carries the bias
-// energy). The positions in sx must hold the CTA's own rows (the other
-// rows are copied here). Every thread of the cluster must call it: it
-// holds the replica barriers between the GB phases and ends with a block
-// barrier, so callers may overwrite sx afterwards. `n_hills` is the valid
-// prefix of the metadynamics ledger. Lane l of a row team takes partners
-// j = l, l + L, ...; the self pair and a slot past the last partner are
-// computed on a valid index and left out by a select.
-template <bool kBias>
-__device__ void compute_forces(const Args& a, const Smem& s, const Ctx& t, int n_hills,
-                               float f[3], float* e) {
-  // partners a lane takes an iteration: two independent pair chains
-  // overlap where the registers allow it (the biased kernels keep one); the
-  // sums add the pairs in the same order either way
-  constexpr int P = kBias ? 1 : 2;
-  const int n = a.n, L = a.lanes;
-  const float* atom_p = a.atom_p;
-  gather_rows(a, t, s.sx, 3, nullptr, 0);
-  float xi[3] = {0.0f, 0.0f, 0.0f};
-  if (t.own) load3(s.sx, t.i, xi);
-  const RowTables rt = row_tables(a, s, t);
-  f[0] = f[1] = f[2] = 0.0f;
-  float energy = 0.0f;
-  float rho_i = 0.0f, sr_i = 0.0f, B_i = 1.0f, chain_i = 0.0f;
-  float e_bias = 0.0f;
-  if (kBias && t.rank == 0) e_bias = bias_energy_and_dphi(a, s.sx, s.bias, n_hills);
-  float* dphi = kBias ? s.bias.dphi : nullptr;
+// the GBn2 neck integral and its r-derivative (md/gbn2.py) with
+// 1/denom one rcp.approx
+__device__ __forceinline__ void neck_fast(float r, float d0, float m0s, float* val, float* dval) {
+  const float u = r - d0;
+  const float u2 = u * u;
+  const float inv_d = rcp_approx(1.0f + 100.0f * u2 + 0.3e6f * u2 * u2 * u2);
+  *val = m0s * inv_d;
+  *dval = -m0s * (200.0f * u + 1.8e6f * u2 * u2 * u) * (inv_d * inv_d);
+}
 
-  if (a.use_gb) {
-    // --- phase 1: Born radius of atom i ---
-    float Ih = 0.0f, In = 0.0f, dB_dpsi = 0.0f;
-    if (t.own) {
-      rho_i = s.rho[t.i];
-      sr_i = s.sr[t.i];
-      for (int j0 = t.lane; j0 < n; j0 += P * L) {
-        int jj[P];
-        bool ok[P];
-        float r[P], H[P], nv[P];
+// What a row atom brings to its pairs in a phase
+struct RowAtom {
+  float x[3];
+  float rho, sr, B, inv_B, chain;
+};
+
+// One pair's terms in phase `kPhase`: the row atom's sums in rt, the column
+// atom's in ct, its energy added to *e (all zero where `ok` is false; a
+// masked pair is computed on valid indices and dropped by selects). `tab`
+// points at the pair's first table entry, `tstride` apart.
+template <int kPhase>
+__device__ __forceinline__ void pair_terms(const Args& a, const Smem& s, const float* sx,
+                                           const RowAtom& ri, int j, bool ok, const float* tab,
+                                           int tstride, float* rt, float* ct, float* e) {
+  float d[3], inv_r;
+  const float r = pair_geometry(sx, ri.x, j, d, &inv_r);
+  if (kPhase == kBornPhase) {
+    float H_ij, H_ji, dH;
+    born_pair_sel(r, inv_r, ri.rho, s.sr(a)[j], &H_ij, &dH);
+    born_pair_sel(r, inv_r, s.rho(a)[j], ri.sr, &H_ji, &dH);
+    float n_ij = 0.0f, n_ji = 0.0f, dn;
+    if (a.use_neck) {
+      neck_fast(r, tab[kTabD0 * tstride], tab[kTabM0 * tstride], &n_ij, &dn);
+      neck_fast(r, tab[kTabD0T * tstride], tab[kTabM0T * tstride], &n_ji, &dn);
+    }
+    rt[0] = ok ? 0.5f * H_ij + n_ij : 0.0f;
+    ct[0] = ok ? 0.5f * H_ji + n_ji : 0.0f;
+  } else if (kPhase == kDedbPhase) {
+    const float r2 = r * r;
+    const float B_j = s.sB(a)[j];
+    const float inv_Bj = rcp_approx(B_j);
+    const float expu = exp_neg_approx(0.25f * r2 * ri.inv_B * inv_Bj);
+    const float inv_f = rsqrt_approx(r2 + ri.B * B_j * expu);
+    const float qq = tab[kTabQqFull * tstride];
+    const float dEdf = -qq * inv_f * inv_f;
+    rt[0] = ok ? dEdf * (expu * (B_j + 0.25f * r2 * ri.inv_B) * (0.5f * inv_f)) : 0.0f;
+    ct[0] = ok ? dEdf * (expu * (ri.B + 0.25f * r2 * inv_Bj) * (0.5f * inv_f)) : 0.0f;
+    *e += ok ? 2.0f * qq * inv_f : 0.0f;   // both orders of the pair
+  } else {
+    const float inv_r2 = inv_r * inv_r;
+    const float inv_r6 = inv_r2 * inv_r2 * inv_r2;
+    const float inv_r12 = inv_r6 * inv_r6;
+    const float la = tab[kTabLjA * tstride];
+    const float lb = tab[kTabLjB * tstride];
+    const float qs = tab[kTabQqScaled * tstride];
+    // dE/dr of the LJ + Coulomb pair
+    float g = -12.0f * la * inv_r12 * inv_r + 6.0f * lb * inv_r6 * inv_r - qs * inv_r2;
+    const float e_pair = la * inv_r12 - lb * inv_r6 + qs * inv_r;
+    if (a.use_gb) {
+      const float r2 = r * r;
+      const float B_j = s.sB(a)[j];
+      const float expu = exp_neg_approx(0.25f * r2 * ri.inv_B * rcp_approx(B_j));
+      const float inv_f = rsqrt_approx(r2 + ri.B * B_j * expu);
+      const float qq = tab[kTabQqFull * tstride];
+      // direct GB term at fixed Born radii, both orders
+      g += 2.0f * (-qq * inv_f * inv_f) * (r * (1.0f - 0.25f * expu) * inv_f);
+      // Born chain: dE/dB_i dB_i/dr_ij + dE/dB_j dB_j/dr_ji
+      float H, dH_ij, dH_ji;
+      born_pair_sel(r, inv_r, ri.rho, s.sr(a)[j], &H, &dH_ij);
+      born_pair_sel(r, inv_r, s.rho(a)[j], ri.sr, &H, &dH_ji);
+      float dI_ij = 0.5f * dH_ij, dI_ji = 0.5f * dH_ji;
+      if (a.use_neck) {
+        float nv, dnv;
+        neck_fast(r, tab[kTabD0 * tstride], tab[kTabM0 * tstride], &nv, &dnv);
+        dI_ij += dnv;
+        neck_fast(r, tab[kTabD0T * tstride], tab[kTabM0T * tstride], &nv, &dnv);
+        dI_ji += dnv;
+      }
+      g += ri.chain * dI_ij + s.sChain(a)[j] * dI_ji;
+    }
+    const float coef = ok ? g * inv_r : 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      rt[c] = -coef * d[c];
+      ct[c] = coef * d[c];
+    }
+    *e += ok ? e_pair : 0.0f;
+  }
+}
+
+// One phase's item sweep over the replica's cluster: every unordered pair
+// once, its two atoms' sums to their slots. P steps an iteration (their
+// pairs' chains overlap; the sums add in step order either way). Every
+// thread of the CTA must call it (the shuffles are warp-wide).
+template <int kPhase, int P>
+__device__ void pair_sweep(const Args& a, const Smem& s, const float* sx, int rank, float* e) {
+  constexpr int K = kPhase == kForcePhase ? 3 : 1;
+  const int n = a.n, T = a.team, S = a.steps, half = a.team >> 1;
+  const int tpc = blockDim.x / T;
+  const int team = threadIdx.x / T, l = threadIdx.x & (T - 1);
+  const int stride = a.cluster * tpc;
+  const int rounds = (a.n_items + stride - 1) / stride;
+  const int per = item_floats(a);
+  const int4* items = reinterpret_cast<const int4*>(a.items);
+  int4 next = make_int4(0, 0, 0, 0);
+  if (team * a.cluster + rank < a.n_items) next = __ldg(items + team * a.cluster + rank);
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int m = rd * tpc + team;            // the CTA's m-th item
+    const int it = m * a.cluster + rank;
+    const bool item_ok = it < a.n_items;
+    const int4 item = next;                   // the next round's item loads meanwhile
+    const int it_next = it + tpc * a.cluster;
+    if (rd + 1 < rounds && it_next < a.n_items) next = __ldg(items + it_next);
+    const int i = item.x + l;
+    const int k0 = item.z & 0xffff;
+    const bool diag = (item.z >> 16) != 0;
+    const bool row_ok = item_ok && i < n;
+    const int iv = row_ok ? i : 0;
+    const float* tab = (a.staged ? s.tab(a) + static_cast<size_t>(item_ok ? m : 0) * per
+                                 : a.item_tab + static_cast<size_t>(item_ok ? it : 0) * per) + l;
+    RowAtom ri;
+    load3(sx, iv, ri.x);
+    ri.rho = s.rho(a)[iv];
+    ri.sr = s.sr(a)[iv];
+    ri.B = kPhase == kBornPhase ? 1.0f : s.sB(a)[iv];
+    ri.inv_B = rcp_approx(ri.B);
+    ri.chain = kPhase == kForcePhase ? s.sChain(a)[iv] : 0.0f;
+    float racc[K], cacc[K];
 #pragma unroll
-        for (int u = 0; u < P; ++u) {
-          const int j = j0 + u * L;
-          ok[u] = j < n && j != t.i;
-          jj[u] = j < n ? j : j0;
-          float d[3], dH;
-          r[u] = pair_geometry(s.sx, xi, jj[u], d);
-          born_pair_sel(r[u], 1.0f / r[u], rho_i, s.sr[jj[u]], &H[u], &dH);
-          nv[u] = 0.0f;
-        }
-        if (a.use_neck) {
+    for (int c = 0; c < K; ++c) racc[c] = cacc[c] = 0.0f;
+    // P steps an iteration, no more: the registers go to more warps
+#pragma unroll 1
+    for (int k = 0; k < S; k += P) {
+      float rt[P][K], ct[P][K];
 #pragma unroll
-          for (int u = 0; u < P; ++u) {
-            float dnv;
-            neck_pair(r[u], rt.row[kNeckD0 * rt.kstride + jj[u]],
-                      rt.row[kNeckM0 * rt.kstride + jj[u]], &nv[u], &dnv);
-          }
-        }
+      for (int u = 0; u < P; ++u) {
+        const int kk = k0 + k + u;
+        const int j = item.y + ((l + kk) & (T - 1));
+        // a diagonal item's last step meets each pair from both sides: half the lanes take it
+        const bool ok = row_ok && j < n && (!diag || kk < half || l < half);
+        pair_terms<kPhase>(a, s, sx, ri, ok ? j : iv, ok, tab + (k + u) * T, S * T, rt[u], ct[u],
+                           e);
+      }
 #pragma unroll
-        for (int u = 0; u < P; ++u) {
-          Ih += ok[u] ? H[u] : 0.0f;
-          In += ok[u] ? nv[u] : 0.0f;
+      for (int u = 0; u < P; ++u) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          racc[c] += rt[u][c];
+          cacc[c] = __shfl_sync(0xffffffffu, cacc[c] + ct[u][c], (l + 1) & (T - 1), T);
         }
       }
     }
-    Ih = team_sum(Ih, L);
-    In = team_sum(In, L);
+    // after S steps lane l holds column (l + k0 + S) mod T
+    const int jc = item.y + ((l + k0 + S) & (T - 1));
+    if (row_ok) put_slot<K>(a, s, rank, i, item.w & 0xffff, racc);
+    if (item_ok && jc < n) put_slot<K>(a, s, rank, jc, item.w >> 16, cacc);
+  }
+}
+
+// Each bonded term once, over every thread of the cluster: every role's
+// force (bonded_term_all) to its incidence's slot, the CSR position of
+// (term, role) in the owner's block, after the pair slots; the energy to
+// *e. Row 10's two passes (bonded.cu), inside the step.
+__device__ void bonded_terms_once(const Args& a, const Smem& s, const float* sx, int rank,
+                                  float* e) {
+  const int stride = a.cluster * blockDim.x;
+  const int total = a.n_terms[0] + a.n_terms[1] + a.n_terms[2];
+  for (int q = rank * blockDim.x + threadIdx.x; q < total; q += stride) {
+    int type = 0, term = q, inc = 0;
+    while (term >= a.n_terms[type]) {
+      inc += term_atoms(type) * a.n_terms[type];
+      term -= a.n_terms[type];
+      ++type;
+    }
+    float fr[4][3];
+    *e += bonded_term_all(a.bonded, sx, type, term, fr);
+    const int* idx = type == kBond ? a.bonded.bond_i
+                     : type == kAngle ? a.bonded.angle_i : a.bonded.tors_i;
+    for (int k = 0; k < term_atoms(type); ++k) {
+      const int atom = idx[term_atoms(type) * term + k];
+      const int owner = atom / a.rows;
+      float* blk = (a.slots_smem && owner == rank) ? s.slots(a) : slot_block(a, s, owner);
+      const int local =
+          a.bonded_slot[inc + term_atoms(type) * term + k] - a.csr_ptr[owner * a.rows];
+      float* out = blk + kSlotSums * a.n_slots * a.rows;
+      for (int c = 0; c < 3; ++c) out[c * a.bonded_ld + local] = fr[k][c];
+    }
+  }
+}
+
+// `v` into element `k` of `arr` in every CTA of the replica's cluster
+__device__ __forceinline__ void put_everywhere(const Args& a, float* arr, int k, float v) {
+  for (int q = 0; q < a.cluster; ++q) in_cta(a, arr, q)[k] = v;
+}
+
+// Forces on atom t.i at the replica's positions `sx` (into s.sf(a), written by
+// the atom team's lead), and this thread's share of the replica's energy
+// in *e (pairs, the atom's self terms, bonded terms; thread 0 of CTA 0 also
+// carries the bias energy). `sx` must hold every atom's position in every
+// CTA, visible after a replica barrier. Every thread of the cluster must
+// call it; it ends on a block barrier. `n_hills` is the valid prefix of the
+// metadynamics ledger.
+template <int kBias, int P>
+__device__ void compute_forces(const Args& a, const Smem& s, const Ctx& t, const float* sx,
+                               int n_hills, float* e) {
+  const int n = a.n;
+  const float* atom_p = a.atom_p;
+  float energy = 0.0f;
+  if (kBias && t.rank == 0) {
+    const float e_bias =
+        bias_energy_and_dphi<kBias == kAnyBias>(a, sx, bias_smem(a, s.bias(a)), n_hills);
+    if (threadIdx.x == 0) energy += e_bias;
+    // dE/dphi into the other CTAs, visible after the next barrier
+    for (int k = threadIdx.x; k < (a.cluster - 1) * a.n_dih; k += blockDim.x) {
+      const int q = 1 + k / a.n_dih, d = k % a.n_dih;
+      float* dphi = bias_smem(a, s.bias(a)).dphi;
+      in_cta(a, dphi, q)[d] = dphi[d];
+    }
+  }
+
+  if (a.use_gb) {
+    // --- phase 1: Born radius of atom i ---
+    pair_sweep<kBornPhase, P>(a, s, sx, t.rank, &energy);
+    replica_sync(a);
+    float I;
+    fold_slots<1>(a, s, t, &I);
+    float B_i = 1.0f, dB_dpsi = 0.0f, rho_i = 0.0f;
     if (t.own) {
-      const float I = 0.5f * Ih + In;
+      rho_i = s.rho(a)[t.i];
       const float al = __ldg(atom_p + kAlpha * n + t.i);
       const float be = __ldg(atom_p + kBeta * n + t.i);
       const float ga = __ldg(atom_p + kGamma * n + t.i);
@@ -811,34 +1036,14 @@ __device__ void compute_forces(const Args& a, const Smem& s, const Ctx& t, int n
       B_i = 1.0f / fmaxf(inv_B_raw, 1e-3f);
       const float gprime = al - 2.0f * be * psi + 3.0f * ga * psi * psi;
       dB_dpsi = clamped ? 0.0f : B_i * B_i * (1.0f - th * th) * gprime / radii;
-      if (t.lane == 0) s.sB[t.i] = B_i;
+      if (t.lane == 0) put_everywhere(a, s.sB(a), t.i, B_i);
     }
-    gather_rows(a, t, s.sB, 1, dphi, a.n_dih);
+    replica_sync(a);
     // --- phase 2: dE/dB_i and the chain factor of atom i ---
-    float acc = 0.0f, e_cross = 0.0f;
-    if (t.own) {
-      for (int j0 = t.lane; j0 < n; j0 += P * L) {
-#pragma unroll
-        for (int u = 0; u < P; ++u) {
-          const int j = j0 + u * L;
-          const bool ok = j < n && j != t.i;
-          const int jv = j < n ? j : j0;
-          float d[3];
-          const float r = pair_geometry(s.sx, xi, jv, d);
-          const float r2 = r * r;
-          const float B_j = s.sB[jv];
-          const float BB = B_i * B_j;
-          const float expu = expf(-r2 / (4.0f * BB));
-          const float inv_f = 1.0f / sqrtf(r2 + BB * expu);
-          const float qq = rt.row[kQqFull * rt.kstride + jv];
-          const float dEdf = -qq * inv_f * inv_f;
-          acc += ok ? dEdf * (expu * (B_j + r2 / (4.0f * B_i)) * (0.5f * inv_f)) : 0.0f;
-          e_cross += ok ? qq * inv_f : 0.0f;
-        }
-      }
-    }
-    acc = team_sum(acc, L);
-    e_cross = team_sum(e_cross, L);
+    pair_sweep<kDedbPhase, P>(a, s, sx, t.rank, &energy);
+    replica_sync(a);
+    float acc;
+    fold_slots<1>(a, s, t, &acc);
     if (t.own) {
       const float q_i = __ldg(atom_p + kQ * n + t.i);
       const float sa_i = __ldg(atom_p + kSa * n + t.i);
@@ -847,124 +1052,74 @@ __device__ void compute_forces(const Args& a, const Smem& s, const Ctx& t, int n
       const float inv_B6 = inv_B2 * inv_B2 * inv_B2;
       const float dEdB =
           2.0f * acc - a.gb_pref * q_i * q_i * inv_B2 - 6.0f * sa_i * inv_B6 * inv_B;
-      chain_i = dEdB * dB_dpsi * rho_i;
       if (t.lane == 0) {
-        s.sChain[t.i] = chain_i;
-        energy += e_cross + a.gb_pref * q_i * q_i * inv_B + sa_i * inv_B6;
+        put_everywhere(a, s.sChain(a), t.i, dEdB * dB_dpsi * rho_i);
+        energy += a.gb_pref * q_i * q_i * inv_B + sa_i * inv_B6;
       }
     }
-    gather_rows(a, t, s.sChain, 1, nullptr, 0);
-  } else if (a.cluster > 1) {
-    // no GB phase to meet at: a barrier that keeps the rows copied above
-    // unwritten until every CTA has them, and brings dE/dphi from CTA 0
-    gather_rows(a, t, nullptr, 0, dphi, a.n_dih);
+    replica_sync(a);
   }
 
-  // --- phase 3: row-owned pair forces + bonded terms ---
-  float e_lane = 0.0f;
+  // --- phase 3: pair forces and bonded terms, each once ---
+  pair_sweep<kForcePhase, P>(a, s, sx, t.rank, &energy);
+  bonded_terms_once(a, s, sx, t.rank, &energy);
+  replica_sync(a);
+  float f[3];
+  fold_slots<3>(a, s, t, f);
+  float fb[3] = {0.0f, 0.0f, 0.0f};
   if (t.own) {
-    float e_nb = 0.0f;
-    for (int j0 = t.lane; j0 < n; j0 += P * L) {
-      int jj[P];
-      bool ok[P];
-      float d[P][3], r[P], inv_r[P], g[P];
-#pragma unroll
-      for (int u = 0; u < P; ++u) {
-        const int j = j0 + u * L;
-        ok[u] = j < n && j != t.i;
-        jj[u] = j < n ? j : j0;
-        r[u] = pair_geometry(s.sx, xi, jj[u], d[u]);
-        inv_r[u] = 1.0f / r[u];
-        const float inv_r2 = inv_r[u] * inv_r[u];
-        const float inv_r6 = inv_r2 * inv_r2 * inv_r2;
-        const float inv_r12 = inv_r6 * inv_r6;
-        const float la = rt.row[kLjA * rt.kstride + jj[u]];
-        const float lb = rt.row[kLjB * rt.kstride + jj[u]];
-        const float qs = rt.row[kQqScaled * rt.kstride + jj[u]];
-        // dE/dr of the (symmetric) LJ + Coulomb pair, summed over both orders
-        g[u] = -12.0f * la * inv_r12 * inv_r[u] + 6.0f * lb * inv_r6 * inv_r[u] - qs * inv_r2;
-        const float e_pair = la * inv_r12 - lb * inv_r6 + qs * inv_r[u];
-        e_nb += ok[u] ? e_pair : 0.0f;
-      }
-      if (a.use_gb) {
-        float dI_ij[P], dI_ji[P];
-#pragma unroll
-        for (int u = 0; u < P; ++u) {
-          const float r2 = r[u] * r[u];
-          const float B_j = s.sB[jj[u]];
-          const float BB = B_i * B_j;
-          const float expu = expf(-r2 / (4.0f * BB));
-          const float inv_f = 1.0f / sqrtf(r2 + BB * expu);
-          const float qq = rt.row[kQqFull * rt.kstride + jj[u]];
-          // direct GB term at fixed Born radii, both orders
-          g[u] += 2.0f * (-qq * inv_f * inv_f) * (r[u] * (1.0f - 0.25f * expu) * inv_f);
-          // Born chain: dE/dB_i dB_i/dr_ij + dE/dB_j dB_j/dr_ji
-          float H, dH_ij, dH_ji;
-          born_pair_sel(r[u], inv_r[u], rho_i, s.sr[jj[u]], &H, &dH_ij);
-          born_pair_sel(r[u], inv_r[u], s.rho[jj[u]], sr_i, &H, &dH_ji);
-          dI_ij[u] = 0.5f * dH_ij;
-          dI_ji[u] = 0.5f * dH_ji;
-        }
-        if (a.use_neck) {
-#pragma unroll
-          for (int u = 0; u < P; ++u) {
-            float nv, dnv;
-            neck_pair(r[u], rt.row[kNeckD0 * rt.kstride + jj[u]],
-                      rt.row[kNeckM0 * rt.kstride + jj[u]], &nv, &dnv);
-            dI_ij[u] += dnv;
-            neck_pair(r[u], rt.col[jj[u] * rt.jstride],
-                      rt.col[rt.kstride + jj[u] * rt.jstride], &nv, &dnv);
-            dI_ji[u] += dnv;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < P; ++u) g[u] += chain_i * dI_ij[u] + s.sChain[jj[u]] * dI_ji[u];
-      }
-#pragma unroll
-      for (int u = 0; u < P; ++u) {
-        const float coef = ok[u] ? g[u] * inv_r[u] : 0.0f;
-        for (int c = 0; c < 3; ++c) f[c] -= coef * d[u][c];
-      }
-    }
-    e_lane = 0.5f * e_nb;
+    const int L = a.lanes;
+    // the atom's incidences in CSR order, lane-strided
+    const float* blk = (a.slots_smem ? s.slots(a) : slot_block(a, s, t.rank))
+                       + kSlotSums * a.n_slots * a.rows;
+    const int base = a.csr_ptr[t.row0];
     for (int q = a.csr_ptr[t.i] + t.lane; q < a.csr_ptr[t.i + 1]; q += L) {
-      const int code = a.csr_ent[2 * q];
-      bonded_term(a.bonded, s.sx, code >> 2, code & 3, a.csr_ent[2 * q + 1], f, &e_lane);
+      for (int c = 0; c < 3; ++c) {
+        const float* p = blk + c * a.bonded_ld + (q - base);
+        fb[c] += a.slots_smem ? *p : __ldcg(p);
+      }
     }
     if (kBias) {
+      const BiasSmem b = bias_smem(a, s.bias(a));
       for (int q = a.dih_ptr[t.i] + t.lane; q < a.dih_ptr[t.i + 1]; q += L) {
-        bias_atom_force(a, s.sx, s.bias, a.dih_ent[2 * q], a.dih_ent[2 * q + 1], f);
+        bias_atom_force(a, sx, b, a.dih_ent[2 * q], a.dih_ent[2 * q + 1], fb);
       }
     }
   }
-  for (int c = 0; c < 3; ++c) f[c] = team_sum(f[c], L);
-  if (e != nullptr) {
-    energy += team_sum(e_lane, L);
-    if (t.rank == 0 && threadIdx.x == 0) energy += e_bias;
-    *e = energy;
+  for (int c = 0; c < 3; ++c) {
+    f[c] += team_sum(fb[c], a.lanes);
+    if (t.lead) s.sf(a)[3 * (t.i - t.row0) + c] = f[c];
   }
+  *e = energy;
   __syncthreads();
 }
 
-// one folded-BAOAB step of atom t.i (its lead integrates); the next force
-// evaluation's barrier makes the new positions visible
-template <bool kBias>
+// one folded-BAOAB step of atom t.i from the forces of the last evaluation
+// (its lead integrates the velocity in s.sv(a) and the position in buffer buf,
+// and writes the new position into buffer buf ^ 1 of every CTA), then the
+// evaluation at the new positions: its forces and energy serve the next
+// step and the frame
+template <int kBias, int P>
 __device__ __forceinline__ void md_step(const Args& a, const Smem& s, const Ctx& t, int n_hills,
                                         uint32_t seed, uint32_t key1, unsigned long long step,
-                                        float inv_m, float sigma, float x[3], float v[3]) {
-  float f[3];
-  compute_forces<kBias>(a, s, t, n_hills, f, nullptr);
+                                        float inv_m, float sigma, int* buf, float* e) {
   if (t.lead) {
     float z[3];
     gaussian3(seed, key1, step, static_cast<uint32_t>(t.i), z);
+    float* v = s.sv(a) + 3 * (t.i - t.row0);
+    const float* f = s.sf(a) + 3 * (t.i - t.row0);
     for (int c = 0; c < 3; ++c) {
-      v[c] = v[c] + a.dt * f[c] * inv_m;   // B(dt): folded full kick
-      x[c] = x[c] + a.half_dt * v[c];      // A(dt/2)
-      v[c] = a.c1 * v[c] + sigma * z[c];   // O
-      x[c] = x[c] + a.half_dt * v[c];      // A(dt/2)
-      s.sx[3 * t.i + c] = x[c];
+      float vc = v[c] + a.dt * f[c] * inv_m;     // B(dt): folded full kick
+      float xc = s.sx(a, *buf)[3 * t.i + c] + a.half_dt * vc;   // A(dt/2)
+      vc = a.c1 * vc + sigma * z[c];             // O
+      xc = xc + a.half_dt * vc;                  // A(dt/2)
+      v[c] = vc;
+      put_everywhere(a, s.sx(a, *buf ^ 1), 3 * t.i + c, xc);
     }
   }
+  *buf ^= 1;
+  replica_sync(a);
+  compute_forces<kBias, P>(a, s, t, s.sx(a, *buf), n_hills, e);
 }
 
 // After a deposit window: CTA 0 adds one hill per replica, in replica
@@ -973,18 +1128,18 @@ __device__ __forceinline__ void md_step(const Args& a, const Smem& s, const Ctx&
 __device__ void deposit_hills(const Args& a, const Smem& s) {
   const int n_cv = a.n_cv;
   const int n_replicas = static_cast<int>(gridDim.x) / a.cluster;
+  const BiasSmem b = bias_smem(a, s.bias(a));
   for (int r = 0; r < n_replicas; ++r) {
     const int count = __ldcg(a.mtd_count);
-    float cv[kMaxCv];
-#pragma unroll
-    for (int k = 0; k < kMaxCv; ++k) cv[k] = k < n_cv ? __ldcg(a.cv_buf + r * n_cv + k) : 0.0f;
+    if (threadIdx.x < n_cv) b.gcv[threadIdx.x] = __ldcg(a.cv_buf + r * n_cv + threadIdx.x);
+    __syncthreads();
     float h_new = a.mtd_height;
     if (a.mtd_kb_dt > 0.0f) {
-      const float v_here = hills_energy(a, cv, count, s.bias.red, nullptr);
+      const float v_here = hills_energy(a, b.gcv, count, b.red, nullptr);
       h_new = a.mtd_height * expf(-v_here / a.mtd_kb_dt);
     }
     if (threadIdx.x == 0 && count < a.mtd_capacity) {
-      for (int k = 0; k < n_cv; ++k) a.mtd_centers[count * n_cv + k] = cv[k];
+      for (int k = 0; k < n_cv; ++k) a.mtd_centers[count * n_cv + k] = b.gcv[k];
       a.mtd_heights[count] = h_new;
       *a.mtd_count = count + 1;
       __threadfence();
@@ -993,121 +1148,137 @@ __device__ void deposit_hills(const Args& a, const Smem& s) {
   }
 }
 
-template <bool kBias>
+// After a deposit window: every replica publishes its CVs at the positions
+// in sx, the grid meets, CTA 0 of replica 0 deposits (deposit_hills), the
+// grid meets again; returns the ledger's new count.
+__device__ __forceinline__ int deposit_window(const Args& a, const Smem& s, int rank, int r,
+                                           const float* sx) {
+  cg::grid_group grid = cg::this_grid();
+  if (rank == 0) {
+    const BiasSmem b = bias_smem(a, s.bias(a));
+    cv_forward(a, sx, b);
+    if (threadIdx.x < a.n_cv) a.cv_buf[r * a.n_cv + threadIdx.x] = b.y[threadIdx.x];
+  }
+  grid.sync();
+  if (blockIdx.x == 0) deposit_hills(a, s);
+  grid.sync();
+  return __ldcg(a.mtd_count);
+}
+
+// Loads replica `r`'s positions into buffer 0 of this CTA (every atom) and
+// meets the other CTAs of the cluster, which must all have started before
+// any writes into another's shared memory.
+__device__ __forceinline__ void load_positions(const Args& a, const Smem& s, size_t rbase) {
+  for (int k = threadIdx.x; k < 3 * a.n; k += blockDim.x) s.sx(a, 0)[k] = a.x[rbase + k];
+  replica_sync(a);
+}
+
+template <int kBias, int P>
 __device__ __forceinline__ void chunk_body(const Args& a) {
-  extern __shared__ float smem[];
   const int n = a.n;
   const Ctx t = make_ctx(a);
-  const Smem s = carve_smem(a, t, smem);
+  const Smem s = carve_smem(a, t);
   const int r = blockIdx.x / a.cluster;
   const size_t rbase = static_cast<size_t>(r) * n * 3;
   const size_t base = rbase + static_cast<size_t>(t.i) * 3;
+  float* sv = s.sv(a) + 3 * (t.i - t.row0);
+  const float* sf = s.sf(a) + 3 * (t.i - t.row0);
 
-  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) s.sx[k] = a.x[rbase + k];
-  float x[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
   float inv_m = 0.0f, sigma = 0.0f;
   if (t.lead) {
-    for (int c = 0; c < 3; ++c) {
-      x[c] = a.x[base + c];
-      v[c] = a.v[base + c];
-    }
+    for (int c = 0; c < 3; ++c) sv[c] = a.v[base + c];
     inv_m = a.atom_p[kInvM * n + t.i];
     sigma = sqrtf(a.c2sq * a.kT[r] * inv_m);
   }
   const uint32_t seed = static_cast<uint32_t>(a.seeds[r]);
+  load_positions(a, s, rbase);
 
   int n_hills = (a.bias_kind == kMetadynamics) ? __ldcg(a.mtd_count) : 0;
+  int buf = 0;
+  float e_lane;
+  compute_forces<kBias, P>(a, s, t, s.sx(a, 0), n_hills, &e_lane);
   if (kBias && a.mtd_interval > 0) {
     // fused metadynamics: deposit windows inside the launch
-    cg::grid_group grid = cg::this_grid();
     const int n_windows = a.n_steps / a.mtd_interval;
     for (int w = 0; w < n_windows; ++w) {
       for (int k = 0; k < a.mtd_interval; ++k) {
-        md_step<kBias>(a, s, t, n_hills, seed, static_cast<uint32_t>(r),
-                       a.step_offset + static_cast<unsigned long long>(w) * a.mtd_interval + k,
-                       inv_m, sigma, x, v);
+        md_step<kBias, P>(a, s, t, n_hills, seed, static_cast<uint32_t>(r),
+                          a.step_offset + static_cast<unsigned long long>(w) * a.mtd_interval + k,
+                          inv_m, sigma, &buf, &e_lane);
       }
-      gather_rows(a, t, s.sx, 3, nullptr, 0);
-      if (t.rank == 0) {
-        cv_forward(a, s.sx, s.bias);
-        if (threadIdx.x < a.n_cv) a.cv_buf[r * a.n_cv + threadIdx.x] = s.bias.y[threadIdx.x];
-      }
-      grid.sync();
-      if (blockIdx.x == 0) deposit_hills(a, s);
-      grid.sync();
-      n_hills = __ldcg(a.mtd_count);
+      n_hills = deposit_window(a, s, t.rank, r, s.sx(a, buf));
+      // the next window's forces (and the final energy) under the new ledger
+      compute_forces<kBias, P>(a, s, t, s.sx(a, buf), n_hills, &e_lane);
     }
   } else {
     for (int k = 0; k < a.n_steps; ++k) {
-      md_step<kBias>(a, s, t, n_hills, seed, static_cast<uint32_t>(r), a.step_offset + k,
-                     inv_m, sigma, x, v);
+      md_step<kBias, P>(a, s, t, n_hills, seed, static_cast<uint32_t>(r), a.step_offset + k,
+                        inv_m, sigma, &buf, &e_lane);
     }
   }
 
-  float f[3];
-  float e_i = 0.0f;
-  compute_forces<kBias>(a, s, t, n_hills, f, &e_i);
   if (t.lead) {
     for (int c = 0; c < 3; ++c) {
-      a.x[base + c] = x[c];
-      a.v[base + c] = v[c];
-      if (a.forces != nullptr) a.forces[base + c] = f[c];
+      a.x[base + c] = s.sx(a, buf)[3 * t.i + c];
+      a.v[base + c] = sv[c];
+      if (a.forces != nullptr) a.forces[base + c] = sf[c];
     }
   }
-  const float e_cta = block_sum(t.lead ? e_i : 0.0f, s.red);
-  const float e_total = replica_sum2(a, s.part, e_cta, 0.0f).x;
+  const float e_cta = block_sum(e_lane, s.red(a));
+  const float e_total = replica_sum2(a, s.part(a), e_cta, 0.0f).x;
   if (t.rank == 0 && threadIdx.x == 0) a.energy[r] = e_total;
+  replica_sync(a);   // no CTA leaves while another may still read its shared memory
 }
 
 // Whole REMD run in one launch (pallas_md.py build_pallas_remd). Cluster c
 // holds the configuration that starts on rung c and follows it from rung
 // to rung; x/v/seeds/ids come in and go out rung-major.
-template <bool kBias>
+template <int kBias, int P>
 __device__ __forceinline__ void remd_body(const Args& a) {
-  extern __shared__ float smem[];
   const int n = a.n;
   const int R = static_cast<int>(gridDim.x) / a.cluster;
   const Ctx t = make_ctx(a);
-  const Smem s = carve_smem(a, t, smem);
+  const Smem s = carve_smem(a, t);
   const bool head = t.rank == 0 && threadIdx.x == 0;   // writes the replica's scalars
   int rung = blockIdx.x / a.cluster;
+  float* sv = s.sv(a) + 3 * (t.i - t.row0);
 
   const size_t rbase = static_cast<size_t>(rung) * n * 3;
-  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) s.sx[k] = a.x[rbase + k];
-  float x[3] = {0.0f, 0.0f, 0.0f}, v[3] = {0.0f, 0.0f, 0.0f};
-  float inv_m = 0.0f, mass = 0.0f;
+  float inv_m = 0.0f;
   if (t.lead) {
-    for (int c = 0; c < 3; ++c) {
-      x[c] = a.x[rbase + 3 * t.i + c];
-      v[c] = a.v[rbase + 3 * t.i + c];
-    }
+    for (int c = 0; c < 3; ++c) sv[c] = a.v[rbase + 3 * t.i + c];
     inv_m = a.atom_p[kInvM * n + t.i];
-    mass = inv_m > 0.0f ? 1.0f / inv_m : 0.0f;
   }
-  const uint32_t seed = static_cast<uint32_t>(a.seeds[rung]);
-  const int id = a.ids0[rung];
+  load_positions(a, s, rbase);
 
   cg::grid_group grid = cg::this_grid();
-  unsigned long long step = a.step_offset;
-  float f[3];
+  int steps_done = 0;   // the step's index is a.step_offset + steps_done
+  int buf = 0;
+  float e_lane;
+  compute_forces<kBias, P>(a, s, t, s.sx(a, 0), 0, &e_lane);
   for (int att = 0; att < a.n_attempts; ++att) {
     float energy = 0.0f;
     for (int j = 0; j < a.frames_per_attempt; ++j) {
       const float sigma = t.lead ? sqrtf(a.c2sq * a.kT[rung] * inv_m) : 0.0f;
-      for (int k = 0; k < a.report_interval; ++k, ++step) {
-        md_step<kBias>(a, s, t, 0, seed, static_cast<uint32_t>(rung), step, inv_m, sigma, x, v);
+      for (int k = 0; k < a.report_interval; ++k, ++steps_done) {
+        // the configuration's seed and identity stay with it: read where used
+        md_step<kBias, P>(a, s, t, 0, static_cast<uint32_t>(a.seeds[blockIdx.x / a.cluster]),
+                          static_cast<uint32_t>(rung), a.step_offset + steps_done, inv_m, sigma,
+                          &buf, &e_lane);
       }
-      float e_i = 0.0f;
-      compute_forces<kBias>(a, s, t, 0, f, &e_i);
-      const float e_cta = block_sum(t.lead ? e_i : 0.0f, s.red);
-      const float ke_cta = block_sum(
-          t.lead ? 0.5f * mass * (v[0] * v[0] + v[1] * v[1] + v[2] * v[2]) : 0.0f, s.red);
-      const float2 tot = replica_sum2(a, s.part, e_cta, ke_cta);
+      // the frame's energy is the last evaluation's, at these positions
+      float ke = 0.0f;
+      if (t.lead) {
+        const float m = inv_m > 0.0f ? 1.0f / inv_m : 0.0f;
+        ke = 0.5f * m * (sv[0] * sv[0] + sv[1] * sv[1] + sv[2] * sv[2]);
+      }
+      const float2 cta = block_sum2(e_lane, ke, s.red(a));
+      const float2 tot = replica_sum2(a, s.part(a), cta.x, cta.y);
       energy = tot.x;
       const size_t slot = static_cast<size_t>(att) * a.frames_per_attempt + j;
       if (t.lead) {
         const size_t fb = ((slot * R + rung) * n + t.i) * 3;
-        for (int c = 0; c < 3; ++c) a.frames[fb + c] = x[c];
+        for (int c = 0; c < 3; ++c) a.frames[fb + c] = s.sx(a, buf)[3 * t.i + c];
       }
       if (head) {
         a.frame_e[slot * R + rung] = energy;
@@ -1135,19 +1306,24 @@ __device__ __forceinline__ void remd_body(const Args& a) {
     if (head) a.accept[static_cast<size_t>(att) * R + rung] = accepted ? 1.0f : 0.0f;
     if (accepted) {
       const float scale = sqrtf(a.ladder[partner] / a.ladder[rung]);
-      for (int c = 0; c < 3; ++c) v[c] *= scale;
+      if (t.lead) {
+        for (int c = 0; c < 3; ++c) sv[c] *= scale;
+      }
       rung = partner;
     }
-    if (head) a.ids_hist[static_cast<size_t>(att + 1) * R + rung] = id;
+    if (head) {
+      a.ids_hist[static_cast<size_t>(att + 1) * R + rung] = a.ids0[blockIdx.x / a.cluster];
+    }
   }
   if (t.lead) {
     const size_t b = (static_cast<size_t>(rung) * n + t.i) * 3;
     for (int c = 0; c < 3; ++c) {
-      a.x_out[b + c] = x[c];
-      a.v_out[b + c] = v[c];
+      a.x_out[b + c] = s.sx(a, buf)[3 * t.i + c];
+      a.v_out[b + c] = sv[c];
     }
   }
-  if (head) a.seeds_out[rung] = static_cast<int>(seed);
+  if (head) a.seeds_out[rung] = a.seeds[blockIdx.x / a.cluster];
+  replica_sync(a);   // no CTA leaves while another may still read its shared memory
 }
 
 // Nothing but `n_barriers` grid barriers: what one barrier costs.
@@ -1156,20 +1332,30 @@ __global__ void grid_barrier_probe_kernel(int n_barriers) {
   for (int k = 0; k < n_barriers; ++k) grid.sync();
 }
 
-// All four kernels are bounded to kMaxThreads threads a block, one block an
-// SM at most 128 registers a thread; the unbiased chunk is compiled
-// without the bias code.
+// Six kernels, all bounded to kMaxThreads threads a CTA, one CTA an SM at
+// most 128 registers a thread: the chunk and the whole-run REMD kernel with
+// two steps a lane an iteration (P = 2) and as *_single_kernel builds with
+// one (P = 1), and the biased chunk and biased REMD with one step an
+// iteration (the bias code leaves no room for two), which both P values
+// launch. Lower register bounds (64, 80, 96 a thread) spill. The unbiased
+// kernels are compiled without the bias code.
 __global__ void __launch_bounds__(kMaxThreads, 1) fused_md_chunk_kernel(Args a) {
-  chunk_body<false>(a);
+  chunk_body<kUnbiased, 2>(a);
 }
 __global__ void __launch_bounds__(kMaxThreads, 1) fused_md_bias_kernel(Args a) {
-  chunk_body<true>(a);
+  chunk_body<kAnyBias, 1>(a);
 }
 __global__ void __launch_bounds__(kMaxThreads, 1) fused_remd_kernel(Args a) {
-  remd_body<false>(a);
+  remd_body<kUnbiased, 2>(a);
 }
 __global__ void __launch_bounds__(kMaxThreads, 1) fused_remd_bias_kernel(Args a) {
-  remd_body<true>(a);
+  remd_body<kHarmonicOnly, 1>(a);
+}
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_md_chunk_single_kernel(Args a) {
+  chunk_body<kUnbiased, 1>(a);
+}
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_remd_single_kernel(Args a) {
+  remd_body<kUnbiased, 1>(a);
 }
 
 }  // namespace
@@ -1179,8 +1365,8 @@ extern "C" {
 // Order of the pointer, integer and float arguments of pmarlo_fused_md_launch;
 // md/fused_md.py lists the same names in the same order.
 enum PtrArg {
-  kPX = 0, kPV, kPEnergy, kPForces, kPSeeds, kPKT, kPAtomP, kPPairP, kPBondI, kPBondP,
-  kPAngleI, kPAngleP, kPTorsI, kPTorsP, kPCsrPtr, kPCsrEnt,
+  kPX = 0, kPV, kPEnergy, kPForces, kPSeeds, kPKT, kPAtomP, kPItems, kPItemTab, kPSlotScratch,
+  kPBondI, kPBondP, kPAngleI, kPAngleP, kPTorsI, kPTorsP, kPCsrPtr, kPBondedSlot,
   kPQuads, kPDihPtr, kPDihEnt, kPBiasP, kPMtdCenters, kPMtdHeights, kPMtdCount, kPCvBuf,
   kPXOut, kPVOut, kPSeedsOut, kPLadder, kPBetas, kPIds0, kPFrames, kPFrameE,
   kPFrameKe, kPIdsHist, kPAccept, kPSwapE, kNumPtrArgs
@@ -1190,25 +1376,32 @@ enum IntArg {
   kIWidth0,
   kINCv = kIWidth0 + kMaxLayers + 1, kIUseWhiten, kIBiasPLen, kIMtdCapacity, kIMtdInterval,
   kIAttempts, kIFramesPerAttempt, kIReportInterval, kISwapSeed, kICluster, kILanes,
-  kIStaged, kNumIntArgs
+  kITeam, kIPairs, kIStaged, kISlotsSmem, kINBonds, kINAngles, kINTorsions, kIBondedLd,
+  kNumIntArgs
 };
 enum FloatArg {
   kFDt = 0, kFHalfDt, kFC1, kFC2sq, kFGbPref, kFBiasStrength, kFMtdHeight, kFMtdKbDt,
   kFMtdInvSigma0, kNumFloatArgs = kFMtdInvSigma0 + kMaxCv
 };
 enum Mode { kModeChunk = 0, kModeFusedMtd = 1, kModeFusedRemd = 2 };
-// what pmarlo_fused_md_plan writes
-enum PlanOut { kOThreads = 0, kOSmem, kOStageable, kOResident, kOResidentStaged, kNumPlanOut };
+// what pmarlo_fused_md_plan writes: threads a CTA, shared memory bytes of
+// the base, the slots and the staged tables, and the replicas resident at
+// once with the base alone, with the slots, and with slots and tables
+// (0 where the bytes exceed what a CTA may take)
+enum PlanOut {
+  kOThreads = 0, kOSmemBase, kOSmemSlots, kOSmemTab, kOResident, kOResidentSlots,
+  kOResidentAll, kNumPlanOut
+};
 
 int pmarlo_fused_md_max_atoms() { return kMaxAtoms; }
 
 // the sizes of the argument arrays and the limits, for the wrapper to
 // check against its own: n_ptrs, n_ints, n_floats, max_layers, max_cv,
-// max_threads, max_cluster, n_plan_out
+// max_threads, max_cluster, n_plan_out, pair tables
 int pmarlo_fused_md_abi(int which) {
-  const int v[8] = {kNumPtrArgs, kNumIntArgs, kNumFloatArgs, kMaxLayers,
-                    kMaxCv, kMaxThreads, kMaxCluster, kNumPlanOut};
-  return (which >= 0 && which < 8) ? v[which] : -1;
+  const int v[9] = {kNumPtrArgs, kNumIntArgs, kNumFloatArgs, kMaxLayers,
+                    kMaxCv, kMaxThreads, kMaxCluster, kNumPlanOut, kPairTabs};
+  return (which >= 0 && which < 9) ? v[which] : -1;
 }
 
 const char* pmarlo_cuda_error_string(int code) {
@@ -1219,57 +1412,62 @@ const char* pmarlo_cuda_error_string(int code) {
 
 namespace {
 
-const void* kernel_of(int mode, bool biased) {
+const void* kernel_of(int mode, bool biased, int pairs) {
+  const bool single = pairs == 1;
   if (mode == kModeFusedRemd) {
-    return biased ? reinterpret_cast<const void*>(fused_remd_bias_kernel)
+    if (biased) return reinterpret_cast<const void*>(fused_remd_bias_kernel);
+    return single ? reinterpret_cast<const void*>(fused_remd_single_kernel)
                   : reinterpret_cast<const void*>(fused_remd_kernel);
   }
-  return biased ? reinterpret_cast<const void*>(fused_md_bias_kernel)
+  if (biased) return reinterpret_cast<const void*>(fused_md_bias_kernel);
+  return single ? reinterpret_cast<const void*>(fused_md_chunk_single_kernel)
                 : reinterpret_cast<const void*>(fused_md_chunk_kernel);
 }
 
-// row stride of the staged tables: >= n, and (stride mod 32) an odd
-// multiple of the lanes a row, so the row teams of a warp read different
-// banks in the same iteration (any stride with 32 lanes, one row a warp)
-int staged_ld(int n, int lanes) {
-  if (lanes >= 32) return n;
-  int ld = n;
-  while (!((ld % 32) % lanes == 0 && (((ld % 32) / lanes) & 1))) ++ld;
-  return ld;
-}
-
 struct Shape {
-  int cluster, lanes, rows, threads, ld;
-  size_t smem_plain, smem_staged;   // bytes without and with the staged tables
+  int cluster, lanes, team, pairs, rows, threads, steps, n_items, n_slots, my_items;
+  size_t smem_base, smem_slots, smem_tab;   // bytes
 };
 
-// Checks the launch shape in `iv` and sizes its block and shared memory;
-// false for a shape the kernels do not take.
+// Checks the launch shape in `iv` and sizes its block, its items and its
+// shared memory; false for a shape the kernels do not take
+// (md/fused_md.py LaunchShape derives the same).
 bool shape_of(const int* iv, Shape* sh) {
-  const int n = iv[kIAtoms], C = iv[kICluster], L = iv[kILanes];
+  const int n = iv[kIAtoms], C = iv[kICluster], L = iv[kILanes], T = iv[kITeam];
+  const int P = iv[kIPairs];
   if (n < 1 || n > kMaxAtoms || iv[kIReplicas] < 1) return false;
   if (C != 1 && C != 2 && C != 4 && C != 8) return false;
   if (L < 1 || L > 32 || (L & (L - 1)) != 0) return false;
+  if (T < 2 || T > 32 || (T & (T - 1)) != 0) return false;
+  if (P != 1 && P != 2) return false;
   sh->cluster = C;
   sh->lanes = L;
+  sh->team = T;
+  sh->pairs = P;
+  sh->steps = T / 2;
+  if (sh->steps % P != 0) return false;
   sh->rows = (n + C - 1) / C;
   if ((C - 1) * sh->rows >= n) return false;     // a CTA without rows
   sh->threads = (sh->rows * L + 31) / 32 * 32;
   if (sh->threads > kMaxThreads) return false;
-  sh->ld = staged_ld(n, L);
-  size_t floats = 7 * static_cast<size_t>(n) + 36;
+  const int groups = (n + T - 1) / T;
+  sh->n_items = groups * groups;
+  sh->n_slots = 2 * groups;
+  sh->my_items = (sh->n_items + C - 1) / C;
+  size_t floats = 10 * static_cast<size_t>(n) + 36 + 6 * static_cast<size_t>(sh->rows);
   if (iv[kIBiasKind] != kNoBias) {
     int n_act = 0, max_w = 0;
     for (int l = 0; l <= iv[kINLayers]; ++l) {
       n_act += iv[kIWidth0 + l];
       max_w = max_w > iv[kIWidth0 + l] ? max_w : iv[kIWidth0 + l];
     }
-    floats += iv[kIBiasPLen] + n_act + kMaxCv + 2 * max_w + 3 * iv[kINDih] + 32;
+    floats += iv[kIBiasPLen] + n_act + 2 * kMaxCv + 2 * max_w + 3 * iv[kINDih] + 32;
   }
-  const int n_tables = iv[kIUseNeck] ? static_cast<int>(kStagedTables) : static_cast<int>(kNeckD0);
-  sh->smem_plain = floats * sizeof(float);
-  sh->smem_staged =
-      (floats + static_cast<size_t>(n_tables) * sh->rows * sh->ld) * sizeof(float);
+  sh->smem_base = floats * sizeof(float);
+  if (iv[kIBondedLd] < 0) return false;
+  sh->smem_slots = (static_cast<size_t>(kSlotSums) * sh->n_slots * sh->rows + 3 * iv[kIBondedLd]) *
+                   sizeof(float);
+  sh->smem_tab = static_cast<size_t>(sh->my_items) * kPairTabs * sh->steps * T * sizeof(float);
   return true;
 }
 
@@ -1346,25 +1544,29 @@ cudaError_t launch_ex(const void* kernel, int blocks, int threads, size_t smem, 
 
 extern "C" {
 
-// Sizes the launch of `mode` with the shape in `iv` (kICluster, kILanes):
-// threads a CTA, shared memory bytes without the staged tables, whether the
-// tables fit (1/0), and the replicas that can be resident at once without
-// and with them. Returns a CUDA error code (cudaErrorInvalidValue for a
-// shape the kernels do not take).
+// Sizes the launch of `mode` with the shape in `iv` (kICluster, kILanes,
+// kITeam, kIPairs): threads a CTA, the shared memory bytes of the base,
+// the slots and the staged tables, and the replicas that can be resident
+// at once with each placement (PlanOut). Returns a CUDA error code
+// (cudaErrorInvalidValue for a shape the kernels do not take).
 int pmarlo_fused_md_plan(int mode, const int* iv, int* out) {
   Shape sh;
   if (!shape_of(iv, &sh)) return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = kernel_of(mode, iv[kIBiasKind] != kNoBias);
+  const void* kernel = kernel_of(mode, iv[kIBiasKind] != kNoBias, sh.pairs);
   size_t optin = 0;
   cudaError_t rc = allow_smem(kernel, &optin);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   out[kOThreads] = sh.threads;
-  out[kOSmem] = static_cast<int>(sh.smem_plain);
-  out[kOStageable] = sh.smem_staged <= optin ? 1 : 0;
-  rc = resident_replicas(kernel, sh, sh.smem_plain, &out[kOResident]);
-  out[kOResidentStaged] = 0;
-  if (rc == cudaSuccess && out[kOStageable]) {
-    rc = resident_replicas(kernel, sh, sh.smem_staged, &out[kOResidentStaged]);
+  out[kOSmemBase] = static_cast<int>(sh.smem_base);
+  out[kOSmemSlots] = static_cast<int>(sh.smem_slots);
+  out[kOSmemTab] = static_cast<int>(sh.smem_tab);
+  const size_t bytes[3] = {sh.smem_base, sh.smem_base + sh.smem_slots,
+                           sh.smem_base + sh.smem_slots + sh.smem_tab};
+  for (int k = 0; k < 3; ++k) {
+    out[kOResident + k] = 0;
+    if (rc == cudaSuccess && bytes[k] <= optin) {
+      rc = resident_replicas(kernel, sh, bytes[k], &out[kOResident + k]);
+    }
   }
   return static_cast<int>(rc);
 }
@@ -1393,7 +1595,9 @@ int pmarlo_fused_md_launch(int mode, void* const* ptr, const int* iv, const floa
   a.seeds = static_cast<const int*>(ptr[kPSeeds]);
   a.kT = static_cast<const float*>(ptr[kPKT]);
   a.atom_p = static_cast<const float*>(ptr[kPAtomP]);
-  a.pair_p = static_cast<const float*>(ptr[kPPairP]);
+  a.items = static_cast<const int*>(ptr[kPItems]);
+  a.item_tab = static_cast<const float*>(ptr[kPItemTab]);
+  a.slot_scratch = static_cast<float*>(ptr[kPSlotScratch]);
   a.bonded.bond_i = static_cast<const int*>(ptr[kPBondI]);
   a.bonded.bond_p = static_cast<const float*>(ptr[kPBondP]);
   a.bonded.angle_i = static_cast<const int*>(ptr[kPAngleI]);
@@ -1401,7 +1605,11 @@ int pmarlo_fused_md_launch(int mode, void* const* ptr, const int* iv, const floa
   a.bonded.tors_i = static_cast<const int*>(ptr[kPTorsI]);
   a.bonded.tors_p = static_cast<const float*>(ptr[kPTorsP]);
   a.csr_ptr = static_cast<const int*>(ptr[kPCsrPtr]);
-  a.csr_ent = static_cast<const int*>(ptr[kPCsrEnt]);
+  a.bonded_slot = static_cast<const int*>(ptr[kPBondedSlot]);
+  a.n_terms[0] = iv[kINBonds];
+  a.n_terms[1] = iv[kINAngles];
+  a.n_terms[2] = iv[kINTorsions];
+  a.bonded_ld = iv[kIBondedLd];
   a.n = iv[kIAtoms];
   a.n_steps = iv[kISteps];
   a.step_offset = static_cast<unsigned long long>(step_offset);
@@ -1415,12 +1623,25 @@ int pmarlo_fused_md_launch(int mode, void* const* ptr, const int* iv, const floa
   a.cluster = sh.cluster;
   a.lanes = sh.lanes;
   a.rows = sh.rows;
+  a.team = sh.team;
+  a.steps = sh.steps;
+  a.n_items = sh.n_items;
+  a.n_slots = sh.n_slots;
+  a.my_items = sh.my_items;
   a.staged = iv[kIStaged] != 0;
-  a.ld = sh.ld;
+  a.slots_smem = iv[kISlotsSmem] != 0;
   a.bias_kind = iv[kIBiasKind];
   a.n_dih = iv[kINDih];
   a.n_layers = iv[kINLayers];
-  for (int l = 0; l <= kMaxLayers; ++l) a.widths[l] = iv[kIWidth0 + l];
+  a.n_act = 0;
+  a.max_width = 0;
+  for (int l = 0; l <= kMaxLayers; ++l) {
+    a.widths[l] = iv[kIWidth0 + l];
+    if (l <= a.n_layers) {
+      a.n_act += a.widths[l];
+      a.max_width = a.max_width > a.widths[l] ? a.max_width : a.widths[l];
+    }
+  }
   a.n_cv = iv[kINCv];
   a.use_whiten = iv[kIUseWhiten];
   a.bias_strength = fv[kFBiasStrength];
@@ -1462,9 +1683,13 @@ int pmarlo_fused_md_launch(int mode, void* const* ptr, const int* iv, const floa
   if (mode == kModeFusedRemd && a.bias_kind == kMetadynamics) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (a.items == nullptr || a.item_tab == nullptr || (!a.slots_smem && a.slot_scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 
-  const size_t shmem = a.staged ? sh.smem_staged : sh.smem_plain;
-  const void* kernel = kernel_of(mode, a.bias_kind != kNoBias);
+  const size_t shmem = sh.smem_base + (a.slots_smem ? sh.smem_slots : 0) +
+                       (a.staged ? sh.smem_tab : 0);
+  const void* kernel = kernel_of(mode, a.bias_kind != kNoBias, sh.pairs);
   if (shmem > 48 * 1024) {
     size_t optin = 0;
     const cudaError_t rc = allow_smem(kernel, &optin);

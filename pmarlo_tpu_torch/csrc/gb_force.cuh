@@ -9,7 +9,7 @@
 // file).
 //
 // force_pair is the derivative that the HCT term (md/pair_force.py _hct),
-// neck_pair (gb_pair.cuh), the GB f-function and the LJ + Coulomb terms
+// the GBn2 neck term (md/gbn2.py), the GB f-function and the LJ + Coulomb terms
 // (pair_common.cuh) give, with every special function a single
 // special-function-unit result (PTX .approx,
 // flush-to-zero; the arguments are positive and far from denormal):
@@ -26,9 +26,8 @@
 // against a float64 evaluation read 4.57e-7 and 5.08e-7 of max |F| in two
 // runs, the plain IEEE float32 evaluation 4.56e-7 and 5.08e-7, so none of
 // them moves force_vs_float64 measurably; the force sweep against its IEEE
-// plain version reads 1.34e-6 and 1.39e-6 (gate 1e-4).
-// gb_pair.cuh keeps the IEEE forms: fused_md.cu includes it and its kernels
-// stay as they are.
+// plain version reads 1.34e-6 and 1.39e-6 (gate 1e-4). The fused kernels
+// (fused_md.cu) take the same single results but for IEEE logf.
 //
 // A force-sweep atom is three float4 (one 16-byte shared-memory load each):
 //   p0 = (x, y, z, q), p1 = (sigma, sqrt(eps), rho, sr), p2 = (B, c, 1/B, meta)
@@ -155,7 +154,7 @@ __device__ __forceinline__ float force_pair(const PairArgs& a, const float* s_ne
 }
 
 // ---- the dense and Newton Born and energy sweeps' pair functions ----
-// Each is its IEEE counterpart (_hct's and neck_pair's values, the
+// Each is its IEEE counterpart (_hct's and the neck term's values, the
 // plain version's energy_pair_terms in md/pair_force.py) term by term, with the special
 // functions of force_pair: 1/r from one rsqrt.approx (the energy terms need
 // no r: r^2 is s), 1/L, 1/U and 1/denom by rcp.approx, exp by ex2.approx

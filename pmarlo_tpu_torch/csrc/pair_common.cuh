@@ -1,8 +1,8 @@
 // What the GB pair sweeps of pair_force.cu (dense blocks and the ordered
 // culled walk) and pair_newton.cu (each unordered pair once) share: the
 // launch arguments, the per-atom table's rows, the neck tables' load, and
-// the Lennard-Jones + Coulomb terms. The IEEE HCT and neck terms are in
-// gb_pair.cuh, the single-SFU pair functions of the sweeps in gb_force.cuh.
+// the Lennard-Jones + Coulomb terms. The pair epsilon is in gb_pair.cuh, the
+// single-SFU pair functions of the sweeps in gb_force.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -16,9 +16,11 @@ returns the energies at the final positions:
   call; ``launches`` counts the unbiased chunk and ``variant_launches``
   the other kernels by name). A CUDA tensor never reaches the plain
   version: the launch happens or the call raises. Each replica is a
-  cluster of ``C`` CTAs and each atom's row a team of ``L`` lanes;
-  ``launch_shape`` chooses both from the atom and replica counts and the
-  card.
+  cluster of ``C`` CTAs, each atom a team of ``L`` lanes for its own
+  sums, and the pairs ``pair_items``' items of a team of ``T`` lanes
+  each, every unordered pair once; ``launch_shape`` chooses C, L, T and
+  the steps a lane takes an iteration from the atom and replica counts
+  and the card.
 - tensors on the CPU run ``FusedChunk.reference``: ``langevin_step`` over
   ``analytic.energy_and_forces`` plus the bias twin (``md/cv_bias.py``),
   with the same Philox noise stream; deposits are
@@ -48,7 +50,7 @@ from .. import _kernels
 from ..bias.metadynamics import MetadynamicsBias, MetaDState
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 from .analytic import energy_and_forces, make_dense_params
-from .bonded_window import bonded_csr
+from .bonded_window import bonded_csr, bonded_slots
 from .cv_bias import MAX_CV, MAX_LAYERS, CVBias
 from .integrate import MDState, langevin_step
 from .system import System
@@ -65,27 +67,38 @@ variant_launches = {
     "fused_remd": 0,           # the whole REMD run
 }
 
-#: atoms per replica the kernels take: with one lane a row and one CTA a
+#: atoms per replica the kernels take: with one lane an atom and one CTA a
 #: replica (the shape every replica count falls back to) a CTA has one
-#: thread an atom, and one SM's register file holds 512 threads at the
-#: kernels' register bound
+#: thread an atom, at most 512
 MAX_ATOMS = 512
 #: threads a CTA and CTAs a replica (a thread-block cluster) at most
 MAX_THREADS = 512
 MAX_CLUSTER = 8
 _CLUSTERS = (1, 2, 4, 8)
 _LANES = (1, 2, 4, 8, 16, 32)
-#: cost model of the chooser, in partners a lane visits a step: one level of
-#: the row team's shuffle sum, and the cluster barriers and copies of a step
-#: (chip_smoke.py's shape sweeps on an H100: a partner a lane costs 2.4-2.8 us
-#: a step over the three GB phases, a cluster of 2-8 CTAs 3.4-5.5 us more)
+_TEAMS = (2, 4, 8, 16, 32)
+#: cost model of the chooser, in pair steps a lane takes a step: a step of
+#: two overlapped pairs (P = 2) against one, an item's start (its load, the
+#: row atom, the slot writes: about one force step on an H100, clock64
+#: stamps of chignolin at R = 8 and 32), a slot an atom team's lane adds,
+#: one level of the atom team's shuffle sums, and the cluster barriers of a
+#: step (chip_smoke.py's shape sweeps on an H100: a cluster of 2-8 CTAs cost 3.4-5.5
+#: us a step more)
+_STEP_COST = {1: 1.0, 2: 0.75}
+_ROUND_COST = 1.0
+_FOLD_COST = 0.05
 _SHUFFLE_COST = 0.25
 _CLUSTER_COST = 1.5
+#: tables of a pair in item order (``item_tables``; ``PairTab`` in the
+#: kernel): LJ A, LJ B, the scaled and the full charge products, the neck
+#: d0 and m0 of (row, column) and of (column, row)
+PAIR_TABS = 8
 
 # argument order of pmarlo_fused_md_launch (the enums of csrc/fused_md.cu)
 _PTRS = (
-    "x", "v", "energy", "forces", "seeds", "kT", "atom_p", "pair_p", "bond_i",
-    "bond_p", "angle_i", "angle_p", "tors_i", "tors_p", "csr_ptr", "csr_ent",
+    "x", "v", "energy", "forces", "seeds", "kT", "atom_p", "items", "item_tab",
+    "slot_scratch", "bond_i",
+    "bond_p", "angle_i", "angle_p", "tors_i", "tors_p", "csr_ptr", "bonded_slot",
     "quads", "dih_ptr", "dih_ent", "bias_p", "mtd_centers", "mtd_heights",
     "mtd_count", "cv_buf", "x_out", "v_out", "seeds_out", "ladder",
     "betas", "ids0", "frames", "frame_e", "frame_ke", "ids_hist", "accept",
@@ -96,15 +109,19 @@ _INTS = (
     "n_dih", "n_layers", *(f"width{l}" for l in range(MAX_LAYERS + 1)),
     "n_cv", "use_whiten", "bias_p_len", "mtd_capacity", "mtd_interval",
     "n_attempts", "frames_per_attempt", "report_interval", "swap_seed",
-    "cluster", "lanes", "staged",
+    "cluster", "lanes", "team", "pairs", "staged", "slots_smem", "n_bonds", "n_angles",
+    "n_torsions", "bonded_ld",
 )
 _FLOATS = (
     "dt", "half_dt", "c1", "c2sq", "gb_pref", "bias_strength", "mtd_height",
     "mtd_kb_dt", *(f"mtd_inv_sigma{k}" for k in range(MAX_CV)),
 )
 _MODE_CHUNK, _MODE_FUSED_MTD, _MODE_FUSED_REMD = 0, 1, 2
-# what pmarlo_fused_md_plan writes
-_PLAN = ("threads", "smem_bytes", "stageable", "resident", "resident_staged")
+# what pmarlo_fused_md_plan writes: threads, the shared memory bytes of the
+# base, the slots and the staged tables, the replicas resident with the
+# base alone, with the slots, with slots and tables (0: does not fit)
+_PLAN = ("threads", "smem_bytes", "slot_bytes", "table_bytes", "resident",
+         "resident_slots", "resident_all")
 _BIAS_KINDS = {"harmonic": 1, "metadynamics": 2}
 #: cudaErrorCooperativeLaunchTooLarge
 _TOO_LARGE = 720
@@ -130,9 +147,9 @@ def _library() -> ctypes.CDLL:
         lib.pmarlo_grid_barrier_probe.restype = i
         if lib.pmarlo_fused_md_max_atoms() != MAX_ATOMS:
             raise RuntimeError("kernel library and wrapper disagree on MAX_ATOMS")
-        abi = [lib.pmarlo_fused_md_abi(k) for k in range(8)]
+        abi = [lib.pmarlo_fused_md_abi(k) for k in range(9)]
         if abi != [len(_PTRS), len(_INTS), len(_FLOATS), MAX_LAYERS, MAX_CV,
-                   MAX_THREADS, MAX_CLUSTER, len(_PLAN)]:
+                   MAX_THREADS, MAX_CLUSTER, len(_PLAN), PAIR_TABS]:
             raise RuntimeError(
                 f"kernel library and wrapper disagree on the argument lists: {abi}")
         _configured = True
@@ -142,12 +159,19 @@ def _library() -> ctypes.CDLL:
 @dataclasses.dataclass(frozen=True)
 class LaunchShape:
     """How the kernels lay out one replica of ``n`` atoms: a cluster of
-    ``cluster`` CTAs, CTA k owning rows ``[k rows(n), (k + 1) rows(n))``,
-    each row a team of ``lanes`` lanes of one warp, ``threads(n)`` threads
-    a CTA (``shape_of`` in ``csrc/fused_md.cu`` derives the same)."""
+    ``cluster`` CTAs, CTA k owning atoms ``[k rows(n), (k + 1) rows(n))``,
+    each owned atom a team of ``lanes`` lanes of one warp (its slot sums,
+    bonded terms, integration), ``threads(n)`` threads a CTA; the pairs in
+    ``pair_items(n, team)``' items, an item a team of ``team`` lanes, and
+    ``pairs`` steps a lane an iteration (2: the ``*_kernel`` builds; 1:
+    the ``*_single_kernel`` builds; the biased kernels have one build, one
+    step an iteration, for both; every build at most 128 registers a
+    thread). ``shape_of`` in ``csrc/fused_md.cu`` derives the same."""
 
     cluster: int
     lanes: int
+    team: int = 32
+    pairs: int = 2
 
     def rows(self, n_atoms: int) -> int:
         return -(-int(n_atoms) // self.cluster)
@@ -155,38 +179,99 @@ class LaunchShape:
     def threads(self, n_atoms: int) -> int:
         return -(-self.rows(n_atoms) * self.lanes // 32) * 32
 
+    @property
+    def steps(self) -> int:
+        """Steps an item: half a team."""
+        return self.team // 2
+
+    def items(self, n_atoms: int) -> int:
+        return pair_groups(n_atoms, self.team) ** 2
+
+    def slots(self, n_atoms: int) -> int:
+        """Slots an atom: one for each item that holds it."""
+        return 2 * pair_groups(n_atoms, self.team)
+
+    def rounds(self, n_atoms: int) -> int:
+        """Items a team takes in turn: the cluster's teams take them in rounds."""
+        teams = self.cluster * (self.threads(n_atoms) // self.team)
+        return -(-self.items(n_atoms) // teams)
+
+
+def pair_groups(n_atoms: int, team: int) -> int:
+    return -(-int(n_atoms) // int(team))
+
+
+def pair_items(n_atoms: int, team: int) -> np.ndarray:
+    """The item list of the kernels' pair sweeps, ``(G^2, 4)`` int32 for G
+    groups of ``team`` atoms: (first row atom, first column atom, first step
+    | diagonal << 16, row slot | column slot << 16). Patches (g, h >= g) in
+    order; an off-diagonal patch is two items of ``team / 2`` steps (first
+    steps 0 and team / 2), a diagonal patch one item of steps 1..team / 2.
+    In an item lane l holds row atom g T + l and at step k meets column atom
+    h T + (l + k) mod T; at step T / 2 of a diagonal item only lanes l < T / 2
+    take the pair, which the other half would meet again. So every
+    unordered pair is met once. Each item writes one slot of each of its row
+    atoms and one of each of its column atoms, numbered per group in item
+    order: every atom of group g has slots 0..2G-1, each written once, and
+    its owner adds them in slot order."""
+    T = int(team)
+    G = pair_groups(n_atoms, T)
+    S = T // 2
+    count = np.zeros(G, np.int64)
+    items = []
+    for g in range(G):
+        for h in range(g, G):
+            for k0 in ((1,) if g == h else (0, S)):
+                sr, count[g] = count[g], count[g] + 1
+                sc, count[h] = count[h], count[h] + 1
+                items.append((g * T, h * T, k0 | (int(g == h) << 16), int(sr) | (int(sc) << 16)))
+    return np.asarray(items, np.int32).reshape(-1, 4)
+
 
 def launch_shapes(n_atoms: int) -> list:
     """Every shape the kernels take for ``n_atoms`` atoms: C in 1, 2, 4, 8
-    with rows in every CTA, L a power of two up to a warp, at most
-    ``MAX_THREADS`` threads a CTA."""
+    with atoms in every CTA, L a power of two up to a warp, at most
+    ``MAX_THREADS`` threads a CTA, a pair team T of 2-32 lanes, P = 1 or 2
+    steps an iteration (P = 2 needs an even T / 2)."""
     n = int(n_atoms)
-    shapes = [LaunchShape(C, L) for C in _CLUSTERS for L in _LANES]
+    shapes = [LaunchShape(C, L, T, P) for C in _CLUSTERS for L in _LANES for T in _TEAMS
+              for P in (1, 2)]
     return [s for s in shapes
-            if (s.cluster - 1) * s.rows(n) < n and s.threads(n) <= MAX_THREADS]
+            if (s.cluster - 1) * s.rows(n) < n and s.steps % s.pairs == 0
+            and s.threads(n) <= MAX_THREADS]
+
+
+def shape_cost(n_atoms: int, s: LaunchShape) -> float:
+    """The chooser's cost of a step in shape ``s``, in pair steps a lane:
+    a phase's ``rounds`` items (``steps`` pair steps of ``_STEP_COST`` and
+    ``_ROUND_COST`` each), each atom team's slot sums and shuffles, the
+    cluster barriers."""
+    n = int(n_atoms)
+    return (s.rounds(n) * (s.steps * _STEP_COST[s.pairs] + _ROUND_COST)
+            + _FOLD_COST * -(-s.slots(n) // s.lanes) + _SHUFFLE_COST * math.log2(s.lanes)
+            + (_CLUSTER_COST if s.cluster > 1 else 0.0))
 
 
 def launch_shape(n_atoms: int, n_replicas: int,
                  capacity: Callable[[LaunchShape], int]) -> LaunchShape:
     """The launch shape of ``n_replicas`` replicas of ``n_atoms`` atoms:
-    of ``launch_shapes(n_atoms)``, the one with the fewest partners a lane
-    visits a step (``_SHUFFLE_COST`` a shuffle level, ``_CLUSTER_COST`` for
-    more than one CTA), then the fewest CTAs and lanes, of which
-    ``capacity(shape)`` replicas, at least ``n_replicas``, can be resident
-    at once. On the card ``capacity`` is the card's own count
-    (``FusedChunk._shape``). One CTA and one lane a row (a thread an atom)
-    is taken without asking, so no replica count is refused here; a
+    of ``launch_shapes(n_atoms)``, the cheapest by ``shape_cost``, then the
+    fewest CTAs and lanes, the widest pair team and one step an iteration,
+    of which ``capacity(shape)`` replicas, at least ``n_replicas``, can be
+    resident at once. On the card ``capacity`` is the card's own count
+    (``FusedChunk._shape``), for the register budget of the shape's P. One
+    CTA and one lane an atom (a thread an atom, ``LaunchShape(1, 1)``) is
+    taken without asking, so no replica count is refused here; a
     cooperative launch that still cannot be resident is refused by the
     card."""
     n, R = int(n_atoms), int(n_replicas)
     if not 1 <= n <= MAX_ATOMS or R < 1:
         raise ValueError(f"need 1 <= n_atoms <= {MAX_ATOMS} and n_replicas >= 1")
 
-    def cost(s: LaunchShape):
-        return (-(-n // s.lanes) + _SHUFFLE_COST * math.log2(s.lanes)
-                + (_CLUSTER_COST if s.cluster > 1 else 0.0), s.cluster, s.lanes)
+    def key(s: LaunchShape):
+        return (shape_cost(n, s), s.cluster, s.lanes, -s.team, s.pairs)
 
-    return next(s for s in sorted(launch_shapes(n), key=cost)
+    return next(s for s in sorted(launch_shapes(n), key=key)
                 if s == LaunchShape(1, 1) or capacity(s) >= R)
 
 
@@ -260,21 +345,29 @@ class FusedChunk:
         self._angle_p = torch.stack([p.angle_k, p.angle_t0], 1).contiguous()
         self._tors_i = system.torsion_idx.to(torch.int32).contiguous()
         self._tors_p = torch.stack([p.tor_k, p.tor_n, p.tor_phase], 1).contiguous()
-        ptr, ent = _bonded_csr(system)
+        ptr, _ = _bonded_csr(system)
+        _, slot = bonded_slots(system.bond_idx.cpu().numpy(), system.angle_idx.cpu().numpy(),
+                               system.torsion_idx.cpu().numpy(), n)
+        self._csr_host = ptr
         self._csr_ptr = torch.as_tensor(ptr, device=dev)
-        self._csr_ent = torch.as_tensor(ent, device=dev).contiguous()
+        self._bonded_slot = torch.as_tensor(slot, device=dev).contiguous()
+        self._n_terms = {"n_bonds": int(system.bond_idx.shape[0]),
+                         "n_angles": int(system.angle_idx.shape[0]),
+                         "n_torsions": int(system.torsion_idx.shape[0])}
         self._use_neck = int(use_neck)
         self.c1 = math.exp(-self.friction * self.dt)
         self._bias_tables = None
         #: the hill widths as launch arguments, read from the device once
         self._mtd_inv_sigma = {}
-        #: launch shapes by replica count, and plans by (mode, replicas,
-        #: forced shape)
+        #: launch shapes by replica count, plans by (mode, replicas, forced
+        #: shape), and the pair items and their tables by team width
         self._shapes = {}
         self._plans = {}
-        #: the shape of this chunk's last launch: cluster, lanes, rows,
-        #: threads, staged (pair tables in shared memory), smem_bytes (without
-        #: the tables), resident (replicas the card holds at once)
+        self._items = {}
+        #: the shape of this chunk's last launch: cluster, lanes, team,
+        #: pairs, rows, threads, staged (the items' tables in shared memory),
+        #: slots_smem (the slots in shared memory), smem_bytes (the base
+        #: alone), resident (replicas the card holds at once as placed)
         self.last_launch: Optional[dict] = None
         if bias is not None:
             if bias.device != dev or bias.n_atoms != n:
@@ -405,20 +498,45 @@ class FusedChunk:
 
     # --- the kernel ---------------------------------------------------------------
 
+    def item_tables(self, team: int):
+        """``pair_items(N, team)`` on the chunk's device and the pair
+        tables in item order, ``(items, PAIR_TABS, team / 2, team)``: entry
+        (t, s, l) of an item is table t of the pair lane l meets at its step
+        s (0 where the lane takes no pair). The values are the (N, N)
+        tables' own, so the kernel reads what the plain version reads."""
+        T = int(team)
+        if T not in self._items:
+            n = self.system.n_atoms
+            dev = self.system.device
+            items = pair_items(n, T)
+            it = torch.as_tensor(items, dtype=torch.int64, device=dev)
+            S = T // 2
+            lane = torch.arange(T, device=dev)[None, None, :]
+            kk = (it[:, 2] & 0xFFFF)[:, None, None] + torch.arange(S, device=dev)[None, :, None]
+            i = it[:, 0, None, None] + lane
+            j = it[:, 1, None, None] + (lane + kk) % T
+            diag = (it[:, 2] >> 16).bool()[:, None, None]
+            ok = (i < n) & (j < n) & (~diag | (kk < T // 2) | (lane < T // 2))
+            i, j = torch.where(ok, i, 0), torch.where(ok, j, 0)
+            p = self._pair_p
+            tab = torch.cat([p[:, i, j], p[4:6, j, i]])          # (8, items, S, T)
+            tab = (tab * ok).permute(1, 0, 2, 3).contiguous()
+            self._items[T] = (torch.as_tensor(items, device=dev).contiguous(), tab)
+        return self._items[T]
+
     def _common_args(self, R: int, n_steps: int):
-        """Pointer, integer and float arguments every mode shares; the
-        tensors in ``keep`` must outlive the launch call."""
+        """Pointer, integer and float arguments every mode shares."""
         n = self.system.n_atoms
         ptrs = {
-            "atom_p": self._atom_p, "pair_p": self._pair_p,
+            "atom_p": self._atom_p,
             "bond_i": self._bond_i, "bond_p": self._bond_p,
             "angle_i": self._angle_i, "angle_p": self._angle_p,
             "tors_i": self._tors_i, "tors_p": self._tors_p,
-            "csr_ptr": self._csr_ptr, "csr_ent": self._csr_ent,
+            "csr_ptr": self._csr_ptr, "bonded_slot": self._bonded_slot,
         }
         ints = {
             "n_replicas": R, "n_atoms": n, "n_steps": int(n_steps),
-            "use_gb": int(self.dense.use_gb), "use_neck": self._use_neck,
+            "use_gb": int(self.dense.use_gb), "use_neck": self._use_neck, **self._n_terms,
         }
         floats = {
             "dt": self.dt, "half_dt": 0.5 * self.dt, "c1": self.c1,
@@ -442,18 +560,27 @@ class FusedChunk:
         """The card's numbers for one launch shape (``_PLAN``)."""
         iv = (ctypes.c_int * len(_INTS))(*[int(ints.get(k, 0)) for k in _INTS])
         out = (ctypes.c_int * len(_PLAN))()
-        iv[_INTS.index("cluster")] = shape.cluster
-        iv[_INTS.index("lanes")] = shape.lanes
+        for k in ("cluster", "lanes", "team", "pairs"):
+            iv[_INTS.index(k)] = getattr(shape, k)
+        iv[_INTS.index("bonded_ld")] = self._bonded_ld(shape)
         _kernels.check_launch(_library().pmarlo_fused_md_plan(mode, iv, out),
                               f"fused_md plan {shape}")
         return dict(zip(_PLAN, out))
+
+    def _bonded_ld(self, shape: LaunchShape) -> int:
+        """Bonded incidences of the atoms one CTA of ``shape`` owns, at most:
+        the length of the bonded slots in a CTA's slot block."""
+        n, r, ptr = self.system.n_atoms, shape.rows(self.system.n_atoms), self._csr_host
+        return max(int(ptr[min(n, (k + 1) * r)] - ptr[min(n, k * r)])
+                   for k in range(shape.cluster))
 
     def _shape(self, ints) -> LaunchShape:
         """The launch shape of every mode for this many replicas, chosen
         once: one shape, so that the windowed path (the chunk kernel) and
         the whole-run path (the REMD kernel) sum in one order and stay
         bitwise equal. ``launch_shape`` chooses by the card's count of
-        resident replicas of each shape, the lower of the two kernels'."""
+        resident replicas of each shape (its slots and tables in global
+        memory where that holds more), the lower of the two kernels'."""
         R = int(ints["n_replicas"])
         if R not in self._shapes:
             modes = (_MODE_CHUNK, _MODE_FUSED_REMD)
@@ -463,24 +590,26 @@ class FusedChunk:
         return self._shapes[R]
 
     def _plan(self, mode: int, ints, shape: Optional[LaunchShape] = None) -> dict:
-        """Launch shape and table placement of ``mode`` for this many
-        replicas (``shape`` forces one). The tables go to shared memory
-        where they fit and do not leave fewer replicas resident than there
-        are (or than without); staging reads the same numbers, so it does
-        not change the arithmetic."""
+        """Launch shape and placement of ``mode`` for this many replicas
+        (``shape`` forces one). The slots, and then the items' tables, go to
+        shared memory where they fit and do not leave fewer replicas
+        resident than there are (or than with neither); the placement
+        moves no sum, so it does not change the arithmetic."""
         R = int(ints["n_replicas"])
         key = (mode, R, shape)
         if key not in self._plans:
             if shape is None:
                 shape = self._shape(ints)
             plan = self._plan_of(mode, ints, shape)
-            staged = bool(plan["stageable"]) and (
-                plan["resident_staged"] >= min(R, plan["resident"]))
+            need = min(R, plan["resident"])
+            slots_smem = plan["resident_slots"] >= need
+            staged = slots_smem and plan["resident_all"] >= need
+            placed = "resident_all" if staged else "resident_slots" if slots_smem else "resident"
             self._plans[key] = {**dataclasses.asdict(shape),
                                 "rows": shape.rows(self.system.n_atoms),
                                 "threads": plan["threads"], "staged": staged,
-                                "smem_bytes": plan["smem_bytes"],
-                                "resident": plan["resident_staged" if staged else "resident"]}
+                                "slots_smem": slots_smem, "smem_bytes": plan["smem_bytes"],
+                                "resident": plan[placed]}
         return self._plans[key]
 
     def _run(self, mode: int, what: str, ptrs, ints, floats, step_offset: int,
@@ -488,8 +617,18 @@ class FusedChunk:
         lib = _library()
         with torch.cuda.device(device):
             plan = self._plan(mode, ints, shape)
-            ints = {**ints, "cluster": plan["cluster"], "lanes": plan["lanes"],
-                    "staged": int(plan["staged"])}
+            sh = LaunchShape(plan["cluster"], plan["lanes"], plan["team"], plan["pairs"])
+            ints = {**ints, **{k: int(plan[k]) for k in (
+                "cluster", "lanes", "team", "pairs", "staged", "slots_smem")},
+                "bonded_ld": self._bonded_ld(sh)}
+            items, tab = self.item_tables(plan["team"])
+            ptrs = {**ptrs, "items": items, "item_tab": tab}
+            if not plan["slots_smem"]:
+                n = self.system.n_atoms
+                per_cta = 3 * sh.slots(n) * sh.rows(n) + 3 * ints["bonded_ld"]
+                ptrs["slot_scratch"] = torch.empty(
+                    ints["n_replicas"] * sh.cluster * per_cta, dtype=torch.float32,
+                    device=device)
             pv = (ctypes.c_void_p * len(_PTRS))(*[
                 ptrs[k].data_ptr() if ptrs.get(k) is not None else None for k in _PTRS])
             iv = (ctypes.c_int * len(_INTS))(*[int(ints.get(k, 0)) for k in _INTS])
@@ -659,5 +798,6 @@ def grid_barrier_probe(n_blocks: int, n_threads: int, n_barriers: int,
 
 
 __all__ = ["FusedChunk", "FusedRemdOutput", "LaunchShape", "build_fused_chunk",
-           "grid_barrier_probe", "launch_shape", "launch_shapes", "MAX_ATOMS",
-           "MAX_CLUSTER", "MAX_THREADS", "launches", "variant_launches"]
+           "grid_barrier_probe", "launch_shape", "launch_shapes", "pair_items",
+           "shape_cost", "MAX_ATOMS", "MAX_CLUSTER", "MAX_THREADS", "PAIR_TABS", "launches",
+           "variant_launches"]

@@ -1,6 +1,6 @@
-"""Time the port's redesigned sweeps of one checkout on the card, A/B-ready.
+"""Time the port's redesigned kernels of one checkout on the card, A/B-ready.
 
-    python scripts/time_port_kernels.py [CHECKOUT] [TAG] [--profile]
+    python scripts/time_port_kernels.py [CHECKOUT] [TAG] [--profile] [--fused]
 
 CHECKOUT (default: this repository) is the root of a checkout of any
 commit whose ``pmarlo_tpu_torch`` has ``build_periodic_force_fn``,
@@ -25,6 +25,13 @@ minimization), so pair counts differ a little from ``chip_smoke.py``'s:
   chignolin (2,315 atoms), R = 8; ``cell_chignolin_r8``: the cell sweep
   there; ``cell_water_r1`` / ``cell_water_r4``: the cell sweep on the
   27,783-atom TIP3P box (50 calls each, call times only);
+- the fused kernels at R = 32 (``chip_smoke.py`` phases 2, 8 and 9's
+  shapes, crystal positions plus noise): ``chunk_n22`` (alanine) and
+  ``chunk_n138`` (chignolin), 100 steps a call; ``bias_n138``, the same
+  with the harmonic CV bias of a random default-width DeepTICA model;
+  ``remd_n138`` / ``remd_bias_n138``, ``run_fused`` of 200 steps (2
+  windows, 4 frames) unbiased and biased, a call and the kernel's device
+  time (``*_device_ms``, ``torch.profiler``); with ``--fused`` only these;
 - phase 17's: ``chignolin_assembly((8, 8, 7))`` (61,824 atoms) in GBn2
   with the X-H bond terms stripped, R = 1, tile 128, cutoff 1.5 nm, Morton
   order: ``bonded`` (50 calls), the ordered culled sweeps
@@ -46,8 +53,9 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-ARGS = [a for a in sys.argv[1:] if a != "--profile"]
+ARGS = [a for a in sys.argv[1:] if a not in ("--profile", "--fused")]
 PROFILE = "--profile" in sys.argv[1:]
+FUSED_ONLY = "--fused" in sys.argv[1:]
 ROOT = ARGS[0] if ARGS else str(HERE)
 TAG = ARGS[1] if len(ARGS) > 1 else ROOT
 sys.path.insert(0, ROOT)
@@ -100,6 +108,38 @@ def _explicit(out: dict) -> None:
     for R in (1, 4):
         binned = _binned(cells, _noisy(x0, R, 13, 0.02))
         _time(out, f"cell_water_r{R}", lambda: cells.sweep(*binned), 50, graph=False)
+
+
+def _fused(out: dict) -> None:
+    from pmarlo_tpu_torch.data import alanine_dipeptide_structure
+    from pmarlo_tpu_torch.data.chignolin import chignolin_structure
+    from pmarlo_tpu_torch.features import TopologyInfo, phi_psi_indices
+    from pmarlo_tpu_torch.md.fused_md import build_fused_chunk
+    from pmarlo_tpu_torch.md.topology import build_topology
+    from pmarlo_tpu_torch.remd.remd import ReplicaExchange
+
+    R = smoke.N_REPLICAS
+    for tag, structure in (("n22", alanine_dipeptide_structure()),
+                           ("n138", chignolin_structure())):
+        system, pos = build_system(structure, gb_model="gbn2", device="cuda")
+        x, v, seeds, temps = smoke._md_inputs(system, pos, R, seed=8)
+        chunk = build_fused_chunk(system, dt=smoke.DT_PS, friction=1.0, n_replicas=R)
+        _time(out, f"chunk_{tag}", lambda: chunk(x, v, seeds, temps, 100, 0), 10, graph=False)
+        out[f"chunk_{tag}_shape"] = chunk.last_launch
+    info = TopologyInfo.from_topology(build_topology(structure))
+    phi, psi, _ = phi_psi_indices(info.atom_names, info.residue_ids, info.chain_ids)
+    quads = np.concatenate([phi, psi], axis=0)
+    model = smoke._random_model(len(quads), seed=8)
+    biased = build_fused_chunk(system, dt=smoke.DT_PS, friction=1.0, n_replicas=R,
+                               bias_model=model, bias_quads=quads, bias_strength=2.0)
+    _time(out, "bias_n138", lambda: biased(x, v, seeds, temps, 100, 0), 10, graph=False)
+    cfg = smoke._remd_config(seed=9)
+    for tag, kb in (("remd_n138", None),
+                    ("remd_bias_n138", {"model": model, "quads": quads, "strength": 2.0})):
+        r = ReplicaExchange(system, pos, cfg, device="cuda", minimize=False, use_kernel=True,
+                            kernel_bias=kb)
+        _time(out, tag, lambda: r.run_fused(200), 5, graph=False)
+        out[f"{tag}_device_ms"] = smoke._device_ms(lambda: r.run_fused(200), 5, "fused_remd")
 
 
 def _kernels_us(calls) -> dict:
@@ -158,8 +198,10 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     out = {"card": card}
-    _explicit(out)
-    _large(out)
+    _fused(out)
+    if not FUSED_ONLY:
+        _explicit(out)
+        _large(out)
     print(TAG, json.dumps(out), flush=True)
 
 

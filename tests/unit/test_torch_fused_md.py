@@ -271,22 +271,23 @@ def test_launch_shape_is_a_valid_layout_for_every_atom_count(R, ctas_per_sm):
 
 
 def test_launch_shape_fills_the_card_with_teams_and_lowers_clusters_on_request():
-    """The shapes of the paths (R=32): alanine one CTA of 16-lane teams,
-    138-atom chignolin eight CTAs of 8-lane teams (four of 288 threads do
-    not all fit the H100's GPCs at one CTA an SM); where the card holds no
-    clusters beyond 4 or 1 CTAs, fewer CTAs; many replicas drop the lanes
-    first. ``launch_shapes`` lists every layout the kernels take."""
+    """The shapes of the paths (R=32): alanine one CTA of 16-lane atom teams
+    and 2-lane pair teams, 138-atom chignolin eight CTAs of 8-lane atom
+    teams (four of 288 threads do not all fit the H100's GPCs at one CTA an
+    SM); where the card holds no clusters beyond 4 or 1 CTAs, fewer CTAs;
+    many replicas drop the lanes first. ``launch_shapes`` lists every
+    layout the kernels take."""
     h100 = {n: _h100_capacity(n, 1) for n in (22, 138, 506)}
 
     def at_most(n, c):
         return lambda s: h100[n](s) if s.cluster <= c else 0
 
-    assert launch_shape(22, 32, h100[22]) == LaunchShape(1, 16)
-    assert launch_shape(138, 32, h100[138]) == LaunchShape(8, 8)
-    assert launch_shape(138, 8, h100[138]) == LaunchShape(8, 16)
-    assert launch_shape(138, 32, at_most(138, 4)) == LaunchShape(2, 4)
-    assert launch_shape(138, 32, at_most(138, 1)) == LaunchShape(1, 2)
-    assert launch_shape(22, 512, h100[22]) == LaunchShape(1, 4)
+    assert launch_shape(22, 32, h100[22]) == LaunchShape(1, 16, 2, 1)
+    assert launch_shape(138, 32, h100[138]) == LaunchShape(8, 8, 4, 2)
+    assert launch_shape(138, 8, h100[138]) == LaunchShape(8, 16, 16, 2)
+    assert launch_shape(138, 32, at_most(138, 4)) == LaunchShape(2, 4, 8, 2)
+    assert launch_shape(138, 32, at_most(138, 1)) == LaunchShape(1, 2, 16, 2)
+    assert launch_shape(22, 512, h100[22]) == LaunchShape(1, 4, 8, 2)
     assert launch_shape(506, 512, h100[506]) == LaunchShape(1, 1)
     assert launch_shape(138, 1, lambda s: 0) == LaunchShape(1, 1)
     assert LaunchShape(8, 8).threads(138) == 160 and LaunchShape(2, 4).rows(138) == 69

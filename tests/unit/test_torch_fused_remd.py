@@ -399,13 +399,17 @@ def test_fused_remd_kernel_matches_its_plain_version(biased):
 
 @pytest.mark.gpu
 def test_fused_remd_raises_when_the_replicas_cannot_all_be_resident():
-    """The grid barrier needs every CTA on the card at once: 506 atoms take
-    512 threads a CTA, one CTA an SM, so more replicas than SMs raise
-    instead of running in pieces."""
+    """The grid barrier needs every CTA on the card at once: with more
+    replicas of 506 atoms than any launch shape holds resident (the card's
+    own count, asked for every shape), ``run_fused`` raises instead of
+    running in pieces."""
     _need_card()
     structure = replicate_structure(alanine_dipeptide_structure(), (23, 1, 1))
     system, pos = build_system(structure, gb_model="gbn2", device="cuda")
-    R = torch.cuda.get_device_properties(0).multi_processor_count + 8
+    probe = fused_md.FusedChunk(system, dt=0.002, friction=1.0, n_replicas=1)
+    ints = probe._common_args(1, 0)[1]
+    R = 8 + max(min(probe._plan_of(m, ints, s)["resident"] for m in (0, 2))
+                for s in fused_md.launch_shapes(system.n_atoms))
     cfg = RemdConfig(n_replicas=R, t_min=300.0, t_max=450.0, exchange_frequency=2,
                      report_interval=2, seed=0)
     remd = ReplicaExchange(system, pos, cfg, device="cuda", use_kernel=True, minimize=False)
