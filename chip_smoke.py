@@ -84,7 +84,7 @@ Phases, one line of numbers each:
              unordered pair inside the cutoff once).
 12. cells  - the cell-list kernel: (a) on the same inputs against its
              plain version, the dense oracle and the periodic kernel, in
-             reaction-field, switched and real-space Ewald mode (phase 11's
+             reaction-field, switched and smooth-PME mode (phase 11's
              atoms on the cutoff left out against the oracle and the
              periodic kernel, whose r^2 round differently), and in
              reaction-field mode at R=8 (phase 13's shape, 3 x 3 x 2
@@ -146,8 +146,31 @@ Phases, one line of numbers each:
              mid-step one, which is gated to [0.9, 1.1] at 3.2 and 4.2 ps
              (``--temperature-study`` measures both at 4 fs and 2 fs).
 
+18. production segment - ``pmarlo_tpu_torch.run_segment`` on the shipped
+             solvated chignolin (2,315 atoms, 3.00 x 2.85 x 2.68 nm, a 3 x 3
+             x 2 cell grid at 0.9 nm) with ``nonbonded="pme"``,
+             ``ensemble="npt"``: 2,500 steps at 2 fs, a volume move every 25,
+             frames every 500 to an .xtc file, then 500 steps resumed from
+             its final state and barostat state: wall, ms a step (and of
+             its force call), ns/day,
+             acceptance, density, box trace, T over the second half,
+             constraint deviation, launches; at the final positions and box
+             PME through the kernel against the plain half-shell version,
+             both against a dense float64 Ewald oracle (``md/pme.py``'s
+             terms on the cell path's mesh), ``dynamic`` against a fresh
+             build at that box; the .xtc read back against the frames.
+19. pme water - the same entry point on the 27,783-atom water box (a
+             temporary PDB): 100 warm-up steps (100 FIRE iterations first),
+             then 1,000 NPT steps resumed: ms a step, acceptance, density
+             trace, peak device memory; one evaluation split by CUDA events
+             into binning, the row 9 sweep, the band correction, the spread,
+             the FFT with the influence function, and the gather by
+             autograd; two evaluations run to run; a volume move into a box
+             whose cell layers are thinner than the cutoff: NaN energy,
+             rejected, and no synchronisation with the host while it runs.
+
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-17, the card's name and power limit, a line of the kernels'
+11-14 and 15-19, the card's name and power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
@@ -166,6 +189,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -228,6 +252,18 @@ LARGE_STEPS = 1_000              # the timed stretch through the Newton sweeps (
 LARGE_ORDERED_STEPS = 50         # the same run through the ordered culled sweeps
 LARGE_DT_PS = 0.004
 STUDY_PS = 6                     # picoseconds at each time step of --temperature-study
+# phase 18: run_segment on solvated chignolin, NPT + PME; cut from 5,000 + 1,000
+# steps to fit the script's time limit: the step is host-bound, ~47 ms on the
+# H100's host (PERF.md section 5)
+SEGMENT_STEPS = 2_500
+SEGMENT_FIRE = 500               # run_segment's default minimization
+SEGMENT_RESUME_STEPS = 500
+SEGMENT_REPORT = 500
+BAROSTAT_INTERVAL = 25
+PME_WATER_WARM_STEPS = 100       # phase 19: the water box, NPT + PME
+PME_WATER_STEPS = 1_000
+PME_WATER_REPORT = 100
+PME_WATER_FIRE = 100
 SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
                  "fused_remd_bias_kernel", "fused_md_chunk_single_kernel",
@@ -1747,7 +1783,7 @@ def phase_cells(periodic: dict, water) -> dict:
     for tag, switch, alpha in (("rf", None, None), ("switched", EXPLICIT_SWITCH, None),
                                ("ewald", None, EWALD_ALPHA)):
         system, e_dense, f_dense = periodic["keep"]["switched" if switch else "shifted"]
-        fn = build_cell_force_fn(system, _ewald_alpha=alpha)
+        fn = build_cell_force_fn(system, electrostatics="pme" if alpha else "rf")
         (ek, fk), (ep, fp), _ = sweeps(fn, x)
         _gate(out, f"{tag}_sweep", ek.sum(-1), fk, ep.sum(-1), fp)
         out[f"{tag}_force_max_abs_err"] = float((fk - fp).abs().max())
@@ -1762,7 +1798,8 @@ def phase_cells(periodic: dict, water) -> dict:
             _gate(out, f"{tag}_vs_periodic_kernel", e, f * clear, e_dense, f_dense * clear)
             out[f"{tag}_vs_periodic_kernel_force_rel_err_all_atoms"] = _rel(f, f_dense)
         else:
-            _check(fn.electrostatics == "ewald" and fn.phys.shift_c > 0.0, "Ewald mode is on")
+            _check(fn.electrostatics == "pme" and fn.phys.shift_c > 0.0
+                   and abs(fn.phys.alpha - alpha) <= 1e-12 * alpha, "smooth PME is on")
             out["ewald_alpha"] = alpha
             out["ewald_minus_rf_energy"] = float((e - e_rf).abs().max())
             _check(out["ewald_minus_rf_energy"] > 1.0, "the Ewald term differs from RF")
@@ -2521,6 +2558,306 @@ def phase_large_path() -> dict:
     return out
 
 
+def _pme_oracle(system, fn, x: torch.Tensor, box: torch.Tensor):
+    """Dense float64 energy and forces of ``system`` with smooth PME at
+    ``x (N, 3)`` in ``box``: the terms of ``md/pme.py ewald_energy_dense``
+    (dense real space, mesh, self, background) on ``fn``'s mesh and spline
+    order, the excluded and 1-4 pairs out of the real space and corrected
+    to their scaled bare Coulomb, and the LJ and bonded terms by autograd
+    of the dense periodic energy with the charges zeroed."""
+    from pmarlo_tpu_torch.md import pme
+    from pmarlo_tpu_torch.md.forces import energy_and_forces_autograd
+
+    b = tuple(float(v) for v in box.cpu().double())
+    sys_b = dataclasses.replace(system, box=b)
+    q = system.charges.double()
+    se = system.scale_elec.double()
+    i, j = torch.triu(se < 1.0, diagonal=1).nonzero(as_tuple=True)
+    alpha, rc = fn.phys.alpha, fn.phys.rc
+    with torch.enable_grad():
+        y = x.detach().double().requires_grad_(True)
+        e = (pme.real_space_energy_dense(y, q, b, rc, alpha, exclude_mask=(se < 1.0).double())
+             + pme.reciprocal_energy(y, q, b, alpha, fn.pme_mesh_shape, fn.pme_order)
+             + pme.excluded_pair_correction(y, q, b, alpha, i, j, se[i, j])
+             + pme.self_energy(q, alpha) + pme.background_energy(q, b, alpha))
+        (g,) = torch.autograd.grad(e, y)
+    e_lj, f_lj = energy_and_forces_autograd(
+        dataclasses.replace(sys_b, charges=torch.zeros_like(system.charges)), x.double())
+    return e.detach() + e_lj, f_lj - g
+
+
+def _npt_segment(out: dict, tag: str, res: dict, wall: float, steps: int,
+                 setup_s: Optional[float] = None) -> None:
+    """The numbers of a ``run_segment`` NPT result under ``tag``; with the
+    set-up's seconds (a resume: no minimization) ms a step and ns/day."""
+    T = res["temperature"].double()
+    if setup_s is not None:
+        out.update({
+            f"{tag}_setup_s": setup_s,
+            f"{tag}_ms_per_step": (wall - setup_s) / steps * 1e3,
+            f"{tag}_ns_per_day": steps * DT_PS * 1e-3 * 86_400.0 / (wall - setup_s),
+        })
+    out.update({
+        f"{tag}_steps": steps,
+        f"{tag}_wall_s": wall,
+        f"{tag}_acceptance": res["barostat_acceptance"],
+        f"{tag}_density_g_cm3": res["density_g_cm3"].tolist(),
+        f"{tag}_box_nm": res["box"].tolist(),
+        f"{tag}_kinetic_over_target_second_half": float(T[T.shape[0] // 2:].mean() / 300.0),
+    })
+
+
+def phase_production_segment() -> dict:
+    """``run_segment(nonbonded="pme", ensemble="npt")`` on the shipped
+    solvated chignolin at full size, resumed, and held against its plain
+    version, a dense oracle and a fresh build at the final box."""
+    import tempfile
+
+    from pmarlo_tpu_torch import run_segment
+    from pmarlo_tpu_torch.io.cif import read_structure
+    from pmarlo_tpu_torch.io.trajectory import TrajectoryReader
+    from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
+    from pmarlo_tpu_torch.md.constraints import constraint_violation
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.setup import build_explicit_setup
+
+    structure = read_structure(SOLVATED_PDB)
+    kw = dict(nonbonded="pme", ensemble="npt", dt_ps=DT_PS, report_interval=SEGMENT_REPORT,
+              barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF, device="cuda")
+    out = {"box_start_nm": list(structure.box)}
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = f"{tmp}/traj.xtc"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_segment(SOLVATED_PDB, n_steps=SEGMENT_STEPS, seed=18, output_file=traj,
+                          minimize_iterations=SEGMENT_FIRE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        # the set-up of a segment (a resume builds no minimizer) timed alone
+        t0 = time.perf_counter()
+        setup = build_explicit_setup(structure, box=tuple(res["final_box"].tolist()),
+                                     nonbonded="pme", require_cells=True,
+                                     dispersion_correction=True, build_minimize_fn=False,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        res2 = run_segment(SOLVATED_PDB, n_steps=SEGMENT_RESUME_STEPS,
+                           initial_state=res["final_state"],
+                           initial_barostat_state=res["final_barostat_state"], **kw)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        resume_counts = _counts()
+        frames = TrajectoryReader(traj).load()
+    system = res["system"]
+    N = system.n_atoms
+    out.update({"atoms": N, "launches": counts["cell_force"] + resume_counts["cell_force"]})
+    _npt_segment(out, "segment", res, wall, SEGMENT_STEPS)
+    _npt_segment(out, "resume", res2, wall2, SEGMENT_RESUME_STEPS, setup_s)
+    # ms a step from the resume, which neither minimizes nor thermalizes;
+    # the segment's set-up and minimization are the rest of its wall
+    out["ms_per_step"] = out["resume_ms_per_step"]
+    out["ns_per_day"] = out["resume_ns_per_day"]
+    out["segment_setup_minimize_s"] = wall - SEGMENT_STEPS * out["ms_per_step"] * 1e-3
+    spec = setup.constraints
+    out["max_constraint_deviation_nm"] = max(
+        float(constraint_violation(spec, r["positions"])) for r in (res, res2))
+    out["xtc_max_abs_err_nm"] = float(np.abs(frames - res["positions"].cpu().numpy()).max())
+    bs = res2["final_barostat_state"]
+    _check(counts["cell_force"] > 0 and resume_counts["cell_force"] > 0,
+           "the segment went through the cell kernel")
+    _check(counts["periodic_force"] == 0 and counts["fused_md_chunk"] == 0,
+           f"the segment launched other kernels {counts}")
+    _check(res["positions"].is_cuda and res["box"].is_cuda, "the segment's frames on the card")
+    for r in (res, res2):
+        _check(bool(torch.isfinite(r["positions"]).all()), "segment frames finite")
+        _check(bool(torch.isfinite(r["potential_energy"]).all()), "segment energies finite")
+    _check(0.0 < out["segment_acceptance"] < 1.0,
+           f"barostat acceptance {out['segment_acceptance']}")
+    _check(bs.n_attempted == (SEGMENT_STEPS + SEGMENT_RESUME_STEPS) // BAROSTAT_INTERVAL,
+           f"the resumed move stream counted {bs.n_attempted}")
+    _check(0.95 <= out["segment_kinetic_over_target_second_half"] <= 1.05,
+           f"segment T {out['segment_kinetic_over_target_second_half']}")
+    _check(out["max_constraint_deviation_nm"] <= 1e-4,
+           f"segment constraints {out['max_constraint_deviation_nm']}")
+    _check(frames.shape == tuple(res["positions"].shape), "the .xtc holds every frame")
+    _check(out["xtc_max_abs_err_nm"] <= 0.5e-3 + 1e-6, "the .xtc frames read back")
+
+    # at the final positions and box: the kernel, its plain version, the
+    # dense oracle and a fresh build at that box (the unshifted real space of
+    # the exact-Ewald oracle)
+    x = res2["positions"][-1]
+    box = res2["box"][-1]
+    # the step's force call alone (the rest of a step: the integrator and
+    # SHAKE / RATTLE of the rigid waters and the X-H bonds)
+    md_fn = setup.md_force_fn
+    out["step_eval_ms"] = _cuda_ms(lambda: md_fn.apply_dynamic(x, None, box), 20)
+    out["step_eval_share"] = out["step_eval_ms"] / out["ms_per_step"]
+    fn = build_cell_force_fn(system, electrostatics="pme", ewald_shift=False)
+    e, f = fn.dynamic(x, box)
+    er, fr = fn.reference(x, box)
+    eo, fo = _pme_oracle(system, fn, x, box)
+    _gate(out, "final_kernel_vs_plain", e, f, er, fr)
+    _gate(out, "final_kernel_vs_oracle", e, f, eo, fo)
+    _gate(out, "final_plain_vs_oracle", er, fr, eo, fo)
+    fresh_sys, _ = build_system(structure, box=tuple(float(b) for b in box.cpu()),
+                                cutoff=EXPLICIT_CUTOFF, device="cuda")
+    fresh = build_cell_force_fn(fresh_sys, electrostatics="pme", ewald_shift=False)
+    # the grid may gain a cell layer (2.68 nm is near 3 x 0.9), which
+    # changes the decomposition and not the energy; the mesh must be the same
+    out["fresh_build_grid"] = [fresh.grid.nx, fresh.grid.ny, fresh.grid.nz]
+    _check(fresh.pme_mesh_shape == fn.pme_mesh_shape, "the final box keeps the mesh")
+    ef, ff = fresh(x)
+    _gate(out, "final_dynamic_vs_fresh_build", e, f, ef, ff)
+    out["grid"] = [fn.grid.nx, fn.grid.ny, fn.grid.nz]
+    out["pme_mesh_shape"] = list(fn.pme_mesh_shape)
+    _line("phase 18 production segment", out)
+    return out
+
+
+def _pme_split(fn, x: torch.Tensor, box: torch.Tensor, reps: int = 20) -> dict:
+    """ms of the parts of one NPT PME evaluation (CUDA events around
+    ``reps`` calls of each part)."""
+    from pmarlo_tpu_torch.md import pme
+    from pmarlo_tpu_torch.md.cells import bin_atoms
+
+    xb = x[None]
+    order, cell_start, _, xw = bin_atoms(fn.grid, xb, box)
+    order, cell_start = order.contiguous(), cell_start.contiguous()
+    shifts = fn.box_shifts(box)
+    mesh = fn.mesh
+
+    def spread():
+        with torch.enable_grad():
+            y = xb.detach().requires_grad_(True)
+            return y, pme.spread_charges(y, fn._q, box, mesh.shape, mesh.order)
+
+    def fft(Q):
+        with torch.enable_grad():
+            F = torch.fft.rfftn(Q, dim=(-3, -2, -1))
+            infl, pref = mesh._traced_influence(box, None)
+            return pref * (infl * (F.real * F.real + F.imag * F.imag)).sum((-3, -2, -1))
+
+    y, Q = spread()
+    e = fft(Q)
+    return {
+        "binning_ms": _cuda_ms(lambda: bin_atoms(fn.grid, xb, box), reps),
+        "sweep_ms": _cuda_ms(lambda: fn.sweep(xw, order, cell_start, shifts), reps),
+        "band_correction_ms": _cuda_ms(lambda: fn.correction(xb, box), reps),
+        "spread_ms": _cuda_ms(spread, reps),
+        "fft_ms": _cuda_ms(lambda: fft(Q), reps),
+        "gather_ms": _cuda_ms(lambda: torch.autograd.grad(e.sum(), y, retain_graph=True), reps),
+        "eval_ms": _cuda_ms(lambda: fn.dynamic(x, box), reps),
+    }
+
+
+def phase_pme_water() -> dict:
+    """``run_segment(nonbonded="pme", ensemble="npt")`` on the 27,783-atom
+    water box, the parts of an evaluation, run to run, and a volume move into
+    a box below the cutoff cover."""
+    import tempfile
+    import warnings
+
+    from pmarlo_tpu_torch import run_segment
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.io.pdb import write_pdb
+    from pmarlo_tpu_torch.md import barostat
+    from pmarlo_tpu_torch.md.setup import build_explicit_setup
+
+    structure, box0 = water_box_structure(WATER_SIDE)
+    atoms = [a for r in structure.residues for a in r.atoms]
+    kw = dict(nonbonded="pme", ensemble="npt", dt_ps=DT_PS, report_interval=PME_WATER_REPORT,
+              barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF, device="cuda")
+    out = {"atoms": len(atoms)}
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = write_pdb(f"{tmp}/water.pdb", structure.coordinates(), [a.name for a in atoms],
+                        [a.resname for a in atoms], [a.resid for a in atoms], box=box0)
+        _reset_counts()
+        warm = run_segment(pdb, n_steps=PME_WATER_WARM_STEPS, seed=19,
+                           minimize_iterations=PME_WATER_FIRE, **kw)
+        torch.cuda.synchronize()
+        launches = _counts()["cell_force"]
+        t0 = time.perf_counter()
+        setup = build_explicit_setup(structure, box=tuple(warm["final_box"].tolist()),
+                                     nonbonded="pme", require_cells=True,
+                                     dispersion_correction=True, build_minimize_fn=False,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_segment(pdb, n_steps=PME_WATER_STEPS, initial_state=warm["final_state"],
+                          initial_barostat_state=warm["final_barostat_state"], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += _counts()["cell_force"]
+    _npt_segment(out, "npt", res, wall, PME_WATER_STEPS, setup_s)
+    out["ms_per_step"] = out["npt_ms_per_step"]
+    out["peak_device_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["warm_density_g_cm3"] = warm["density_g_cm3"].tolist()
+    out["launches"] = launches
+    dens = torch.cat([warm["density_g_cm3"], res["density_g_cm3"]])
+    _check(bool(torch.isfinite(res["positions"]).all()), "water-box NPT frames finite")
+    _check(bool(((dens >= 0.9) & (dens <= 1.05)).all()), f"water-box density {dens.tolist()}")
+    _check(0.0 <= out["npt_acceptance"] <= 1.0, f"acceptance {out['npt_acceptance']}")
+    _check(launches > 0, "the water box went through the cell kernel")
+
+    fn = setup.md_force_fn
+    x = res["positions"][-1]
+    box = res["box"][-1]
+    out.update(_pme_split(fn, x, box))
+    e1, f1 = fn.dynamic(x, box)
+    e2, f2 = fn.dynamic(x, box)
+    torch.cuda.synchronize()
+    out["run_to_run_force_rel"] = _rel(f2, f1)
+    out["run_to_run_energy_rel"] = _rel(e2.double(), e1.double())
+    out["run_to_run_force_max_abs"] = float((f2 - f1).abs().max())
+    _check(out["run_to_run_force_rel"] <= 1e-4, "PME forces run to run")
+    _check(out["run_to_run_energy_rel"] <= 1e-5, "PME energy run to run")
+
+    # a move into a box whose cell layers are thinner than the cutoff: the
+    # energy there is NaN and the move is rejected, with no host read
+    system = setup.system
+    ids = barostat.molecule_ids(system)
+    move = barostat.make_volume_move(lambda xx, bb: fn.dynamic(xx, bb)[0], ids, system.masses,
+                                     int(ids.max()) + 1, pressure_bar=1.0,
+                                     temperature_K=300.0)
+    bs = res["final_barostat_state"]
+    move(x, bs)                                   # copies the molecule tables once
+    # the scale that puts the thinnest cell layer 2% under the cutoff, and
+    # the uniform that proposes it from a width of 90% of the volume
+    edge = float((box.cpu() / torch.tensor([fn.grid.nx, fn.grid.ny, fn.grid.nz])).min())
+    s = min(0.98 * EXPLICIT_CUTOFF / edge, 0.97)
+    u_dv = (s**3 - 1.0) / 0.9
+    bs = dataclasses.replace(bs, dv=torch.full_like(bs.dv, 0.9 * float(box.prod())))
+    out["squeezed_cell_edge_nm"] = edge * s
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            x_new, bs1, accepted, e_now = move(x, bs, uniforms=(u_dv, 1e-6))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature ...") is no synchronisation
+    syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+    e_trial, _ = fn.dynamic(barostat.scale_positions(x, s, ids, system.masses,
+                                                     int(ids.max()) + 1), box * s)
+    out["squeezed_move_host_syncs"] = len(syncs)
+    out["squeezed_energy"] = float(e_trial)
+    _check(not syncs, f"the volume move synchronised with the host: {syncs[:3]}")
+    _check(bool(torch.isnan(e_trial)), "the squeezed box's energy is NaN")
+    _check(not bool(accepted) and torch.equal(bs1.box, bs.box) and torch.equal(x_new, x),
+           "the move into the squeezed box is rejected")
+    _check(bool(torch.isfinite(e_now)), "the rejected move reports the energy it kept")
+    _line("phase 19 pme water", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -2626,6 +2963,8 @@ def main() -> None:
     large = phase_large_kernels()
     bonded = phase_bonded(large)
     large_path = phase_large_path()
+    segment = phase_production_segment()
+    pme_water = phase_pme_water()
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -2731,7 +3070,8 @@ def main() -> None:
         "name": "cell_force", **cuda,
         "source": "pmarlo_tpu_torch/csrc/cell_force.cu",
         "replaces": "pmarlo_tpu/md/pallas_cells.py:232",
-        "launches": explicit["cells"]["launches"]["cell_force"] + water_md["launches"],
+        "launches": (explicit["cells"]["launches"]["cell_force"] + water_md["launches"]
+                     + segment["launches"] + pme_water["launches"]),
         "max_abs_err": cells["water_r1_force_max_abs_err"],
         "ms": cells["water_r1_sweep_ms"],
         "plain_ms": cells["water_r1_sweep_plain_ms"],
@@ -2846,6 +3186,16 @@ def main() -> None:
             "reported_kinetic_over_target_second_half", "kinetic_over_target_state_by_ps",
             "max_constraint_deviation_nm", "peak_device_memory_gib",
             "peak_device_memory_with_plain_gib", "tile_table_ms", "launches")},
+        "production_segment": {k: segment[k] for k in (
+            "ms_per_step", "ns_per_day", "step_eval_ms", "segment_wall_s", "resume_wall_s",
+            "segment_setup_minimize_s", "segment_acceptance",
+            "segment_kinetic_over_target_second_half", "max_constraint_deviation_nm",
+            "final_kernel_vs_oracle_energy_rel_err", "final_kernel_vs_oracle_force_rel_err",
+            "launches")},
+        "pme_water": {k: pme_water[k] for k in (
+            "ms_per_step", "npt_acceptance", "peak_device_memory_gib", "eval_ms", "sweep_ms",
+            "binning_ms", "band_correction_ms", "spread_ms", "fft_ms", "gather_ms",
+            "run_to_run_force_rel", "squeezed_move_host_syncs", "launches")},
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "

@@ -4,10 +4,62 @@ The package mirrors ``pmarlo_tpu``'s module paths. Plain tensor code is
 PyTorch; the fused Langevin chunk (``md/fused_md.py``) is a hand-written
 CUDA kernel (``csrc/fused_md.cu``) with a plain PyTorch twin that the CPU
 runs. Importing the package pins float32 matmuls to full precision.
+
+Public symbols resolve lazily, as in ``pmarlo_tpu/__init__.py``: the names
+of its registry that the port has (``pmarlo_tpu_torch.run_segment``, ...).
 """
+
+from __future__ import annotations
+
+import importlib
+from typing import Any
 
 from ._precision import pin_fp32
 
 pin_fp32()
+
+# symbol -> (module, attr), the JAX package's names for the ported modules
+_EXPORTS = {
+    "set_global_seed": ("pmarlo_tpu_torch.utils.seed", "set_global_seed"),
+    "constants": ("pmarlo_tpu_torch.constants", None),
+    # MD core
+    "System": ("pmarlo_tpu_torch.md.system", "System"),
+    "MDState": ("pmarlo_tpu_torch.md.integrate", "MDState"),
+    "build_system": ("pmarlo_tpu_torch.md.forcefield", "build_system"),
+    "run_segment": ("pmarlo_tpu_torch.md.simulation", "run_segment"),
+    "build_pair_force_fn": ("pmarlo_tpu_torch.md.pair_force", "build_pair_force_fn"),
+    "build_periodic_force_fn": ("pmarlo_tpu_torch.md.periodic_force",
+                                "build_periodic_force_fn"),
+    "build_h_constraints": ("pmarlo_tpu_torch.md.constraints", "build_h_constraints"),
+    "build_cell_force_fn": ("pmarlo_tpu_torch.md.cell_force", "build_cell_force_fn"),
+    "ewald_energy_dense": ("pmarlo_tpu_torch.md.pme", "ewald_energy_dense"),
+    "run_npt": ("pmarlo_tpu_torch.md.barostat", "run_npt"),
+    # REMD
+    "RemdConfig": ("pmarlo_tpu_torch.remd.remd", "RemdConfig"),
+    "ReplicaExchange": ("pmarlo_tpu_torch.remd.remd", "ReplicaExchange"),
+    "run_replica_exchange": ("pmarlo_tpu_torch.remd.remd", "run_replica_exchange"),
+    "suggest_temperature_ladder": ("pmarlo_tpu_torch.remd.ladder",
+                                   "suggest_temperature_ladder"),
+    "save_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "save_checkpoint"),
+    "load_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "load_checkpoint"),
+    # shards
+    "write_shard": ("pmarlo_tpu_torch.io.shards", "write_shard"),
+    "read_shard": ("pmarlo_tpu_torch.io.shards", "read_shard"),
+    "select_shard_paths": ("pmarlo_tpu_torch.io.shards", "select_shard_paths"),
+}
+
+
+def __getattr__(name: str) -> Any:
+    try:
+        module_name, attr = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module 'pmarlo_tpu_torch' has no attribute {name!r}")
+    module = importlib.import_module(module_name)
+    return module if attr is None else getattr(module, attr)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
 
 __all__ = ["pin_fp32"]

@@ -1,8 +1,12 @@
-"""Default device for the plain-PyTorch analysis functions."""
+"""Default device for the plain-PyTorch analysis functions, and small host
+constants kept on a device."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CONSTANTS = {}
 
 
 def default_device() -> torch.device:
@@ -12,4 +16,17 @@ def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-__all__ = ["default_device"]
+def host_constant(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``values`` (a box, cell or mesh counts, a lattice matrix) as a tensor
+    of ``like``'s device and dtype (or ``dtype``), copied there once and
+    kept: a copy from the host waits for the card's stream, which a loop
+    that reads nothing back must not do on every call."""
+    a = np.asarray(values, np.float64)
+    dtype = like.dtype if dtype is None else dtype
+    key = (a.tobytes(), a.shape, dtype, like.device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=like.device)
+    return _CONSTANTS[key]
+
+
+__all__ = ["default_device", "host_constant"]

@@ -41,9 +41,24 @@ carry is the binning of the call that returned it, and ``evaluate`` sweeps
 any binning it is given. The physics does not depend on when the sort
 happens, only the summation order does.
 
-The kernel has a real-space Ewald mode (``erfcf`` and its exact
-derivative, shifted to zero at the cutoff) for a smooth-PME path that is
-not ported yet; it is reached through the private ``_ewald_alpha``.
+**Smooth PME** (``electrostatics="pme"``). The kernel's real-space Ewald
+mode (``erfcf`` and its exact derivative, shifted to zero at the cutoff
+unless ``ewald_shift=False``) takes the pairs inside the cutoff; the
+reciprocal sum, the self and the background terms come from ``md/pme.py``
+(a ``ReciprocalMesh`` built once: order-6 splines on the mesh that JAX
+chooses), its forces by autograd; the pair-list correction takes the erf
+part off every scaled pair.
+
+**A box that changes** (``dynamic`` / ``init_state_dynamic`` /
+``apply_dynamic``, the NPT path of ``md/barostat.py``). The cell counts stay
+as built; the box is a (3,) float32 tensor argument, and what derives from
+it follows on the device: the 27 lattice shifts the kernel reads, the wrap
+of ``bin_atoms``, the minimum image of the correction, the dispersion tail
+2 pi C / V and the PME influence function. A triclinic cell keeps its tilt
+ratios. Where the box has shrunk a cell layer below the cutoff, the
+27-cell neighbourhoods no longer cover every pair: the energy and forces
+are NaN then (as JAX poisons them), computed on the device, so a volume
+move into such a box is rejected without a host read.
 
 Pair arithmetic in the kernel is float32; energy rows are summed in float64
 past a patch and the plain twin evaluates in float64 outright. Energies
@@ -60,6 +75,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
 from .analytic import bonded_energy_and_forces, make_bonded_params
 from .cells import (
     CellGrid,
@@ -76,6 +92,7 @@ from .periodic_force import (
     pair_terms,
     refuse_scratch,
 )
+from .pme import ReciprocalMesh
 from .system import System, require_no_vsites
 
 #: kernel launches made by this process (chip_smoke.py resets and reads it)
@@ -141,11 +158,15 @@ class CellForce:
 
     def __init__(self, system: System, grid: CellGrid, phys: PairPhysics, *,
                  band: Optional[ExclusionBand] = None, dispersion_correction: bool = False,
-                 cell_chunk: int = 64):
+                 cell_chunk: int = 64, pme_mesh: Optional[ReciprocalMesh] = None,
+                 pme_precise: bool = False):
+        """``pme_mesh`` adds the reciprocal, self and background terms of
+        smooth PME to an Ewald-mode ``phys`` (without it the Ewald mode
+        evaluates the real-space sum alone)."""
         self.system = system
         self.grid = grid
         self.phys = phys
-        self.electrostatics = "ewald" if phys.ewald else "rf"
+        self.electrostatics = "pme" if phys.ewald else "rf"
         self.cell_chunk = int(cell_chunk)
         self._atom_p = atom_rows(system)
         self.band = band if band is not None else ExclusionBand.from_system(system)
@@ -154,17 +175,45 @@ class CellForce:
         self.band_D = int(self.band.width)
         self.correction = PairListCorrection(system, self.band, phys)
         self._bonded = make_bonded_params(system)
+        self._disp_2pi_c = 0.0
         self.e_dispersion = 0.0
         if dispersion_correction:
             from .dispersion import dispersion_coefficient
 
-            volume = float(np.prod(system.box))
-            self.e_dispersion = 2.0 * math.pi * dispersion_coefficient(system) / volume
+            self._disp_2pi_c = 2.0 * math.pi * dispersion_coefficient(system)
+            self.e_dispersion = self._disp_2pi_c / float(np.prod(system.box))
         self._dims = (ctypes.c_int * 3)(grid.nx, grid.ny, grid.nz)
         shifts, nb, wrap = _neighbor_tables(grid)
-        self._shifts = torch.as_tensor(shifts, device=system.device).contiguous()
-        self._nb = torch.as_tensor(nb, device=system.device)
-        self._wrap = torch.as_tensor(wrap, device=system.device)
+        dev = system.device
+        self._shifts = torch.as_tensor(shifts, device=dev).contiguous()
+        self._nb = torch.as_tensor(nb, device=dev)
+        self._wrap = torch.as_tensor(wrap, device=dev)
+        # the box-dependent parts of a box tensor: the shifts' lattice
+        # offsets and the cell counts
+        self._offsets = torch.as_tensor(np.array(list(np.ndindex(3, 3, 3))) - 1,
+                                        dtype=torch.float32, device=dev)
+        self._ncell = torch.tensor([grid.nx, grid.ny, grid.nz], dtype=torch.float32, device=dev)
+        self._ratios = None
+        if grid.tilt is not None:
+            from .box import tilt_ratios
+
+            self._ratios = tilt_ratios(grid.box, grid.tilt)
+        self.mesh = pme_mesh
+        self.pme_precise = bool(pme_precise)
+        if pme_mesh is not None:
+            if not phys.ewald:
+                raise ValueError("a PME mesh needs the sweep's Ewald mode")
+            if pme_mesh.device != dev:
+                raise ValueError("the PME mesh was built for another device")
+            self.pme_order = pme_mesh.order
+            self.pme_mesh_shape = pme_mesh.shape
+            self._q = system.charges.float().contiguous()
+            q64 = system.charges.double().cpu().numpy()
+            ke = COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
+            self.e_self = -ke * phys.alpha / math.sqrt(math.pi) * float((q64 * q64).sum())
+            #: background numerator: the term is this over the volume
+            self._background_v = (-ke * math.pi / (2.0 * phys.alpha**2)
+                                  * float(q64.sum()) ** 2)
 
     # --- shapes and state ---------------------------------------------------------
 
@@ -179,14 +228,61 @@ class CellForce:
                              f"for {self.system.device}")
         return x
 
-    def _bin(self, xb: torch.Tensor) -> NeighborState:
-        order, cell_start, _, xw = bin_atoms(self.grid, xb)
+    def _bin(self, xb: torch.Tensor, box: Optional[torch.Tensor] = None) -> NeighborState:
+        order, cell_start, _, xw = bin_atoms(self.grid, xb, box)
         return NeighborState(order=order.contiguous(), cell_start=cell_start.contiguous(),
                              xw=xw)
 
+    # --- what a box tensor changes ------------------------------------------------
+
+    def _box(self, box) -> torch.Tensor:
+        """``box`` as a (3,) float32 tensor on the system's device."""
+        box = torch.as_tensor(box, dtype=torch.float32, device=self.system.device)
+        if tuple(box.shape) != (3,):
+            raise ValueError(f"box must be (3,), got {tuple(box.shape)}")
+        return box
+
+    def box_shifts(self, box: torch.Tensor) -> torch.Tensor:
+        """The (27, 3) lattice shifts ``wx a + wy b + wz c`` of a (3,) box
+        tensor, computed on the device (the table the kernel reads)."""
+        if self._ratios is None:
+            return (self._offsets * box).contiguous()
+        from .box import latmul, traced_matrices
+
+        H, _ = traced_matrices(box, self._ratios)
+        return latmul(self._offsets, H).contiguous()
+
+    def _poison(self, box: torch.Tensor) -> torch.Tensor:
+        """NaN where a cell layer of ``box`` is thinner than the cutoff
+        (the neighbourhoods would miss pairs), else 0; on the device."""
+        if self._ratios is None:
+            widths = box
+        else:
+            from .box import traced_perp_widths
+
+            widths = traced_perp_widths(box, self._ratios)
+        thin = (widths / self._ncell).min() < self.phys.rc
+        return torch.where(thin, torch.full_like(box[0], math.nan), torch.zeros_like(box[0]))
+
+    def _mesh_terms(self, xb: torch.Tensor, box: Optional[torch.Tensor]):
+        """Reciprocal + self + background energies ``(R,)`` float64 and the
+        reciprocal forces (autograd) of ``xb (R, N, 3)``."""
+        if box is None:
+            kw = dict(box=self.system.box, tilt=self.system.tilt)
+            volume = float(np.prod(self.system.box))
+        else:
+            kw = dict(box=box, tilt_ratios=self._ratios)
+            volume = (box[0] * box[1] * box[2]).double()
+        with torch.enable_grad():
+            y = xb.detach().requires_grad_(True)
+            e = self.mesh.energy(y, self._q, precise=self.pme_precise, **kw)
+            (g,) = torch.autograd.grad(e.sum(), y)
+        return e.detach().double() + self.e_self + self._background_v / volume, -g
+
     # --- the sweep: plain twin and kernel ---------------------------------------------
 
-    def half_shell(self, x: torch.Tensor, order: torch.Tensor, cell_start: torch.Tensor):
+    def half_shell(self, x: torch.Tensor, order: torch.Tensor, cell_start: torch.Tensor,
+                   shifts: Optional[torch.Tensor] = None):
         """The pairs of one replica that the sweep takes, chunk by chunk:
         ``x (N, 3)`` the swept coordinates, ``order (N,)`` and ``cell_start
         (n_cells + 1,)`` its binning. Yields ``(ai, aj, d, pi, pj, cell, k)``
@@ -196,8 +292,10 @@ class CellForce:
         the float32 displacement ``d = x[ai] - (x[aj] + shift)`` as the
         kernel computes it, of every pair with ``|ai - aj| > D`` and
         ``1e-8 < r^2 < rc^2`` (on the own cell column after row). Each
-        unordered image pair within the cutoff is yielded once."""
+        unordered image pair within the cutoff is yielded once. ``shifts``
+        replaces the build box's lattice shifts (``box_shifts``)."""
         n, dev = x.shape[0], x.device
+        shifts = self._shifts if shifts is None else shifts
         cs, ordr = cell_start.long(), order.long()
         counts = cs[1:] - cs[:-1]
         M = int(counts.max())
@@ -215,7 +313,7 @@ class CellForce:
             for k in HALF_SHELL:
                 nb = self._nb[k, c0:c1]
                 aj, vj, pj = atoms[nb], valid[nb], pos[nb]
-                xj = x[aj] + self._shifts[self._wrap[k, c0:c1]][:, None, :]
+                xj = x[aj] + shifts[self._wrap[k, c0:c1]][:, None, :]
                 d = xi[:, :, None, :] - xj[:, None, :, :]             # (c, M, M, 3)
                 mask = (vi[:, :, None] & vj[:, None, :]
                         & ((ai[:, :, None] - aj[:, None, :]).abs() > self.band_D)
@@ -226,7 +324,7 @@ class CellForce:
                 yield (ai[c, r], aj[c, col], d[c, r, col], pi[c, r], pj[c, col], c + c0, k)
 
     def sweep_reference(self, xw: torch.Tensor, order: torch.Tensor,
-                        cell_start: torch.Tensor):
+                        cell_start: torch.Tensor, shifts: Optional[torch.Tensor] = None):
         """``(e_rows (R, N) float64, forces (R, N, 3))`` by atom index (twin
         of ``cell_force_kernel``): every pair of ``half_shell`` once, half
         its energy to each atom's row, ``-W d`` to the row atom and ``+W d``
@@ -241,7 +339,7 @@ class CellForce:
         e_rows = torch.zeros((R, n), dtype=torch.float64, device=dev)
         forces = torch.zeros((R, n, 3), dtype=torch.float64, device=dev)
         for rep in range(R):
-            for ai, aj, d, *_ in self.half_shell(xw[rep], order[rep], cell_start[rep]):
+            for ai, aj, d, *_ in self.half_shell(xw[rep], order[rep], cell_start[rep], shifts):
                 d = d.double()
                 e_lj, e_el, w_lj, w_el, inv_r = pair_terms(
                     self.phys, (d * d).sum(-1), q[ai] * q[aj], 0.5 * (sig[ai] + sig[aj]),
@@ -252,9 +350,10 @@ class CellForce:
                 forces[rep].index_add_(0, ai, -f).index_add_(0, aj, f)
         return e_rows, forces.to(xw.dtype)
 
-    def _launch(self, xw, order, cell_start):
+    def _launch(self, xw, order, cell_start, shifts=None):
+        shifts = self._shifts if shifts is None else shifts
         for t, dtype in ((xw, torch.float32), (order, torch.int32),
-                         (cell_start, torch.int32)):
+                         (cell_start, torch.int32), (shifts, torch.float32)):
             if t.device.type != "cuda" or t.device != xw.device:
                 raise RuntimeError(f"cell_force runs on CUDA tensors, got {t.device}")
             if t.dtype != dtype or not t.is_contiguous():
@@ -271,7 +370,7 @@ class CellForce:
         phys, ewald = self.phys.kernel_args()
         rc = lib.pmarlo_cell_force(
             xw.data_ptr(), self._atom_p.data_ptr(), order.data_ptr(), cell_start.data_ptr(),
-            R, n, self._dims, self.band_D, self._shifts.data_ptr(), phys, ewald,
+            R, n, self._dims, self.band_D, shifts.data_ptr(), phys, ewald,
             e_rows.data_ptr(), forces.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(xw.device).cuda_stream,
         )
@@ -279,32 +378,46 @@ class CellForce:
         launches["cell_force"] += 1
         return e_rows, forces
 
-    def sweep(self, xw, order, cell_start):
+    def sweep(self, xw, order, cell_start, shifts=None):
         """The band-masked sweep: the twin on the CPU, the kernel on CUDA."""
         xw = self._batch(xw)
         if xw.device.type == "cpu":
-            return self.sweep_reference(xw, order, cell_start)
-        return self._launch(xw.contiguous(), order, cell_start)
+            return self.sweep_reference(xw, order, cell_start, shifts)
+        return self._launch(xw.contiguous(), order, cell_start, shifts)
 
     # --- assembly -------------------------------------------------------------------------
 
-    def _evaluate(self, xb, st: NeighborState, sweep):
-        e_rows, forces = sweep(st.xw, st.order, st.cell_start)
-        e_c, f_c = self.correction(xb)
+    def _evaluate(self, xb, st: NeighborState, sweep, box: Optional[torch.Tensor] = None):
+        shifts = None if box is None else self.box_shifts(box)
+        e_rows, forces = sweep(st.xw, st.order, st.cell_start, shifts)
+        e_c, f_c = self.correction(xb, box)
         e_b, f_b = bonded_energy_and_forces(self._bonded, xb, energy_dtype=torch.float64)
-        energy = (e_rows.sum(-1) + e_c + e_b + self.e_dispersion).to(xb.dtype)
-        return energy, forces + f_c + f_b
+        energy = e_rows.sum(-1) + e_c + e_b
+        if self._disp_2pi_c:
+            energy = energy + (self.e_dispersion if box is None
+                               else self._disp_2pi_c / (box[0] * box[1] * box[2]).double())
+        forces = forces + f_c + f_b
+        if self.mesh is not None:
+            e_m, f_m = self._mesh_terms(xb, box)
+            energy, forces = energy + e_m, forces + f_m
+        energy = energy.to(xb.dtype)
+        if box is not None:
+            poison = self._poison(box)
+            energy, forces = energy + poison, forces + poison
+        return energy, forces
 
-    def evaluate(self, xs: torch.Tensor, st: NeighborState):
+    def evaluate(self, xs: torch.Tensor, st: NeighborState, box=None):
         """``(energies, forces)`` of ``xs (R, N, 3)`` swept on the binning
         ``st``, whose ``xw`` must be ``xs`` up to lattice vectors and cover
-        every pair within the cutoff by its 27-cell neighbourhoods."""
-        return self._evaluate(self._batch(xs), st, self.sweep)
+        every pair within the cutoff by its 27-cell neighbourhoods (binned
+        under ``box``, the build box when None)."""
+        return self._evaluate(self._batch(xs), st, self.sweep,
+                              None if box is None else self._box(box))
 
-    def _call(self, x, sweep):
+    def _call(self, x, sweep, box=None):
         lead = tuple(x.shape[:-2])
         xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
-        energy, forces = self._evaluate(xb, self._bin(xb), sweep)
+        energy, forces = self._evaluate(xb, self._bin(xb, box), sweep, box)
         return energy.reshape(lead), forces.reshape(tuple(x.shape))
 
     def __call__(self, x: torch.Tensor):
@@ -312,9 +425,10 @@ class CellForce:
         tensor, the twin on a CPU tensor."""
         return self._call(x, self.sweep)
 
-    def reference(self, x: torch.Tensor):
-        """The plain twin of the whole evaluation, on any device."""
-        return self._call(x, self.sweep_reference)
+    def reference(self, x: torch.Tensor, box=None):
+        """The plain twin of the whole evaluation, on any device (under a
+        box tensor ``box`` as ``dynamic`` evaluates)."""
+        return self._call(x, self.sweep_reference, None if box is None else self._box(box))
 
     # --- stateful entries -------------------------------------------------------------------
 
@@ -337,19 +451,27 @@ class CellForce:
         energy, forces, st = self.apply_batched(x[None], st)
         return energy[0], forces[0], st
 
-    # --- NPT entries: not ported yet ---------------------------------------------------------
+    # --- NPT entries: the box an argument -------------------------------------------------
 
-    def dynamic(self, x, box):
-        """The traced-box evaluation of the NPT path."""
-        raise NotImplementedError(
-            "dynamic / init_state_dynamic / apply_dynamic: the barostat and the "
-            "NPT entries of the cell sweep are not ported yet (ROADMAP queue A12)")
+    def dynamic(self, x: torch.Tensor, box) -> tuple:
+        """``(energy, forces)`` of ``x (..., N, 3)`` in the (3,) box ``box``
+        (a tensor, or anything ``torch.as_tensor`` takes) with the grid's
+        cell counts: NaN where a cell layer falls below the cutoff."""
+        return self._call(x, self.sweep, self._box(box))
 
-    def init_state_dynamic(self, x, box):
-        return self.dynamic(x, box)
+    def init_state_dynamic(self, x: torch.Tensor, box) -> NeighborState:
+        """The binning of ``x (N, 3)`` under ``box``."""
+        return self._bin(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))), self._box(box))
 
-    def apply_dynamic(self, x, st, box):
-        return self.dynamic(x, box)
+    def apply_dynamic(self, x: torch.Tensor, st: NeighborState, box):
+        """``(energy, forces, state)`` of ``x (N, 3)`` under ``box``; as
+        ``apply``, it bins afresh (``st`` is not consulted) and returns the
+        binning of ``x``."""
+        box = self._box(box)
+        st = self.init_state_dynamic(x, box)
+        energy, forces = self._evaluate(self._batch(x.reshape(st.xw.shape)), st, self.sweep,
+                                        box)
+        return energy.reshape(tuple(x.shape[:-2])), forces.reshape(tuple(x.shape)), st
 
 
 def cell_scratch(R: int, n: int):
@@ -366,40 +488,44 @@ def build_cell_force_fn(
     *,
     occupancy_margin: float = 1.4,
     electrostatics: str = "rf",
+    ewald_tolerance: float = 5e-4,
     mesh=None,
     dispersion_correction: bool = False,
+    pme_mesh_refine: float = 1.0,
+    pme_precise: bool = False,
+    ewald_shift: bool = True,
     band: Optional[ExclusionBand] = None,
-    _ewald_alpha: Optional[float] = None,
 ) -> CellForce:
     """The cell-list force function of ``system`` (tensors on
-    ``system.device``), as ``pallas_cells.build_cell_force_fn`` builds it
-    for a static box.
+    ``system.device``), as ``pallas_cells.build_cell_force_fn`` builds it.
 
     ``electrostatics="rf"`` matches ``build_periodic_force_fn`` (the dense
     sweep): the same LJ shift or switch, reaction field and 1-4 semantics.
-    The grid has the most cells whose layers are at least one cutoff thick
-    (no skin is bought: every call bins afresh); ``occupancy_margin`` sizes
-    ``grid.capacity`` as JAX's grid does (the kernel takes any occupancy and
-    reads no capacity). ``dispersion_correction`` adds the
+    ``electrostatics="pme"`` is smooth PME as JAX builds it: alpha from
+    ``pme.ewald_alpha(cutoff, ewald_tolerance)``, order-6 splines on the
+    mesh ``pme_grid_shape(lengths, pme_spacing(6, alpha) /
+    pme_mesh_refine)``; ``pme_precise`` spreads with df32 fractional
+    coordinates and weights (``pme.spread_charges_precise``);
+    ``ewald_shift`` shifts the real-space term to zero at the cutoff (the
+    exact-Ewald oracles turn it off). The grid has the most cells whose
+    layers are at least one cutoff thick (no skin is bought: every call
+    bins afresh); ``occupancy_margin`` sizes ``grid.capacity`` as JAX's grid
+    does (the kernel reads no capacity). ``dispersion_correction`` adds the
     isotropic LJ tail energy 2 pi C / V (``md/dispersion.py``). The result
     carries ``grid``, ``electrostatics``, ``init_state`` / ``apply`` /
-    ``init_state_batched`` / ``apply_batched`` and ``evaluate``.
+    ``init_state_batched`` / ``apply_batched``, ``evaluate``, the NPT
+    entries ``dynamic`` / ``init_state_dynamic`` / ``apply_dynamic`` and,
+    with PME, ``pme_order`` and ``pme_mesh_shape``.
 
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``electrostatics="pme"`` (smooth PME, A12), ``mesh`` (A13), and the
-    NPT entries ``dynamic`` / ``init_state_dynamic`` / ``apply_dynamic``
-    (barostat, A12)."""
+    ``mesh`` (the spatially decomposed sweep) is not ported yet and raises
+    ``NotImplementedError`` naming ROADMAP queue A13."""
     require_no_vsites(system, "the cell-list sweep")
     if system.box is None:
         raise ValueError("build_cell_force_fn needs system.box")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the spatially decomposed cell sweep is ROADMAP queue A13")
-    if electrostatics == "pme":
-        raise NotImplementedError(
-            "electrostatics='pme': smooth PME (md/pme.py, md/eft.py) is not "
-            "ported yet (ROADMAP queue A12)")
-    if electrostatics != "rf":
+    if electrostatics not in ("rf", "pme"):
         raise ValueError(f"electrostatics must be rf|pme, got {electrostatics!r}")
     n = system.n_atoms
     box_f = tuple(float(b) for b in system.box)
@@ -429,9 +555,24 @@ def build_cell_force_fn(
             "minimum image would be unreliable). Use a larger box or a "
             "smaller cutoff."
         )
-    phys = PairPhysics.from_system(system, ewald_alpha=_ewald_alpha)
+    if electrostatics == "rf":
+        phys = PairPhysics.from_system(system)
+        return CellForce(system, grid, phys, band=band,
+                         dispersion_correction=dispersion_correction)
+    from .pme import ewald_alpha, mesh_lengths, pme_grid_shape, pme_spacing
+
+    if pme_mesh_refine < 1.0:
+        raise ValueError(f"pme_mesh_refine must be >= 1, got {pme_mesh_refine}")
+    alpha = ewald_alpha(rc, ewald_tolerance)
+    # order-6 splines on a ~1.3x coarser mesh than order 4's (JAX's choice)
+    pme_order = 6
+    shape = pme_grid_shape(mesh_lengths(box_f, tilt_f),
+                           pme_spacing(pme_order, alpha) / pme_mesh_refine)
+    phys = PairPhysics.from_system(system, ewald_alpha=alpha, ewald_shift=ewald_shift)
     return CellForce(system, grid, phys, band=band,
-                     dispersion_correction=dispersion_correction)
+                     dispersion_correction=dispersion_correction,
+                     pme_mesh=ReciprocalMesh(shape, pme_order, alpha, system.device),
+                     pme_precise=pme_precise)
 
 
 __all__ = ["CELL_SLOTS", "CELL_SPLITS", "CellForce", "HALF_SHELL", "build_cell_force_fn",

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import host_constant
 from .ff_params import SCEE, SCNB
 
 
@@ -235,11 +236,14 @@ def free_skin(grid: CellGrid) -> float:
     return float(min(grid.cell_size) - grid.cutoff)
 
 
-def bin_atoms(grid: CellGrid, x: torch.Tensor):
+def bin_atoms(grid: CellGrid, x: torch.Tensor, box: Optional[torch.Tensor] = None):
     """Assign atoms to cells and sort them by cell.
 
     ``x`` is ``(..., N, 3)``; every leading index (a replica) is binned on
-    its own. Returns ``(order, cell_start, cell_id, xw)``:
+    its own. ``box``, a (3,) tensor, replaces the grid's diagonal on the
+    device (the NPT path: the cell counts stay, the cells scale with the
+    box; a triclinic grid keeps its tilt ratios). Returns ``(order,
+    cell_start, cell_id, xw)``:
 
     - ``cell_id (..., N)`` int64: each atom's flat cell index
       ``(cx * ny + cy) * nz + cz``, as the JAX ``bin_atoms`` computes it;
@@ -250,17 +254,21 @@ def bin_atoms(grid: CellGrid, x: torch.Tensor):
     - ``xw (..., N, 3)``: the positions wrapped into the primary cell, the
       coordinates the kernel works on (with lattice shifts for neighbour
       cells across a face, it needs no minimum-image arithmetic)."""
-    ncell = torch.as_tensor([grid.nx, grid.ny, grid.nz], dtype=x.dtype, device=x.device)
+    ncell = host_constant((grid.nx, grid.ny, grid.nz), x)
     if grid.tilt is None:
-        box = torch.as_tensor(grid.box, dtype=x.dtype, device=x.device)
+        box = (host_constant(grid.box, x) if box is None
+               else torch.as_tensor(box, dtype=x.dtype, device=x.device))
         xw = x - torch.floor(x / box) * box
         f = xw / box
     else:
-        from .box import latmul
+        from .box import latmul, tilt_ratios, traced_matrices
 
-        H_np, Hinv_np = grid.matrices()
-        H = torch.as_tensor(H_np, dtype=x.dtype, device=x.device)
-        Hinv = torch.as_tensor(Hinv_np, dtype=x.dtype, device=x.device)
+        if box is None:
+            H_np, Hinv_np = grid.matrices()
+            H = torch.as_tensor(H_np, dtype=x.dtype, device=x.device)
+            Hinv = torch.as_tensor(Hinv_np, dtype=x.dtype, device=x.device)
+        else:
+            H, Hinv = traced_matrices(box.to(x.dtype), tilt_ratios(grid.box, grid.tilt))
         f = latmul(x, Hinv)
         f = f - torch.floor(f)
         xw = latmul(f, H)

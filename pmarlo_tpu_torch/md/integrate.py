@@ -20,8 +20,10 @@ import math
 from functools import partial
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .._device import default_device
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
 from .forces import energy_and_forces_autograd
 from .system import System, require_no_vsites
@@ -106,6 +108,20 @@ def _kT(temperature_K, like: torch.Tensor):
     """kB T broadcastable against ``(..., N, 3)``."""
     t = torch.as_tensor(temperature_K, dtype=like.dtype, device=like.device)
     return BOLTZMANN_CONSTANT_KJ_PER_MOL * t[..., None, None]
+
+
+def md_state_from_numpy(positions, velocities, step, seed, device=None) -> MDState:
+    """The port's state from host arrays: a JAX ``MDState``'s positions,
+    velocities and step, with the Philox seed ``seed`` (an int, or one a
+    replica) in place of its PRNG key, which a Philox stream cannot take
+    over. ``device=None``: ``_device.default_device()``."""
+    device = torch.device(device) if device is not None else default_device()
+    x = torch.as_tensor(np.asarray(positions, np.float32), device=device)
+    seeds = torch.as_tensor(np.broadcast_to(np.asarray(seed, np.int64), x.shape[:-2])
+                            .astype(np.int32), device=device)
+    return MDState(positions=x,
+                   velocities=torch.as_tensor(np.asarray(velocities, np.float32), device=device),
+                   seeds=seeds, step=int(np.asarray(step).reshape(-1)[0]))
 
 
 def initialize_velocities(
@@ -378,7 +394,7 @@ def thermalize(
 
 
 __all__ = [
-    "MDState", "langevin_step", "run_md", "thermalize",
+    "MDState", "langevin_step", "md_state_from_numpy", "run_md", "thermalize",
     "make_force_fn", "compose_bias", "bias_energy_and_forces", "stateful_entries",
     "initialize_velocities", "kinetic_energy",
     "instantaneous_temperature", "remove_com_motion",

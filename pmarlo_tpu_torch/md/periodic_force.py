@@ -90,13 +90,16 @@ class PairPhysics:
     shift_c: float = 0.0         # erfc(alpha rc) / rc
 
     @classmethod
-    def from_system(cls, system: System, *,
-                    ewald_alpha: Optional[float] = None) -> "PairPhysics":
+    def from_system(cls, system: System, *, ewald_alpha: Optional[float] = None,
+                    ewald_shift: bool = True) -> "PairPhysics":
+        """``ewald_alpha``: real-space Ewald instead of reaction field;
+        ``ewald_shift`` then shifts erfc(alpha r) / r to zero at the cutoff
+        (off for the exact-Ewald oracles)."""
         rc = float(system.cutoff)
         eps_rf = float(system.solvent_dielectric)
         k_rf = (eps_rf - 1.0) / ((2.0 * eps_rf + 1.0) * rc**3)
         shift_c = 0.0
-        if ewald_alpha is not None:
+        if ewald_alpha is not None and ewald_shift:
             # the shift constant comes from the erfc the sweep itself uses
             # (on a card torch.erfc is the kernel's erfcf), so the shifted
             # energy is continuous at the cutoff to float32 rounding
@@ -160,27 +163,34 @@ def cutoff_mask(d: torch.Tensor, rc: float) -> torch.Tensor:
     return (r2 < float(rc32 * rc32)) & (r2 > 1e-8)
 
 
-def make_min_image(system: System) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``d -> minimum-image d`` for the system's box: per axis on an
-    orthorhombic box, rounded fractional coordinates on a triclinic one
-    (exact below half the smallest perpendicular width, which covers every
-    pair within the cutoff)."""
+def make_min_image(system: System) -> Callable[..., torch.Tensor]:
+    """``(d, box=None) -> minimum-image d`` for the system's box: per axis
+    on an orthorhombic box, rounded fractional coordinates on a triclinic
+    one (exact below half the smallest perpendicular width, which covers
+    every pair within the cutoff). ``box``, a (3,) tensor, replaces the
+    system's diagonal on the device (the NPT path); a triclinic cell keeps
+    its tilt ratios (``md/box.py traced_matrices``)."""
+    from .box import min_image_round, tilt_ratios, traced_matrices
+
     dev = system.device
+    ratios = None if system.tilt is None else tilt_ratios(system.box, system.tilt)
     if system.tilt is None:
         box64 = torch.as_tensor(system.box, dtype=torch.float64, device=dev)
-
-        def min_image(d):
-            b = box64.to(d.dtype)
-            return d - b * torch.round(d / b)
     else:
-        from .box import box_matrix, min_image_round
+        from .box import box_matrix
 
         H = box_matrix(system.box, system.tilt)
         H64 = torch.as_tensor(H, dtype=torch.float64, device=dev)
         Hinv64 = torch.as_tensor(np.linalg.inv(H), dtype=torch.float64, device=dev)
 
-        def min_image(d):
+    def min_image(d, box=None):
+        if ratios is None:
+            b = (box64 if box is None else box).to(d.dtype)
+            return d - b * torch.round(d / b)
+        if box is None:
             return min_image_round(d, H64.to(d.dtype), Hinv64.to(d.dtype))
+        Hb, Hinvb = traced_matrices(box.to(d.dtype), ratios)
+        return min_image_round(d, Hb, Hinvb)
     return min_image
 
 
@@ -242,14 +252,15 @@ class PairListCorrection:
                                       self.qq, self.sig, self.eps))
         return self._cast[dtype]
 
-    def __call__(self, x: torch.Tensor):
-        """Energies ``(R,)`` float64 and forces ``(R, N, 3)`` of ``x (R, N, 3)``."""
+    def __call__(self, x: torch.Tensor, box: Optional[torch.Tensor] = None):
+        """Energies ``(R,)`` float64 and forces ``(R, N, 3)`` of ``x (R, N,
+        3)``; ``box``, a (3,) tensor, replaces the system's (NPT)."""
         forces = torch.zeros_like(x)
         if self.i.numel() == 0:
             return x.new_zeros(x.shape[0], dtype=torch.float64), forces
         p = self.phys
         a_lj, a_el, a_14, a_erf, qq, sig, eps = self._params(x.dtype)
-        d = self.min_image(x[:, self.i] - x[:, self.j])
+        d = self.min_image(x[:, self.i] - x[:, self.j], box)
         r2 = (d * d).sum(-1)
         e_lj, e_el, w_lj, w_el, inv_r = pair_terms(p, r2, qq, sig, eps)
         within = (r2 < p.rc * p.rc).to(x.dtype)

@@ -6,8 +6,8 @@ stripped, and the force path (the auto rule chooses between the dense
 analytic path and the pair kernels). ``build_explicit_setup`` does the
 same for a solvated input (a box and waters): water detection, the
 nonbonded engine (``resolve_nonbonded``: the dense minimum-image sweep
-below 3,000 atoms, the cell list from there up), rigid water and X-H
-constraints, and the two force functions. In both, minimization relaxes
+below 3,000 atoms, the cell list from there up, or the cell list with
+smooth PME), rigid water and X-H constraints, and the two force functions. In both, minimization relaxes
 the FULL system (stiff X-H bonds kept); MD runs the stripped system under
 SHAKE/RATTLE, as OpenMM's ``createSystem(constraints=HBonds,
 rigidWater=True)`` does.
@@ -175,21 +175,16 @@ def build_explicit_setup(
     """Build the full explicit-solvent setup from a solvated structure on
     ``device`` (``None``: the card when there is one).
 
-    ``box`` overrides the structure's CRYST1; ``build_minimize_fn=False``
-    skips the FULL-system sweep's setup (resume paths never minimize). The
-    minimize function aliases the MD function when stripping was a no-op
-    (no constraints), so nothing is built twice. Neither sweep reads the
-    (N, N) scale matrices (``build_system`` builds them up to 12,000 atoms
-    for the autograd oracle): both work from the sparse exclusion lists.
-
-    ``nonbonded="pme"`` and ``pme_precise`` raise ``NotImplementedError``:
-    smooth PME is not ported yet (ROADMAP queue A12)."""
+    ``box`` overrides the structure's CRYST1 (resume paths carry the evolved
+    box); ``build_minimize_fn=False`` skips the FULL-system sweep's setup
+    (resume paths never minimize). The minimize function aliases the MD
+    function when stripping was a no-op (no constraints), so nothing is
+    built twice. Neither sweep reads the (N, N) scale matrices
+    (``build_system`` builds them up to 12,000 atoms for the autograd
+    oracle): both work from the sparse exclusion lists. ``pme_precise`` is
+    the PME engine's knob (df32 spreading) and needs ``nonbonded="pme"``."""
     if isinstance(structure, (str, Path)):
         structure = read_pdb(structure)
-    if nonbonded == "pme" or pme_precise:
-        raise NotImplementedError(
-            "nonbonded='pme' / pme_precise: smooth PME (md/pme.py, md/eft.py) "
-            "is not ported yet (ROADMAP queue A12)")
     system, positions = build_system(
         structure, box=box if box is not None else structure.box,
         tilt=(tilt if tilt is not None else getattr(structure, "tilt", None)),
@@ -199,6 +194,12 @@ def build_explicit_setup(
         nonbonded, system.n_atoms, require_cells=require_cells,
         triclinic=system.tilt is not None,
     )
+    if pme_precise and nonbonded != "pme":
+        raise ValueError(
+            "pme_precise is the PME reciprocal path's knob; this system "
+            f"resolved to nonbonded='{nonbonded}' (no reciprocal mesh) — "
+            "request nonbonded='pme' or drop pme_precise"
+        )
 
     from .constraints import build_h_constraints, strip_constrained_bonded
 
@@ -218,9 +219,12 @@ def build_explicit_setup(
     else:
         from .cell_force import build_cell_force_fn
 
+        elec = "pme" if nonbonded == "pme" else "rf"
+
         def _build(sys_):
             return build_cell_force_fn(
-                sys_, dispersion_correction=dispersion_correction)
+                sys_, electrostatics=elec, dispersion_correction=dispersion_correction,
+                pme_precise=pme_precise)
 
     md_force_fn = _build(md_system)
     minimize_force_fn = None

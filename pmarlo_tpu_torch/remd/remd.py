@@ -226,6 +226,8 @@ class ReplicaExchange:
         ``minimize_force_fn`` minimizes through the given forces (the
         full system's, stiff X-H bonds kept) instead of autograd."""
         self.device = torch.device(device) if device is not None else system.device
+        # recorded in checkpoints, so that a resume supplies the same force path
+        self._force_fn_is_override = force_fn is not None
         if constraints is not None and use_kernel:
             raise ValueError(
                 "constraints are integrated by langevin_step; the fused "
@@ -593,11 +595,12 @@ def run_replica_exchange(
 
     **Explicit solvent.** A solvated input (CRYST1 box + waters) switches
     to explicit-solvent REMD (``md.setup.build_explicit_setup``): the
-    periodic LJ + reaction-field potential at ``cutoff``, rigid TIP3P and
+    periodic LJ + Coulomb potential at ``cutoff``, rigid TIP3P and
     X-H constraints in every replica, constrained bonded terms stripped
     from the MD force path, and the ``nonbonded`` engine ("dense": the
-    O(N^2) minimum-image sweep, "cells": the O(N) cell-list sweep, "auto":
-    cells from 3,000 atoms up). The structure is minimized through the
+    O(N^2) minimum-image sweep, "cells": the O(N) cell-list sweep, both
+    with reaction field; "pme": the cell-list sweep with smooth PME;
+    "auto": cells from 3,000 atoms up). The structure is minimized through the
     FULL system's sweep; ladder probes and Metropolis energies run through
     the MD sweep. ``switch_distance`` enables the LJ switching function.
     The explicit path always constrains: ``constraints="none"`` raises.
@@ -610,8 +613,9 @@ def run_replica_exchange(
     path's minimization); with ``use_kernel=True`` it raises (the kernel
     takes ``ReplicaExchange(kernel_bias=...)``).
 
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` (A13) and ``nonbonded="pme"`` (A12)."""
+    ``nonbonded="pme"`` runs the cell-list sweep with smooth PME.
+    ``mesh`` is not ported yet and raises ``NotImplementedError`` naming
+    ROADMAP queue A13."""
     import dataclasses as _dc
 
     from ..io.pdb import read_pdb

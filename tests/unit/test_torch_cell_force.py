@@ -1,10 +1,10 @@
 """The cell-list force path (``pmarlo_tpu_torch/md/cell_force.py``,
 ``md/cells.py``): the grid and the binning against the JAX package's, the
 plain version against the JAX package's Pallas cell kernel (run in
-interpret mode on the CPU) in reaction-field, switched and real-space
-Ewald mode, on an orthorhombic and a sheared water box; the dispersion
-tail, the stateful entries, the refusals; and the CUDA kernel
-against the plain version on the card.
+interpret mode on the CPU) in reaction-field, switched and smooth-PME mode,
+on an orthorhombic and a sheared water box; the dispersion tail, the
+stateful entries, the refusals; and the CUDA kernel against the plain
+version on the card, also in its Ewald mode under a box that changes.
 
 JAX is imported inside the tests that compare against it, so that the
 ``gpu`` tests also run where JAX is not installed:
@@ -117,10 +117,8 @@ def test_grid_and_bins_match_jax(box, tilt, cutoff, n):
 @pytest.mark.parametrize("mode", ["rf", "switched", "sheared", "ewald"])
 def test_water_box_matches_jax_kernel(mode):
     """Plain version on a 375-atom water box (two perturbed copies)
-    against the Pallas cell kernel in interpret mode. In Ewald mode the
-    JAX function is the full smooth PME: its reciprocal, self and
-    background terms are taken off to leave the kernel's real-space sum."""
-    import jax
+    against the Pallas cell kernel in interpret mode. In Ewald mode both
+    are the full smooth PME (``electrostatics="pme"``)."""
     import jax.numpy as jnp
     from pmarlo_tpu.md.pallas_cells import build_cell_force_fn as jax_build
 
@@ -130,35 +128,28 @@ def test_water_box_matches_jax_kernel(mode):
     system = system_from_numpy(jsys.to_dict())
     assert system.tilt == (SHEAR if mode == "sheared" else None)
     xs = _noisy(jx, 2, seed=11)
-    kwargs = {}
-    if mode == "ewald":
-        from pmarlo_tpu.md import pme
-
-        alpha = pme.ewald_alpha(CUTOFF, 5e-4)
-        kwargs = dict(_ewald_alpha=alpha)
-        jfn = jax_build(jsys, interpret=True, electrostatics="pme")
-        q = jnp.asarray(np.asarray(jsys.charges, np.float32))
-        e_static = float(pme.self_energy(q, alpha)) + float(
-            pme.background_energy(q, jsys.box, alpha))
-        mesh = jax.value_and_grad(lambda p: pme.reciprocal_energy(
-            p, q, jsys.box, alpha, jfn.pme_mesh_shape, jfn.pme_order))
-    else:
-        jfn = jax_build(jsys, interpret=True)
-    fn = build_cell_force_fn(system, **kwargs)
+    electrostatics = "pme" if mode == "ewald" else "rf"
+    jfn = jax_build(jsys, interpret=True, electrostatics=electrostatics)
+    fn = build_cell_force_fn(system, electrostatics=electrostatics)
     assert (fn.grid.nx, fn.grid.ny, fn.grid.nz) == (jfn.grid.nx, jfn.grid.ny, jfn.grid.nz)
     assert math.isclose(free_skin(fn.grid), jfn.skin, rel_tol=1e-12)
-    assert fn.electrostatics == ("ewald" if mode == "ewald" else "rf")
+    assert fn.electrostatics == jfn.electrostatics == electrostatics
+    if mode == "ewald":
+        assert (fn.pme_order, fn.pme_mesh_shape) == (jfn.pme_order, jfn.pme_mesh_shape)
     e, f = fn(torch.tensor(xs))
     for r in range(2):
         ek, fk = jfn(jnp.asarray(xs[r]))
         ek, fk = float(ek), np.asarray(fk)
-        if mode == "ewald":
-            em, gm = mesh(jnp.asarray(xs[r]))
-            ek, fk = ek - float(em) - e_static, fk + np.asarray(gm)
         _assert_close(e[r], f[r], ek, fk, f"Pallas cell kernel (interpret), {mode}")
-    # one configuration without the batch dimension
+    # one configuration without the batch dimension: the same bits, but for
+    # the mesh of PME, whose batched FFT sums in another order
     e1, f1 = fn(torch.tensor(xs[0]))
-    assert e1.shape == () and torch.equal(f1, f[0])
+    assert e1.shape == ()
+    if mode == "ewald":
+        assert float((f1 - f[0]).abs().max()) <= 1e-6 * float(f[0].abs().max())
+        assert abs(float(e1 - e[0])) <= 1e-6 * abs(float(e[0]))
+    else:
+        assert torch.equal(f1, f[0])
 
 
 @pytest.mark.parametrize("tilt", [None, SHEAR], ids=["orthorhombic", "sheared"])
@@ -238,25 +229,25 @@ def test_apply_after_motion_equals_fresh_evaluation(entry):
 
 
 def test_refusals_keep_their_meaning():
-    """The 2 x cutoff width refusal, the options that are not ported yet,
-    and a grid with no slack."""
+    """The 2 x cutoff width refusal, the option that is not ported yet
+    (``mesh``), a box tensor of the wrong shape, and a grid with no slack."""
     s, box = water_box_structure(5)
     system, x = build_system(s, box=box, cutoff=CUTOFF, hydrogen_mass=None, device="cpu")
     with pytest.raises(ValueError, match="needs system.box"):
         build_cell_force_fn(dataclasses.replace(system, box=None))
     with pytest.raises(ValueError, match="smaller than 2\\*cutoff"):
         build_cell_force_fn(dataclasses.replace(system, cutoff=0.9))
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_cell_force_fn(system, electrostatics="pme")
+    with pytest.raises(ValueError, match="pme_mesh_refine"):
+        build_cell_force_fn(system, electrostatics="pme", pme_mesh_refine=0.9)
     with pytest.raises(NotImplementedError, match="A13"):
         build_cell_force_fn(system, mesh=object())
     with pytest.raises(ValueError, match="rf\\|pme"):
         build_cell_force_fn(system, electrostatics="ewald")
     npt = build_cell_force_fn(system)
-    box = torch.tensor(system.box)
+    box = torch.tensor(system.box + (1.0,))
     for entry, args in ((npt.dynamic, (x, box)), (npt.init_state_dynamic, (x, box)),
                         (npt.apply_dynamic, (x, None, box))):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(ValueError, match="box must be"):
             entry(*args)
     # no slack between the cell layers and the cutoff: every call bins
     # afresh, so the stateful entries work all the same
@@ -302,8 +293,7 @@ def test_kernel_matches_plain_version_on_the_card(which):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     system, pos = _card_system(which)
     x = torch.as_tensor(_noisy(pos.cpu().numpy(), 4, seed=4, sigma=0.01), device="cuda")
-    alpha = math.sqrt(-math.log(2.0 * 5e-4)) / 0.9 if which.endswith("ewald") else None
-    fn = build_cell_force_fn(system, _ewald_alpha=alpha)
+    fn = build_cell_force_fn(system, electrostatics="pme" if which.endswith("ewald") else "rf")
     before = cell_force.launches["cell_force"]
 
     def rel(a, b):
@@ -327,3 +317,44 @@ def test_kernel_matches_plain_version_on_the_card(which):
     assert rel(e1, e2) <= 1e-5 and rel(f1, f2) <= 1e-4
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         fn._launch(xw.cpu(), order.cpu(), cell_start.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["water_2187_ewald", "sheared_375"])
+def test_kernel_under_a_changed_box_matches_plain_version_on_the_card(which):
+    """The NPT path on the card: ``cell_force_kernel`` in its Ewald mode
+    with the shifts of a box tensor (molecules scaled rigidly into boxes 2%
+    larger and 1.5% smaller) against its plain version, the sweep and the
+    whole PME evaluation (``dynamic`` / ``reference``), energy to 1e-5 and
+    forces to 1e-4 of max |F|; one launch a sweep and an evaluation; a box
+    whose cell layers fall below the cutoff gives NaN, not a fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from pmarlo_tpu_torch.md import barostat
+
+    system, pos = _card_system(which)
+    fn = build_cell_force_fn(system, electrostatics="pme")
+    ids = barostat.molecule_ids(system)
+    x = torch.as_tensor(_noisy(pos.cpu().numpy(), 1, seed=8, sigma=0.01)[0], device="cuda")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for s in (1.02, 0.985):
+        box = torch.tensor(system.box, dtype=torch.float32, device="cuda") * s
+        xs = barostat.scale_positions(x, s, ids, system.masses, int(ids.max()) + 1)
+        before = cell_force.launches["cell_force"]
+        order, cell_start, _, xw = bin_atoms(fn.grid, xs[None], box)
+        shifts = fn.box_shifts(box)
+        ek, fk = fn.sweep(xw, order.contiguous(), cell_start.contiguous(), shifts)
+        ep, fp = fn.sweep_reference(xw, order, cell_start, shifts)
+        assert rel(ek, ep) <= 1e-5 and rel(fk, fp) <= 1e-4
+        e, f = fn.dynamic(xs, box)
+        er, fr = fn.reference(xs, box)
+        torch.cuda.synchronize()
+        assert abs(float(e - er)) <= 1e-5 * abs(float(er)) and rel(f, fr) <= 1e-4
+        assert bool(torch.isfinite(f).all())
+        assert cell_force.launches["cell_force"] - before == 2
+    e_bad, f_bad = fn.dynamic(x, torch.tensor(system.box, device="cuda") * 0.5)
+    torch.cuda.synchronize()
+    assert math.isnan(float(e_bad)) and bool(torch.isnan(f_bad).all())

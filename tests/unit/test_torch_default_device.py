@@ -18,7 +18,7 @@ import torch
 from pmarlo_tpu_torch import _device
 from pmarlo_tpu_torch.bias import metadynamics
 from pmarlo_tpu_torch.data import alanine_dipeptide_structure
-from pmarlo_tpu_torch.md import constraints, cv_bias, system as system_mod
+from pmarlo_tpu_torch.md import barostat, constraints, cv_bias, integrate, system as system_mod
 from pmarlo_tpu_torch.md.forcefield import build_system
 from pmarlo_tpu_torch.ml import deeptica, losses
 from pmarlo_tpu_torch.utils import seed as seed_mod
@@ -85,6 +85,15 @@ def _rigid_water_spec(device=None):
     return constraints.RigidWaterSpec.from_numpy(spec, device=device).d0
 
 
+def _md_state_from_numpy(device=None):
+    x = np.zeros((5, 3), np.float32)
+    return integrate.md_state_from_numpy(x, x, 7, seed=3, device=device).positions
+
+
+def _init_barostat(device=None):
+    return barostat.init_barostat((2.0, 2.1, 2.2), seed=1, device=device).box
+
+
 # (module whose default_device is replaced, entry point) for the functions
 # that only place tensors: their result lies on the meta device
 PLACING = {
@@ -96,6 +105,8 @@ PLACING = {
     "metad_state_from_numpy": (metadynamics, _metad_state_from_numpy),
     "ConstraintSpec.from_numpy": (constraints, _constraint_spec),
     "RigidWaterSpec.from_numpy": (constraints, _rigid_water_spec),
+    "md_state_from_numpy": (integrate, _md_state_from_numpy),
+    "init_barostat": (barostat, _init_barostat),
 }
 
 

@@ -323,17 +323,17 @@ def test_run_replica_exchange_on_a_solvated_input(nonbonded):
 
 
 def test_explicit_entry_refusals():
-    """What the explicit entry refuses: no constraints, options that are
-    not ported yet (each naming its ROADMAP item), a switch distance on an
-    implicit input."""
+    """What the explicit entry refuses: no constraints, the option that is
+    not ported yet (``mesh``, naming its ROADMAP item), a switch distance on
+    an implicit input, ``pme_precise`` without the PME engine."""
     s = solvated_alanine()
     cfg = RemdConfig(**REMD)
     with pytest.raises(ValueError, match="rigid TIP3P water requires SHAKE"):
         run_replica_exchange(s, n_steps=10, config=cfg, device="cpu", cutoff=CUTOFF,
                              constraints="none")
-    with pytest.raises(NotImplementedError, match="A12"):
-        run_replica_exchange(s, n_steps=10, config=cfg, device="cpu", cutoff=CUTOFF,
-                             nonbonded="pme")
+    with pytest.raises(ValueError, match="pme_precise"):
+        build_explicit_setup(s, cutoff=CUTOFF, nonbonded="cells", pme_precise=True,
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         run_replica_exchange(s, n_steps=10, config=cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="switch_distance"):

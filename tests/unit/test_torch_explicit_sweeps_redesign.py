@@ -34,7 +34,6 @@ terms and its polynomial erfc), energy rows to 1e-5 of their max.
 
 import dataclasses
 import itertools
-import math
 
 import numpy as np
 import pytest
@@ -376,7 +375,7 @@ def test_cell_walk_matches_ordered_plain_version(mode):
     system, x0 = _water(cutoff, tilt=tilt, switch=0.4 if mode == "switched" else None)
     kw = {}
     if mode == "ewald":
-        kw = dict(_ewald_alpha=math.sqrt(-math.log(2.0 * EWALD_TOL)) / cutoff)
+        kw = dict(electrostatics="pme", ewald_tolerance=EWALD_TOL)
     fn = _cells(system, **kw)
     xw, order, cell_start = _binned(fn, _noisy(x0.numpy(), 2, seed=23))
     e_walk, f_walk, _ = walk_cells(fn, xw, order, cell_start)
@@ -413,10 +412,8 @@ def _jax_water(cutoff, switch=None, tilt=None):
 @pytest.mark.parametrize("mode", ["rf", "switched", "ewald"])
 def test_cell_walk_matches_jax_cell_kernel(mode):
     """The whole evaluation with the walk as its sweep against the Pallas
-    cell kernel in interpret mode. In Ewald mode the JAX function is the
-    full smooth PME: its reciprocal, self and background terms are taken off
-    to leave the kernel's real-space sum."""
-    import jax
+    cell kernel in interpret mode. In Ewald mode both are the full smooth
+    PME (``electrostatics="pme"``)."""
     import jax.numpy as jnp
     from pmarlo_tpu.md.pallas_cells import build_cell_force_fn as jax_build
 
@@ -425,26 +422,17 @@ def test_cell_walk_matches_jax_cell_kernel(mode):
     xs = torch.tensor(_noisy(jx, 2, seed=25))
     kw = {}
     if mode == "ewald":
-        from pmarlo_tpu.md import pme
-
-        alpha = pme.ewald_alpha(0.5, EWALD_TOL)
-        kw = dict(_ewald_alpha=alpha)
-        jfn = jax_build(jsys, interpret=True, electrostatics="pme")
-        q = jnp.asarray(np.asarray(jsys.charges, np.float32))
-        e_static = float(pme.self_energy(q, alpha)) + float(
-            pme.background_energy(q, jsys.box, alpha))
-        mesh = jax.value_and_grad(lambda p: pme.reciprocal_energy(
-            p, q, jsys.box, alpha, jfn.pme_mesh_shape, jfn.pme_order))
+        kw = dict(electrostatics="pme", ewald_tolerance=EWALD_TOL)
+        jfn = jax_build(jsys, interpret=True, electrostatics="pme", ewald_tolerance=EWALD_TOL)
     else:
         jfn = jax_build(jsys, interpret=True)
     fn = _cells(system, **kw)
-    e, f = fn._evaluate(xs, fn.init_state_batched(xs), lambda *a: walk_cells(fn, *a)[:2])
+    e, f = fn._evaluate(xs, fn.init_state_batched(xs),
+                        lambda xw, order, cell_start, shifts: walk_cells(
+                            fn, xw, order, cell_start)[:2])
     for r in range(2):
         ek, fk = jfn(jnp.asarray(xs[r].numpy()))
         ek, fk = float(ek), np.asarray(fk)
-        if mode == "ewald":
-            em, gm = mesh(jnp.asarray(xs[r].numpy()))
-            ek, fk = ek - float(em) - e_static, fk + np.asarray(gm)
         _assert_close(e[r], f[r], torch.tensor(ek), torch.tensor(fk), f"Pallas cells, {mode}")
 
 
@@ -589,8 +577,7 @@ def test_periodic_kernel_matches_plain_and_reruns_bitwise(R):
 CELL_CARD = {
     "chignolin": lambda: (_chignolin(), None, None),
     "chignolin_switched": lambda: (_chignolin(0.8), None, None),
-    "water_2187_ewald": lambda: (_water(0.9, side=9, device="cuda"), None,
-                                 math.sqrt(-math.log(2.0 * EWALD_TOL)) / 0.9),
+    "water_2187_ewald": lambda: (_water(0.9, side=9, device="cuda"), None, "pme"),
     "sheared_375": lambda: (_water(0.45, tilt=SHEAR, device="cuda"), None, None),
     "1x1x1_375_atoms": lambda: (_water(0.6, device="cuda"), (1, 1, 1), None),
     "2x2x2": lambda: (_water(0.6, device="cuda"), (2, 2, 2), None),
@@ -603,8 +590,8 @@ CELL_CARD = {
 @pytest.mark.parametrize("name", list(CELL_CARD))
 def test_cell_kernel_matches_plain_and_reruns_bitwise(name, R):
     _card()
-    (system, pos), dims, alpha = CELL_CARD[name]()
-    fn = _cells(system, dims, _ewald_alpha=alpha)
+    (system, pos), dims, electrostatics = CELL_CARD[name]()
+    fn = _cells(system, dims, electrostatics=electrostatics or "rf")
     x = torch.as_tensor(_noisy(pos.cpu().numpy(), R, seed=R, sigma=0.01), device="cuda")
     xw, order, cell_start = _binned(fn, x)
     before = cell_force.launches["cell_force"]

@@ -23,6 +23,9 @@ COPIES = [
     "msm/free_energy.py", "msm/fes_smoothing.py", "features/pairs.py",
     "analysis/validation.py", "analysis/discretize.py", "analysis/diagnostics.py",
     "ml/whitening.py", "utils/json_io.py",
+    # the trajectory and structure I/O and the demux of the production slice
+    "io/__init__.py", "io/cif.py", "io/xtc.py", "io/dcd.py", "io/trr.py", "io/netcdf.py",
+    "io/trajectory.py", "io/shards.py", "io/export.py", "remd/demux.py",
 ]
 
 #: host-side index functions of ``features/builtins.py``: numpy, carried
@@ -125,3 +128,14 @@ def test_dispersion_coefficient_is_copied():
         src = src.replace(f"np.asarray(system.{field}, np.float64)",
                           f"_np(system.{field}).astype(np.float64)")
     assert copy == src
+
+
+def test_native_build_differs_from_its_source_only_in_cache_dir():
+    """``io/_native_build.py`` builds the codecs under the checkout
+    (``cache_dir``); ``build_native`` and ``NATIVE_DIR`` are its source's."""
+    src_path = ROOT / "pmarlo_tpu" / "io" / "_native_build.py"
+    copy_path = ROOT / "pmarlo_tpu_torch" / "io" / "_native_build.py"
+    name = "build_native"
+    assert _function_source(copy_path, name) == _function_source(src_path, name)
+    line = 'NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"'
+    assert line in src_path.read_text() and line in copy_path.read_text()

@@ -136,3 +136,61 @@ def test_md_exports_build_pair_force_fn_lazily_as_jax(alanine):
     je, jf = jmd.build_pair_force_fn(js, tile=128, interpret=True)(jnp.asarray(x))
     assert abs(float(te) - float(je)) <= 1e-5 * abs(float(je))
     assert np.abs(tf.numpy() - np.asarray(jf)).max() <= 1e-4 * np.abs(np.asarray(jf)).max()
+
+
+#: the JAX package's modules that the solvated production slice ports: each
+#: name of a source's ``__all__`` is in the port's module of the same path
+PRODUCTION_MODULES = ["md.eft", "md.pme", "md.barostat", "md.simulation", "io", "io.cif",
+                      "io.trajectory", "io.xtc", "io.dcd", "io.trr", "io.netcdf", "io.shards",
+                      "io.export", "remd.demux", "remd.checkpoint"]
+#: modules the port names otherwise (their TPU kernels became CUDA files)
+RENAMED = {"pallas_pair": "pair_force", "pallas_periodic": "periodic_force",
+           "pallas_cells": "cell_force"}
+
+
+@pytest.mark.parametrize("module", PRODUCTION_MODULES)
+def test_production_modules_export_the_jax_names(module):
+    import importlib
+
+    jm = importlib.import_module(f"pmarlo_tpu.{module}")
+    tm = importlib.import_module(f"pmarlo_tpu_torch.{module}")
+    assert jm.__all__
+    assert [n for n in jm.__all__ if not hasattr(tm, n)] == []
+
+
+def test_run_segment_takes_every_argument_of_jax():
+    """Every keyword of JAX's ``run_segment``, with its default; the port
+    adds ``device`` only."""
+    import inspect
+
+    from pmarlo_tpu.md.simulation import run_segment as jax_run_segment
+    from pmarlo_tpu_torch.md.simulation import run_segment
+
+    jp = inspect.signature(jax_run_segment).parameters
+    tp = inspect.signature(run_segment).parameters
+    assert set(tp) - set(jp) == {"device"} and set(jp) <= set(tp)
+    for name, p in jp.items():
+        assert tp[name].default == p.default, name
+        assert tp[name].kind == p.kind, name
+
+
+def test_package_registry_resolves_the_jax_names():
+    """``pmarlo_tpu_torch.<name>`` resolves lazily, as JAX's registry does,
+    for each name the port has: the same name, the module of the same path
+    (or its port's name), the same attribute."""
+    import pmarlo_tpu
+
+    import pmarlo_tpu_torch
+    from pmarlo_tpu_torch.md import simulation
+
+    for name, (module, attr) in pmarlo_tpu_torch._EXPORTS.items():
+        jmodule, jattr = pmarlo_tpu._EXPORTS[name]
+        want = jmodule.replace("pmarlo_tpu", "pmarlo_tpu_torch", 1)
+        for old, new in RENAMED.items():
+            want = want.replace(old, new)
+        assert (module, attr) == (want, jattr), name
+        assert getattr(pmarlo_tpu_torch, name) is not None
+    assert pmarlo_tpu_torch.run_segment is simulation.run_segment
+    assert "run_segment" in dir(pmarlo_tpu_torch)
+    with pytest.raises(AttributeError):
+        pmarlo_tpu_torch.no_such_name

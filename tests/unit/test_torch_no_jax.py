@@ -74,6 +74,15 @@ NEW_MODULES += [
 ]
 #: modules the large-assembly slice added
 NEW_MODULES += ["pmarlo_tpu_torch.md.bonded_window"]
+#: modules the solvated production slice added
+NEW_MODULES += [
+    "pmarlo_tpu_torch.md.eft", "pmarlo_tpu_torch.md.pme", "pmarlo_tpu_torch.md.barostat",
+    "pmarlo_tpu_torch.md.simulation", "pmarlo_tpu_torch.io.cif",
+    "pmarlo_tpu_torch.io._native_build", "pmarlo_tpu_torch.io.xtc", "pmarlo_tpu_torch.io.dcd",
+    "pmarlo_tpu_torch.io.trr", "pmarlo_tpu_torch.io.netcdf", "pmarlo_tpu_torch.io.trajectory",
+    "pmarlo_tpu_torch.io.shards", "pmarlo_tpu_torch.io.export", "pmarlo_tpu_torch.remd.demux",
+    "pmarlo_tpu_torch.remd.checkpoint",
+]
 
 
 def test_port_imports_without_jax():

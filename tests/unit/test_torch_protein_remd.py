@@ -59,10 +59,12 @@ def test_setup_recipe(pair_setup):
     assert auto.force_path == "dense" and auto.force_fn is None and auto.constraints is None
     assert auto.system.scale_elec is not None
     assert not is_explicit_solvent(chignolin_assembly((2, 1, 1)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_explicit_setup(chignolin_assembly((2, 1, 1)), nonbonded="pme")
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_explicit_setup(chignolin_assembly((2, 1, 1)), pme_precise=True)
+    # smooth PME is the cell path's: a structure without a box has none, and
+    # pme_precise asks for the PME engine
+    with pytest.raises(ValueError, match="needs system.box"):
+        build_explicit_setup(chignolin_assembly((2, 1, 1)), nonbonded="pme", device="cpu")
+    with pytest.raises(ValueError, match="pme_precise"):
+        build_explicit_setup(chignolin_assembly((2, 1, 1)), pme_precise=True, device="cpu")
 
 
 def test_small_protein_slice_runs_constrained_at_4_fs(pair_setup):
