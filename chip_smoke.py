@@ -168,9 +168,30 @@ Phases, one line of numbers each:
              autograd; two evaluations run to run; a volume move into a box
              whose cell layers are thinner than the cutoff: NaN energy,
              rejected, and no synchronisation with the host while it runs.
+20. tip4pew segment - virtual-site water on the production path: the
+             chignolin structure solvated in TIP4P-Ew (``solvate_structure(
+             padding=1.0, water_model="tip4pew")``, 4,260 rows, 1,030 of
+             them M sites) through ``run_segment(nonbonded="pme",
+             ensemble="npt")``: 300 FIRE iterations, 1,000 steps at 2 fs and
+             5/ps to an .xtc file, 200 steps resumed; ms a step, ns/day, the share of
+             a step that the site expansion and spread take, acceptance,
+             density, T over the second half with the site-free degrees of
+             freedom, constraint deviation, the sites against their parents
+             in every frame; at the final positions and box the row 9 kernel
+             (Ewald mode, the sites charged atoms without LJ) against its
+             plain version and a dense float64 PME oracle through the
+             expansion; then g(r) of the water oxygens from the .xtc read
+             back (first peak position and height gated) and the oxygens'
+             diffusion coefficient (reported, not gated: the run is short).
+21. tip5p box - 1,000 TIP5P waters (5,000 rows, the L1 / L2 sites out of
+             the HOH plane) through ``run_segment(nonbonded="dense")``: 100
+             FIRE iterations and 200 NVT steps, then 1,000 NVE steps
+             resumed; row 8 against its plain version at the start and the
+             end, NVE drift with the site-free degrees of freedom (phase
+             14's gate), the sites against their parents in every frame.
 
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-19, the card's name and power limit, a line of the kernels'
+11-14 and 15-21, the card's name and power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
@@ -264,6 +285,26 @@ PME_WATER_WARM_STEPS = 100       # phase 19: the water box, NPT + PME
 PME_WATER_STEPS = 1_000
 PME_WATER_REPORT = 100
 PME_WATER_FIRE = 100
+# phase 20: run_segment on chignolin solvated in TIP4P-Ew, NPT + PME
+TIP4P_FIRE = 300
+TIP4P_STEPS = 1_000
+TIP4P_RESUME_STEPS = 200
+TIP4P_REPORT = 50
+# the solvation lattice, minimized, is ice-like: melting it takes up heat,
+# and at 1/ps the thermostat had the second half at 0.94 of the target
+# (a first call); 5/ps, the coupling of the JAX package's melt protocol
+# (tests/unit/test_rdf.py), equilibrates within the segment
+TIP4P_FRICTION = 5.0
+# g(r) of the water oxygens: the first peak of TIP4P-Ew's O-O near 0.28 nm
+RDF_PEAK_NM = (0.26, 0.30)
+RDF_PEAK_MIN = 2.0
+# phase 21: 10^3 TIP5P waters through the dense sweep, NVT then NVE
+TIP5P_SIDE = 10
+TIP5P_FIRE = 100
+TIP5P_WARM_STEPS = 200
+TIP5P_NVE_STEPS = 1_000
+TIP5P_REPORT = 50
+SITE_ATOL_NM = 1e-6
 SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
                  "fused_remd_bias_kernel", "fused_md_chunk_single_kernel",
@@ -2564,9 +2605,11 @@ def _pme_oracle(system, fn, x: torch.Tensor, box: torch.Tensor):
     (dense real space, mesh, self, background) on ``fn``'s mesh and spline
     order, the excluded and 1-4 pairs out of the real space and corrected
     to their scaled bare Coulomb, and the LJ and bonded terms by autograd
-    of the dense periodic energy with the charges zeroed."""
+    of the dense periodic energy with the charges zeroed. Virtual sites are
+    expanded from their parents inside the autograd, so the forces on the
+    parents hold the spread and the site rows get none."""
     from pmarlo_tpu_torch.md import pme
-    from pmarlo_tpu_torch.md.forces import energy_and_forces_autograd
+    from pmarlo_tpu_torch.md.vsites import VirtualSites, expanded_energy_and_forces
 
     b = tuple(float(v) for v in box.cpu().double())
     sys_b = dataclasses.replace(system, box=b)
@@ -2574,16 +2617,27 @@ def _pme_oracle(system, fn, x: torch.Tensor, box: torch.Tensor):
     se = system.scale_elec.double()
     i, j = torch.triu(se < 1.0, diagonal=1).nonzero(as_tuple=True)
     alpha, rc = fn.phys.alpha, fn.phys.rc
+    vs = VirtualSites.from_system(system)
     with torch.enable_grad():
-        y = x.detach().double().requires_grad_(True)
+        x64 = x.detach().double().requires_grad_(True)
+        y = x64 if vs is None else vs.expand(x64)
         e = (pme.real_space_energy_dense(y, q, b, rc, alpha, exclude_mask=(se < 1.0).double())
              + pme.reciprocal_energy(y, q, b, alpha, fn.pme_mesh_shape, fn.pme_order)
              + pme.excluded_pair_correction(y, q, b, alpha, i, j, se[i, j])
              + pme.self_energy(q, alpha) + pme.background_energy(q, b, alpha))
-        (g,) = torch.autograd.grad(e, y)
-    e_lj, f_lj = energy_and_forces_autograd(
+        (g,) = torch.autograd.grad(e, x64)
+    e_lj, f_lj = expanded_energy_and_forces(
         dataclasses.replace(sys_b, charges=torch.zeros_like(system.charges)), x.double())
     return e.detach() + e_lj, f_lj - g
+
+
+def _sites_off_parents(system, frames: torch.Tensor) -> float:
+    """Largest distance (nm) of a virtual-site row of ``frames (..., N, 3)``
+    from the position its parents define."""
+    from pmarlo_tpu_torch.md.vsites import VirtualSites
+
+    vs = VirtualSites.from_system(system)
+    return float((vs.expand(frames) - frames).abs().max())
 
 
 def _npt_segment(out: dict, tag: str, res: dict, wall: float, steps: int,
@@ -2763,7 +2817,6 @@ def phase_pme_water() -> dict:
 
     from pmarlo_tpu_torch import run_segment
     from pmarlo_tpu_torch.data.water import water_box_structure
-    from pmarlo_tpu_torch.io.pdb import write_pdb
     from pmarlo_tpu_torch.md import barostat
     from pmarlo_tpu_torch.md.setup import build_explicit_setup
 
@@ -2773,8 +2826,7 @@ def phase_pme_water() -> dict:
               barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF, device="cuda")
     out = {"atoms": len(atoms)}
     with tempfile.TemporaryDirectory() as tmp:
-        pdb = write_pdb(f"{tmp}/water.pdb", structure.coordinates(), [a.name for a in atoms],
-                        [a.resname for a in atoms], [a.resid for a in atoms], box=box0)
+        pdb = _write_pdb(f"{tmp}/water.pdb", structure, box0)
         _reset_counts()
         warm = run_segment(pdb, n_steps=PME_WATER_WARM_STEPS, seed=19,
                            minimize_iterations=PME_WATER_FIRE, **kw)
@@ -2855,6 +2907,259 @@ def phase_pme_water() -> dict:
            "the move into the squeezed box is rejected")
     _check(bool(torch.isfinite(e_now)), "the rejected move reports the energy it kept")
     _line("phase 19 pme water", out)
+    return out
+
+
+def _write_pdb(path: str, structure, box) -> str:
+    from pmarlo_tpu_torch.io.pdb import write_pdb
+
+    atoms = [a for r in structure.residues for a in r.atoms]
+    return write_pdb(path, structure.coordinates(), [a.name for a in atoms],
+                     [a.resname for a in atoms], [a.resid for a in atoms], box=box)
+
+
+def _water_rdf(frames: np.ndarray, boxes: np.ndarray, o_idx: np.ndarray) -> dict:
+    """g(r) of the oxygens ``o_idx`` over ``frames (F, N, 3)``, each frame
+    in its own box ``boxes (F, 3)``, the frames' g averaged; the first
+    peak's position and height."""
+    from pmarlo_tpu_torch.features.rdf import radial_distribution
+
+    r_max = min(1.0, 0.5 * float(boxes.min()) - 1e-3)
+    n_bins = int(round(r_max / 0.01))
+    gs = []
+    for x, b in zip(frames, boxes):
+        r, g = radial_distribution(torch.as_tensor(x, device="cuda"),
+                                   tuple(float(v) for v in b), o_idx, r_max=r_max,
+                                   n_bins=n_bins)
+        gs.append(g)
+    g = np.mean(gs, axis=0)
+    peak = int(np.argmax(g))
+    return {"rdf_bin_nm": float(r[1] - r[0]), "rdf_g": [round(float(v), 4) for v in g],
+            "rdf_frames": len(gs),
+            "rdf_peak_nm": float(r[peak]), "rdf_peak_height": float(g[peak])}
+
+
+def phase_tip4pew_segment() -> dict:
+    """Virtual-site water on the production path: chignolin solvated in
+    TIP4P-Ew through ``run_segment(nonbonded="pme", ensemble="npt")``,
+    resumed; the row 9 kernel with the sites against its plain version and
+    a dense float64 oracle through the expansion; g(r) and the MSD of the
+    water oxygens from the .xtc."""
+    import tempfile
+
+    from pmarlo_tpu_torch import run_segment
+    from pmarlo_tpu_torch.data.chignolin import chignolin_structure
+    from pmarlo_tpu_torch.features.msd import diffusion_coefficient, mean_squared_displacement
+    from pmarlo_tpu_torch.io.trajectory import TrajectoryReader
+    from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
+    from pmarlo_tpu_torch.md.constraints import constraint_violation
+    from pmarlo_tpu_torch.md.setup import build_explicit_setup
+    from pmarlo_tpu_torch.md.vsites import VirtualSites, n_vsites
+    from pmarlo_tpu_torch.protein import solvate_structure
+
+    structure, box0 = solvate_structure(chignolin_structure(), padding=1.0,
+                                        water_model="tip4pew")
+    kw = dict(nonbonded="pme", ensemble="npt", dt_ps=DT_PS, report_interval=TIP4P_REPORT,
+              barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF,
+              friction_per_ps=TIP4P_FRICTION, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = _write_pdb(f"{tmp}/tip4pew.pdb", structure, box0)
+        traj = f"{tmp}/tip4pew.xtc"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_segment(pdb, n_steps=TIP4P_STEPS, seed=20, output_file=traj,
+                          minimize_iterations=TIP4P_FIRE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        setup = build_explicit_setup(pdb, box=tuple(res["final_box"].tolist()),
+                                     nonbonded="pme", require_cells=True,
+                                     dispersion_correction=True, build_minimize_fn=False,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        res2 = run_segment(pdb, n_steps=TIP4P_RESUME_STEPS, initial_state=res["final_state"],
+                           initial_barostat_state=res["final_barostat_state"], **kw)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        resume_counts = _counts()
+        frames = TrajectoryReader(traj).load()
+    system = res["system"]
+    out = {"atoms": system.n_atoms, "sites": n_vsites(system),
+           "waters": sum(r.name == "HOH" for r in structure.residues),
+           "box_start_nm": list(box0),
+           "launches": counts["cell_force"] + resume_counts["cell_force"]}
+    print(f"phase 20: {out['atoms']} rows, {out['sites']} TIP4P-Ew M sites", flush=True)
+    _npt_segment(out, "segment", res, wall, TIP4P_STEPS)
+    _npt_segment(out, "resume", res2, wall2, TIP4P_RESUME_STEPS, setup_s)
+    out["ms_per_step"] = out["resume_ms_per_step"]
+    out["ns_per_day"] = out["resume_ns_per_day"]
+    T = torch.cat([res["temperature"], res2["temperature"]]).double()
+    out["kinetic_over_target_by_frame"] = (T / 300.0).tolist()
+    out["kinetic_over_target_second_half"] = float(T[T.shape[0] // 2:].mean() / 300.0)
+    spec = setup.constraints
+    out["max_constraint_deviation_nm"] = max(
+        float(constraint_violation(spec, r["positions"])) for r in (res, res2))
+    out["sites_max_off_parents_nm"] = max(
+        _sites_off_parents(system, r["positions"]) for r in (res, res2))
+    dens = torch.cat([res["density_g_cm3"], res2["density_g_cm3"]])
+    out["xtc_max_abs_err_nm"] = float(np.abs(frames - res["positions"].cpu().numpy()).max())
+    _check(counts["cell_force"] > 0 and resume_counts["cell_force"] > 0,
+           "the TIP4P-Ew segment went through the cell kernel")
+    _check(counts["periodic_force"] == 0 and counts["fused_md_chunk"] == 0,
+           f"the TIP4P-Ew segment launched other kernels {counts}")
+    for r in (res, res2):
+        _check(bool(torch.isfinite(r["positions"]).all()), "TIP4P-Ew frames finite")
+        _check(bool(torch.isfinite(r["potential_energy"]).all()), "TIP4P-Ew energies finite")
+    _check(out["sites_max_off_parents_nm"] <= SITE_ATOL_NM,
+           f"TIP4P-Ew sites off their parents by {out['sites_max_off_parents_nm']} nm")
+    _check(out["max_constraint_deviation_nm"] <= 1e-4,
+           f"TIP4P-Ew constraints {out['max_constraint_deviation_nm']}")
+    _check(0.95 <= out["kinetic_over_target_second_half"] <= 1.05,
+           f"TIP4P-Ew T {out['kinetic_over_target_second_half']}")
+    _check(bool(((dens >= 0.9) & (dens <= 1.05)).all()), f"TIP4P-Ew density {dens.tolist()}")
+    _check(0.0 < out["segment_acceptance"] < 1.0,
+           f"TIP4P-Ew barostat acceptance {out['segment_acceptance']}")
+    _check(out["xtc_max_abs_err_nm"] <= 0.5e-3 + 1e-6, "the TIP4P-Ew .xtc frames read back")
+
+    # at the final positions and box: the kernel with the sites, its plain
+    # version and the dense float64 oracle through the expansion
+    x = res2["positions"][-1]
+    box = res2["box"][-1]
+    md_fn = setup.md_force_fn
+    vs = VirtualSites.from_system(system)
+    xb = x[None]
+    f_any = torch.randn_like(xb)
+    out["step_eval_ms"] = _cuda_ms(lambda: md_fn.apply_dynamic(x, None, box), 20)
+    out["expand_ms"] = _cuda_ms(lambda: vs.expand(xb), 50)
+    out["spread_ms"] = _cuda_ms(lambda: vs.spread(f_any, xb), 50)
+    out["site_share_of_step"] = (out["expand_ms"] + out["spread_ms"]) / out["ms_per_step"]
+    fn = build_cell_force_fn(system, electrostatics="pme", ewald_shift=False)
+    _reset_counts()
+    e, f = fn.dynamic(x, box)
+    er, fr = fn.reference(x, box)
+    eo, fo = _pme_oracle(system, fn, x, box)
+    sites = system.vsite_idx[:, 0].long()
+    phys = torch.ones(system.n_atoms, dtype=torch.bool, device=x.device)
+    phys[sites] = False
+    _gate(out, "final_kernel_vs_plain", e, f[phys], er, fr[phys])
+    _gate(out, "final_kernel_vs_oracle", e, f[phys], eo, fo[phys])
+    _check(bool((f[sites] == 0.0).all()) and bool((fo[sites] == 0.0).all()),
+           "forces on the M rows after the spread")
+    _check(_counts()["cell_force"] == 1, "one launch for the kernel's evaluation")
+    out["grid"] = [fn.grid.nx, fn.grid.ny, fn.grid.nz]
+    out["pme_mesh_shape"] = list(fn.pme_mesh_shape)
+
+    # the water model's checks from the trajectory file
+    o_idx = np.asarray([i for i, (n, rn) in enumerate(zip(system.atom_names,
+                                                           system.residue_names))
+                        if n == "O" and rn == "HOH"])
+    boxes = res["box"].cpu().numpy()
+    half = frames.shape[0] // 2
+    out.update(_water_rdf(frames[half:], boxes[half:], o_idx))
+    masses = system.masses.double().cpu().numpy()
+    lags, msd = mean_squared_displacement(torch.as_tensor(frames, device="cuda"),
+                                          tuple(float(b) for b in boxes.mean(0)), o_idx,
+                                          remove_com=True, masses=masses)
+    out["oxygen_diffusion_cm2_s"] = diffusion_coefficient(
+        lags, msd, TIP4P_REPORT * DT_PS) * 1e-2
+    _check(RDF_PEAK_NM[0] <= out["rdf_peak_nm"] <= RDF_PEAK_NM[1],
+           f"TIP4P-Ew O-O first peak at {out['rdf_peak_nm']} nm")
+    _check(out["rdf_peak_height"] > RDF_PEAK_MIN,
+           f"TIP4P-Ew O-O first peak height {out['rdf_peak_height']}")
+    _line("phase 20 tip4pew segment", out)
+    return out
+
+
+def phase_tip5p_box() -> dict:
+    """1,000 TIP5P waters through ``run_segment(nonbonded="dense")``:
+    row 8 against its plain version with the out-of-plane sites, NVE
+    drift with the site-free degrees of freedom, the sites on their
+    parents."""
+    import tempfile
+
+    from pmarlo_tpu_torch import run_segment
+    from pmarlo_tpu_torch.constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, constraint_violation
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.periodic_force import build_periodic_force_fn
+    from pmarlo_tpu_torch.md.vsites import n_vsites
+
+    structure, box = water_box_structure(TIP5P_SIDE, water_model="tip5p", seed=21)
+    system, x0 = build_system(structure, box=box, cutoff=EXPLICIT_CUTOFF, device="cuda")
+    fn = build_periodic_force_fn(system)
+    out = {"atoms": system.n_atoms, "sites": n_vsites(system), "box_nm": list(box)}
+    print(f"phase 21: {out['atoms']} rows, {out['sites']} TIP5P L sites", flush=True)
+    sites = system.vsite_idx[:, 0].long()
+
+    def against_plain(tag, x):
+        _reset_counts()
+        e, f = fn(x)
+        er, fr = fn.reference(x)
+        _gate(out, tag, e, f, er, fr)
+        _check(bool((f[sites] == 0.0).all()), f"{tag}: forces on the L rows")
+        _check(_counts()["periodic_force"] == 1, f"{tag}: one launch")
+
+    against_plain("start_kernel_vs_plain", x0)
+    kw = dict(nonbonded="dense", dt_ps=DT_PS, report_interval=TIP5P_REPORT,
+              cutoff=EXPLICIT_CUTOFF, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = _write_pdb(f"{tmp}/tip5p.pdb", structure, box)
+        torch.cuda.synchronize()
+        _reset_counts()
+        warm = run_segment(pdb, n_steps=TIP5P_WARM_STEPS, seed=21,
+                           minimize_iterations=TIP5P_FIRE, **kw)
+        torch.cuda.synchronize()
+        launches = _counts()["periodic_force"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        nve = run_segment(pdb, n_steps=TIP5P_NVE_STEPS, ensemble="nve",
+                          initial_state=warm["final_state"], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    launches += counts["periodic_force"]
+    spec = build_h_constraints(system)
+    dof = 3 * (system.n_atoms - out["sites"]) - spec.n_constraints - 3
+    kT = BOLTZMANN_CONSTANT_KJ_PER_MOL * 300.0
+    e_tot = nve["total_energy"].double().cpu().numpy()
+    t_ps = (np.arange(len(e_tot)) + 1) * TIP5P_REPORT * DT_PS
+    slope = float(np.polyfit(t_ps, e_tot, 1)[0])
+    out.update({
+        "nve_steps": TIP5P_NVE_STEPS,
+        "nve_wall_s": wall,
+        "ms_per_step": wall / TIP5P_NVE_STEPS * 1e3,
+        "degrees_of_freedom": dof,
+        "nve_drift_kT_per_dof_per_ns": slope * 1e3 / (kT * dof),
+        "nve_energy_span_kj_mol": float(e_tot.max() - e_tot.min()),
+        "warm_kinetic_over_target": float(warm["temperature"].double().mean() / 300.0),
+        "nve_kinetic_over_target": float(nve["temperature"].double().mean() / 300.0),
+        "max_constraint_deviation_nm": max(
+            float(constraint_violation(spec, r["positions"])) for r in (warm, nve)),
+        "sites_max_off_parents_nm": max(
+            _sites_off_parents(system, r["positions"]) for r in (warm, nve)),
+        "launches": launches,
+    })
+    _check(counts["cell_force"] == 0 and counts["periodic_force"] > 0,
+           f"the TIP5P box went through the dense kernel alone {counts}")
+    for r in (warm, nve):
+        _check(bool(torch.isfinite(r["positions"]).all()), "TIP5P frames finite")
+    _check(bool(np.isfinite(e_tot).all()), "TIP5P NVE energies finite")
+    _check(abs(out["nve_drift_kT_per_dof_per_ns"]) < NVE_DRIFT_MAX,
+           f"TIP5P NVE drift {out['nve_drift_kT_per_dof_per_ns']} kT per dof per ns")
+    _check(out["sites_max_off_parents_nm"] <= SITE_ATOL_NM,
+           f"TIP5P sites off their parents by {out['sites_max_off_parents_nm']} nm")
+    _check(out["max_constraint_deviation_nm"] <= 1e-4,
+           f"TIP5P constraints {out['max_constraint_deviation_nm']}")
+    against_plain("end_kernel_vs_plain", nve["positions"][-1])
+    out["eval_ms"] = _cuda_ms(lambda: fn(nve["positions"][-1]), 20)
+    out["sweep_ms"] = _cuda_ms(lambda: fn.sweep(nve["positions"][-1:]), 20)
+    _line("phase 21 tip5p box", out)
     return out
 
 
@@ -2965,6 +3270,8 @@ def main() -> None:
     large_path = phase_large_path()
     segment = phase_production_segment()
     pme_water = phase_pme_water()
+    tip4pew = phase_tip4pew_segment()
+    tip5p = phase_tip5p_box()
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -3059,7 +3366,7 @@ def main() -> None:
         "name": "periodic_force", **cuda,
         "source": "pmarlo_tpu_torch/csrc/periodic_force.cu",
         "replaces": "pmarlo_tpu/md/pallas_periodic.py:190",
-        "launches": explicit["dense"]["launches"]["periodic_force"],
+        "launches": explicit["dense"]["launches"]["periodic_force"] + tip5p["launches"],
         "max_abs_err": periodic["shifted_force_max_abs_err"],
         "ms": periodic["sweep_ms"],
         "plain_ms": periodic["sweep_plain_ms"],
@@ -3071,7 +3378,7 @@ def main() -> None:
         "source": "pmarlo_tpu_torch/csrc/cell_force.cu",
         "replaces": "pmarlo_tpu/md/pallas_cells.py:232",
         "launches": (explicit["cells"]["launches"]["cell_force"] + water_md["launches"]
-                     + segment["launches"] + pme_water["launches"]),
+                     + segment["launches"] + pme_water["launches"] + tip4pew["launches"]),
         "max_abs_err": cells["water_r1_force_max_abs_err"],
         "ms": cells["water_r1_sweep_ms"],
         "plain_ms": cells["water_r1_sweep_plain_ms"],
@@ -3196,6 +3503,17 @@ def main() -> None:
             "ms_per_step", "npt_acceptance", "peak_device_memory_gib", "eval_ms", "sweep_ms",
             "binning_ms", "band_correction_ms", "spread_ms", "fft_ms", "gather_ms",
             "run_to_run_force_rel", "squeezed_move_host_syncs", "launches")},
+        "tip4pew_segment": {k: tip4pew[k] for k in (
+            "atoms", "sites", "ms_per_step", "ns_per_day", "step_eval_ms", "expand_ms",
+            "spread_ms", "site_share_of_step", "segment_acceptance",
+            "kinetic_over_target_second_half", "max_constraint_deviation_nm",
+            "sites_max_off_parents_nm", "final_kernel_vs_oracle_energy_rel_err",
+            "final_kernel_vs_oracle_force_rel_err", "rdf_peak_nm", "rdf_peak_height",
+            "oxygen_diffusion_cm2_s", "launches")},
+        "tip5p_box": {k: tip5p[k] for k in (
+            "atoms", "sites", "ms_per_step", "nve_drift_kT_per_dof_per_ns",
+            "sites_max_off_parents_nm", "end_kernel_vs_plain_force_rel_err", "eval_ms",
+            "sweep_ms", "launches")},
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "

@@ -34,6 +34,8 @@ _EXPORTS = {
     "build_cell_force_fn": ("pmarlo_tpu_torch.md.cell_force", "build_cell_force_fn"),
     "ewald_energy_dense": ("pmarlo_tpu_torch.md.pme", "ewald_energy_dense"),
     "run_npt": ("pmarlo_tpu_torch.md.barostat", "run_npt"),
+    # protein preparation
+    "solvate_structure": ("pmarlo_tpu_torch.protein.solvate", "solvate_structure"),
     # REMD
     "RemdConfig": ("pmarlo_tpu_torch.remd.remd", "RemdConfig"),
     "ReplicaExchange": ("pmarlo_tpu_torch.remd.remd", "ReplicaExchange"),

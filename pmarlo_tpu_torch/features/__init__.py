@@ -1,7 +1,9 @@
-"""Featurization: dihedrals, distances, Rg, contacts, registry.
+"""Featurization: dihedrals, distances, Rg, contacts, registry, and the
+water-model checks g(r) and MSD.
 
 Port of ``pmarlo_tpu/features`` (``base``, ``builtins``, ``featurize``,
-``pairs``): plain PyTorch over coordinate tensors on their device.
+``pairs``, ``rdf``, ``msd``): plain PyTorch over coordinate tensors on
+their device.
 """
 
 from .base import (
@@ -22,6 +24,8 @@ from .builtins import (
     radius_of_gyration,
 )
 from .featurize import featurize_trajectory
+from .msd import diffusion_coefficient, mean_squared_displacement, unwrap_trajectory
+from .rdf import coordination_number, radial_distribution
 
 __all__ = [
     "FEATURE_REGISTRY",
@@ -38,4 +42,9 @@ __all__ = [
     "radius_of_gyration",
     "contacts",
     "featurize_trajectory",
+    "radial_distribution",
+    "coordination_number",
+    "diffusion_coefficient",
+    "mean_squared_displacement",
+    "unwrap_trajectory",
 ]

@@ -222,6 +222,25 @@ def contacts(traj, pairs, cutoff_nm: float = 0.8, beta: float = 50.0) -> torch.T
     return torch.sigmoid((cutoff_nm - r) * beta)
 
 
+def align_to_reference(traj, reference) -> torch.Tensor:
+    """Kabsch superposition of every frame onto ``reference (N, 3)``:
+    ``(T, N, 3)`` frames, centred and rotated (the reference stays
+    centred). One batched SVD of the frames' 3 x 3 covariances; a
+    reflection is turned into a rotation by flipping the last singular
+    direction, as in JAX."""
+    traj = as_frames(traj)
+    ref = torch.as_tensor(reference, dtype=traj.dtype, device=traj.device)
+    ref = ref - ref.mean(0, keepdim=True)
+    x = traj - traj.mean(-2, keepdim=True)
+    h = x.transpose(-1, -2) @ ref                                 # (T, 3, 3)
+    u, _, vt = torch.linalg.svd(h)
+    d = torch.sign(torch.linalg.det(u @ vt))
+    s = torch.ones(traj.shape[0], 3, dtype=traj.dtype, device=traj.device)
+    s[:, 2] = d
+    rot = (u * s[:, None, :]) @ vt
+    return x @ rot
+
+
 def trig_expand_periodic(features: torch.Tensor) -> torch.Tensor:
     """Expand periodic features into (cos, sin) columns."""
     return torch.cat([torch.cos(features), torch.sin(features)], dim=-1)
@@ -237,5 +256,6 @@ __all__ = [
     "compute_angles",
     "radius_of_gyration",
     "contacts",
+    "align_to_reference",
     "trig_expand_periodic",
 ]

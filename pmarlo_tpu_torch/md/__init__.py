@@ -10,4 +10,13 @@ def build_pair_force_fn(*args, **kwargs):
     return _fn(*args, **kwargs)
 
 
-__all__ = ["build_pair_force_fn"]
+def load_amber_files(*args, **kwargs):
+    """Lazy re-export of ``md.amber_params.load_amber_files`` (register
+    user-supplied frcmod / parm.dat / OFF .lib parameter files), as the JAX
+    package's ``md.load_amber_files``."""
+    from .amber_params import load_amber_files as _fn
+
+    return _fn(*args, **kwargs)
+
+
+__all__ = ["build_pair_force_fn", "load_amber_files"]

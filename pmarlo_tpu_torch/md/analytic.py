@@ -30,7 +30,7 @@ import torch
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
 from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
 from .gbn2 import neck_value_and_derivative
-from .system import System, require_dense_scales, require_no_vsites
+from .system import System, require_dense_scales
 
 _EPS = 1e-12
 
@@ -85,7 +85,6 @@ def make_dense_params(system: System, dtype=torch.float32) -> DenseParams:
     """Dense parameters on ``system.device`` (built in float64 on the host,
     as the JAX version builds them, then cast to ``dtype``)."""
     require_dense_scales(system, "the analytic dense force path")
-    require_no_vsites(system, "the analytic dense force path")
     dev = system.device
     sigma = _np64(system.lj_sigma)
     eps = _np64(system.lj_eps)

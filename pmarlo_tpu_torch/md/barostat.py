@@ -50,6 +50,7 @@ from .integrate import (
     philox4x32_10,
 )
 from .system import System
+from .vsites import VirtualSites
 
 #: 1 bar in kJ/mol/nm^3 (1e5 J/m^3 * 1e-27 m^3/nm^3 * N_A / 1000)
 BAR_TO_KJ_PER_MOL_NM3 = 0.06022140760
@@ -68,7 +69,8 @@ def _np(a) -> np.ndarray:
 def molecule_ids(system: System) -> np.ndarray:
     """Per-atom molecule id (0..n_mols-1) from bond connectivity
     (host-side union-find over ``bond_idx``; rigid waters keep their
-    O-H bonds in the UNSTRIPPED system, so pass that one)."""
+    O-H bonds in the UNSTRIPPED system, so pass that one). A water's
+    virtual sites join it through their zero-stiffness O-M / O-L bonds."""
     n = system.n_atoms
     parent = np.arange(n)
 
@@ -289,6 +291,9 @@ def run_npt(
     ``barostat_state``, a previous call's, continues a run: the evolved
     box, the tuned width and the move stream; without it the barostat
     starts at ``system.box`` with the move stream keyed by ``seed``.
+    A move translates each molecule rigidly, its massless virtual sites
+    with it; the site rows are then re-derived from their parents, which
+    the translation leaves consistent up to rounding.
 
     The loop is Python over ``langevin_step(..., force_state=)``; nothing
     is read back to the host, frames included. Returns (final MDState,
@@ -342,6 +347,7 @@ def run_npt(
         barostat_state = init_barostat(system.box, seed, device=dev)
     bstate = barostat_state
     inv_m = _inv_mass(system)
+    vsites = VirtualSites.from_system(system)
     fstate = force_fn.init_state_dynamic(state.positions, bstate.box)
     frames = {k: [] for k in ("positions", "box", "density_g_cm3", "potential_energy",
                               "temperature")}
@@ -357,6 +363,8 @@ def run_npt(
             # the next call bins afresh under the (possibly) new box, so
             # the neighbour state needs no rebinning here
             x_new, bstate, _, e_now = move(state.positions, bstate)
+            if vsites is not None:
+                x_new = vsites.expand(x_new)
             state = dataclasses.replace(state, positions=x_new)
         _, f_now, fstate = _apply_dynamic(state.positions, fstate, bstate.box)
         v_sync = state.velocities + 0.5 * dt * f_now * inv_m

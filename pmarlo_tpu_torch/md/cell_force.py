@@ -63,6 +63,12 @@ move into such a box is rejected without a host read.
 Pair arithmetic in the kernel is float32; energy rows are summed in float64
 past a patch and the plain twin evaluates in float64 outright. Energies
 come back as float32. ``launches`` counts kernel launches.
+
+**Virtual sites** (TIP4P-Ew, TIP5P water; ``md/vsites.py``): every entry
+point re-derives the site rows from their parents before it bins and
+spreads the site forces onto the parents after the evaluation. The kernel
+sees the sites as atoms with charge and no LJ; the water's 6 (4-site) or
+10 (5-site) intra-molecular pairs are excluded through the band.
 """
 
 from __future__ import annotations
@@ -93,7 +99,8 @@ from .periodic_force import (
     refuse_scratch,
 )
 from .pme import ReciprocalMesh
-from .system import System, require_no_vsites
+from .system import System
+from .vsites import VirtualSites
 
 #: kernel launches made by this process (chip_smoke.py resets and reads it)
 launches = {"cell_force": 0}
@@ -156,6 +163,9 @@ class CellForce:
     (every replica is binned on its own); energies come back with the
     leading shape. Built by ``build_cell_force_fn``."""
 
+    #: every entry point handles the system's virtual sites itself
+    expands_vsites = True
+
     def __init__(self, system: System, grid: CellGrid, phys: PairPhysics, *,
                  band: Optional[ExclusionBand] = None, dispersion_correction: bool = False,
                  cell_chunk: int = 64, pme_mesh: Optional[ReciprocalMesh] = None,
@@ -175,6 +185,7 @@ class CellForce:
         self.band_D = int(self.band.width)
         self.correction = PairListCorrection(system, self.band, phys)
         self._bonded = make_bonded_params(system)
+        self.vsites = VirtualSites.from_system(system)
         self._disp_2pi_c = 0.0
         self.e_dispersion = 0.0
         if dispersion_correction:
@@ -227,6 +238,12 @@ class CellForce:
             raise ValueError(f"x on {x.device} but the cell force was built "
                              f"for {self.system.device}")
         return x
+
+    def _expand(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.vsites is None else self.vsites.expand(x)
+
+    def _spread(self, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return f if self.vsites is None else self.vsites.spread(f, x)
 
     def _bin(self, xb: torch.Tensor, box: Optional[torch.Tensor] = None) -> NeighborState:
         order, cell_start, _, xw = bin_atoms(self.grid, xb, box)
@@ -410,15 +427,17 @@ class CellForce:
         """``(energies, forces)`` of ``xs (R, N, 3)`` swept on the binning
         ``st``, whose ``xw`` must be ``xs`` up to lattice vectors and cover
         every pair within the cutoff by its 27-cell neighbourhoods (binned
-        under ``box``, the build box when None)."""
-        return self._evaluate(self._batch(xs), st, self.sweep,
-                              None if box is None else self._box(box))
+        under ``box``, the build box when None); virtual-site rows must be
+        expanded in both (``init_state_batched`` bins so)."""
+        xs = self._expand(self._batch(xs))
+        energy, forces = self._evaluate(xs, st, self.sweep, None if box is None else self._box(box))
+        return energy, self._spread(forces, xs)
 
     def _call(self, x, sweep, box=None):
         lead = tuple(x.shape[:-2])
-        xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
+        xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
         energy, forces = self._evaluate(xb, self._bin(xb, box), sweep, box)
-        return energy.reshape(lead), forces.reshape(tuple(x.shape))
+        return energy.reshape(lead), self._spread(forces, xb).reshape(tuple(x.shape))
 
     def __call__(self, x: torch.Tensor):
         """Energy and forces from a fresh binning: the kernel on a CUDA
@@ -433,15 +452,16 @@ class CellForce:
     # --- stateful entries -------------------------------------------------------------------
 
     def init_state_batched(self, xs: torch.Tensor) -> NeighborState:
-        return self._bin(self._batch(xs))
+        return self._bin(self._expand(self._batch(xs)))
 
     def apply_batched(self, xs: torch.Tensor, st: NeighborState):
         """``(energies, forces, state)`` of ``xs (R, N, 3)``; ``state`` is
         the binning of ``xs`` (``st`` is not consulted: see the module
         docstring)."""
-        st = self.init_state_batched(xs)
-        energy, forces = self.evaluate(xs, st)
-        return energy, forces, st
+        xs = self._expand(self._batch(xs))
+        st = self._bin(xs)
+        energy, forces = self._evaluate(xs, st, self.sweep)
+        return energy, self._spread(forces, xs), st
 
     def init_state(self, x: torch.Tensor) -> NeighborState:
         return self.init_state_batched(x[None])
@@ -461,16 +481,18 @@ class CellForce:
 
     def init_state_dynamic(self, x: torch.Tensor, box) -> NeighborState:
         """The binning of ``x (N, 3)`` under ``box``."""
-        return self._bin(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))), self._box(box))
+        xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
+        return self._bin(xb, self._box(box))
 
     def apply_dynamic(self, x: torch.Tensor, st: NeighborState, box):
         """``(energy, forces, state)`` of ``x (N, 3)`` under ``box``; as
         ``apply``, it bins afresh (``st`` is not consulted) and returns the
         binning of ``x``."""
         box = self._box(box)
-        st = self.init_state_dynamic(x, box)
-        energy, forces = self._evaluate(self._batch(x.reshape(st.xw.shape)), st, self.sweep,
-                                        box)
+        xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
+        st = self._bin(xb, box)
+        energy, forces = self._evaluate(xb, st, self.sweep, box)
+        forces = self._spread(forces, xb)
         return energy.reshape(tuple(x.shape[:-2])), forces.reshape(tuple(x.shape)), st
 
 
@@ -519,7 +541,6 @@ def build_cell_force_fn(
 
     ``mesh`` (the spatially decomposed sweep) is not ported yet and raises
     ``NotImplementedError`` naming ROADMAP queue A13."""
-    require_no_vsites(system, "the cell-list sweep")
     if system.box is None:
         raise ValueError("build_cell_force_fn needs system.box")
     if mesh is not None:

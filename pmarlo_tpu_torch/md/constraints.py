@@ -16,6 +16,10 @@ water's cluster is solved exactly: Newton iterations with a closed-form
 velocities (``rattle_water``), batched over waters and replicas.
 ``build_h_constraints`` returns a ``CompositeConstraintSpec`` (X-H
 constraints of the solute + the water block) for systems with waters.
+Four- and five-site waters (TIP4P-Ew's M, TIP5P's L1 / L2 after O, H1, H2)
+are a block of stride 4 or 5: the solve takes O, H1 and H2 of each
+residue, and the massless site rows ride along unconstrained
+(``md/vsites.py`` re-derives them after every solve).
 """
 
 from __future__ import annotations
@@ -96,8 +100,8 @@ def build_h_constraints(
     """Constraints for every bond involving a hydrogen (OpenMM HBonds), or
     ``None`` when there is none. A system with waters gets a
     ``CompositeConstraintSpec``: the waters (one contiguous block of
-    (O, H1, H2) residues) go to the exact rigid solver, every other X-H
-    bond to the Jacobi iteration."""
+    (O, H1, H2[, M | L1, L2]) residues) go to the exact rigid solver, every
+    other X-H bond to the Jacobi iteration."""
     bonds = _host(system.bond_idx).reshape(-1, 2)
     masses = _host(system.masses).astype(np.float64)
     is_h = _is_hydrogen(system)
@@ -113,8 +117,9 @@ def build_h_constraints(
     protein_spec = None
     if pairs.shape[0]:
         if np.any(masses[pairs.reshape(-1)] <= 0.0):
-            raise ValueError("constraint pair references a massless atom")
-        inv_m = 1.0 / masses
+            raise ValueError("constraint pair references a massless (virtual-site) atom")
+        # massless rows are virtual sites, whose 1/m no constraint reads
+        inv_m = np.divide(1.0, masses, out=np.zeros_like(masses), where=masses > 0.0)
         dev = system.device
 
         def f32(a):
@@ -265,15 +270,19 @@ for _c, (_i, _j) in enumerate(_W_PAIRS):
 
 @dataclasses.dataclass(frozen=True)
 class RigidWaterSpec:
-    """Exact rigid-water (TIP3P) constraints for one contiguous block of
-    waters laid out (O, H1, H2) per residue, so the block is a reshape,
-    not a gather."""
+    """Exact rigid-water constraints for one contiguous block of waters laid
+    out (O, H1, H2) per residue, followed by their virtual sites (``stride``
+    4: TIP4P-Ew's M; 5: TIP5P's L1, L2), so the block is a reshape, not a
+    gather."""
 
     start: int                  # first atom of the block
     n_waters: int
     inv_m: torch.Tensor         # (3,) 1/m of (O, H1, H2)
     d0: torch.Tensor            # (3,) targets of (O-H1, O-H2, H1-H2)
     n_newton: int = 6
+    #: atoms a water residue: 3 (TIP3P), 4 (TIP4P-Ew) or 5 (TIP5P); the
+    #: site rows after O, H1, H2 are left to ``md/vsites.py``
+    stride: int = 3
 
     def __post_init__(self):
         sgn = torch.as_tensor(_W_SGN, dtype=self.inv_m.dtype, device=self.inv_m.device)
@@ -295,16 +304,13 @@ class RigidWaterSpec:
 
     @classmethod
     def from_numpy(cls, spec, device=None) -> "RigidWaterSpec":
-        """From the JAX package's ``RigidWaterSpec`` (3-site water), on
-        ``device`` (``None``: ``_device.default_device()``)."""
+        """From the JAX package's ``RigidWaterSpec`` (3-, 4- or 5-site
+        water), on ``device`` (``None``: ``_device.default_device()``)."""
         device = torch.device(device) if device is not None else default_device()
-        if int(getattr(spec, "stride", 3)) != 3:
-            raise NotImplementedError(
-                "4- and 5-site water (virtual sites) is ROADMAP queue A11")
         return cls(start=int(spec.start), n_waters=int(spec.n_waters),
                    inv_m=torch.tensor(np.asarray(spec.inv_m, np.float32), device=device),
                    d0=torch.tensor(np.asarray(spec.d0, np.float32), device=device),
-                   n_newton=int(spec.n_newton))
+                   n_newton=int(spec.n_newton), stride=int(getattr(spec, "stride", 3)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,18 +336,24 @@ def _build_water_spec(system: System, water_atoms: np.ndarray,
     idx = np.flatnonzero(water_atoms)
     start, stop = int(idx[0]), int(idx[-1]) + 1
     names = list(system.atom_names[start:stop])
-    if len(names) >= 4 and names[3] in ("M", "L1"):
-        raise NotImplementedError(
-            "4- and 5-site water (TIP4P-Ew, TIP5P: virtual sites) is not "
-            "ported yet (ROADMAP queue A11)")
-    n_w = (stop - start) // 3
-    if (stop - start != 3 * n_w or not water_atoms[start:stop].all()
-            or names != ["O", "H1", "H2"] * n_w):
+    # 3-site (TIP3P), 4-site (TIP4P-Ew: a trailing massless M) or 5-site
+    # (TIP5P: trailing L1 / L2 lone pairs)
+    if len(names) >= 5 and names[3] == "L1":
+        stride = 5
+    elif len(names) >= 4 and names[3] == "M":
+        stride = 4
+    else:
+        stride = 3
+    n_w = (stop - start) // stride
+    want = ["O", "H1", "H2"] + {3: [], 4: ["M"], 5: ["L1", "L2"]}[stride]
+    if (stop - start != stride * n_w or not water_atoms[start:stop].all()
+            or names != want * n_w):
         raise ValueError(
-            "rigid-water constraints need one contiguous (O, H1, H2)-ordered "
-            "water block (the canonical solvate/topology layout)")
-    # O-H target from the first water O's bond term; a topology whose
-    # water bonds were already stripped falls back to the TIP3P geometry
+            "rigid-water constraints need one contiguous (O, H1, H2[, M | L1, L2])-"
+            "ordered water block (the canonical solvate/topology layout)")
+    # O-H target from the first water O's bond term (rows under 0.08 nm are
+    # the zero-stiffness O-M / O-L site bonds); a topology whose water
+    # bonds were already stripped falls back to the TIP3P geometry
     b_idx = _host(system.bond_idx).reshape(-1, 2)
     b_r0 = _host(system.bond_r0)
     oh_rows = np.flatnonzero(
@@ -353,13 +365,19 @@ def _build_water_spec(system: System, water_atoms: np.ndarray,
         inv_m=torch.as_tensor(1.0 / masses[start:start + 3], dtype=torch.float32,
                               device=dev),
         d0=torch.as_tensor([d_oh, d_oh, _TIP3P_HH], dtype=torch.float32, device=dev),
+        stride=stride,
     )
 
 
+def _residues(spec: RigidWaterSpec, x: torch.Tensor) -> torch.Tensor:
+    """The water block as ``(..., W, stride, 3 xyz)`` (a view)."""
+    stop = spec.start + spec.stride * spec.n_waters
+    return x[..., spec.start:stop, :].unflatten(-2, (spec.n_waters, spec.stride))
+
+
 def _water_block(spec: RigidWaterSpec, x: torch.Tensor) -> torch.Tensor:
-    """The water block as ``(..., W, 3 atoms, 3 xyz)`` (a view)."""
-    stop = spec.start + 3 * spec.n_waters
-    return x[..., spec.start:stop, :].unflatten(-2, (spec.n_waters, 3))
+    """O, H1 and H2 of every water as ``(..., W, 3 atoms, 3 xyz)`` (a view)."""
+    return _residues(spec, x)[..., :3, :]
 
 
 def _water_dvec(xw: torch.Tensor) -> torch.Tensor:
@@ -384,8 +402,7 @@ def _solve33(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _with_water_block(spec: RigidWaterSpec, full: torch.Tensor,
                       block: torch.Tensor) -> torch.Tensor:
     out = full.clone()
-    stop = spec.start + 3 * spec.n_waters
-    out[..., spec.start:stop, :] = block.flatten(-3, -2)
+    _residues(spec, out)[..., :3, :] = block
     return out
 
 

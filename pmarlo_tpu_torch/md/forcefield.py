@@ -294,11 +294,6 @@ def build_system(
     else:
         structure = source if isinstance(source, PDBStructure) else read_pdb(source)
         topology = build_topology(structure, keep_waters=box is not None)
-    if topology.vsites is not None:
-        raise NotImplementedError(
-            "virtual sites (TIP4P-Ew, TIP5P water) are not ported yet "
-            "(ROADMAP queue A11)"
-        )
 
     if dense_scales is None:
         # (N, N) matrices cost 2 * N^2 * 8 B to build; past ~12k atoms
@@ -375,6 +370,11 @@ def build_system(
         gb_neck_m0=extra("neck_m0"),
         excl12_idx=i32(excl12_idx),
         pair14_idx=i32(pair14_idx),
+        vsite_idx=None if topology.vsites is None else i32(topology.vsites),
+        vsite_weights=None if topology.vsites is None else f(topology.vsite_weights),
+        # all-average sites (TIP4P-Ew) carry no kind, as in JAX
+        vsite_kind=(None if topology.vsite_kind is None or not np.any(topology.vsite_kind)
+                    else i32(topology.vsite_kind)),
         atom_names=tuple(topology.atom_names),
         atom_types=tuple(topology.atom_types),
         residue_names=tuple(topology.residue_names),

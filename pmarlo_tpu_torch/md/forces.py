@@ -18,7 +18,7 @@ import torch
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
 from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
 from .gbn2 import neck_value_and_derivative
-from .system import System, require_dense_scales, require_no_vsites
+from .system import System, require_dense_scales
 
 _EPS = 1e-12
 
@@ -250,8 +250,9 @@ def potential_energy(system: System, positions: torch.Tensor,
                      bias_fn: Optional[Callable] = None) -> torch.Tensor:
     """Total potential energy (kJ/mol), shape ``(...)``; a bias
     ``bias_fn(positions (..., N, 3)) -> energy (...)`` is added when given
-    (its forces then come with the others from autograd)."""
-    require_no_vsites(system, "potential_energy")
+    (its forces then come with the others from autograd). Virtual-site rows
+    are taken as they are (``vsites.expanded_energy_and_forces`` composes
+    their expansion in), as in JAX."""
     e = sum(energy_components(system, positions).values())
     if bias_fn is not None:
         e = e + bias_fn(positions)

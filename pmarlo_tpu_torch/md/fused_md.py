@@ -53,7 +53,7 @@ from .analytic import energy_and_forces, make_dense_params
 from .bonded_window import bonded_csr, bonded_slots
 from .cv_bias import MAX_CV, MAX_LAYERS, CVBias
 from .integrate import MDState, langevin_step
-from .system import System
+from .system import System, require_no_vsites
 
 #: launches of the unbiased chunk kernel made by this process
 #: (chip_smoke.py resets and reads it)
@@ -302,6 +302,7 @@ class FusedChunk:
     def __init__(self, system: System, *, dt: float, friction: float, n_replicas: int,
                  bias: Optional[CVBias] = None, mtd: Optional[MetadynamicsBias] = None,
                  mtd_deposit_interval: Optional[int] = None):
+        require_no_vsites(system, "the fused Langevin kernels")
         if system.n_atoms > MAX_ATOMS:
             raise ValueError(
                 f"the fused kernels hold one replica in at most {MAX_CLUSTER} CTAs "

@@ -25,8 +25,8 @@ import torch
 
 from .._device import default_device
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
-from .forces import energy_and_forces_autograd
-from .system import System, require_no_vsites
+from .system import System
+from .vsites import VirtualSites, expanded_energy_and_forces, n_vsites, wrap_force_fn
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0 = 0xD2511F53
@@ -149,10 +149,11 @@ def instantaneous_temperature(
 ) -> torch.Tensor:
     """Kinetic temperature ``(...)``. Langevin runs keep the 3 COM dof
     (the O-step re-thermalizes them); NVE runs (friction 0) pass
-    ``remove_com=True``, as in the JAX docstring."""
-    require_no_vsites(system, "instantaneous_temperature")
+    ``remove_com=True``, as in the JAX docstring. Massless virtual sites
+    carry no degree of freedom."""
     n_dof = max(
-        3 * system.n_atoms - int(n_constraints) - (3 if remove_com else 0), 1
+        3 * (system.n_atoms - n_vsites(system)) - int(n_constraints)
+        - (3 if remove_com else 0), 1
     )
     return 2.0 * kinetic_energy(system, velocities) / (
         n_dof * BOLTZMANN_CONSTANT_KJ_PER_MOL
@@ -160,9 +161,11 @@ def instantaneous_temperature(
 
 
 def remove_com_motion(system: System, velocities: torch.Tensor) -> torch.Tensor:
+    """Velocities less the centre-of-mass velocity; massless rows (virtual
+    sites) keep theirs, which is 0."""
     m = system.masses[:, None]
     p = (m * velocities).sum(-2, keepdim=True)
-    return velocities - p / system.masses.sum()
+    return velocities - p / system.masses.sum() * (m > 0.0)
 
 
 def bias_energy_and_forces(bias_fn: Callable, x: torch.Tensor):
@@ -217,12 +220,15 @@ def stateful_entries(force_fn: Optional[Callable], positions: torch.Tensor):
 def make_force_fn(system: System, bias_fn: Optional[Callable] = None) -> Callable:
     """Build ``force_fn(x) -> (energy, forces)``: the analytic dense path
     (``md/analytic.py``, the math the fused kernel runs) plus, if given, a
-    bias ``bias_fn(positions) -> energy`` whose forces come from autograd.
+    bias ``bias_fn(positions) -> energy`` whose forces come from autograd,
+    wrapped for the system's virtual sites (``vsites.wrap_force_fn``).
     Leading dimensions of ``x`` batch."""
     from .analytic import energy_and_forces, make_dense_params
 
     force_fn = partial(energy_and_forces, make_dense_params(system))
-    return force_fn if bias_fn is None else compose_bias(force_fn, bias_fn)
+    if bias_fn is not None:
+        force_fn = compose_bias(force_fn, bias_fn)
+    return wrap_force_fn(force_fn, system)
 
 
 def langevin_step(
@@ -258,8 +264,12 @@ def langevin_step(
     With ``constraints`` (a spec of ``md.constraints``) the step runs
     in g-BAOAB order, as the JAX step does: RATTLE after the kick; SHAKE
     after each position half-step, with the correction folded into v and
-    a RATTLE after it; RATTLE after the O step."""
-    require_no_vsites(system, "langevin_step")
+    a RATTLE after it; RATTLE after the O step.
+
+    Virtual sites: the autograd route composes their expansion into the
+    energy (a given ``force_fn`` must spread their forces itself:
+    ``vsites.wrap_force_fn``), and the sites are re-derived from their
+    parents at the end of the step."""
     if force_fn is not None and bias_fn is not None:
         raise ValueError(
             "pass either force_fn or bias_fn, not both: a given force_fn is used "
@@ -267,7 +277,7 @@ def langevin_step(
     if force_state is not None:
         energy, f, force_state = force_fn(state.positions, force_state)
     elif force_fn is None:
-        energy, f = energy_and_forces_autograd(system, state.positions, bias_fn)
+        energy, f = expanded_energy_and_forces(system, state.positions, bias_fn)
     else:
         energy, f = force_fn(state.positions)
     inv_m = _inv_mass(system)
@@ -295,6 +305,9 @@ def langevin_step(
         v = v + (x_c - x) / (0.5 * dt)
         x = x_c
         v = rattle(constraints, v, x)
+    vs = VirtualSites.from_system(system)
+    if vs is not None:
+        x = vs.expand(x)
     new_state = dataclasses.replace(state, positions=x, velocities=v,
                                     step=state.step + 1)
     if force_state is not None:

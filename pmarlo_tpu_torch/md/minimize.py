@@ -2,7 +2,8 @@
 
 Port of ``pmarlo_tpu/md/minimize.py``: the same FIRE update with the same
 constants, a Python loop in place of ``lax.scan``, autograd forces of
-``forces.potential_energy`` by default.
+``forces.potential_energy`` by default, through the expansion of the
+system's virtual sites (``md/vsites.py``).
 """
 
 from __future__ import annotations
@@ -11,8 +12,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .forces import energy_and_forces_autograd, potential_energy
-from .system import System, require_no_vsites
+from .system import System
+from .vsites import VirtualSites, expanded_energy_and_forces
 
 
 def minimize_energy(
@@ -28,19 +29,20 @@ def minimize_energy(
     """FIRE minimization of one configuration ``(N, 3)``.
     Returns ``(positions, final_energy)``. ``force_fn`` (x -> (energy,
     forces)) replaces the autograd path; ``bias_fn`` (positions -> energy)
-    is added to either."""
-    require_no_vsites(system, "minimize_energy")
+    is added to either. Virtual-site rows are re-derived from their
+    parents in the positions returned (the autograd path composes their
+    expansion into the energy; a given ``force_fn`` spreads their forces)."""
     if bias_fn is not None:
         from .integrate import compose_bias
 
-        base = force_fn or (lambda x: energy_and_forces_autograd(system, x))
+        base = force_fn or (lambda x: expanded_energy_and_forces(system, x))
         force_fn = compose_bias(base, bias_fn)
     if force_fn is None:
         def neg_grad(x):
-            return energy_and_forces_autograd(system, x)[1]
+            return expanded_energy_and_forces(system, x)[1]
 
         def energy_fn(x):
-            return potential_energy(system, x)
+            return expanded_energy_and_forces(system, x)[0]
     else:
         def neg_grad(x):
             return force_fn(x)[1]
@@ -79,6 +81,9 @@ def minimize_energy(
         step_vec = dt * v
         norm = torch.sqrt((step_vec**2).sum(-1, keepdim=True)) + 1e-12
         x = x + step_vec * torch.clamp(max_disp / norm, max=1.0)
+    vs = VirtualSites.from_system(system)
+    if vs is not None:
+        x = vs.expand(x)
     with torch.no_grad():
         e = energy_fn(x)
     return x, e

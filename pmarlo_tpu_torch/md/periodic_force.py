@@ -51,7 +51,8 @@ from .. import _kernels
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
 from .analytic import bonded_energy_and_forces, make_bonded_params
 from .cells import ExclusionBand
-from .system import System, require_no_vsites
+from .system import System
+from .vsites import VirtualSites
 
 _EPS = 1e-12
 _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
@@ -282,11 +283,18 @@ class PairListCorrection:
 class PeriodicForce:
     """``fn(x) -> (energy, forces)`` for the full periodic potential of
     ``system``: ``x`` is ``(N, 3)`` or ``(R, N, 3)``; energies come back
-    with the leading shape. Built by ``build_periodic_force_fn``."""
+    with the leading shape. Built by ``build_periodic_force_fn``.
+
+    Virtual sites (``md/vsites.py``): ``__call__`` and ``reference``
+    re-derive the site rows from their parents before the evaluation and
+    spread the site forces onto the parents after it; the sweep sees the
+    sites as atoms with charge and no LJ."""
+
+    #: the evaluation handles the system's virtual sites itself
+    expands_vsites = True
 
     def __init__(self, system: System, *, tile: int = 128,
                  band: Optional[ExclusionBand] = None):
-        require_no_vsites(system, "the dense periodic sweep")
         if system.box is None:
             raise ValueError("build_periodic_force_fn needs system.box")
         if system.tilt is not None:
@@ -307,6 +315,7 @@ class PeriodicForce:
         self.band_D = int(self.band.width)
         self.correction = PairListCorrection(system, self.band, self.phys)
         self._bonded = make_bonded_params(system)
+        self.vsites = VirtualSites.from_system(system)
         self._box = (ctypes.c_float * 3)(*system.box)
         self._box32 = torch.as_tensor(system.box, dtype=torch.float32, device=system.device)
 
@@ -387,11 +396,15 @@ class PeriodicForce:
     def _evaluate(self, x, sweep):
         lead = tuple(x.shape[:-2])
         xb = self._batch(x.reshape((-1,) + tuple(x.shape[-2:])))
+        if self.vsites is not None:
+            xb = self.vsites.expand(xb)
         e_rows, forces = sweep(xb)
         e_c, f_c = self.correction(xb)
         e_b, f_b = bonded_energy_and_forces(self._bonded, xb, energy_dtype=torch.float64)
         energy = (e_rows.sum(-1) + e_c + e_b).to(xb.dtype)
         forces = forces + f_c + f_b
+        if self.vsites is not None:
+            forces = self.vsites.spread(forces, xb)
         return energy.reshape(lead), forces.reshape(tuple(x.shape))
 
     def __call__(self, x: torch.Tensor):

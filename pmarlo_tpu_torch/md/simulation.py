@@ -96,8 +96,8 @@ def run_segment(
     while the positions sit at another volume.
 
     A solvated input (CRYST1 box + waters) takes the explicit-solvent
-    periodic path: LJ + Coulomb at ``cutoff``, rigid TIP3P and X-H
-    constraints, the ``nonbonded`` engine ("dense": the O(N^2) sweep with
+    periodic path: LJ + Coulomb at ``cutoff``, rigid water (TIP3P, or
+    TIP4P-Ew / TIP5P with their virtual sites) and X-H constraints, the ``nonbonded`` engine ("dense": the O(N^2) sweep with
     reaction field; "cells": the cell-list sweep with reaction field;
     "pme": the cell-list sweep with smooth PME; "auto": cells from 3,000
     atoms, dense below), ``switch_distance`` for the LJ switch,
@@ -320,12 +320,14 @@ def _check_resume_state(initial_state, system, seed, device):
 
 def _attach_total_energy(result, system, spec) -> None:
     """total_energy (F,) = PE + KE, the kinetic energy recovered from the
-    reported temperature with the NVE reporter's 3N - 3 - n_con degrees of
-    freedom (``run_md`` at friction 0 removes the COM)."""
+    reported temperature with the NVE reporter's 3 (N - n_vsites) - 3 -
+    n_con degrees of freedom (``run_md`` at friction 0 removes the COM;
+    massless virtual sites carry none)."""
     from .constraints import n_constraints
+    from .vsites import n_vsites
 
     n_con = n_constraints(spec) if spec is not None else 0
-    n_dof = max(3 * system.n_atoms - 3 - int(n_con), 1)
+    n_dof = max(3 * (system.n_atoms - n_vsites(system)) - 3 - int(n_con), 1)
     ke = 0.5 * n_dof * BOLTZMANN_CONSTANT_KJ_PER_MOL * result["temperature"]
     result["total_energy"] = result["potential_energy"] + ke
 

@@ -64,7 +64,9 @@ class System:
     #: 1-2/1-3 exclusion pairs and 1-4 pairs
     excl12_idx: Optional[torch.Tensor] = None   # (P1, 2)
     pair14_idx: Optional[torch.Tensor] = None   # (P2, 2)
-    #: virtual sites (not yet ported: ROADMAP queue A11)
+    #: virtual interaction sites (md/vsites.py): massless particles whose
+    #: positions derive from three parents; (V, 4) int [site, p0, p1, p2],
+    #: (V, 3) weights, (V,) kind (None: all three-particle averages)
     vsite_idx: Optional[torch.Tensor] = None
     vsite_weights: Optional[torch.Tensor] = None
     vsite_kind: Optional[torch.Tensor] = None
@@ -159,10 +161,12 @@ def require_dense_scales(system: System, context: str) -> None:
 
 
 def require_no_vsites(system: System, context: str) -> None:
-    """Virtual sites are not ported yet (ROADMAP queue A11)."""
+    """Refuse virtual sites on the implicit-solvent paths (the GB pair
+    sweeps and the fused kernels), which run no water, as in JAX."""
     if system.vsite_idx is not None:
-        raise NotImplementedError(
-            f"{context}: virtual sites are not ported yet (ROADMAP queue A11)"
+        raise ValueError(
+            f"{context} is an implicit-solvent path and takes no virtual sites "
+            "(multi-site water needs the explicit-solvent engines)"
         )
 
 

@@ -1,6 +1,7 @@
 """Learned collective variables: DeepTICA MLPs trained with VAMP-2.
 
-Port of ``pmarlo_tpu/ml`` (``deeptica``, ``losses``, ``whitening``). The
+Port of ``pmarlo_tpu/ml`` (``deeptica``, ``losses``, ``whitening``,
+``plumed``: the TorchScript export and its PLUMED input). The
 trained CV is a plain function of tensors, so bias energies compose into
 the MD forces by autograd (``bias/``) or run inside the fused CUDA kernel
 (``md/fused_md.py``).

@@ -207,6 +207,19 @@ class DeepTICAModel:
 
     __call__ = transform
 
+    def to_torchscript(self, path) -> "Path":
+        """Export the CV as TorchScript for external engines
+        (``ml/plumed.py``)."""
+        from .plumed import to_torchscript
+
+        return to_torchscript(self, path)
+
+    def plumed_snippet(self, model_path) -> str:
+        """PLUMED input that loads the TorchScript export."""
+        from .plumed import plumed_snippet
+
+        return plumed_snippet(self, model_path)
+
     # --- persistence: the JAX package's file format ---------------------------------
 
     def save(self, prefix: "str | Path") -> Path:

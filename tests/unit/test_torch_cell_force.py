@@ -358,3 +358,59 @@ def test_kernel_under_a_changed_box_matches_plain_version_on_the_card(which):
     e_bad, f_bad = fn.dynamic(x, torch.tensor(system.box, device="cuda") * 0.5)
     torch.cuda.synchronize()
     assert math.isnan(float(e_bad)) and bool(torch.isnan(f_bad).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["tip4pew", "tip5p"])
+@pytest.mark.parametrize("mode", ["rf", "pme", "pme_dynamic"])
+def test_kernel_on_site_water_matches_plain_version_on_the_card(model, mode):
+    """Row 9 on virtual-site water (729 TIP4P-Ew or TIP5P waters): the
+    kernel's reaction-field and Ewald modes with the sites as charged atoms
+    without LJ, the static box (R = 4) and a box tensor 1.5% larger (the
+    molecules, sites with their water, scaled rigidly), against the plain
+    version; energy to 1e-5, forces to 1e-4 of max |F|, zero force on the
+    site rows, one launch a sweep; ``apply_dynamic`` as ``dynamic`` up to
+    the mesh's atomic sums (1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from pmarlo_tpu_torch.md import barostat
+
+    s, box = water_box_structure(9, water_model=model, seed=0)
+    system, pos = build_system(s, box=box, cutoff=0.9, hydrogen_mass=None, device="cuda")
+    fn = build_cell_force_fn(system, electrostatics="rf" if mode == "rf" else "pme")
+    sites = system.vsite_idx[:, 0].long()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    if mode == "pme_dynamic":
+        ids = barostat.molecule_ids(system)
+        x0 = fn.vsites.expand(torch.as_tensor(
+            _noisy(pos.cpu().numpy(), 1, seed=6, sigma=0.01)[0], device="cuda"))
+        x = barostat.scale_positions(x0, 1.015, ids, system.masses, int(ids.max()) + 1)
+        tbox = torch.tensor(system.box, dtype=torch.float32, device="cuda") * 1.015
+        before = cell_force.launches["cell_force"]
+        e, f = fn.dynamic(x, tbox)
+        er, fr = fn.reference(x, tbox)
+        e2, f2, _ = fn.apply_dynamic(x, None, tbox)
+        torch.cuda.synchronize()
+        assert abs(float(e - er)) <= 1e-5 * abs(float(er)) and rel(f, fr) <= 1e-4
+        # the mesh spreads by an atomic index_add_: run to run in the last bits
+        assert abs(float(e2 - e)) <= 1e-6 * abs(float(e)) and rel(f2, f) <= 1e-6
+        assert (f[sites] == 0.0).all() and (f2[sites] == 0.0).all()
+        assert cell_force.launches["cell_force"] - before == 2
+        return
+    x = torch.as_tensor(_noisy(pos.cpu().numpy(), 4, seed=4, sigma=0.01), device="cuda")
+    xe = fn.vsites.expand(x)
+    before = cell_force.launches["cell_force"]
+    order, cell_start, _, xw = bin_atoms(fn.grid, xe)
+    ek, fk = fn.sweep(xw, order.contiguous(), cell_start.contiguous())
+    ep, fp = fn.sweep_reference(xw, order, cell_start)
+    assert rel(ek, ep) <= 1e-5 and rel(fk, fp) <= 1e-4
+    e, f = fn(x)
+    er, fr = fn.reference(x)
+    torch.cuda.synchronize()
+    assert rel(e, er) <= 1e-5 and rel(f, fr) <= 1e-4
+    assert bool(torch.isfinite(f).all())
+    assert (f[:, sites] == 0.0).all()
+    assert cell_force.launches["cell_force"] - before == 2

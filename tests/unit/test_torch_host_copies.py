@@ -26,6 +26,8 @@ COPIES = [
     # the trajectory and structure I/O and the demux of the production slice
     "io/__init__.py", "io/cif.py", "io/xtc.py", "io/dcd.py", "io/trr.py", "io/netcdf.py",
     "io/trajectory.py", "io/shards.py", "io/export.py", "remd/demux.py",
+    # the solvation box and the Amber file loaders of the virtual-site water slice
+    "protein/solvate.py", "md/amber_params.py",
 ]
 
 #: host-side index functions of ``features/builtins.py``: numpy, carried

@@ -143,6 +143,20 @@ def test_md_exports_build_pair_force_fn_lazily_as_jax(alanine):
 PRODUCTION_MODULES = ["md.eft", "md.pme", "md.barostat", "md.simulation", "io", "io.cif",
                       "io.trajectory", "io.xtc", "io.dcd", "io.trr", "io.netcdf", "io.shards",
                       "io.export", "remd.demux", "remd.checkpoint"]
+#: the modules the virtual-site water slice ports
+PRODUCTION_MODULES += ["md.vsites", "md.amber_params", "protein.solvate", "ml.plumed"]
+#: names of JAX modules without ``__all__`` (or of ones ported only in
+#: part) that the virtual-site water slice ports
+SLICE_NAMES = {
+    "features.rdf": ["radial_distribution", "coordination_number"],
+    "features.msd": ["unwrap_trajectory", "mean_squared_displacement",
+                     "diffusion_coefficient"],
+    "features": ["radial_distribution", "coordination_number", "unwrap_trajectory",
+                 "mean_squared_displacement", "diffusion_coefficient"],
+    "features.builtins": ["align_to_reference"],
+    "protein": ["solvate_structure", "structure_formal_charge"],
+    "md": ["load_amber_files"],
+}
 #: modules the port names otherwise (their TPU kernels became CUDA files)
 RENAMED = {"pallas_pair": "pair_force", "pallas_periodic": "periodic_force",
            "pallas_cells": "cell_force"}
@@ -156,6 +170,25 @@ def test_production_modules_export_the_jax_names(module):
     tm = importlib.import_module(f"pmarlo_tpu_torch.{module}")
     assert jm.__all__
     assert [n for n in jm.__all__ if not hasattr(tm, n)] == []
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_NAMES))
+def test_slice_names_are_in_the_port(module):
+    import importlib
+
+    jm = importlib.import_module(f"pmarlo_tpu.{module}")
+    tm = importlib.import_module(f"pmarlo_tpu_torch.{module}")
+    for name in SLICE_NAMES[module]:
+        assert hasattr(jm, name) and hasattr(tm, name), name
+
+
+def test_deeptica_model_has_the_export_methods_of_jax():
+    from pmarlo_tpu.ml.deeptica import DeepTICAModel as JaxModel
+
+    from pmarlo_tpu_torch.ml.deeptica import DeepTICAModel
+
+    for name in ("to_torchscript", "plumed_snippet"):
+        assert callable(getattr(JaxModel, name)) and callable(getattr(DeepTICAModel, name))
 
 
 def test_run_segment_takes_every_argument_of_jax():

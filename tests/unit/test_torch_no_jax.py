@@ -83,6 +83,13 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.io.shards", "pmarlo_tpu_torch.io.export", "pmarlo_tpu_torch.remd.demux",
     "pmarlo_tpu_torch.remd.checkpoint",
 ]
+#: modules the virtual-site water slice added
+NEW_MODULES += [
+    "pmarlo_tpu_torch.md.vsites", "pmarlo_tpu_torch.md.amber_params",
+    "pmarlo_tpu_torch.protein.__init__", "pmarlo_tpu_torch.protein.solvate",
+    "pmarlo_tpu_torch.features.rdf", "pmarlo_tpu_torch.features.msd",
+    "pmarlo_tpu_torch.ml.plumed",
+]
 
 
 def test_port_imports_without_jax():

@@ -233,3 +233,35 @@ def test_kernel_matches_plain_version_on_the_card(which):
     assert periodic_force.launches["periodic_force"] - before == 2
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         fn._launch(x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["tip4pew", "tip5p"])
+def test_kernel_on_site_water_matches_plain_version_on_the_card(model):
+    """Row 8 on virtual-site water (729 TIP4P-Ew or TIP5P waters, R = 4):
+    the sweep over the expanded positions, the sites charged atoms without
+    LJ, against its plain version, and the whole site-correct evaluation
+    against ``reference``; energy to 1e-5, forces to 1e-4 of max |F|, zero
+    force on the site rows, one launch a sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    s, box = water_box_structure(9, water_model=model, seed=0)
+    system, pos = build_system(s, box=box, cutoff=0.9, hydrogen_mass=None, device="cuda")
+    fn = build_periodic_force_fn(system)
+    x = torch.as_tensor(_noisy(pos.cpu().numpy(), 4, seed=5, sigma=0.01), device="cuda")
+    xe = fn.vsites.expand(x)
+    before = periodic_force.launches["periodic_force"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    ek, fk = fn.sweep(xe)
+    ep, fp = fn.sweep_reference(xe)
+    assert rel(ek, ep) <= 1e-5 and rel(fk, fp) <= 1e-4
+    e, f = fn(x)
+    er, fr = fn.reference(x)
+    torch.cuda.synchronize()
+    assert rel(e, er) <= 1e-5 and rel(f, fr) <= 1e-4
+    assert bool(torch.isfinite(f).all())
+    assert (f[:, system.vsite_idx[:, 0].long()] == 0.0).all()
+    assert periodic_force.launches["periodic_force"] - before == 2

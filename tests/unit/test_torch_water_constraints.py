@@ -209,14 +209,15 @@ def test_spec_carriers_and_refusals():
     moved = spec.to("cpu")
     assert isinstance(moved, CompositeConstraintSpec) and moved.water.n_waters == 8
     assert moved.protein is None and moved.n_constraints == 24
-    # four-site water is virtual-site water: not ported
+    # four-site water carries its stride; a block whose names break the
+    # layout of its stride is refused
     four = dataclasses.make_dataclass("Spec", ["start", "n_waters", "inv_m", "d0",
                                                "n_newton", "stride"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        RigidWaterSpec.from_numpy(four(0, 8, np.ones(3), np.ones(3), 6, 4))
+    assert RigidWaterSpec.from_numpy(four(0, 8, np.ones(3), np.ones(3), 6, 4),
+                                     device="cpu").stride == 4
     names = list(system.atom_names)
     names[3] = "M"
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="contiguous"):
         build_h_constraints(dataclasses.replace(system, atom_names=tuple(names)))
     # the X-H spec of a dry system is still the plain one
     from pmarlo_tpu_torch.md.forcefield import build_system as build
