@@ -189,9 +189,21 @@ Phases, one line of numbers each:
              resumed; row 8 against its plain version at the start and the
              end, NVE drift with the site-free degrees of freedom (phase
              14's gate), the sites against their parents in every frame.
+22. analysis - the analysis half on phase 4's frames (no REMD of its own):
+             phi/psi of rungs 0-3 by ``compute_ramachandran`` against phase
+             4's cos/sin features, TICA (lag 2, 2 components), k-means to
+             16 states, the MSM at lag 2, the ITS ladder over lags 1-10
+             with 100 Dirichlet samples and with the reversible posterior,
+             CK at factors 2 and 3, the CK/ITS lag selector, PCCA+ into 2
+             macrostates, committors and reactive flux between them, the
+             Ramachandran FES of the 300 K rung and the KDE FES of the TICA
+             coordinates; then on phase 4's synthetic 35-shard set (k=50,
+             lag 10) the ITS ladder with both posteriors over 5 lags, PCCA+
+             and TPT, and TPT on the 8 x 8 drunkard's-walk lattice; gates on
+             each result, host wall seconds of each step.
 
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-21, the card's name and power limit, a line of the kernels'
+11-14 and 15-22, the card's name and power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
@@ -800,12 +812,12 @@ def phase_main_path(system, positions) -> dict:
     quads = _phi_psi_quads(system)
     frames = torch.as_tensor(res.positions[:, :4], device="cuda")  # (F, 4, N, 3)
     ang = dihedral_angles(frames, quads).cpu().numpy()             # (F, 4, 2)
-    shards = []
+    rung_shards = []
     for rung in range(4):
         a = ang[:, rung]
         X = np.concatenate([np.cos(a), np.sin(a)], axis=1).astype(np.float32)
-        shards.append({"features": X, "metadata": {"stride": 1}})
-    msm = discretize_dataset(shards, n_states=16, lag=2, seed=0)
+        rung_shards.append({"features": X, "metadata": {"stride": 1}})
+    msm = discretize_dataset(rung_shards, n_states=16, lag=2, seed=0)
     T = msm.transition_matrix
     _check(np.allclose(T.sum(1), 1.0, atol=1e-8), "MSM rows sum to 1")
     _check(all(((d >= 0) & (d < msm.n_states)).all() for d in msm.dtrajs),
@@ -830,6 +842,8 @@ def phase_main_path(system, positions) -> dict:
     _check(synth.counted_pairs > 0, "synthetic MSM counted pairs")
     out["synthetic_msm_counted_pairs"] = int(synth.counted_pairs)
     _line("phase 4 main path", out)
+    # handed on, not printed: phase 22 analyses these frames and this set
+    out.update(remd=res, rung_features=[s["features"] for s in rung_shards], synthetic=synth)
     return out
 
 
@@ -3163,6 +3177,203 @@ def phase_tip5p_box() -> dict:
     return out
 
 
+# phase 22: the analysis half of the alanine pipeline
+ANALYSIS_STATES = 16              # k-means states of the TICA coordinates (config 3)
+ANALYSIS_LAG = 2                  # frames, as phase 4's MSM
+ANALYSIS_ITS_LAGS = tuple(range(1, 11))
+SYNTHETIC_ITS_LAGS = (1, 2, 5, 10, 20)   # at most 5: the reversible sampler is a loop
+
+
+def _drunkards_walk(width: int = 8, height: int = 8, p_stay: float = 0.2) -> np.ndarray:
+    """The 2-D lattice walk with reflecting walls of
+    examples/11_tpt_drunkards_walk.py (BASELINE.json config 1)."""
+    n = width * height
+    T = np.zeros((n, n))
+    for i in range(width):
+        for j in range(height):
+            s = i * height + j
+            nbs = [b for b, ok in (((i - 1) * height + j, i > 0),
+                                   ((i + 1) * height + j, i < width - 1),
+                                   (i * height + j - 1, j > 0),
+                                   (i * height + j + 1, j < height - 1)) if ok]
+            T[s, s] = p_stay
+            for b in nbs:
+                T[s, b] = (1 - p_stay) / len(nbs)
+    return T
+
+
+def _its_gates(tag: str, its) -> None:
+    med, lo, hi = its.timescales, its.ci_lower, its.ci_upper
+    _check(bool(np.isfinite(med).all() and (med > 0).all()), f"{tag}: ITS medians {med}")
+    _check(bool((lo <= med).all() and (med <= hi).all()), f"{tag}: ITS bands {lo} {med} {hi}")
+
+
+def _tpt_gates(tag: str, T: np.ndarray, A, B) -> dict:
+    """committors and reactive flux between ``A`` and ``B`` with their gates;
+    the numbers of the flux and the largest |q+ + q- - 1| (0 for a
+    reversible T)."""
+    from pmarlo_tpu_torch.msm import committors, reactive_flux
+
+    qp, qm = committors(T, A, B)
+    tpt = reactive_flux(T, A, B)
+    _check(bool((qp[A] == 0).all() and (qp[B] == 1).all()), f"{tag}: q+ on A and B")
+    _check(bool(((qp >= 0) & (qp <= 1)).all() and ((qm >= 0) & (qm <= 1)).all()),
+           f"{tag}: committors in [0, 1]")
+    out_A, into_B = tpt.net_flux[A, :].sum(), tpt.net_flux[:, B].sum()
+    _check(out_A > 0 and abs(out_A - into_B) <= 1e-8 * out_A,
+           f"{tag}: flux out of A {out_A}, into B {into_B}")
+    return {"total_flux": float(tpt.total_flux), "rate": float(tpt.rate),
+            "mfpt": float(tpt.mfpt), "n_pathways": len(tpt.pathways),
+            "committor_sum_off_1": float(np.abs(qp + qm - 1.0).max())}
+
+
+def _pcca_sets(tag: str, T: np.ndarray):
+    """PCCA+ into 2 macrostates, gated; their crisp sets."""
+    from pmarlo_tpu_torch.msm import pcca_memberships
+
+    chi = pcca_memberships(T, 2)
+    _check(bool(((chi >= 0) & (chi <= 1)).all()), f"{tag}: memberships in [0, 1]")
+    _check(float(np.abs(chi.sum(1) - 1.0).max()) <= 1e-8, f"{tag}: memberships sum to 1")
+    crisp = chi.argmax(1)
+    A, B = np.flatnonzero(crisp == 0), np.flatnonzero(crisp == 1)
+    _check(len(A) > 0 and len(B) > 0, f"{tag}: two non-empty macrostates")
+    return A, B
+
+
+def phase_analysis_path(main: dict) -> dict:
+    """Phase 22: TICA -> k-means -> MSM -> ITS (both posteriors) -> CK and
+    the lag selector -> PCCA+ -> TPT -> FES on phase 4's REMD frames
+    (config 3); the ITS ladder, PCCA+ and TPT on phase 4's synthetic
+    35-shard set (config 5); TPT on the drunkard's-walk lattice (config 1).
+    Host wall seconds of each step."""
+    from pmarlo_tpu_torch.analysis.fes import compute_kde_fes
+    from pmarlo_tpu_torch.data import alanine_dipeptide_structure
+    from pmarlo_tpu_torch.features import (TopologyInfo, compute_ramachandran,
+                                           compute_ramachandran_fes)
+    from pmarlo_tpu_torch.md.topology import build_topology
+    from pmarlo_tpu_torch.msm import (build_msm, ck_test, compute_implied_timescales,
+                                      counts_from_dtrajs, kmeans, reduce_features,
+                                      sample_reversible_posterior)
+    from pmarlo_tpu_torch.msm.ck_its_selector import select_optimal_lag_ck_its
+    from pmarlo_tpu_torch.utils.msm_utils import ensure_connected_counts
+
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return result
+
+    t_phase = time.perf_counter()
+    res, feats = main["remd"], main["rung_features"]
+    out = {}
+
+    # 1. phi/psi of the four coldest rungs, against phase 4's cos/sin features
+    info = TopologyInfo.from_topology(build_topology(alanine_dipeptide_structure()))
+    angles = []
+    for rung in range(4):
+        traj = torch.as_tensor(res.positions[:, rung], dtype=torch.float32, device="cuda")
+        phi, psi, labels = compute_ramachandran(traj, info, device="cuda")
+        X = feats[rung]
+        d_phi = (phi[:, 0] - np.degrees(np.arctan2(X[:, 2], X[:, 0])) + 180.0) % 360.0 - 180.0
+        d_psi = (psi[:, 0] - np.degrees(np.arctan2(X[:, 3], X[:, 1])) + 180.0) % 360.0 - 180.0
+        out[f"rung{rung}_phi_psi_vs_features_max_deg"] = float(
+            max(np.abs(d_phi).max(), np.abs(d_psi).max()))
+        _check(out[f"rung{rung}_phi_psi_vs_features_max_deg"] <= 1e-3,
+               f"rung {rung}: compute_ramachandran vs phase 4's features")
+        angles.append((phi[:, 0], psi[:, 0]))
+    out["ramachandran_residues"] = labels
+
+    # 2. TICA of the cos/sin features
+    y, model = timed("tica_fit_s", lambda: reduce_features(
+        feats, method="tica", lag=ANALYSIS_LAG, n_components=2, device="cuda"))
+    ev = model.eigenvalues
+    out["tica_eigenvalues"] = ev.tolist()
+    _check(bool(((ev > -1.0) & (ev <= 1.0)).all() and (np.diff(ev) <= 0).all()),
+           f"TICA eigenvalues {ev}")
+
+    # 3. k-means to 16 states, the MSM at lag 2
+    _, labels, _ = timed("kmeans_s", lambda: kmeans(
+        np.concatenate(y), ANALYSIS_STATES, seed=0, device="cuda"))
+    dtrajs = np.split(labels.astype(np.int64), np.cumsum([len(s) for s in y])[:-1])
+    msm = timed("msm_s", lambda: build_msm(dtrajs, ANALYSIS_LAG, ANALYSIS_STATES))
+    _check(float(np.abs(msm.transition_matrix.sum(1) - 1.0).max()) <= 1e-8,
+           "MSM rows sum to 1")
+    out["msm_active_states"] = int(len(msm.active_states))
+
+    # 4. the ITS ladder, Dirichlet and reversible posteriors
+    kw = dict(lags=ANALYSIS_ITS_LAGS, n_states=ANALYSIS_STATES, n_timescales=3, seed=0,
+              device="cuda")
+    its_d = timed("its_dirichlet_s", lambda: compute_implied_timescales(
+        dtrajs, n_samples=100, **kw))
+    its_r = timed("its_reversible_s", lambda: compute_implied_timescales(
+        dtrajs, reversible=True, **kw))
+    walls["its_reversible_per_lag_s"] = walls["its_reversible_s"] / len(ANALYSIS_ITS_LAGS)
+    for tag, its in (("dirichlet", its_d), ("reversible", its_r)):
+        _its_gates(f"config 3 {tag}", its)
+        out[f"its_{tag}_timescales_frames"] = its.timescales.tolist()
+        out[f"its_{tag}_plateau_lag"] = its.plateau_lag
+    C, _ = ensure_connected_counts(counts_from_dtrajs(dtrajs, ANALYSIS_LAG, ANALYSIS_STATES))
+    flows = sample_reversible_posterior(C, 16, return_flow=True, device="cuda")
+    asym = max(float(np.abs(x - x.T).max() / np.abs(x).max()) for x in flows)
+    out["reversible_flow_asymmetry"] = asym
+    _check(asym <= 1e-6, f"reversible flow matrices asymmetric by {asym}")
+
+    # 5. CK at factors 2 and 3, and the CK/ITS lag selector
+    ck = timed("ck_s", lambda: ck_test(dtrajs, ANALYSIS_LAG, factors=(2, 3),
+                                       n_states=ANALYSIS_STATES))
+    _check(not ck.insufficient_data, "CK has both factors")
+    out["ck_rms"] = {int(k): v for k, v in ck.rms.items()}
+    sel = timed("selector_s", lambda: select_optimal_lag_ck_its(
+        dtrajs, n_states=ANALYSIS_STATES, ck_factors=(2, 3)))
+    out["selected_lag"] = int(sel.selected_lag)
+    out["selector_lags"] = [e.lag for e in sel.evaluations]
+
+    # 6. PCCA+ into 2 macrostates, TPT between them
+    T = msm.restricted_T()
+    A, B = timed("pcca_s", lambda: _pcca_sets("config 3", T))
+    out["macrostate_sizes"] = [len(A), len(B)]
+    out["tpt"] = timed("tpt_s", lambda: _tpt_gates("config 3", T, A, B))
+
+    # 7. FES of the 300 K rung's phi/psi and of the two TICA coordinates
+    rama = compute_ramachandran_fes(*angles[0], temperature_K=300.0)
+    kde = timed("kde_fes_s", lambda: compute_kde_fes(
+        np.concatenate(y)[:, 0], np.concatenate(y)[:, 1], temperature_K=300.0, device="cuda"))
+    for tag, F, populated in (("ramachandran", rama["free_energy"], rama["histogram"] > 0),
+                              ("kde", kde.free_energy, kde.counts > 0)):
+        _check(bool(np.isfinite(F[populated]).all()), f"{tag} FES finite where populated")
+        _check(float(np.nanmin(F)) == 0.0, f"{tag} FES minimum {np.nanmin(F)}")
+        out[f"{tag}_fes_populated_share"] = float(populated.mean())
+
+    # 8. the synthetic 35-shard set (config 5): ITS, PCCA+, TPT
+    synth = main["synthetic"]
+    skw = dict(lags=SYNTHETIC_ITS_LAGS, n_states=synth.n_states, seed=0, device="cuda")
+    s_its_d = timed("synthetic_its_dirichlet_s", lambda: compute_implied_timescales(
+        synth.dtrajs, n_samples=100, **skw))
+    s_its_r = timed("synthetic_its_reversible_s", lambda: compute_implied_timescales(
+        synth.dtrajs, reversible=True, **skw))
+    walls["synthetic_its_reversible_per_lag_s"] = (
+        walls["synthetic_its_reversible_s"] / len(SYNTHETIC_ITS_LAGS))
+    for tag, its in (("dirichlet", s_its_d), ("reversible", s_its_r)):
+        _its_gates(f"config 5 {tag}", its)
+        out[f"synthetic_its_{tag}_slowest_frames"] = its.timescales[:, 0].tolist()
+    Ts = synth.transition_matrix[np.ix_(synth.active_states, synth.active_states)]
+    sA, sB = timed("synthetic_pcca_s", lambda: _pcca_sets("config 5", Ts))
+    out["synthetic_tpt"] = timed("synthetic_tpt_s", lambda: _tpt_gates("config 5", Ts, sA, sB))
+
+    # 9. the drunkard's walk (config 1), reversible: q+ + q- = 1
+    out["lattice_tpt"] = timed("lattice_tpt_s", lambda: _tpt_gates(
+        "lattice", _drunkards_walk(), [0], [63]))
+    _check(out["lattice_tpt"]["committor_sum_off_1"] <= 1e-10, "lattice: q+ + q- = 1")
+
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    _line("phase 22 analysis path", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -3272,6 +3483,7 @@ def main() -> None:
     pme_water = phase_pme_water()
     tip4pew = phase_tip4pew_segment()
     tip5p = phase_tip5p_box()
+    analysis = phase_analysis_path(main_path)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -3514,6 +3726,9 @@ def main() -> None:
             "atoms", "sites", "ms_per_step", "nve_drift_kT_per_dof_per_ns",
             "sites_max_off_parents_nm", "end_kernel_vs_plain_force_rel_err", "eval_ms",
             "sweep_ms", "launches")},
+        "analysis_path": {k: analysis[k] for k in (
+            "walls_s", "tica_eigenvalues", "msm_active_states", "selected_lag", "ck_rms",
+            "macrostate_sizes", "reversible_flow_asymmetry")},
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "

@@ -44,10 +44,33 @@ _EXPORTS = {
                                    "suggest_temperature_ladder"),
     "save_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "save_checkpoint"),
     "load_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "load_checkpoint"),
+    # features
+    "FEATURE_REGISTRY": ("pmarlo_tpu_torch.features.base", "FEATURE_REGISTRY"),
+    "get_feature": ("pmarlo_tpu_torch.features.base", "get_feature"),
+    "register_feature": ("pmarlo_tpu_torch.features.base", "register_feature"),
+    "parse_feature_spec": ("pmarlo_tpu_torch.features.base", "parse_feature_spec"),
+    "featurize_trajectory": ("pmarlo_tpu_torch.features.featurize", "featurize_trajectory"),
+    "compute_ramachandran": ("pmarlo_tpu_torch.features.ramachandran",
+                             "compute_ramachandran"),
+    # ML CVs
+    "DeepTICAConfig": ("pmarlo_tpu_torch.ml.deeptica", "DeepTICAConfig"),
+    "DeepTICAModel": ("pmarlo_tpu_torch.ml.deeptica", "DeepTICAModel"),
+    "train_deeptica": ("pmarlo_tpu_torch.ml.deeptica", "train_deeptica"),
+    # MSM
+    "generate_2d_fes": ("pmarlo_tpu_torch.msm.free_energy", "generate_2d_fes"),
+    "generate_1d_pmf": ("pmarlo_tpu_torch.msm.free_energy", "generate_1d_pmf"),
+    "FESResult": ("pmarlo_tpu_torch.msm.free_energy", "FESResult"),
+    "PMFResult": ("pmarlo_tpu_torch.msm.free_energy", "PMFResult"),
+    "candidate_lag_ladder": ("pmarlo_tpu_torch.utils.msm_utils", "candidate_lag_ladder"),
     # shards
     "write_shard": ("pmarlo_tpu_torch.io.shards", "write_shard"),
     "read_shard": ("pmarlo_tpu_torch.io.shards", "read_shard"),
     "select_shard_paths": ("pmarlo_tpu_torch.io.shards", "select_shard_paths"),
+    # fused enhanced sampling
+    "run_fused_metadynamics": ("pmarlo_tpu_torch.md.enhanced_sampling",
+                               "run_fused_metadynamics"),
+    "MetadynamicsBias": ("pmarlo_tpu_torch.bias.metadynamics", "MetadynamicsBias"),
+    "train_cv_model": ("pmarlo_tpu_torch.cv", "train_cv_model"),
 }
 
 

@@ -1,9 +1,9 @@
-"""Featurization: dihedrals, distances, Rg, contacts, registry, and the
-water-model checks g(r) and MSD.
+"""Featurization: dihedrals, distances, Rg, contacts, registry, the
+Ramachandran analysis, and the water-model checks g(r) and MSD.
 
 Port of ``pmarlo_tpu/features`` (``base``, ``builtins``, ``featurize``,
-``pairs``, ``rdf``, ``msd``): plain PyTorch over coordinate tensors on
-their device.
+``pairs``, ``ramachandran``, ``rdf``, ``msd``): plain PyTorch over
+coordinate tensors on their device.
 """
 
 from .base import (
@@ -24,6 +24,8 @@ from .builtins import (
     radius_of_gyration,
 )
 from .featurize import featurize_trajectory
+from .pairs import lagged_time_pairs, make_training_pairs_from_trajectory
+from .ramachandran import compute_ramachandran, compute_ramachandran_fes, periodic_hist2d
 from .msd import diffusion_coefficient, mean_squared_displacement, unwrap_trajectory
 from .rdf import coordination_number, radial_distribution
 
@@ -42,6 +44,11 @@ __all__ = [
     "radius_of_gyration",
     "contacts",
     "featurize_trajectory",
+    "lagged_time_pairs",
+    "make_training_pairs_from_trajectory",
+    "compute_ramachandran",
+    "compute_ramachandran_fes",
+    "periodic_hist2d",
     "radial_distribution",
     "coordination_number",
     "diffusion_coefficient",

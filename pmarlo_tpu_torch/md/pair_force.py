@@ -369,7 +369,11 @@ class PairForce:
                  newton: bool = False, bonded: str = "gather"):
         require_no_vsites(system, "the pair force path")
         if system.box is not None:
-            raise NotImplementedError("periodic systems: ROADMAP queue A12")
+            raise ValueError(
+                "the pair force path is an implicit-solvent path and takes no box "
+                "(a boxed system is explicit solvent: build_periodic_force_fn or "
+                "build_cell_force_fn)"
+            )
         if int(tile) < 1:
             raise ValueError(f"tile must be positive, got {tile}")
         if gb_cutoff is not None and not float(gb_cutoff) > 0.0:

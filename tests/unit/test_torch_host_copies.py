@@ -28,6 +28,11 @@ COPIES = [
     "io/trajectory.py", "io/shards.py", "io/export.py", "remd/demux.py",
     # the solvation box and the Amber file loaders of the virtual-site water slice
     "protein/solvate.py", "md/amber_params.py",
+    # the analysis half of the alanine pipeline: metrics, PCCA+, TPT, CK, the lag
+    # selector, results, the builder and the analysis glue
+    "ml/metrics.py", "msm/pcca.py", "msm/tpt.py", "msm/ck.py", "msm/ck_its_selector.py",
+    "msm/results.py", "msm/msm_builder.py", "analysis/msm.py", "analysis/project_cv.py",
+    "analysis/counting.py", "analysis/debug_export.py",
 ]
 
 #: host-side index functions of ``features/builtins.py``: numpy, carried
@@ -44,6 +49,22 @@ BOX_FUNCTIONS = [
     "box_matrix", "reduce_box_matrix", "split_matrix", "from_lengths_angles",
     "to_lengths_angles", "validate_reduced", "perp_widths", "volume",
     "tilt_ratios", "dodecahedron_vectors",
+]
+
+
+#: numpy functions of the modules the analysis slice ports, carried over
+#: as they are beside the tensor code: (module path, function)
+PORTED_MODULE_FUNCTIONS = [
+    ("msm/reduction.py", "_sym_inv_sqrt"), ("msm/reduction.py", "pca"),
+    ("msm/reduction.py", "_as_list"), ("msm/reduction.py", "_global_mean"),
+    ("msm/its.py", "_timescales_from_eigvals"), ("msm/its.py", "detect_plateau"),
+    ("msm/reversible_sampler.py", "_round_robin_schedule"),
+    ("msm/reversible_sampler.py", "_init_flow_matrix"),
+    ("features/ramachandran.py", "periodic_hist2d"),
+    ("features/ramachandran.py", "compute_ramachandran_fes"),
+    ("features/ramachandran.py", "_periodic_gaussian_smooth"),
+    ("analysis/fes.py", "select_fes_columns"), ("analysis/fes.py", "normalize_weights"),
+    ("analysis/fes.py", "compute_bandwidth"),
 ]
 
 
@@ -141,3 +162,12 @@ def test_native_build_differs_from_its_source_only_in_cache_dir():
     assert _function_source(copy_path, name) == _function_source(src_path, name)
     line = 'NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"'
     assert line in src_path.read_text() and line in copy_path.read_text()
+
+
+@pytest.mark.parametrize("rel, name", PORTED_MODULE_FUNCTIONS)
+def test_numpy_functions_of_ported_modules_are_copied(rel, name):
+    """Each numpy function of a ported analysis module has its source's
+    text, docstring and comments included."""
+    src = _function_source(ROOT / "pmarlo_tpu" / rel, name)
+    copy = _function_source(ROOT / "pmarlo_tpu_torch" / rel, name)
+    assert copy == src, f"{rel} {name} drifted from its source"

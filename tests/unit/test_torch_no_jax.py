@@ -90,6 +90,21 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.features.rdf", "pmarlo_tpu_torch.features.msd",
     "pmarlo_tpu_torch.ml.plumed",
 ]
+#: modules the analysis slice added: the reductions, the Bayesian ITS and
+#: its reversible sampler, CK and the lag selector, PCCA+, TPT, the KDE FES,
+#: the Ramachandran analysis, the CV facade and the host copies beside them
+NEW_MODULES += [
+    "pmarlo_tpu_torch.msm.reduction", "pmarlo_tpu_torch.msm.its",
+    "pmarlo_tpu_torch.msm.reversible_sampler", "pmarlo_tpu_torch.msm.ck",
+    "pmarlo_tpu_torch.msm.ck_its_selector", "pmarlo_tpu_torch.msm.pcca",
+    "pmarlo_tpu_torch.msm.tpt", "pmarlo_tpu_torch.msm.results",
+    "pmarlo_tpu_torch.msm.msm_builder", "pmarlo_tpu_torch.msm.__init__",
+    "pmarlo_tpu_torch.analysis.fes", "pmarlo_tpu_torch.analysis.msm",
+    "pmarlo_tpu_torch.analysis.project_cv", "pmarlo_tpu_torch.analysis.counting",
+    "pmarlo_tpu_torch.analysis.debug_export", "pmarlo_tpu_torch.analysis.__init__",
+    "pmarlo_tpu_torch.features.ramachandran", "pmarlo_tpu_torch.features.__init__",
+    "pmarlo_tpu_torch.cv.__init__", "pmarlo_tpu_torch.ml.metrics",
+]
 
 
 def test_port_imports_without_jax():

@@ -202,14 +202,16 @@ def test_cpu_tensors_never_launch_and_cuda_paths_raise():
 
 
 def test_unported_options_raise():
-    """What the pair path still refuses: a periodic system (ROADMAP A12).
-    The tile-culled, Newton and bonded-kernel arguments are ported
+    """What the pair path refuses: a system with a box, which is explicit
+    solvent and has no GB term to compute (``build_system`` turns implicit
+    solvent off for it), as the site refusal does for virtual sites. The
+    tile-culled, Newton and bonded-kernel arguments are ported
     (``test_torch_pair_culled.py``, ``test_torch_bonded_kernel.py``)."""
     import dataclasses
 
     system, _ = build_system(alanine_dipeptide_structure(), gb_model="gbn2")
     boxed = dataclasses.replace(system, box=(3.0, 3.0, 3.0))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="implicit-solvent path and takes no box"):
         build_pair_force_fn(boxed)
     for kwargs in (dict(gb_cutoff=2.0), dict(gb_cutoff=2.0, order_from=np.zeros((22, 3))),
                    dict(newton=True), dict(bonded="window")):
