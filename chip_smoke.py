@@ -201,9 +201,22 @@ Phases, one line of numbers each:
              lag 10) the ITS ladder with both posteriors over 5 lags, PCCA+
              and TPT, and TPT on the 8 x 8 drunkard's-walk lattice; gates on
              each result, host wall seconds of each step.
+23. conformations - the end of config 4 on phase 10's unbiased REMD frames
+             (no MD of its own): SASA (Shrake-Rupley, 96 points, chunked),
+             H-bond counts and phi/psi fractions over all 32 x 200 walker
+             frames through ``featurize_trajectory`` (CUDA events, peak device
+             memory added), 64 of them again on the CPU (equal but at a
+             threshold, counted); Kabsch-Sander DSSP and Baker-Hubbard on the
+             card, 64 frames against the CPU; one frame of the 3,726-atom
+             assembly's SASA, chunked, against the CPU and against its 27
+             copies alone (an atom can only lose area); ``EnhancedMSM`` on
+             rungs 0-3 (TICA, k-means, MSM, ITS, macro CK, FES, state table,
+             representative PDBs, saved results); ``find_conformations`` on
+             the active block with representatives and the TPT bootstrap;
+             gates on each result, host wall seconds of each step.
 
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-22, the card's name and power limit, a line of the kernels'
+11-14 and 15-23, the card's name and power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
@@ -1569,6 +1582,8 @@ def phase_learned_cv(cx: dict) -> dict:
     out["fused_mtd_plain_ms"] = _cuda_ms(
         lambda: short.reference(sx, sv, sseeds, temps, n_timed, 0, hills=hills), 1)
     _line("phase 10 learned cv", out)
+    # handed on, not printed: phase 23 analyses these frames
+    out.update(remd=res, info=info, x_min=cx["x_min"])
     return out
 
 
@@ -3374,6 +3389,306 @@ def phase_analysis_path(main: dict) -> dict:
     return out
 
 
+CONFORMATION_CHECK_FRAMES = 64      # frames of phase 23 run again on the CPU
+SASA_THRESHOLD_NM2 = 1e-6           # |d2 - r^2| of a point whose burial may flip
+HBOND_THRESHOLD = 1e-6              # distance (nm) or cosine off its cutoff
+SS_THRESHOLD_DEG = 1e-3             # phi / psi off a region boundary
+KS_THRESHOLD_KCAL = 1e-4            # K&S energy off the -0.5 kcal/mol cutoff
+DSSP_LETTERS = np.array(["C", "H", "E"])
+
+
+def _sasa_point_margin(x: np.ndarray, radii: np.ndarray, i: int) -> float:
+    """Least |d2 - r_j^2| (nm^2, float64, j != i) over atom i's 96 points:
+    how close the closest of its burial tests sits to its threshold."""
+    from pmarlo_tpu_torch.features.structure import _PROBE_RADIUS, _golden_spiral_points
+
+    r = radii.astype(np.float32).astype(np.float64) + np.float32(_PROBE_RADIUS)
+    x = x.astype(np.float64)
+    pts = x[i] + r[i] * _golden_spiral_points(96)
+    m = np.abs(((pts[:, None, :] - x[None]) ** 2).sum(-1) - r[None] ** 2)
+    m[:, i] = np.inf
+    return float(m.min())
+
+
+def _sasa_agreement(tag: str, card: np.ndarray, cpu: np.ndarray, frames: np.ndarray,
+                    radii: np.ndarray) -> dict:
+    """Per-atom SASA of the card against the CPU: equal but for atoms with a
+    point at its threshold (counted); the totals within 1e-4 relative."""
+    differ = np.argwhere(card != cpu)
+    margins = [_sasa_point_margin(frames[t], radii, i) for t, i in differ]
+    rel = abs(float(card.sum()) - float(cpu.sum())) / float(cpu.sum())
+    _check(all(m <= SASA_THRESHOLD_NM2 for m in margins),
+           f"{tag}: SASA differs off a threshold, margins {margins[:8]}")
+    _check(rel <= 1e-4, f"{tag}: SASA total {rel} relative off the CPU")
+    return {"atoms_at_threshold": len(differ), "total_rel_err": rel,
+            "max_abs_err_nm2": float(np.abs(card - cpu).max())}
+
+
+def _hbond_margins(frames: np.ndarray, donors: np.ndarray, acceptors: np.ndarray) -> np.ndarray:
+    """Per frame, the least distance (float64) of a donor-acceptor pair's H..A
+    distance to 0.25 nm or of its angle cosine to cos 120 degrees."""
+    if len(frames) == 0:
+        return np.zeros(0)
+    x = frames.astype(np.float64)
+    ha = x[:, acceptors][:, None] - x[:, donors[:, 1]][:, :, None]
+    dist = np.sqrt((ha ** 2).sum(-1) + 1e-12)
+    hd = x[:, donors[:, 0]] - x[:, donors[:, 1]]
+    hd /= np.sqrt((hd ** 2).sum(-1, keepdims=True) + 1e-12)
+    cos = (hd[:, :, None] * ha / dist[..., None]).sum(-1)
+    off = np.minimum(np.abs(dist - 0.25), np.abs(cos - np.cos(np.radians(120.0))))
+    return off.reshape(len(x), -1).min(1)
+
+
+def _ss_margins(frames: np.ndarray, info) -> np.ndarray:
+    """Per frame, the least distance (degrees, float64) of a phi or psi to a
+    boundary of ``ss_fractions``' regions."""
+    if len(frames) == 0:
+        return np.zeros(0)
+    from pmarlo_tpu_torch.features import compute_dihedrals, phi_psi_indices
+
+    phi_q, psi_q, _ = phi_psi_indices(info.atom_names, info.residue_ids, info.chain_ids)
+    x = torch.as_tensor(frames, dtype=torch.float64)
+    ang = torch.rad2deg(torch.cat([compute_dihedrals(x, phi_q), compute_dihedrals(x, psi_q)],
+                                  1)).numpy()
+    edges = np.array([-180.0, -160.0, -150.0, -120.0, -45.0, -20.0, 50.0, 90.0, 180.0])
+    return np.abs(ang[..., None] - edges).reshape(len(x), -1).min(1)
+
+
+def phase_conformations_path(cv: dict, px_min: torch.Tensor) -> dict:
+    """Phase 23: the end of config 4 on phase 10's unbiased REMD frames (no
+    MD of its own): the structure features over every walker frame, DSSP
+    and Baker-Hubbard, SASA of the 3,726-atom assembly, ``EnhancedMSM`` on
+    rungs 0-3 and ``find_conformations`` with its representatives. Host
+    wall seconds of each step; CUDA events and the peak device memory of the
+    features."""
+    import tempfile
+    from pathlib import Path
+
+    from pmarlo_tpu_torch.conformations import find_conformations
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.features import TopologyInfo, featurize_trajectory
+    from pmarlo_tpu_torch.features import structure as S
+    from pmarlo_tpu_torch.io.pdb import read_pdb
+    from pmarlo_tpu_torch.md.topology import build_topology
+    from pmarlo_tpu_torch.msm.enhanced import EnhancedMSM
+
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return result
+
+    def peak_added(fn):
+        """(result, device ms by CUDA events, GiB the call added at its peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return (result, start.elapsed_time(end),
+                (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+    t_phase = time.perf_counter()
+    res, info, x_min = cv["remd"], cv["info"], cv["x_min"]
+    R, N = res.positions.shape[1], res.positions.shape[2]
+    radii = S.sasa_radii(info.atom_names)
+    out = {"walkers": R, "atoms": N}
+
+    # 1. SASA, H-bonds and phi/psi fractions over every walker's frames
+    traj = torch.as_tensor(np.concatenate([res.replica_trajectory(w) for w in range(R)]),
+                           dtype=torch.float32, device="cuda")             # (R F, N, 3)
+    spec = ["sasa", "hbonds", "ssfrac"]
+    (X, meta), out["features_ms"], out["features_peak_gib"] = peak_added(
+        lambda: featurize_trajectory(traj, spec, info))
+    walls["features_s"] = out["features_ms"] / 1e3
+    out["frames"], out["feature_columns"] = int(traj.shape[0]), meta["columns"]
+    out["sasa_point_tests"] = float(traj.shape[0]) * N * 96 * N
+    _check(X.is_cuda and X.shape == (traj.shape[0], 5), f"features {tuple(X.shape)} on the card")
+    _check(bool(torch.isfinite(X).all()), "structure features finite")
+    per_atom, out["sasa_per_atom_ms"], _ = peak_added(lambda: S.shrake_rupley_sasa(traj, radii))
+    bound = torch.as_tensor(4.0 * np.pi * (radii + 0.14) ** 2, dtype=torch.float32,
+                            device="cuda")
+    _check(bool(((per_atom >= 0) & (per_atom <= bound * (1 + 1e-6))).all()),
+           "per-atom SASA in [0, 4 pi (r + 0.14)^2]")
+    _check(torch.equal(per_atom.sum(1), X[:, 0]), "the sasa column is the per-atom sum")
+    sel = np.linspace(0, traj.shape[0] - 1, CONFORMATION_CHECK_FRAMES).astype(int)
+    frames = traj[sel].cpu().numpy()
+    X_cpu, _ = featurize_trajectory(frames, spec, info, device="cpu")
+    out["check_sasa"] = _sasa_agreement(
+        "walker frames", per_atom[sel].cpu().numpy(),
+        S.shrake_rupley_sasa(frames, radii, device="cpu").numpy(), frames, radii)
+    Xc, Xh = X[sel].cpu().numpy(), X_cpu.numpy()
+    elements = [S._element_of(n) for n in info.atom_names]
+    donors, acceptors = S.find_donors_acceptors(info.atom_names, elements, info.bonds)
+    hb_off = np.flatnonzero(Xc[:, 1] != Xh[:, 1])
+    ss_off = np.flatnonzero((Xc[:, 2:] != Xh[:, 2:]).any(1))
+    _check(bool((_hbond_margins(frames[hb_off], donors, acceptors) <= HBOND_THRESHOLD).all()),
+           f"H-bond counts differ off a cutoff in frames {hb_off.tolist()}")
+    _check(bool((_ss_margins(frames[ss_off], info) <= SS_THRESHOLD_DEG).all()),
+           f"ss fractions differ off a boundary in frames {ss_off.tolist()}")
+    out.update(check_hbond_frames_at_threshold=len(hb_off),
+               check_ssfrac_frames_at_threshold=len(ss_off))
+    out["sasa_total_nm2_mean"] = float(X[:, 0].mean())
+    out["hbonds_mean"] = float(X[:, 1].mean())
+    out["ssfrac_alpha_beta_coil_mean"] = X[:, 2:].mean(0).tolist()
+
+    # 2. DSSP and Baker-Hubbard over the same frames on the card
+    codes = timed("dssp_s", lambda: S.dssp(traj, info))
+    _check(codes.is_cuda and codes.dtype == torch.int8, "DSSP codes on the card")
+    e, allowed, _ = S.kabsch_sander_energies(traj[sel], info)
+    hb = (e < -0.5) & allowed[None]
+    e_cpu, allowed_cpu, _ = S.kabsch_sander_energies(frames, info, device="cpu")
+    hb_cpu = (e_cpu < -0.5) & allowed_cpu[None]
+    flips = (hb.cpu() != hb_cpu)
+    near = (e_cpu + 0.5).abs() <= KS_THRESHOLD_KCAL
+    _check(not bool(flips[~near].any()), "K&S H-bonds differ off the -0.5 cutoff")
+    same = ~flips.any(dim=(1, 2))
+    codes_cpu = S.dssp(frames, info, device="cpu")
+    _check(torch.equal(codes[sel].cpu()[same], codes_cpu[same]),
+           "DSSP codes of the card and the CPU")
+    out["check_ks_pairs_at_threshold"] = int(flips.sum())
+    out["ks_energy_max_abs_err_kcal"] = float((e.cpu() - e_cpu).abs().max())
+    native = S.ss_fractions_dssp(x_min, info)[0].tolist()
+    run = torch.stack([(codes == k).float().mean() for k in (1, 2, 0)]).tolist()
+    out["dssp_native_helix_strand_coil"] = native
+    out["dssp_run_helix_strand_coil"] = run
+    out["dssp_native"] = "".join(DSSP_LETTERS[S.dssp(x_min, info)[0].cpu().numpy()])
+    triplets = timed("baker_hubbard_s", lambda: S.baker_hubbard(traj, info, freq=0.1))
+    _check(triplets.dtype == np.int64 and triplets.ndim == 2, "Baker-Hubbard triplets")
+    out["baker_hubbard_freq_0_1"] = [
+        f"{info.residue_names[d]}{info.residue_ids[d]}:{info.atom_names[h]}->"
+        f"{info.residue_names[a]}{info.residue_ids[a]}:{info.atom_names[a]}"
+        for d, h, a in triplets.tolist()]
+
+    # 3. SASA of the 3,726-atom assembly on the card, chunked, and on the CPU
+    ainfo = TopologyInfo.from_topology(build_topology(chignolin_assembly(PROTEIN_COPIES)))
+    aradii = S.sasa_radii(ainfo.atom_names)
+    xa = px_min.detach().to(torch.float32)[None]
+    assembly, out["assembly_sasa_ms"], out["assembly_sasa_peak_gib"] = peak_added(
+        lambda: S.shrake_rupley_sasa(xa, aradii))
+    t0 = time.perf_counter()
+    assembly_cpu = S.shrake_rupley_sasa(xa.cpu(), aradii)
+    out["assembly_sasa_cpu_s"] = time.perf_counter() - t0
+    xa_np = xa[0].cpu().numpy()
+    out["assembly_atoms"] = int(xa.shape[1])
+    out["check_assembly_sasa"] = _sasa_agreement(
+        "assembly", assembly.cpu().numpy(), assembly_cpu.numpy(), xa_np[None], aradii)
+    alone = torch.cat([S.shrake_rupley_sasa(xa[:, k * N:(k + 1) * N], aradii[k * N:(k + 1) * N])
+                       for k in range(xa.shape[1] // N)], dim=1)
+    _check(bool((assembly <= alone).all()), "an atom's SASA grew beside the other copies")
+    out["assembly_atoms_buried_by_other_copies"] = int((assembly < alone).sum())
+    out["assembly_sasa_nm2"] = float(assembly.sum())
+
+    # 4. EnhancedMSM on rungs 0-3, into a temporary directory
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    trajs = [res.demuxed_trajectory(r) for r in range(4)]
+    m = EnhancedMSM(topology=info, temperature_K=300.0, output_dir=root / "msm")
+    _check(m.device.type == "cuda", f"EnhancedMSM resolved {m.device}")
+    timed("load_s", lambda: m.load_trajectories(trajs))
+    allocated = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    timed("compute_features_s", lambda: m.compute_features(
+        "phi_psi", use_tica=True, tica_lag=ANALYSIS_LAG, tica_components=2))
+    grew = torch.cuda.memory_stats()["allocated_bytes.all.allocated"] - allocated
+    _check(grew >= sum(t.nbytes for t in trajs), f"features computed on the card ({grew} B)")
+    _check(all(f.dtype == np.float32 and f.shape == (len(trajs[0]), 2) for f in m.features),
+           "TICA features on the host, float32")
+    out["enhanced_tica_eigenvalues"] = m.feature_info["tica"]["eigenvalues"]
+    timed("cluster_s", lambda: m.cluster_features(ANALYSIS_STATES, seed=0))
+    timed("build_msm_s", lambda: m.build_msm(ANALYSIS_LAG))
+    its = timed("its_s", lambda: m.compute_implied_timescales(n_samples=100))
+    _its_gates("enhanced", its)
+    ck = timed("ck_macro_s", lambda: m.compute_ck_test(macro=2))
+    fes = timed("fes_s", lambda: m.generate_free_energy_surface(0, 1, bins=24))
+    table = timed("state_table_s", lambda: m.create_state_table(free_energy_errors=True))
+    pdbs = timed("representatives_s", m.extract_representative_structures)
+    saved = timed("save_s", m.save_analysis_results)
+    msm = m.msm
+    active = msm.active_states
+    T, pi = msm.transition_matrix, msm.stationary_distribution
+    Ta, pia = msm.restricted_T(), pi[active]
+    _check(float(np.abs(Ta.sum(1) - 1.0).max()) <= 1e-10, "T's rows sum to 1")
+    _check(float(np.abs(pia @ Ta - pia).max()) <= 1e-10 and
+           float(np.abs(pi @ T - pi).max()) <= 1e-10, "pi T = pi")
+    _check(bool(np.isfinite(fes.free_energy).any()), "EnhancedMSM FES has finite bins")
+    rows = [r for r in table if r["active"]]
+    _check([r["state"] for r in rows] == active.tolist() and len(pdbs) == len(active),
+           "one state-table row and one representative PDB per active state")
+    pdb_err = 0.0
+    for row, path in zip(rows, pdbs):
+        rep = row["representative"]
+        pdb_err = max(pdb_err, float(np.abs(read_pdb(path).coordinates()
+                                            - trajs[rep["traj"]][rep["frame"]]).max()))
+    _check(pdb_err <= 1e-3, f"state PDBs read back {pdb_err} nm off their frames")
+    _check((saved / "msm_result.pkl").exists() and (saved / "state_table.json").exists(),
+           "analysis results saved")
+    out.update({
+        "enhanced_active_states": int(len(active)), "enhanced_lag": int(msm.lag),
+        "enhanced_its_slowest_frames": its.timescales[:, 0].tolist(),
+        "enhanced_ck_macro_rms": {int(k): v for k, v in ck.rms.items()},
+        "enhanced_fes_finite_share": float(fes.finite_fraction),
+        "enhanced_state_pdb_max_err_nm": pdb_err,
+        "enhanced_free_energy_err_kJ": [r.get("free_energy_err") for r in rows],
+    })
+
+    # 5. find_conformations on the active block, representatives from rungs 0-3
+    Tn = Ta / Ta.sum(1, keepdims=True)
+    remap = np.full(msm.n_states, -1, np.int64)
+    remap[active] = np.arange(len(active))
+    mapped = [remap[d] for d in m.dtrajs]
+    conf_dir = root / "conformations"
+    cs = timed("find_conformations_s", lambda: find_conformations(
+        Tn, n_macrostates=2, committor_tolerance=0.2,
+        features=np.concatenate(m.features), dtraj=np.concatenate(mapped),
+        traj_lengths=[len(t) for t in trajs], trajectories=trajs, topology=info,
+        output_dir=conf_dir, bootstrap=True, dtrajs_for_bootstrap=mapped,
+        lag_for_bootstrap=ANALYSIS_LAG))
+    tpt = cs.tpt
+    qp, qm = tpt.forward_committor, tpt.backward_committor
+    A, B = tpt.source_states, tpt.sink_states
+    _check(bool(((qp >= 0) & (qp <= 1)).all() and (qp[A] == 0).all() and (qp[B] == 1).all()),
+           "q+ in [0, 1], 0 on the source, 1 on the sink")
+    out["committor_sum_off_1"] = float(np.abs(qp + qm - 1.0).max())
+    _check(out["committor_sum_off_1"] <= 1e-10, "q+ + q- = 1 (reversible MSM)")
+    middle = np.setdiff1d(np.arange(len(Tn)), np.concatenate([A, B]))
+    conservation = np.abs(tpt.net_flux.sum(1) - tpt.net_flux.sum(0))[middle]
+    out["net_flux_conservation_max"] = float(conservation.max()) if len(middle) else 0.0
+    _check(out["net_flux_conservation_max"] <= 1e-10, "net flux conserved at intermediates")
+    _check(len(cs.conformations) >= 1, "at least one conformation")
+    _check(bool(np.isfinite(cs.kis.scores).all()), "KIS scores finite")
+    reps = []
+    for c in cs.conformations:
+        _check(c.pdb_path is not None and Path(c.pdb_path).exists(),
+               f"state {c.state}: representative PDB written")
+        rep = c.representative
+        x = torch.as_tensor(trajs[rep["traj"]][rep["frame"]], device="cuda")
+        reps.append({
+            "state": c.state, "kind": c.kind, "macrostate": c.macrostate,
+            "committor": c.committor, "population": c.population, "kis": c.kis_score,
+            "sasa_nm2": float(S.shrake_rupley_sasa(x, radii).sum()),
+            "hbonds": float(S.hydrogen_bonds(x, donors, acceptors)[0]),
+            "dssp": "".join(DSSP_LETTERS[S.dssp(x, info)[0].cpu().numpy()]),
+        })
+    out.update({
+        "conformations": reps,
+        "source": A.tolist(), "sink": B.tolist(),
+        "tpt_rate_per_frame": float(tpt.rate), "tpt_mfpt_frames": float(tpt.mfpt),
+        "bootstrap": cs.uncertainty.to_dict() if cs.uncertainty is not None else None,
+    })
+    tmp.cleanup()
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    _line("phase 23 conformations path", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -3484,6 +3799,7 @@ def main() -> None:
     tip4pew = phase_tip4pew_segment()
     tip5p = phase_tip5p_box()
     analysis = phase_analysis_path(main_path)
+    conformations = phase_conformations_path(cv, px_min)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -3729,6 +4045,12 @@ def main() -> None:
         "analysis_path": {k: analysis[k] for k in (
             "walls_s", "tica_eigenvalues", "msm_active_states", "selected_lag", "ck_rms",
             "macrostate_sizes", "reversible_flow_asymmetry")},
+        "conformations_path": {k: conformations[k] for k in (
+            "walls_s", "frames", "features_ms", "features_peak_gib", "sasa_per_atom_ms",
+            "assembly_sasa_ms", "assembly_sasa_cpu_s", "assembly_sasa_peak_gib",
+            "assembly_atoms_buried_by_other_copies", "dssp_native_helix_strand_coil",
+            "dssp_run_helix_strand_coil", "enhanced_active_states", "committor_sum_off_1",
+            "net_flux_conservation_max")},
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "

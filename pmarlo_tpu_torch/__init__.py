@@ -52,11 +52,18 @@ _EXPORTS = {
     "featurize_trajectory": ("pmarlo_tpu_torch.features.featurize", "featurize_trajectory"),
     "compute_ramachandran": ("pmarlo_tpu_torch.features.ramachandran",
                              "compute_ramachandran"),
+    "dssp": ("pmarlo_tpu_torch.features.structure", "dssp"),
+    "ss_fractions_dssp": ("pmarlo_tpu_torch.features.structure", "ss_fractions_dssp"),
+    "baker_hubbard": ("pmarlo_tpu_torch.features.structure", "baker_hubbard"),
     # ML CVs
     "DeepTICAConfig": ("pmarlo_tpu_torch.ml.deeptica", "DeepTICAConfig"),
     "DeepTICAModel": ("pmarlo_tpu_torch.ml.deeptica", "DeepTICAModel"),
     "train_deeptica": ("pmarlo_tpu_torch.ml.deeptica", "train_deeptica"),
     # MSM
+    "MarkovStateModel": ("pmarlo_tpu_torch.msm.enhanced", "EnhancedMSM"),
+    "EnhancedMSM": ("pmarlo_tpu_torch.msm.enhanced", "EnhancedMSM"),
+    "run_complete_msm_analysis": ("pmarlo_tpu_torch.msm.enhanced",
+                                  "run_complete_msm_analysis"),
     "generate_2d_fes": ("pmarlo_tpu_torch.msm.free_energy", "generate_2d_fes"),
     "generate_1d_pmf": ("pmarlo_tpu_torch.msm.free_energy", "generate_1d_pmf"),
     "FESResult": ("pmarlo_tpu_torch.msm.free_energy", "FESResult"),
@@ -66,6 +73,8 @@ _EXPORTS = {
     "write_shard": ("pmarlo_tpu_torch.io.shards", "write_shard"),
     "read_shard": ("pmarlo_tpu_torch.io.shards", "read_shard"),
     "select_shard_paths": ("pmarlo_tpu_torch.io.shards", "select_shard_paths"),
+    # conformations
+    "find_conformations": ("pmarlo_tpu_torch.conformations.finder", "find_conformations"),
     # fused enhanced sampling
     "run_fused_metadynamics": ("pmarlo_tpu_torch.md.enhanced_sampling",
                                "run_fused_metadynamics"),

@@ -1,9 +1,11 @@
 """Featurization: dihedrals, distances, Rg, contacts, registry, the
-Ramachandran analysis, and the water-model checks g(r) and MSD.
+structure features (SASA, H-bonds, secondary structure, DSSP,
+Baker-Hubbard), the Ramachandran analysis, and the water-model checks g(r)
+and MSD.
 
 Port of ``pmarlo_tpu/features`` (``base``, ``builtins``, ``featurize``,
-``pairs``, ``ramachandran``, ``rdf``, ``msd``): plain PyTorch over
-coordinate tensors on their device.
+``structure``, ``pairs``, ``ramachandran``, ``rdf``, ``msd``): plain
+PyTorch over coordinate tensors on their device.
 """
 
 from .base import (
@@ -24,6 +26,15 @@ from .builtins import (
     radius_of_gyration,
 )
 from .featurize import featurize_trajectory
+from .structure import (
+    shrake_rupley_sasa,
+    hydrogen_bonds,
+    ss_fractions,
+    ss_fractions_dssp,
+    dssp,
+    kabsch_sander_hbonds,
+    baker_hubbard,
+)
 from .pairs import lagged_time_pairs, make_training_pairs_from_trajectory
 from .ramachandran import compute_ramachandran, compute_ramachandran_fes, periodic_hist2d
 from .msd import diffusion_coefficient, mean_squared_displacement, unwrap_trajectory
@@ -44,6 +55,13 @@ __all__ = [
     "radius_of_gyration",
     "contacts",
     "featurize_trajectory",
+    "shrake_rupley_sasa",
+    "hydrogen_bonds",
+    "ss_fractions",
+    "ss_fractions_dssp",
+    "dssp",
+    "kabsch_sander_hbonds",
+    "baker_hubbard",
     "lagged_time_pairs",
     "make_training_pairs_from_trajectory",
     "compute_ramachandran",

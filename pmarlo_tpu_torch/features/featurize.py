@@ -1,10 +1,13 @@
 """Trajectory featurization entry point (reference: src/pmarlo/features/featurize.py:17).
 
 Port of ``pmarlo_tpu/features/featurize.py``: the feature matrix is a
-tensor on the trajectory's device (a numpy trajectory goes to the CPU).
-Takes a (T, N, 3) coordinate tensor (device or host), a spec, and topology
-info; concatenates all requested feature blocks into one (T, K) matrix with
-per-column periodicity flags.
+tensor on the device the features were computed on. A tensor is featurized
+on its own device, a host array on ``device`` or, when that is None, on
+``_device.default_device()`` (the card when there is one), as JAX computes
+on its default backend whatever array it is given. Takes a (T, N, 3)
+coordinate tensor (device or host), a spec, and topology info; concatenates
+all requested feature blocks into one (T, K) matrix with per-column
+periodicity flags.
 """
 
 from __future__ import annotations
@@ -14,8 +17,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._device import default_device
 from .base import FeatureSpec, TopologyInfo, get_feature, parse_feature_spec
 from .builtins import as_frames, trig_expand_periodic
+
+
+def frames_on_device(traj, device=None) -> torch.Tensor:
+    """``traj`` as (T, N, 3) frames: a tensor on its own device or, when
+    ``device`` is given, moved there; a host array as float32 on ``device``,
+    else on ``default_device()``. The placement rule of every entry point
+    that takes frames (``featurize_trajectory``, the structure features)."""
+    if isinstance(traj, torch.Tensor):
+        return as_frames(traj if device is None else traj.to(device))
+    device = torch.device(device) if device is not None else default_device()
+    return as_frames(torch.as_tensor(np.asarray(traj), dtype=torch.float32, device=device))
 
 
 def featurize_trajectory(
@@ -24,6 +39,7 @@ def featurize_trajectory(
     top: TopologyInfo,
     *,
     cos_sin_expand: bool = False,
+    device=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Compute features for a trajectory.
 
@@ -31,12 +47,17 @@ def featurize_trajectory(
     ``columns`` (feature names), ``periodic`` flags, and the canonical spec.
     With ``cos_sin_expand`` periodic columns are replaced by (cos, sin)
     pairs (reference api/features.py:138 trig_expand_periodic).
+
+    A tensor ``traj`` is featurized on its own device (on ``device`` when
+    one is given); a host array on ``device``, or on
+    ``_device.default_device()`` when ``device`` is None. That matches
+    JAX's placement: its features run on the default backend.
     """
     if spec and isinstance(spec, (list, tuple)) and isinstance(spec[0], FeatureSpec):
         specs = list(spec)
     else:
         specs = parse_feature_spec(spec)  # type: ignore[arg-type]
-    traj = as_frames(traj)
+    traj = frames_on_device(traj, device)
     blocks: List[torch.Tensor] = []
     periodic: List[np.ndarray] = []
     columns: List[str] = []

@@ -164,13 +164,14 @@ def silhouette_score(x, labels, n_states: int, max_samples: int = 2048,
     return float(sil.mean())
 
 
-def _auto_select_n_states(x, k_range: Sequence[int], seed: int, n_iter: int) -> Tuple[int, float]:
+def _auto_select_n_states(x, k_range: Sequence[int], seed: int, n_iter: int,
+                          device=None) -> Tuple[int, float]:
     """Silhouette-maximizing k over the candidate range."""
     best_k, best_s = None, -np.inf
     for k in k_range:
         if x.shape[0] < k:
             continue
-        _, labels, _ = kmeans(x, k, seed=seed, n_iter=n_iter)
+        _, labels, _ = kmeans(x, k, seed=seed, n_iter=n_iter, device=device)
         s = silhouette_score(x, labels, k, seed=seed)
         if s > best_s:
             best_k, best_s = k, s
@@ -187,10 +188,12 @@ def cluster_microstates(
     n_iter: int = 50,
     n_init: int = 2,
     auto_range: Sequence[int] = range(4, 21),
+    device=None,
 ) -> ClusteringResult:
     """Cluster one or many feature trajectories into microstates
     (``n_states="auto"`` picks k by silhouette). Labels are split back
-    per trajectory."""
+    per trajectory. k-means runs on ``device`` (``None``:
+    ``_device.default_device()``)."""
     if isinstance(features, (list, tuple)):
         lengths = [np.asarray(f).shape[0] for f in features]
         X = np.concatenate([np.asarray(f) for f in features], axis=0)
@@ -202,11 +205,12 @@ def cluster_microstates(
     if isinstance(n_states, str):
         if n_states != "auto":
             raise ValueError(f"n_states must be int or 'auto', got {n_states!r}")
-        k, silhouette = _auto_select_n_states(X, auto_range, seed, n_iter)
+        k, silhouette = _auto_select_n_states(X, auto_range, seed, n_iter, device)
     else:
         k = int(n_states)
 
-    centers, labels, inertia = kmeans(X, k, seed=seed, n_iter=n_iter, n_init=n_init)
+    centers, labels, inertia = kmeans(X, k, seed=seed, n_iter=n_iter, n_init=n_init,
+                                      device=device)
     splits = np.cumsum(lengths)[:-1]
     per_traj = [np.asarray(a) for a in np.split(labels, splits)]
     return ClusteringResult(

@@ -32,11 +32,11 @@ from pmarlo_tpu.ml.whitening import estimate_whitening
 from pmarlo_tpu_torch.analysis import counting, debug_export, fes, project_cv
 from pmarlo_tpu_torch.analysis import msm as amsm
 from pmarlo_tpu_torch.data import alanine_dipeptide_structure
-from pmarlo_tpu_torch.features import ramachandran
+from pmarlo_tpu_torch.features import featurize, ramachandran, structure
 from pmarlo_tpu_torch.features.base import TopologyInfo
 from pmarlo_tpu_torch.md.topology import build_topology
 from pmarlo_tpu_torch.ml import metrics
-from pmarlo_tpu_torch.msm import its, reduction, results, reversible_sampler
+from pmarlo_tpu_torch.msm import enhanced, its, reduction, results, reversible_sampler
 from pmarlo_tpu_torch.msm.msm_builder import MSMBuilder
 from pmarlo_tpu_torch.utils.errors import WhiteningError
 
@@ -274,18 +274,19 @@ def test_msm_and_analysis_export_what_jax_exports():
 
 
 #: the names of ``pmarlo_tpu.features`` whose module the port has not yet:
-#: ``features/structure.py`` (SASA, DSSP, H-bonds), ROADMAP queue A12c
-FEATURES_STILL_MISSING = {
-    "shrake_rupley_sasa", "hydrogen_bonds", "ss_fractions", "ss_fractions_dssp", "dssp",
-    "kabsch_sander_hbonds", "baker_hubbard",
-}
+#: none since ``features/structure.py`` (SASA, DSSP, H-bonds) is ported
+FEATURES_STILL_MISSING = set()
 
 
 def test_features_export_what_jax_exports_but_structure():
+    """The port's features export every public name of JAX's, the
+    structure features included."""
     assert set(jax_features.__all__) <= set(features.__all__)
     public = {n for n in dir(jax_features) if not n.startswith("_")
               and not type(getattr(jax_features, n)).__name__ == "module"}
     assert public - set(dir(features)) == FEATURES_STILL_MISSING
+    for name in public:
+        assert getattr(features, name) is not None, name
     for name in ("compute_ramachandran", "compute_ramachandran_fes", "periodic_hist2d"):
         assert name in features.__all__
         assert getattr(features, name).__module__ == "pmarlo_tpu_torch.features.ramachandran"
@@ -297,9 +298,6 @@ REGISTRY_STILL_MISSING = {
     "load_defaults": "A14", "api": "A14", "visualization": "A14",
     "export_dashboard": "A14", "serve_dashboard": "A14", "Pipeline": "A14",
     "Protein": "A17", "repair_missing_atoms": "A17",
-    "dssp": "A12c", "ss_fractions_dssp": "A12c", "baker_hubbard": "A12c",
-    "MarkovStateModel": "A16", "EnhancedMSM": "A16", "run_complete_msm_analysis": "A16",
-    "find_conformations": "A16",
 }
 
 #: JAX modules the port carries under another name (the Pallas files)
@@ -333,6 +331,15 @@ def _entry_points():
     frames = rng.normal(size=(3, 22, 3)).astype(np.float32)
     topo = build_topology(alanine_dipeptide_structure())
     info = TopologyInfo(topo.atom_names, topo.residue_names, topo.residue_ids)
+    positions = np.asarray(alanine_dipeptide_structure().coordinates(), np.float32)
+    walk = (positions[None] + rng.normal(0.0, 0.01, (6, 22, 3))).astype(np.float32)
+
+    def enhanced_features(**kw):
+        m = enhanced.EnhancedMSM([walk, walk[::-1]], topology=info, **kw)
+        m.compute_features("phi_psi")
+        assert all(f.dtype == np.float32 and isinstance(f, np.ndarray) for f in m.features)
+        return np.concatenate(m.features)
+
     return {
         "tica": (reduction, lambda **kw: reduction.tica(X, 2, **kw).eigenvalues),
         "reduce_features": (reduction, lambda **kw: reduction.reduce_features(
@@ -344,12 +351,21 @@ def _entry_points():
         "compute_kde_fes": (fes, lambda **kw: fes.compute_kde_fes(x, y, bins=8, **kw).counts),
         "compute_ramachandran": (ramachandran, lambda **kw: ramachandran.compute_ramachandran(
             frames, info, **kw)[0]),
+        "featurize_trajectory": (featurize, lambda **kw: featurize.featurize_trajectory(
+            walk, "phi_psi", info, **kw)[0]),
+        # the structure features place frames through featurize's rule
+        "shrake_rupley_sasa": (featurize, lambda **kw: structure.shrake_rupley_sasa(
+            walk, np.full(22, 0.15), n_points=32, **kw)),
+        "dssp": (featurize, lambda **kw: structure.dssp(walk, info, **kw)),
+        "EnhancedMSM.compute_features": (enhanced, enhanced_features),
     }
 
 
 @pytest.mark.parametrize("name", ["tica", "reduce_features", "sample_posterior_timescales",
                                   "sample_reversible_posterior", "compute_kde_fes",
-                                  "compute_ramachandran"])
+                                  "compute_ramachandran", "featurize_trajectory",
+                                  "shrake_rupley_sasa", "dssp",
+                                  "EnhancedMSM.compute_features"])
 def test_entry_points_resolve_the_default_device(name, monkeypatch):
     """``device=None`` asks ``_device.default_device()`` once and computes
     there; an explicit device never asks, and gives the same numbers."""
@@ -366,3 +382,34 @@ def test_entry_points_resolve_the_default_device(name, monkeypatch):
     calls.clear()
     np.testing.assert_array_equal(first, run(device="cpu"))
     assert not calls
+
+
+@pytest.mark.parametrize("name", ["featurize_trajectory", "shrake_rupley_sasa", "dssp"])
+def test_a_tensor_stays_on_its_device(name, monkeypatch):
+    """A tensor trajectory is computed on its own device without asking
+    ``default_device()``; an explicit device moves it, with the same
+    numbers."""
+    rng = np.random.default_rng(3)
+    topo = build_topology(alanine_dipeptide_structure())
+    info = TopologyInfo(topo.atom_names, topo.residue_names, topo.residue_ids)
+    positions = np.asarray(alanine_dipeptide_structure().coordinates(), np.float32)
+    walk = torch.as_tensor(positions[None] + rng.normal(0.0, 0.01, (4, 22, 3)),
+                           dtype=torch.float32)
+    run = {
+        "featurize_trajectory": lambda x, **kw: featurize.featurize_trajectory(
+            x, "phi_psi", info, **kw)[0],
+        "shrake_rupley_sasa": lambda x, **kw: structure.shrake_rupley_sasa(
+            x, np.full(22, 0.15), n_points=32, **kw),
+        "dssp": lambda x, **kw: structure.dssp(x, info, **kw),
+    }[name]
+    def never():
+        raise AssertionError("default_device() asked for a tensor trajectory")
+
+    monkeypatch.setattr(featurize, "default_device", never)
+    out = run(walk)
+    assert out.device == walk.device
+    moved = run(walk, device="cpu")
+    assert moved.device == torch.device("cpu")
+    torch.testing.assert_close(out, moved, rtol=0, atol=0)
+    on_meta = run(walk, device="meta")
+    assert on_meta.device == torch.device("meta") and on_meta.shape == out.shape

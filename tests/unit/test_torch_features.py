@@ -149,9 +149,9 @@ def test_feature_registry_and_specs_match_jax():
     from pmarlo_tpu.features.base import FEATURE_REGISTRY as JREG
     from pmarlo_tpu.features.base import parse_feature_spec as j_parse
 
-    # the structure features (hydrogen bonds, SASA, secondary structure)
-    # are not ported yet; every other registered name is
-    assert set(JREG) - set(FEATURE_REGISTRY) == {"hbonds", "sasa", "ssfrac"}
+    # every registered name is ported, the structure features (hydrogen
+    # bonds, SASA, secondary structure) included
+    assert set(JREG) - set(FEATURE_REGISTRY) == set()
     assert set(FEATURE_REGISTRY) <= set(JREG)
     for spec in ("phi_psi", ["phi_psi", "distance(0,4)"], "dihedral(0,1,2,3);rg"):
         got = [fs.canonical() for fs in parse_feature_spec(spec)]

@@ -33,6 +33,12 @@ COPIES = [
     "ml/metrics.py", "msm/pcca.py", "msm/tpt.py", "msm/ck.py", "msm/ck_its_selector.py",
     "msm/results.py", "msm/msm_builder.py", "analysis/msm.py", "analysis/project_cv.py",
     "analysis/counting.py", "analysis/debug_export.py",
+    # the conformations end of the chignolin pipeline: TPT conformations, their
+    # endpoints, kinetic importance, uncertainty and representatives
+    "conformations/results.py", "conformations/representative_picker.py",
+    "conformations/kinetic_importance.py", "conformations/uncertainty.py",
+    "conformations/state_detection.py", "conformations/tpt_analysis.py",
+    "conformations/finder.py", "conformations/__init__.py",
 ]
 
 #: host-side index functions of ``features/builtins.py``: numpy, carried
@@ -65,6 +71,11 @@ PORTED_MODULE_FUNCTIONS = [
     ("features/ramachandran.py", "_periodic_gaussian_smooth"),
     ("analysis/fes.py", "select_fes_columns"), ("analysis/fes.py", "normalize_weights"),
     ("analysis/fes.py", "compute_bandwidth"),
+    # the host-side index functions of the structure features
+    ("features/structure.py", "_element_of"),
+    ("features/structure.py", "_golden_spiral_points"),
+    ("features/structure.py", "find_donors_acceptors"),
+    ("features/structure.py", "_backbone_indices"),
 ]
 
 

@@ -105,6 +105,17 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.features.ramachandran", "pmarlo_tpu_torch.features.__init__",
     "pmarlo_tpu_torch.cv.__init__", "pmarlo_tpu_torch.ml.metrics",
 ]
+#: modules the conformations slice added: the structure features, EnhancedMSM
+#: and the conformations package
+NEW_MODULES += [
+    "pmarlo_tpu_torch.features.structure", "pmarlo_tpu_torch.msm.enhanced",
+    "pmarlo_tpu_torch.conformations.__init__", "pmarlo_tpu_torch.conformations.results",
+    "pmarlo_tpu_torch.conformations.representative_picker",
+    "pmarlo_tpu_torch.conformations.kinetic_importance",
+    "pmarlo_tpu_torch.conformations.uncertainty",
+    "pmarlo_tpu_torch.conformations.state_detection",
+    "pmarlo_tpu_torch.conformations.tpt_analysis", "pmarlo_tpu_torch.conformations.finder",
+]
 
 
 def test_port_imports_without_jax():
