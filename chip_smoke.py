@@ -45,7 +45,7 @@ Phases, one line of numbers each:
              upper triangle at the same shape against their plain versions
              (a point of comparison).
 7. protein - the protein-scale path: 8-rung 300-330 K REMD of the assembly
-             with every X-H bond constrained at 4 fs, through
+             with every X-H bond constrained at 4 fs and 5/ps, through
              ``run_replica_exchange`` (pair kernels, FIRE, SHAKE/RATTLE,
              swaps); launches, ns/day, acceptance, temperature,
              constraint deviation. Its step count is cut to fit the time
@@ -98,15 +98,15 @@ Phases, one line of numbers each:
              ``evaluate`` on the kept assignment equals a fresh evaluation.
 13. explicit remd - ``run_replica_exchange`` on the solvated chignolin
              file, 8 rungs 300-330 K, rigid water and X-H constraints at
-             2 fs, once through "auto" (the dense kernel) and once through
-             "cells": launches, ms a step, ns/day, acceptance, temperature,
-             constraint deviation.
+             2 fs and 5/ps, 400 steps, once through "auto" (the dense
+             kernel) and once through "cells": launches, ms a step, ns/day,
+             acceptance, temperature, constraint deviation.
 14. water md - ``thermalize`` + ``run_md`` on the 27,783-atom water box
              through the cell kernel (a sort every step): ms a step,
              ns/day, temperature, constraint deviation; the energy drift of
              500 steps at friction 0 (under 1 kT per degree of freedom per
              ns); the same path under the displacement
-             rule, three stretches of each from one start, alternating.
+             rule, two stretches of each from one start, alternating.
 
 15. large kernels - the tile-culled and the Newton pair kernels on the
              24,840-atom chignolin assembly (180 copies), ``gb_cutoff=1.5``,
@@ -129,7 +129,7 @@ Phases, one line of numbers each:
              gb_cutoff=1.5, order_from=x0)`` (Newton sweeps and the bonded
              kernel by default) -> ``minimize_energy`` (300 FIRE iterations)
              -> ``thermalize`` -> ``run_md`` at 4 fs with every X-H bond
-             constrained, 50 warm-up steps and a timed 4 ps: ms a force
+             constrained, 50 warm-up steps and a timed 2.4 ps: ms a force
              evaluation, ms a step, ns/day, temperature, constraint
              deviation, peak device memory; then a short stretch of the same
              run through the ordered culled sweeps (``newton=False``); then
@@ -143,14 +143,14 @@ Phases, one line of numbers each:
              Two temperatures
              are printed: ``run_md``'s reported one over the second half,
              which at 4 fs settles ~12% under the target, and the state's
-             mid-step one, which is gated to [0.9, 1.1] at 3.2 and 4.2 ps
+             mid-step one, which is gated to [0.9, 1.1] at 2.0 and 2.6 ps
              (``--temperature-study`` measures both at 4 fs and 2 fs).
 
 18. production segment - ``pmarlo_tpu_torch.run_segment`` on the shipped
              solvated chignolin (2,315 atoms, 3.00 x 2.85 x 2.68 nm, a 3 x 3
              x 2 cell grid at 0.9 nm) with ``nonbonded="pme"``,
-             ``ensemble="npt"``: 2,500 steps at 2 fs, a volume move every 25,
-             frames every 500 to an .xtc file, then 500 steps resumed from
+             ``ensemble="npt"``: 400 steps at 2 fs and 5/ps, a volume move
+             every 25, frames every 100 to an .xtc file, then 100 steps resumed from
              its final state and barostat state: wall, ms a step (and of
              its force call), ns/day,
              acceptance, density, box trace, T over the second half,
@@ -161,7 +161,7 @@ Phases, one line of numbers each:
              build at that box; the .xtc read back against the frames.
 19. pme water - the same entry point on the 27,783-atom water box (a
              temporary PDB): 100 warm-up steps (100 FIRE iterations first),
-             then 1,000 NPT steps resumed: ms a step, acceptance, density
+             then 500 NPT steps resumed: ms a step, acceptance, density
              trace, peak device memory; one evaluation split by CUDA events
              into binning, the row 9 sweep, the band correction, the spread,
              the FFT with the influence function, and the gather by
@@ -172,8 +172,8 @@ Phases, one line of numbers each:
              chignolin structure solvated in TIP4P-Ew (``solvate_structure(
              padding=1.0, water_model="tip4pew")``, 4,260 rows, 1,030 of
              them M sites) through ``run_segment(nonbonded="pme",
-             ensemble="npt")``: 300 FIRE iterations, 1,000 steps at 2 fs and
-             5/ps to an .xtc file, 200 steps resumed; ms a step, ns/day, the share of
+             ensemble="npt")``: 300 FIRE iterations, 400 steps at 2 fs and
+             5/ps to an .xtc file, 100 steps resumed; ms a step, ns/day, the share of
              a step that the site expansion and spread take, acceptance,
              density, T over the second half with the site-free degrees of
              freedom, constraint deviation, the sites against their parents
@@ -185,7 +185,7 @@ Phases, one line of numbers each:
              diffusion coefficient (reported, not gated: the run is short).
 21. tip5p box - 1,000 TIP5P waters (5,000 rows, the L1 / L2 sites out of
              the HOH plane) through ``run_segment(nonbonded="dense")``: 100
-             FIRE iterations and 200 NVT steps, then 1,000 NVE steps
+             FIRE iterations and 200 NVT steps, then 500 NVE steps
              resumed; row 8 against its plain version at the start and the
              end, NVE drift with the site-free degrees of freedom (phase
              14's gate), the sites against their parents in every frame.
@@ -214,9 +214,34 @@ Phases, one line of numbers each:
              representative PDBs, saved results); ``find_conformations`` on
              the active block with representatives and the TPT bootstrap;
              gates on each result, host wall seconds of each step.
+24. structure prep - the user's path from a raw PDB: the 3,726-atom
+             assembly stripped of every hydrogen and OXT, TYR cut at CB and
+             TRP at CG, THR 8 of every copy made TPO with a phosphate, TYR 2 and
+             ASP 3 taken out of chain A (``raw_chignolin_assembly``) ->
+             ``Protein.prepare`` -> ``add_missing_residues`` -> ``prepare``
+             (the assembly's residues, names, order and charge; raw heavy
+             atoms unmoved; rebuilt bonds near r0; the closure) ->
+             ``create_system()`` on the card, rows 3-5 against their plain
+             versions at the prepared and the minimized positions (R=8),
+             one evaluation under ``profiling.trace`` -> the CLI in this
+             process: ``info``, ``remd`` (8 rungs 300-330 K, 1,000 steps at
+             4 fs with X-H constraints: the pair kernels every force
+             evaluation) and ``run-segment`` (200 steps) on the saved PDB;
+             the three as stages of a ``workflow.Pipeline``, run again from
+             its checkpoint (every stage replayed); ``StageTimer``'s summary.
+25. nucleic complex - chain A of phase 24 beside a DNA (GATC) and an RNA
+             (GACU) strand (264 and 265 atoms): ``add_hydrogens``,
+             ``build_system`` on the card (charge -3 from the strand), 2,000
+             FIRE iterations, ``ReplicaExchange(use_kernel=True)`` at R=8:
+             row 1 against its plain version over one 100-step chunk (phase
+             2's gate), then 4 ps of equilibration and 2,000 steps at 1 fs,
+             the ladder's and each rung's kinetic/target temperature.
 
+As each phase ends, its wall seconds and the script's so far go to
+standard error (a run cut at its time limit shows how far it got).
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-23, the card's name and power limit, a line of the kernels'
+11-14 and 15-25 and every phase's wall seconds, the card's name and
+power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
 block walk, the row-owned periodic and cell sweeps, the one-pass bonded
@@ -244,10 +269,13 @@ N_REPLICAS = 32
 N_STEPS = 20_000
 DT_PS = 0.002
 EXCHANGE_FREQUENCY = 100
-PLAIN_STEPS = 2_000
+PLAIN_STEPS = 500                # the plain path's timed REMD (cut from 2,000, then 1,000)
 PROTEIN_COPIES = (3, 3, 3)        # 27 chignolins, 3,726 atoms
 PROTEIN_REPLICAS = 8
-PROTEIN_STEPS = 2_000            # cut to fit: ~29 ms a step on the H100
+# cut to fit (from 2,000, then from 1,000): 29-41 ms a step on the H100's
+# host; phase 24 runs the same system and ladder (at 1/ps, the CLI's
+# default) through the CLI for 1,000
+PROTEIN_STEPS = 300
 PROTEIN_DT_PS = 0.004
 # phase 6: the pair path's forces against a float64 evaluation, at most 1e-5
 # of max |F| (the force kernels take single special-function results)
@@ -272,7 +300,7 @@ BIAS_VARIANTS = ("bias_harmonic", "bias_metadynamics", "fused_metadynamics",
                  "fused_remd")
 SOLVATED_PDB = "examples/outputs/explicit_solvent/chignolin_solvated.pdb"
 EXPLICIT_REPLICAS = 8
-EXPLICIT_STEPS = 2_000
+EXPLICIT_STEPS = 400             # cut from 2,000 to fit: ~50 ms a step, host-bound
 EXPLICIT_REPORT = 50
 EXPLICIT_CUTOFF = 0.9
 EXPLICIT_SWITCH = 0.8
@@ -280,9 +308,9 @@ EXPLICIT_SWITCH = 0.8
 EWALD_ALPHA = float(np.sqrt(-np.log(2.0 * 5e-4)) / EXPLICIT_CUTOFF)
 WATER_SIDE = 21                  # 21^3 waters = 27,783 atoms, box 6.61 nm
 WATER_WARM_STEPS = 100
-WATER_STEPS = 1_000
-WATER_REBIN_STEPS = 300          # a stretch of the rebin comparison
-WATER_REBIN_ROUNDS = 3           # stretches of each policy, alternating
+WATER_STEPS = 500                # cut from 1,000 to fit
+WATER_REBIN_STEPS = 200          # a stretch of the rebin comparison (cut from 300)
+WATER_REBIN_ROUNDS = 2           # stretches of each policy, alternating (cut from 3 to fit)
 WATER_NVE_STEPS = 500
 # phase 14's bound on the energy drift of those steps, kT per degree of
 # freedom per ns (read 0.056-0.209 in PR 4-10's runs, PERF.md)
@@ -294,32 +322,39 @@ LARGE_TILE = 128
 GB_CUTOFF = 1.5
 LARGE_FIRE = 300
 LARGE_WARM_STEPS = 50
-LARGE_STEPS = 1_000              # the timed stretch through the Newton sweeps (4 ps)
+LARGE_STEPS = 600                # the timed stretch through the Newton sweeps (2.4 ps)
 LARGE_ORDERED_STEPS = 50         # the same run through the ordered culled sweeps
 LARGE_DT_PS = 0.004
 STUDY_PS = 6                     # picoseconds at each time step of --temperature-study
 # phase 18: run_segment on solvated chignolin, NPT + PME; cut from 5,000 + 1,000
-# steps to fit the script's time limit: the step is host-bound, ~47 ms on the
-# H100's host (PERF.md section 5)
-SEGMENT_STEPS = 2_500
+# steps, then from 2,500 + 500, to fit the script's time limit: the step is
+# host-bound, 47-57 ms on the H100's host (PERF.md section 5)
+SEGMENT_STEPS = 400
 SEGMENT_FIRE = 500               # run_segment's default minimization
-SEGMENT_RESUME_STEPS = 500
-SEGMENT_REPORT = 500
+SEGMENT_RESUME_STEPS = 100
+SEGMENT_REPORT = 100
 BAROSTAT_INTERVAL = 25
 PME_WATER_WARM_STEPS = 100       # phase 19: the water box, NPT + PME
-PME_WATER_STEPS = 1_000
+PME_WATER_STEPS = 500            # cut from 1,000 to fit
 PME_WATER_REPORT = 100
 PME_WATER_FIRE = 100
 # phase 20: run_segment on chignolin solvated in TIP4P-Ew, NPT + PME
 TIP4P_FIRE = 300
-TIP4P_STEPS = 1_000
-TIP4P_RESUME_STEPS = 200
+TIP4P_STEPS = 400                # cut from 1,000 + 200 to fit
+TIP4P_RESUME_STEPS = 100
 TIP4P_REPORT = 50
 # the solvation lattice, minimized, is ice-like: melting it takes up heat,
 # and at 1/ps the thermostat had the second half at 0.94 of the target
 # (a first call); 5/ps, the coupling of the JAX package's melt protocol
 # (tests/unit/test_rdf.py), equilibrates within the segment
 TIP4P_FRICTION = 5.0
+# the same coupling where a run cut to fit starts from a minimum and its
+# temperature is gated (phases 7, 13 and 18): the kinetic energy halves into
+# the potential at once and 1/ps brings it back over ~1 ps an e-fold (phase
+# 13 read 0.969-0.972 over 2-4 ps at 1/ps, PR 18); at 5/ps the gated window
+# of the shorter runs is at temperature. The target, not the rate, is what
+# the gates hold
+SHORT_RUN_FRICTION = 5.0
 # g(r) of the water oxygens: the first peak of TIP4P-Ew's O-O near 0.28 nm
 RDF_PEAK_NM = (0.26, 0.30)
 RDF_PEAK_MIN = 2.0
@@ -327,10 +362,38 @@ RDF_PEAK_MIN = 2.0
 TIP5P_SIDE = 10
 TIP5P_FIRE = 100
 TIP5P_WARM_STEPS = 200
-TIP5P_NVE_STEPS = 1_000
+TIP5P_NVE_STEPS = 500             # cut from 1,000 to fit
 TIP5P_REPORT = 50
 SITE_ATOL_NM = 1e-6
 SWEEP_REPLICAS = (8, 32, 128, 512)   # the per-step sweep of phases 2 and 8
+# phase 24: the raw assembly through Protein.prepare and the CLI. Tolerances
+# from a CPU run of the same preparation (numpy, the same code on the card's
+# host): the ring closures repair places last read up to 0.6212 of r0 (TRP
+# CZ2-CH2 at 0.053 nm in 17 of the 27 copies, 0.1325 nm in the other ten:
+# translated copies of one input), every other rebuilt bond up to 0.048 (the
+# loop's C-N splice); the gap closes to 0.0049 nm against 3 x tol_nm
+PREP_TOL_NM = 0.005
+PREP_RING_BOND_REL = 0.65
+PREP_BOND_REL = 0.05
+RING_CLOSURES = ({"CZ2", "CH2"}, {"CD2", "CE2"})
+PHOSPHATE = ("P", "O1P", "O2P", "O3P")
+CLI_STEPS = 1_000                # the CLI's protein REMD, 8 rungs 300-330 K, 4 fs
+CLI_SEGMENT_STEPS = 200
+# phase 25: a protein-DNA and a protein-RNA complex through row 1, R=8, 1 fs.
+# The prepared chain and the built strand keep relaxing for picoseconds
+# (examples/23_protein_dna_complex.py's 2,000 FIRE iterations release ~430
+# kJ/mol more than 500; after 500, plain run_md on the CPU read 1.09-1.13 of
+# the target over the second ps; after 2,000 and 4 ps, 0.95-1.02 by rung at
+# 4-6 ps), so FIRE runs 2,000 iterations and the REMD equilibrates 4 ps
+# before its 2,000 steps; the ladder's mean kinetic/target temperature over
+# them within phase 7's band, each rung's within phase 17's
+NUCLEIC_REPLICAS = 8
+NUCLEIC_DT_PS = 0.001
+NUCLEIC_FIRE = 2_000
+NUCLEIC_EQUILIBRATION = 4_000
+NUCLEIC_STEPS = 2_000
+NUCLEIC_T_MEAN_BAND = (0.95, 1.05)
+NUCLEIC_T_BAND = (0.9, 1.1)
 FUSED_KERNELS = ("fused_md_chunk_kernel", "fused_md_bias_kernel", "fused_remd_kernel",
                  "fused_remd_bias_kernel", "fused_md_chunk_single_kernel",
                  "fused_remd_single_kernel")
@@ -437,6 +500,23 @@ PERIODIC_EWALD_OPS = (30, 2)
 
 def _line(phase: str, numbers: dict) -> None:
     print(f"{phase}: {json.dumps(numbers)}", flush=True)
+
+
+_T0 = time.perf_counter()
+PHASE_S: dict = {}
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)`` with its wall seconds (the card synchronised) kept in
+    ``PHASE_S[name]`` and printed to standard error."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    PHASE_S[name] = now - t0
+    print(f"{name}: {PHASE_S[name]:.1f} s, {now - _T0:.1f} s since the start",
+          file=sys.stderr, flush=True)
+    return out
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1013,6 +1093,7 @@ def phase_protein_remd() -> dict:
     cfg = RemdConfig(
         n_replicas=PROTEIN_REPLICAS, t_min=300.0, t_max=330.0,
         exchange_frequency=100, report_interval=50, dt_ps=PROTEIN_DT_PS, seed=0,
+        friction_per_ps=SHORT_RUN_FRICTION,
     )
     structure = chignolin_assembly(PROTEIN_COPIES)
     torch.cuda.synchronize()
@@ -1051,6 +1132,8 @@ def phase_protein_remd() -> dict:
         "pair_acceptance": [float(a) for a in res.acceptance_matrix],
         "kinetic_over_target": float(ratio.mean()),
         "kinetic_over_target_per_rung": [float(r) for r in ratio.mean(0)],
+        "kinetic_over_target_by_frame": [
+            float(r) for r in (res.kinetic_temperature / res.temperatures[None, :]).mean(1)],
         "max_constraint_deviation_nm": deviation,
         "frames": list(res.positions.shape),
         "frames_finite": bool(np.isfinite(res.positions).all()),
@@ -1977,6 +2060,7 @@ def phase_explicit_remd() -> dict:
     cfg = RemdConfig(
         n_replicas=R, t_min=300.0, t_max=330.0, exchange_frequency=100,
         report_interval=EXPLICIT_REPORT, dt_ps=DT_PS, seed=0,
+        friction_per_ps=SHORT_RUN_FRICTION,
     )
     # one launch per force evaluation: 500 FIRE iterations + the final
     # energy, one per MD step, one per frame
@@ -2014,6 +2098,8 @@ def phase_explicit_remd() -> dict:
             "mean_acceptance": res.mean_acceptance,
             "pair_acceptance": [float(a) for a in res.acceptance_matrix],
             "kinetic_over_target": float(ratio.mean()),
+            "kinetic_over_target_by_frame": [float(r) for r in (
+                res.kinetic_temperature / res.temperatures[None, :]).mean(1)],
             "max_constraint_deviation_nm": deviation,
             "frames": list(res.positions.shape),
         }
@@ -2468,7 +2554,7 @@ def phase_large_path() -> dict:
     The temperature gate is not on ``run_md``'s reported kinetic/target
     ratio over the second half (printed as
     ``reported_kinetic_over_target_second_half``; it reads ~0.88 at 4 fs and
-    stays there) but on the state's mid-step velocities at 3.2 and 4.2 ps
+    stays there) but on the state's mid-step velocities at 2.0 and 2.6 ps
     (``kinetic_over_target_state_by_ps``), in [0.9, 1.1]: the reported
     velocities carry the trailing half kick, and that on-step kinetic energy
     is low by a share that grows as dt^2 (``temperature_study`` measures it).
@@ -2622,7 +2708,7 @@ def phase_large_path() -> dict:
     _line("phase 17 large path", out)
     # thermalized at a minimum, half the kinetic energy goes into the potential
     # within ~0.1 ps and the thermostat (1/ps) brings it back over picoseconds:
-    # the gate is on the state's temperature 3.2 and 4.2 ps in
+    # the gate is on the state's temperature 2.0 and 2.6 ps in
     late = 0.5 * (state_ratio[2] + state_ratio[3])
     _check(0.9 <= late <= 1.1, f"large-path kinetic/target {state_ratio}")
     return out
@@ -2687,6 +2773,7 @@ def _npt_segment(out: dict, tag: str, res: dict, wall: float, steps: int,
         f"{tag}_density_g_cm3": res["density_g_cm3"].tolist(),
         f"{tag}_box_nm": res["box"].tolist(),
         f"{tag}_kinetic_over_target_second_half": float(T[T.shape[0] // 2:].mean() / 300.0),
+        f"{tag}_kinetic_over_target_by_frame": (T / 300.0).tolist(),
     })
 
 
@@ -2706,7 +2793,8 @@ def phase_production_segment() -> dict:
 
     structure = read_structure(SOLVATED_PDB)
     kw = dict(nonbonded="pme", ensemble="npt", dt_ps=DT_PS, report_interval=SEGMENT_REPORT,
-              barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF, device="cuda")
+              barostat_interval=BAROSTAT_INTERVAL, cutoff=EXPLICIT_CUTOFF,
+              friction_per_ps=SHORT_RUN_FRICTION, device="cuda")
     out = {"box_start_nm": list(structure.box)}
     with tempfile.TemporaryDirectory() as tmp:
         traj = f"{tmp}/traj.xtc"
@@ -3689,6 +3777,350 @@ def phase_conformations_path(cv: dict, px_min: torch.Tensor) -> dict:
     return out
 
 
+def _pair_rows_vs_plain(fn, x: torch.Tensor) -> dict:
+    """Rows 3-5 (the dense Born, energy and force sweeps) against their plain
+    versions at positions ``x (R, N, 3)``, and the whole evaluation, under
+    phase 6's gates (I, e_rows, dE/dB and the total energy within 1e-5 of
+    max, the forces within 1e-4)."""
+    Ip, Ik = fn.born_reference(x), fn.born(x)
+    B, dB = fn.born_radii(Ip)
+    ep, dp = fn.energy_rows_reference(x, B)
+    ek, dk = fn.energy_rows(x, B)
+    _, c = fn.gb_terms(B, dB, dp)
+    Fp, Fk = fn.pair_forces_reference(x, B, c), fn.pair_forces(x, B, c)
+    Ek, Gk = fn(x)
+    Ep, Gp = fn.reference(x)
+    torch.cuda.synchronize()
+    out = {
+        "born_max_abs_err": float((Ik - Ip).abs().max()), "born_rel_err": _rel(Ik, Ip),
+        "e_rows_rel_err": _rel(ek, ep), "dEdB_max_abs_err": float((dk - dp).abs().max()),
+        "dEdB_rel_err": _rel(dk, dp), "force_max_abs_err": float((Fk - Fp).abs().max()),
+        "force_rel_err": _rel(Fk, Fp), "total_energy_rel_err": _rel(Ek, Ep),
+        "total_force_rel_err": _rel(Gk, Gp), "energy_kJ_mol": float(Ek.double().mean()),
+        "max_force": float(Gk.abs().max()),
+    }
+    for key in ("born_rel_err", "e_rows_rel_err", "dEdB_rel_err", "total_energy_rel_err"):
+        _check(out[key] <= 1e-5, f"{key} {out[key]}")
+    for key in ("force_rel_err", "total_force_rel_err"):
+        _check(out[key] <= 1e-4, f"{key} {out[key]}")
+    _check(bool(torch.isfinite(Gk).all()), "pair forces finite")
+    return out
+
+
+def _cli(argv) -> dict:
+    """``pmarlo_tpu_torch.main.main(argv)`` in this process: its exit code
+    0, and the JSON object it prints (its standard output echoed)."""
+    import contextlib
+    import io
+
+    from pmarlo_tpu_torch.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    text = buf.getvalue()
+    print(text.strip(), flush=True)
+    _check(rc == 0, f"pmarlo-tpu-torch {argv[0]} exited {rc}")
+    start = text.index("{")
+    return json.loads(text[start:])
+
+
+def _rebuilt_bonds(raw, topology) -> dict:
+    """Largest deviation from the force field's r0 (relative) of the bonds
+    preparation rebuilt (one atom absent from ``raw``): the ring closures
+    (TRP CZ2-CH2, the CD2-CE2 of TRP and TYR) and every other bond."""
+    from pmarlo_tpu_torch.md.ff_params import lookup_bond
+
+    present = {(a.chain, a.resid, a.name) for r in raw.residues for a in r.atoms}
+    x = topology.positions
+    keys = [(c, int(r), str(n)) for c, r, n in zip(
+        topology.chain_ids, topology.residue_ids, topology.atom_names)]
+    worst = {"ring_closure": 0.0, "other": 0.0, "bonds": 0}
+    for i, j in np.asarray(topology.bonds):
+        if keys[i] in present and keys[j] in present:
+            continue
+        d = float(np.linalg.norm(x[i] - x[j])) * 10.0
+        r0 = lookup_bond(topology.atom_types[i], topology.atom_types[j])[1]
+        kind = ("ring_closure" if {keys[i][2], keys[j][2]} in RING_CLOSURES else "other")
+        worst[kind] = max(worst[kind], abs(d - r0) / r0)
+        worst["bonds"] += 1
+    return worst
+
+
+# one evaluation of the pair path at R=8 under ``profiling.trace``, in a fresh
+# process: in the whole script (after phases 1-23) this process's trace held
+# no kernel event, though alone, and after other profiler sessions and CUDA
+# graphs in a short process, it held them all (H100 runs, PERF.md)
+_TRACE_CHILD = """
+import sys, torch
+import pmarlo_tpu_torch
+from pmarlo_tpu_torch.md.forcefield import build_system
+from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+from pmarlo_tpu_torch.utils.profiling import trace
+system, x = build_system(sys.argv[1], gb_model="gbn2", dense_scales=False, device="cuda")
+fn = build_pair_force_fn(system)
+xs = x[None].repeat(8, 1, 1).contiguous()
+fn(xs)
+torch.cuda.synchronize()
+with trace(sys.argv[2]):
+    fn(xs)
+"""
+
+
+def _traced_pair_kernels(pdb, log_dir) -> dict:
+    """Which of rows 3-5 the Chrome trace of one pair evaluation names."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    subprocess.run([sys.executable, "-c", _TRACE_CHILD, str(pdb), str(log_dir)],
+                   cwd=root, check=True, timeout=600)
+    events = json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+    names = {str(ev.get("name", "")) for ev in events if ev.get("cat") == "kernel"}
+    return {k: any(f"{k}_kernel" in n for n in names) for k in PAIR_KERNELS}
+
+
+def phase_structure_prep():
+    """Phase 24: a raw, stripped 3,726-atom assembly -> ``Protein.prepare``
+    (with ``add_missing_residues`` on the gapped chain and ``prepare``
+    again) -> ``create_system`` on the card -> rows 3-5 against their plain
+    versions and one evaluation under ``profiling.trace`` (in a child
+    process) -> the CLI
+    (``info``, ``remd``, ``run-segment``) on the prepared PDB; the three as
+    stages of a ``workflow.Pipeline`` with a checkpoint, run twice (the
+    second replays every stage). Returns the phase's numbers and the first
+    chain of the prepared structure, which phase 25 takes."""
+    import tempfile
+    from pathlib import Path
+
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly, raw_chignolin_assembly
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
+    from pmarlo_tpu_torch.md.topology import build_topology
+    from pmarlo_tpu_torch.protein import Protein
+    from pmarlo_tpu_torch.utils.profiling import StageTimer, device_memory_stats
+    from pmarlo_tpu_torch.workflow import Pipeline, RunStatus
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    timer = StageTimer()
+    calls = {"prepare": 0, "system": 0, "cli": 0}
+    live = {}
+    raw, gap = raw_chignolin_assembly(PROTEIN_COPIES)
+    ref = build_topology(chignolin_assembly(PROTEIN_COPIES))
+
+    def prepare(ctx):
+        calls["prepare"] += 1
+        with timer.stage("prepare"):
+            p = Protein(raw, ph=7.0).prepare()
+            found = p.find_missing_residues()
+            closures = p.add_missing_residues(sequences=gap, tol_nm=PREP_TOL_NM)
+            p.prepare()
+        top = p.topology
+        _check(set(found) == set(gap), f"gaps found {found}, made {gap}")
+        _check(list(top.atom_names) == list(ref.atom_names)
+               and list(top.residue_names) == list(ref.residue_names)
+               and list(top.chain_ids) == list(ref.chain_ids),
+               "prepared residues, names and order differ from the assembly's")
+        charge = int(round(float(top.charges.sum())))
+        _check(charge == int(round(float(ref.charges.sum()))), f"formal charge {charge}")
+        got = {(a.chain, a.resid, a.name): a.xyz for r in p.structure.residues for a in r.atoms}
+        kept = [a for r in raw.residues for a in r.atoms if a.name not in PHOSPHATE]
+        _check(all(got[(a.chain, a.resid, a.name)] == a.xyz for a in kept),
+               "a raw heavy atom moved")
+        bonds = _rebuilt_bonds(raw, top)
+        _check(bonds["ring_closure"] <= PREP_RING_BOND_REL and bonds["other"] <= PREP_BOND_REL,
+               f"rebuilt bonds off r0: {bonds}")
+        closure = max(closures.values())
+        _check(closure < 3 * PREP_TOL_NM, f"closure RMSD {closure} nm")
+        live["protein"] = p
+        props = {k: v for k, v in p.get_properties().items() if k != "sequence"}
+        return {"prepared_pdb": str(p.save_prepared(work / "prepared.pdb")),
+                "raw_atoms": raw.n_atoms, "atoms": top.n_atoms,
+                "raw_heavy_atoms_kept_bitwise": len(kept), "rebuilt_bonds": bonds,
+                "closure_rmsd_nm": closure, "properties": props}
+
+    def system(ctx):
+        calls["system"] += 1
+        p = live["protein"]
+        with timer.stage("create_system") as box:
+            sysc, x0 = p.create_system(hydrogen_mass=3.0)
+            box["x0"] = x0
+        _check(sysc.device.type == "cuda" and x0.device.type == "cuda"
+               and sysc.masses.device.type == "cuda", "create_system() is not on the card")
+        fn = build_pair_force_fn(sysc)
+        rng = np.random.default_rng(24)
+        out = {}
+        with timer.stage("rows_vs_plain"):
+            noise = torch.as_tensor(rng.normal(0.0, 0.005, (PROTEIN_REPLICAS, sysc.n_atoms, 3)),
+                                    dtype=torch.float32, device="cuda")
+            out["prepared"] = _pair_rows_vs_plain(fn, x0[None] + noise)
+            x_min, _ = minimize_energy(sysc, x0, force_fn=fn)
+            out["minimized"] = _pair_rows_vs_plain(fn, x_min[None] + noise)
+        traced = _traced_pair_kernels(p.save_prepared(work / "traced.pdb"), work / "trace")
+        _check(all(traced.values()), f"the trace lacks a pair kernel: {traced}")
+        mem = device_memory_stats()
+        _check(bool(mem) and mem["cuda:0"]["bytes_limit"] > 0, f"device memory {mem}")
+        return {"system_device": str(x0.device), "rows": out, "traced_kernels": traced,
+                "device_memory": mem}
+
+    def console(ctx):
+        calls["cli"] += 1
+        info = _cli(["info"])
+        _check(info["backend"] == "cuda" and torch.cuda.get_device_name(0) in info["devices"],
+               f"info {info}")
+        pdb = ctx["prepared_pdb"]
+        torch.cuda.synchronize()
+        _reset_counts()
+        with timer.stage("cli_remd", n_items=CLI_STEPS):
+            t0 = time.perf_counter()
+            remd = _cli(["remd", pdb, "--replicas", str(PROTEIN_REPLICAS), "--steps",
+                         str(CLI_STEPS), "--dt", "0.004", "--constraints", "hbonds", "--tmin",
+                         "300", "--tmax", "330"])
+            wall = time.perf_counter() - t0
+        counts = _counts()
+        # FIRE's 500 iterations and its final energy, one an MD step, one a
+        # frame (RemdConfig's report interval, 100)
+        evals = 501 + CLI_STEPS + CLI_STEPS // 100
+        _check(all(counts[k] == evals for k in PAIR_KERNELS),
+               f"pair launches {counts} for {evals} force evaluations")
+        _check(counts["fused_md_chunk"] == 0, "the CLI's protein REMD launched the fused chunk")
+        _check(remd["frames"] == [CLI_STEPS // 100, PROTEIN_REPLICAS, ctx["atoms"], 3],
+               f"frames {remd['frames']}")
+        _check(0.0 < remd["mean_acceptance"] < 1.0, f"acceptance {remd['mean_acceptance']}")
+        _reset_counts()
+        with timer.stage("cli_run_segment", n_items=CLI_SEGMENT_STEPS):
+            seg = _cli(["run-segment", pdb, "--steps", str(CLI_SEGMENT_STEPS),
+                        "--report-interval", "100", "--output", str(work / "segment.npz")])
+        seg_counts = _counts()
+        _check(np.isfinite(seg["final_temperature_K"]), f"run-segment {seg}")
+        _check(len({seg_counts[k] for k in PAIR_KERNELS}) == 1
+               and seg_counts["pair_force"] >= CLI_SEGMENT_STEPS,
+               f"run-segment pair launches {seg_counts}")
+        sim_ns = CLI_STEPS * 0.004 * 1e-3 * PROTEIN_REPLICAS
+        return {"info": info, "remd": remd, "remd_wall_s": wall,
+                "remd_launches": {k: counts[k] for k in PAIR_KERNELS},
+                "remd_force_evaluations": evals,
+                "remd_ms_per_step_with_setup": wall / CLI_STEPS * 1e3,
+                "remd_ns_per_day_with_setup": sim_ns * 86_400.0 / wall,
+                "segment": seg, "segment_launches": {k: seg_counts[k] for k in PAIR_KERNELS}}
+
+    def pipeline():
+        return (Pipeline("structure_prep", checkpoint=work / "pipeline.json")
+                .add("prepare", prepare).add("system", system).add("cli", console))
+
+    first = pipeline().run({})
+    again = pipeline()
+    second = again.run({})
+    _check(all(r.status == RunStatus.SKIPPED for r in again.results),
+           f"the re-run did not replay: {[r.status for r in again.results]}")
+    _check(calls == {"prepare": 1, "system": 1, "cli": 1}, f"stage calls {calls}")
+    strip = ("__pipeline_results__",)
+    _check({k: v for k, v in first.items() if k not in strip}
+           == {k: v for k, v in second.items() if k not in strip},
+           "the replayed context differs")
+    out = {k: v for k, v in first.items() if k not in strip + ("prepared_pdb",)}
+    out["launches"] = {k: out["remd_launches"][k] + out["segment_launches"][k]
+                       for k in PAIR_KERNELS}
+    out["stage_timer"] = timer.summary()
+    out["pipeline_replayed"] = [r.status.value for r in again.results]
+    out["phase_s"] = time.perf_counter() - t_phase
+    tmp.cleanup()
+    _line("phase 24 structure prep", out)
+    print(f"stage timer: {json.dumps(timer.summary())}", flush=True)
+    chain_a = [r for r in live["protein"].structure.residues if r.chain == "A"]
+    return out, chain_a
+
+
+def phase_nucleic_complex(chain) -> dict:
+    """Phase 25: the first chain of phase 24's prepared assembly beside a
+    DNA (GATC) and an RNA (GACU) strand -> ``add_hydrogens`` ->
+    ``build_system(gb_model="gbn2")`` on the card -> FIRE ->
+    ``ReplicaExchange(use_kernel=True)`` at R=8: the fused chunk (row 1)
+    against its plain version over one 100-step chunk (phase 2's gate), then
+    4 ps of equilibration and 2,000 steps at 1 fs."""
+    from pmarlo_tpu_torch.data.chignolin import shifted_residues
+    from pmarlo_tpu_torch.data.dna import dna_single_strand, rna_single_strand
+    from pmarlo_tpu_torch.io.pdb import PDBStructure
+    from pmarlo_tpu_torch.md import analytic
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.fused_md import MAX_ATOMS
+    from pmarlo_tpu_torch.md.integrate import make_force_fn
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.protein.hydrogens import add_hydrogens
+    from pmarlo_tpu_torch.remd.remd import RemdConfig, ReplicaExchange
+
+    t_phase = time.perf_counter()
+    protein, _ = build_system(PDBStructure(residues=list(chain)), gb_model="gbn2")
+    q_protein = float(protein.charges.double().sum())
+    out = {"protein_atoms": protein.n_atoms, "protein_charge": q_protein, "launches": 0}
+    for kind, strand in (("dna", dna_single_strand("GATC", chain="X")),
+                         ("rna", rna_single_strand("GACU", chain="X"))):
+        t0 = time.perf_counter()
+        combo = add_hydrogens(
+            PDBStructure(residues=list(chain) + shifted_residues(strand.residues)), ph=7.0)
+        system, x0 = build_system(combo, gb_model="gbn2")
+        _check(system.device.type == "cuda", f"{kind}: build_system is not on the card")
+        _check(system.n_atoms <= MAX_ATOMS, f"{kind}: {system.n_atoms} atoms")
+        dq = float(system.charges.double().sum()) - q_protein
+        _check(abs(dq + 3.0) <= 1e-4, f"{kind}: strand charge {dq}")
+        x_min, e_min = minimize_energy(system, x0, max_iterations=NUCLEIC_FIRE,
+                                       force_fn=make_force_fn(system))
+        _check(bool(torch.isfinite(e_min)), f"{kind}: FIRE energy {e_min}")
+        cfg = RemdConfig(n_replicas=NUCLEIC_REPLICAS, t_min=300.0, t_max=330.0,
+                         exchange_frequency=100, report_interval=50,
+                         equilibration_steps=NUCLEIC_EQUILIBRATION,
+                         dt_ps=NUCLEIC_DT_PS, seed=25)
+        remd = ReplicaExchange(system, x_min, cfg, use_kernel=True, minimize=False)
+        # phase 2's protocol: the minimum with 0.005 nm of noise a replica (at
+        # the minimum itself the forces are a residual of cancelling terms)
+        chunk, st = remd._chunk, remd.state
+        rng = np.random.default_rng(25)
+        x = st.positions + torch.as_tensor(rng.normal(0.0, 0.005, tuple(st.positions.shape)),
+                                           dtype=torch.float32, device="cuda")
+        args = (x, st.velocities, st.seeds, remd.ladder, 100, 0)
+        ek0, fk0 = chunk.energy_and_forces(x)
+        ep0, fp0 = analytic.energy_and_forces(chunk.dense, x)
+        xk, vk, ek = chunk(*args)
+        xp, vp, ep = chunk.reference(*args)
+        e_at_xk, _ = analytic.energy_and_forces(chunk.dense, xk)
+        torch.cuda.synchronize()
+        r = {"atoms": system.n_atoms, "strand_charge": dq, "fire_energy_kJ_mol": float(e_min),
+             "force_max_abs_err": float((fk0 - fp0).abs().max()),
+             "force_rel_err": _rel(fk0, fp0), "energy_rel_err": _rel(ek0, ep0),
+             "chunk_max_dx_nm": float((xk - xp).abs().max()),
+             "chunk_energy_rel_err": _rel(ek, e_at_xk),
+             "chunk_traj_energy_rel_diff": _rel(ek, ep)}
+        _check(r["force_rel_err"] <= 1e-4 and r["energy_rel_err"] <= 1e-4,
+               f"{kind}: kernel vs plain {r}")
+        _check(bool(torch.isfinite(xk).all()) and r["chunk_max_dx_nm"] <= 1e-3
+               and r["chunk_energy_rel_err"] <= 1e-4, f"{kind}: 100-step chunk {r}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        res = remd.run(NUCLEIC_STEPS)
+        counts = _counts()
+        # one launch for the equilibration, then one a frame
+        launches = 1 + NUCLEIC_STEPS // cfg.report_interval
+        _check(counts["fused_md_chunk"] == launches,
+               f"{kind}: {counts['fused_md_chunk']} chunk launches, not {launches}")
+        per_rung = (res.kinetic_temperature / res.temperatures[None, :]).mean(0)
+        r.update({"launches": counts["fused_md_chunk"], "run_wall_s": res.wall_seconds,
+                  "mean_acceptance": res.mean_acceptance,
+                  "kinetic_over_target": float(per_rung.mean()),
+                  "kinetic_over_target_per_rung": [float(v) for v in per_rung],
+                  "phase_part_s": time.perf_counter() - t0})
+        _check(bool(np.isfinite(res.positions).all()), f"{kind}: frames finite")
+        _check(NUCLEIC_T_MEAN_BAND[0] <= r["kinetic_over_target"] <= NUCLEIC_T_MEAN_BAND[1]
+               and all(NUCLEIC_T_BAND[0] <= v <= NUCLEIC_T_BAND[1] for v in per_rung),
+               f"{kind}: kinetic/target {per_rung}")
+        _check(0.0 < res.mean_acceptance < 1.0, f"{kind}: acceptance {res.mean_acceptance}")
+        out[kind] = r
+        out["launches"] += counts["fused_md_chunk"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    _line("phase 25 nucleic complex", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -3758,48 +4190,58 @@ def main() -> None:
     from pmarlo_tpu_torch.md.minimize import minimize_energy
 
     t_start = time.perf_counter()
-    build = phase_build()
-    system, positions = build_system(
-        alanine_dipeptide_structure(), gb_model="gbn2", device="cuda"
-    )
-    x_min, _ = minimize_energy(system, positions)
-    kern = phase_kernel_vs_plain(system, x_min)
-    phase_thermostat(system, x_min)
-    main_path = phase_main_path(system, positions)
-    times = phase_times(system, positions, main_path)
+    build = _timed("1 build", phase_build)
+
+    def alanine():
+        system, positions = build_system(
+            alanine_dipeptide_structure(), gb_model="gbn2", device="cuda"
+        )
+        return system, positions, minimize_energy(system, positions)[0]
+
+    system, positions, x_min = _timed("alanine system", alanine)
+    kern = _timed("2 kernel", phase_kernel_vs_plain, system, x_min)
+    _timed("3 thermostat", phase_thermostat, system, x_min)
+    main_path = _timed("4 main path", phase_main_path, system, positions)
+    times = _timed("5 times", phase_times, system, positions, main_path)
 
     from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
     from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn
 
-    protein, ppos = build_system(
-        chignolin_assembly(PROTEIN_COPIES), gb_model="gbn2", device="cuda",
-        dense_scales=False,
-    )
-    px_min, _ = minimize_energy(protein, ppos, force_fn=build_pair_force_fn(protein))
-    pair = phase_pair(protein, px_min)
-    remd = phase_protein_remd()
+    def assembly():
+        protein, ppos = build_system(
+            chignolin_assembly(PROTEIN_COPIES), gb_model="gbn2", device="cuda",
+            dense_scales=False,
+        )
+        return protein, minimize_energy(protein, ppos,
+                                        force_fn=build_pair_force_fn(protein))[0]
 
-    cx = _chignolin()
-    bias = phase_bias(cx, system, x_min)
-    fused = phase_fused_remd(cx, bias["model"])
-    cv = phase_learned_cv(cx)
+    protein, px_min = _timed("assembly system", assembly)
+    pair = _timed("6 pair", phase_pair, protein, px_min)
+    remd = _timed("7 protein remd", phase_protein_remd)
 
-    periodic = phase_periodic()
-    water = _water_box_system()
-    cells = phase_cells(periodic, water)
-    explicit = phase_explicit_remd()
-    water_md = phase_water_md(water)
+    cx = _timed("chignolin system", _chignolin)
+    bias = _timed("8 bias", phase_bias, cx, system, x_min)
+    fused = _timed("9 fused remd", phase_fused_remd, cx, bias["model"])
+    cv = _timed("10 learned cv", phase_learned_cv, cx)
+
+    periodic = _timed("11 periodic", phase_periodic)
+    water = _timed("water box system", _water_box_system)
+    cells = _timed("12 cells", phase_cells, periodic, water)
+    explicit = _timed("13 explicit remd", phase_explicit_remd)
+    water_md = _timed("14 water md", phase_water_md, water)
     del water
 
-    large = phase_large_kernels()
-    bonded = phase_bonded(large)
-    large_path = phase_large_path()
-    segment = phase_production_segment()
-    pme_water = phase_pme_water()
-    tip4pew = phase_tip4pew_segment()
-    tip5p = phase_tip5p_box()
-    analysis = phase_analysis_path(main_path)
-    conformations = phase_conformations_path(cv, px_min)
+    large = _timed("15 large kernels", phase_large_kernels)
+    bonded = _timed("16 bonded", phase_bonded, large)
+    large_path = _timed("17 large path", phase_large_path)
+    segment = _timed("18 production segment", phase_production_segment)
+    pme_water = _timed("19 pme water", phase_pme_water)
+    tip4pew = _timed("20 tip4pew segment", phase_tip4pew_segment)
+    tip5p = _timed("21 tip5p box", phase_tip5p_box)
+    analysis = _timed("22 analysis", phase_analysis_path, main_path)
+    conformations = _timed("23 conformations", phase_conformations_path, cv, px_min)
+    structure, chain_a = _timed("24 structure prep", phase_structure_prep)
+    nucleic = _timed("25 nucleic complex", phase_nucleic_complex, chain_a)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -3810,7 +4252,8 @@ def main() -> None:
     kernels = [{
         "name": "fused_md_chunk", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:791",
-        "launches": main_path["launches"] + cv["launches"]["fused_md_chunk"],
+        "launches": (main_path["launches"] + cv["launches"]["fused_md_chunk"]
+                     + nucleic["launches"]),
         "max_abs_err": kern["force_max_abs_err"],
         "ms": kern["chunk100_ms"],
         "plain_ms": kern["chunk100_plain_ms"],
@@ -3834,7 +4277,7 @@ def main() -> None:
             "name": name, **cuda,
             "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
             "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
-            "launches": remd["launches"][name],
+            "launches": remd["launches"][name] + structure["launches"][name],
             "max_abs_err": pair[err],
             "ms": pair[f"{tag}_ms"],
             "plain_ms": pair[f"{tag}_plain_ms"],
@@ -4051,6 +4494,26 @@ def main() -> None:
             "assembly_atoms_buried_by_other_copies", "dssp_native_helix_strand_coil",
             "dssp_run_helix_strand_coil", "enhanced_active_states", "committor_sum_off_1",
             "net_flux_conservation_max")},
+        "structure_prep": {
+            "phase_s": structure["phase_s"], "stage_timer": structure["stage_timer"],
+            "properties": structure["properties"], "rebuilt_bonds": structure["rebuilt_bonds"],
+            "closure_rmsd_nm": structure["closure_rmsd_nm"],
+            "rows_prepared": {k: structure["rows"]["prepared"][k] for k in (
+                "born_rel_err", "e_rows_rel_err", "force_rel_err", "total_energy_rel_err")},
+            "rows_minimized": {k: structure["rows"]["minimized"][k] for k in (
+                "born_rel_err", "e_rows_rel_err", "force_rel_err", "total_energy_rel_err")},
+            "remd": structure["remd"], "remd_wall_s": structure["remd_wall_s"],
+            "remd_ms_per_step_with_setup": structure["remd_ms_per_step_with_setup"],
+            "segment": structure["segment"], "launches": structure["launches"],
+            "pipeline_replayed": structure["pipeline_replayed"]},
+        "nucleic_complex": {
+            "phase_s": nucleic["phase_s"],
+            **{kind: {k: nucleic[kind][k] for k in (
+                "atoms", "strand_charge", "force_rel_err", "chunk_max_dx_nm",
+                "chunk_energy_rel_err", "launches", "run_wall_s", "mean_acceptance",
+                "kinetic_over_target", "kinetic_over_target_per_rung")}
+               for kind in ("dna", "rna")}},
+        "phase_s": PHASE_S,
         "script_s": time.perf_counter() - t_start,
     })
     _line("before the redesign (one-thread-an-atom fused kernels, row-owned dense "

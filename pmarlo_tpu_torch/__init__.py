@@ -7,6 +7,8 @@ runs. Importing the package pins float32 matmuls to full precision.
 
 Public symbols resolve lazily, as in ``pmarlo_tpu/__init__.py``: the names
 of its registry that the port has (``pmarlo_tpu_torch.run_segment``, ...).
+``get_version()`` and ``get_info()`` are JAX's, with the backend and the
+devices that PyTorch sees (``"cuda"`` and one name a card, else ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -18,10 +20,18 @@ from ._precision import pin_fp32
 
 pin_fp32()
 
+__version__ = "0.1.0"
+
 # symbol -> (module, attr), the JAX package's names for the ported modules
 _EXPORTS = {
+    # settings / utils (``settings`` reads YAML: it needs PyYAML)
+    "load_defaults": ("pmarlo_tpu_torch.settings", "load_defaults"),
     "set_global_seed": ("pmarlo_tpu_torch.utils.seed", "set_global_seed"),
     "constants": ("pmarlo_tpu_torch.constants", None),
+    # structure prep
+    "Protein": ("pmarlo_tpu_torch.protein.protein", "Protein"),
+    "solvate_structure": ("pmarlo_tpu_torch.protein.solvate", "solvate_structure"),
+    "repair_missing_atoms": ("pmarlo_tpu_torch.protein.repair", "repair_missing_atoms"),
     # MD core
     "System": ("pmarlo_tpu_torch.md.system", "System"),
     "MDState": ("pmarlo_tpu_torch.md.integrate", "MDState"),
@@ -34,8 +44,6 @@ _EXPORTS = {
     "build_cell_force_fn": ("pmarlo_tpu_torch.md.cell_force", "build_cell_force_fn"),
     "ewald_energy_dense": ("pmarlo_tpu_torch.md.pme", "ewald_energy_dense"),
     "run_npt": ("pmarlo_tpu_torch.md.barostat", "run_npt"),
-    # protein preparation
-    "solvate_structure": ("pmarlo_tpu_torch.protein.solvate", "solvate_structure"),
     # REMD
     "RemdConfig": ("pmarlo_tpu_torch.remd.remd", "RemdConfig"),
     "ReplicaExchange": ("pmarlo_tpu_torch.remd.remd", "ReplicaExchange"),
@@ -80,6 +88,7 @@ _EXPORTS = {
                                "run_fused_metadynamics"),
     "MetadynamicsBias": ("pmarlo_tpu_torch.bias.metadynamics", "MetadynamicsBias"),
     "train_cv_model": ("pmarlo_tpu_torch.cv", "train_cv_model"),
+    "Pipeline": ("pmarlo_tpu_torch.workflow", "Pipeline"),
 }
 
 
@@ -96,4 +105,19 @@ def __dir__():
     return sorted(set(globals()) | set(_EXPORTS))
 
 
-__all__ = ["pin_fp32"]
+def get_version() -> str:
+    return __version__
+
+
+def get_info() -> dict:
+    import torch
+
+    if torch.cuda.is_available():
+        backend = "cuda"
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    else:
+        backend, devices = "cpu", ["cpu"]
+    return {"version": __version__, "backend": backend, "devices": devices}
+
+
+__all__ = ["pin_fp32", "get_version", "get_info"]

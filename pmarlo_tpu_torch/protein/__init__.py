@@ -1,12 +1,24 @@
-"""Protein preparation: the solvation box.
+"""Protein preparation: cleanup, repair, hydrogens, loops, solvation.
 
-Port of ``pmarlo_tpu/protein``. So far it exports ``solvate_structure``
-(TIP3P, TIP4P-Ew or TIP5P water around a structure, with neutralising
-ions) and ``structure_formal_charge`` from ``protein/solvate.py``, a host
-copy of its source; ``Protein`` and the repair and hydrogen modules are
-still to be ported (ROADMAP queue A17).
+Port of ``pmarlo_tpu/protein``, with its exports: ``Protein``
+(``protein.py``, whose ``create_system`` takes ``device=``), and from the
+host copies beside it ``find_missing_heavy_atoms`` and
+``repair_missing_atoms`` (``repair.py``), ``solvate_structure`` and
+``structure_formal_charge`` (``solvate.py``) and ``replace_nonstandard``
+(``nonstandard.py``). ``hydrogens.py``, ``loops.py`` and
+``descriptors.py`` are host copies too.
 """
 
+from .protein import Protein
+from .repair import find_missing_heavy_atoms, repair_missing_atoms
 from .solvate import solvate_structure, structure_formal_charge
+from .nonstandard import replace_nonstandard
 
-__all__ = ["solvate_structure", "structure_formal_charge"]
+__all__ = [
+    "Protein",
+    "find_missing_heavy_atoms",
+    "repair_missing_atoms",
+    "solvate_structure",
+    "structure_formal_charge",
+    "replace_nonstandard",
+]

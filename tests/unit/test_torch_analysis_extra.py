@@ -295,9 +295,8 @@ def test_features_export_what_jax_exports_but_structure():
 #: each name of ``pmarlo_tpu._EXPORTS`` the port's registry lacks, beside
 #: the queue item of ROADMAP.md that brings its module
 REGISTRY_STILL_MISSING = {
-    "load_defaults": "A14", "api": "A14", "visualization": "A14",
-    "export_dashboard": "A14", "serve_dashboard": "A14", "Pipeline": "A14",
-    "Protein": "A17", "repair_missing_atoms": "A17",
+    "api": "A14", "visualization": "A14", "export_dashboard": "A14",
+    "serve_dashboard": "A14",
 }
 
 #: JAX modules the port carries under another name (the Pallas files)

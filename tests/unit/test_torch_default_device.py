@@ -18,7 +18,8 @@ import torch
 from pmarlo_tpu_torch import _device
 from pmarlo_tpu_torch.bias import metadynamics
 from pmarlo_tpu_torch.data import alanine_dipeptide_structure
-from pmarlo_tpu_torch.md import barostat, constraints, cv_bias, integrate, system as system_mod
+from pmarlo_tpu_torch.md import barostat, constraints, cv_bias, forcefield, integrate
+from pmarlo_tpu_torch.md import system as system_mod
 from pmarlo_tpu_torch.md.forcefield import build_system
 from pmarlo_tpu_torch.ml import deeptica, losses
 from pmarlo_tpu_torch.utils import seed as seed_mod
@@ -94,9 +95,19 @@ def _init_barostat(device=None):
     return barostat.init_barostat((2.0, 2.1, 2.2), seed=1, device=device).box
 
 
+def _protein_create_system(device=None):
+    from pmarlo_tpu_torch.protein import Protein
+
+    system, positions = Protein(alanine_dipeptide_structure()).prepare().create_system(
+        device=device)
+    assert positions.device == system.masses.device
+    return system.masses
+
+
 # (module whose default_device is replaced, entry point) for the functions
 # that only place tensors: their result lies on the meta device
 PLACING = {
+    "Protein.create_system": (forcefield, _protein_create_system),
     "deeptica_from_numpy": (deeptica, _deeptica_from_numpy),
     "DeepTICAModel.load": (deeptica, _deeptica_load),
     "CVBias": (cv_bias, _cv_bias),

@@ -39,7 +39,18 @@ COPIES = [
     "conformations/kinetic_importance.py", "conformations/uncertainty.py",
     "conformations/state_detection.py", "conformations/tpt_analysis.py",
     "conformations/finder.py", "conformations/__init__.py",
+    # structure preparation: DNA/RNA strands, nonstandard residues, heavy-atom
+    # repair, loop closure, hydrogens and descriptors
+    "data/dna.py", "protein/nonstandard.py", "protein/repair.py", "protein/loops.py",
+    "protein/hydrogens.py", "protein/descriptors.py",
+    # the console half of the facade: utilities, settings and the pipeline
+    "utils/config_utils.py", "utils/misc.py", "utils/path_utils.py",
+    "settings/__init__.py", "settings/loader.py", "workflow/__init__.py",
+    "workflow/pipeline.py",
 ]
+
+#: the settings' YAML files, carried byte for byte as the neck tables are
+DATA_COPIES = ["settings/defaults.yaml", "settings/feature_spec.yaml"]
 
 #: host-side index functions of ``features/builtins.py``: numpy, carried
 #: over as they are; the geometry below them is rewritten for tensors
@@ -76,6 +87,18 @@ PORTED_MODULE_FUNCTIONS = [
     ("features/structure.py", "_golden_spiral_points"),
     ("features/structure.py", "find_donors_acceptors"),
     ("features/structure.py", "_backbone_indices"),
+    # ``protein/protein.py``: everything but ``create_system``, which passes
+    # ``device=`` on to the port's ``build_system``
+    ("protein/protein.py", "_canonical"), ("protein/protein.py", "charge_at_pH"),
+    ("protein/protein.py", "isoelectric_point"), ("protein/protein.py", "Protein.prepare"),
+    ("protein/protein.py", "Protein._require_prepared"),
+    ("protein/protein.py", "Protein.sequence"),
+    ("protein/protein.py", "Protein.sequence_one_letter"),
+    ("protein/protein.py", "Protein.get_properties"),
+    ("protein/protein.py", "Protein.find_missing_residues"),
+    ("protein/protein.py", "Protein.add_missing_residues"),
+    ("protein/protein.py", "Protein.save_prepared"),
+    ("protein/protein.py", "Protein.save_structure"),
 ]
 
 
@@ -92,9 +115,11 @@ def _normalise(text):
 
 
 def _split_docstring(text):
-    """(module docstring, source lines after it)."""
+    """(module docstring, source lines after it); a module without one has
+    the empty docstring."""
     node = ast.parse(text).body[0]
-    assert isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)
+    if not (isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
+        return "", text.splitlines()
     return node.value.value, text.splitlines()[node.end_lineno:]
 
 
@@ -116,9 +141,23 @@ def test_shipped_neck_tables_are_copied():
     assert a == b
 
 
+@pytest.mark.parametrize("rel", DATA_COPIES)
+def test_data_files_are_copied_byte_for_byte(rel):
+    a = (ROOT / "pmarlo_tpu" / rel).read_bytes()
+    b = (ROOT / "pmarlo_tpu_torch" / rel).read_bytes()
+    assert a == b, f"pmarlo_tpu_torch/{rel} differs from its source"
+
+
 def _function_source(path, name):
+    """Source of the module-level function ``name``, or of the method
+    ``Class.method``."""
     text = path.read_text()
-    for node in ast.parse(text).body:
+    body = ast.parse(text).body
+    if "." in name:
+        cls, name = name.split(".")
+        body = next(node.body for node in body
+                    if isinstance(node, ast.ClassDef) and node.name == cls)
+    for node in body:
         if isinstance(node, ast.FunctionDef) and node.name == name:
             return _normalise(ast.get_source_segment(text, node))
     raise AssertionError(f"{name} not found in {path}")

@@ -116,6 +116,20 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.conformations.state_detection",
     "pmarlo_tpu_torch.conformations.tpt_analysis", "pmarlo_tpu_torch.conformations.finder",
 ]
+#: modules the structure-preparation and console slice added: the DNA/RNA
+#: strands, ``protein/``, the CLI, settings, utilities, the pipeline,
+#: profiling and the deploy worker
+NEW_MODULES += [
+    "pmarlo_tpu_torch.data.dna", "pmarlo_tpu_torch.protein.protein",
+    "pmarlo_tpu_torch.protein.repair", "pmarlo_tpu_torch.protein.loops",
+    "pmarlo_tpu_torch.protein.hydrogens", "pmarlo_tpu_torch.protein.nonstandard",
+    "pmarlo_tpu_torch.protein.descriptors", "pmarlo_tpu_torch.main",
+    "pmarlo_tpu_torch.deploy_worker", "pmarlo_tpu_torch.settings.__init__",
+    "pmarlo_tpu_torch.settings.loader", "pmarlo_tpu_torch.utils.config_utils",
+    "pmarlo_tpu_torch.utils.misc", "pmarlo_tpu_torch.utils.path_utils",
+    "pmarlo_tpu_torch.utils.profiling", "pmarlo_tpu_torch.workflow.__init__",
+    "pmarlo_tpu_torch.workflow.pipeline", "pmarlo_tpu_torch.__init__",
+]
 
 
 def test_port_imports_without_jax():
