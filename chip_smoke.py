@@ -236,11 +236,24 @@ Phases, one line of numbers each:
              row 1 against its plain version over one 100-step chunk (phase
              2's gate), then 4 ps of equilibration and 2,000 steps at 1 fs,
              the ladder's and each rung's kinetic/target temperature.
+26. api and reports - ``api.extract_last_frame_to_pdb`` writes phase 10's
+             last 300 K frame; ``run_replica_exchange(pdb, use_kernel=True)``
+             restarts from it at phase 10's ladder through row 1 (its System
+             equal to phase 10's field by field; row 1 against its plain
+             version over one 100-step chunk at the restart positions, phase
+             2's gates); the ``api`` facade on rungs 0-3 on the card (features
+             and their cache, alignment, the universal embedding, k-means,
+             MSM, macrostates, FES minima, conformations, ``benchmark``);
+             ``api.analyze_msm`` with its plots, the ``visualization`` plots,
+             the interactive pages, and the dashboard (``webapp``) exported,
+             through the CLI and served once on the loopback. Without
+             matplotlib on the host the steps that render are listed and not
+             run.
 
 As each phase ends, its wall seconds and the script's so far go to
 standard error (a run cut at its time limit shows how far it got).
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-25 and every phase's wall seconds, the card's name and
+11-14 and 15-26 and every phase's wall seconds, the card's name and
 power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
@@ -4121,6 +4134,321 @@ def phase_nucleic_complex(chain) -> dict:
     return out
 
 
+# phase 26: the API facade and the reports from a restart of phase 10's last
+# 300 K frame. The restart runs phase 10's configuration through row 1 for
+# API_RESTART_STEPS (nothing cut: 200 launches of 50 steps); the API then
+# works on its rungs 0-3 (4 x 200 frames), at phase 23's 16 states and lag 2
+API_RESTART_STEPS = 10_000
+API_RUNGS = 4
+API_STATES = 16
+API_LAG = 2
+API_ALIGN_FRAMES = 64             # frames of the alignment check
+API_ALIGN_TOL_NM = 1e-5
+PDB_ROUNDING_NM = 5.1e-5          # half the PDB's 1e-4 nm (1e-3 A) resolution,
+                                  # and float32 rounding of coordinates of a few nm
+DASHBOARD_CARDS = ("Run summary", "Free-energy surface", "Implied timescales",
+                   "Chapman-Kolmogorov", "MSM", "State table")
+
+
+def _system_differences(a, b) -> list:
+    """The fields of two Systems that differ (tensors compared bit for bit
+    on the host)."""
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            same = (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.shape == y.shape and x.dtype == y.dtype
+                    and torch.equal(x.cpu(), y.cpu()))
+        else:
+            same = x == y
+        if not same:
+            diff.append(f.name)
+    return diff
+
+
+def _dashboard_titles(page: str) -> list:
+    return re.findall(r"<h2>(.*?)</h2>", page)
+
+
+def phase_api_reports(cv: dict, cx: dict) -> dict:
+    """Phase 26: ``api.extract_last_frame_to_pdb`` writes phase 10's last
+    300 K frame; ``run_replica_exchange(pdb, use_kernel=True)`` restarts
+    from it at phase 10's ladder (R=32, 300-450 K, 2 fs, an exchange every
+    100 steps) through row 1, held against its plain version over one
+    100-step chunk at the restart positions (phase 2's gates), its System
+    against phase 10's field by field; then the API on rungs 0-3 on the
+    card (features and their cache, alignment, the universal embedding,
+    k-means, the MSM, macrostates, FES minima, conformations and their
+    writers, the sampling benchmark); ``api.analyze_msm`` into a run
+    directory with its plots; the plots of the run and the interactive
+    pages; the dashboard exported, through the CLI and served once. Host
+    wall seconds of each step, CUDA events around the restart. Where the
+    host has no matplotlib, the steps that render are listed and not run."""
+    import importlib.util
+    import socket
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from pmarlo_tpu_torch import api, benchmark
+    from pmarlo_tpu_torch.features import featurize_trajectory
+    from pmarlo_tpu_torch.io.pdb import read_pdb
+    from pmarlo_tpu_torch.md import analytic
+    from pmarlo_tpu_torch.md.forces import potential_energy
+    from pmarlo_tpu_torch.md.fused_md import build_fused_chunk
+    from pmarlo_tpu_torch.remd.remd import run_replica_exchange
+
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return result
+
+    t_phase = time.perf_counter()
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = {"matplotlib": have_mpl}
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    info, system10, res10 = cv["info"], cx["system"], cv["remd"]
+    R, cfg = N_REPLICAS, _remd_config(seed=26)
+
+    # 1. the restart: the last 300 K frame to a PDB, the System rebuilt from it
+    pdb = timed("extract_pdb_s", lambda: api.extract_last_frame_to_pdb(
+        res10.positions[:, 0], info, root / "restart.pdb"))
+    x_file = read_pdb(pdb).coordinates()
+    out["pdb_rounding_max_nm"] = float(np.abs(x_file - res10.positions[-1, 0]).max())
+    _check(out["pdb_rounding_max_nm"] <= PDB_ROUNDING_NM,
+           f"the PDB holds the frame within {out['pdb_rounding_max_nm']} nm")
+    xf = torch.as_tensor(x_file, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res, system = run_replica_exchange(pdb, n_steps=API_RESTART_STEPS, config=cfg,
+                                       use_kernel=True)
+    end.record()
+    torch.cuda.synchronize()
+    walls["restart_s"] = time.perf_counter() - t0
+    walls["restart_events_s"] = start.elapsed_time(end) / 1e3
+    walls["restart_run_s"] = res.wall_seconds
+    counts = _counts()
+    out["launches"] = counts["fused_md_chunk"]
+    _check(out["launches"] == API_RESTART_STEPS // cfg.report_interval,
+           f"{out['launches']} chunk launches in the restart")
+    _check(all(v == 0 for k, v in counts.items() if k != "fused_md_chunk"),
+           f"only row 1 on the restart's path: {counts}")
+    _check(system.device.type == "cuda", "the rebuilt System lies on the card")
+    out["system_fields_differing"] = _system_differences(system, system10)
+    _check(not out["system_fields_differing"],
+           f"the System rebuilt from the PDB differs in {out['system_fields_differing']}")
+    e10, e_file = potential_energy(system10, xf), potential_energy(system, xf)
+    out["energy_at_file_positions_kJ_mol"] = float(e_file)
+    _check(torch.equal(e10, e_file), f"energy at the file's positions {e10} vs {e_file}")
+    out["mean_acceptance"] = res.mean_acceptance
+    out["kinetic_over_target"] = _kinetic_ratio(res, cfg)
+    _check(0.0 < res.mean_acceptance < 1.0, f"restart acceptance {res.mean_acceptance}")
+    _check(0.97 <= out["kinetic_over_target"] <= 1.03,
+           f"restart kinetic/target {out['kinetic_over_target']}")
+    _check(bool(np.isfinite(res.positions).all()), "restart frames finite")
+
+    # row 1 against its plain version at the restart positions (phase 2's
+    # gates); launched after the run's counts were read, so not counted
+    chunk = build_fused_chunk(system, dt=DT_PS, friction=cfg.friction_per_ps, n_replicas=R)
+    rng = np.random.default_rng(26)
+    temps = _ladder()
+    x = xf[None].expand(R, -1, -1).contiguous()
+    v = _mb_velocities(system, temps, rng)
+    seeds = torch.as_tensor(rng.integers(0, 2**31 - 1, R), dtype=torch.int32, device="cuda")
+    ek0, fk0 = chunk.energy_and_forces(x)
+    ep0, fp0 = analytic.energy_and_forces(chunk.dense, x)
+    xk, _, ek = chunk(x, v, seeds, temps, 100, 0)
+    xp, _, _ = chunk.reference(x, v, seeds, temps, 100, 0)
+    e_at_xk, _ = analytic.energy_and_forces(chunk.dense, xk)
+    torch.cuda.synchronize()
+    row1 = {"force_max_abs_err": float((fk0 - fp0).abs().max()),
+            "force_rel_err": _rel(fk0, fp0), "energy_rel_err": _rel(ek0, ep0),
+            "chunk_max_dx_nm": float((xk - xp).abs().max()),
+            "chunk_energy_rel_err": _rel(ek, e_at_xk)}
+    out["row1_vs_plain"] = row1
+    _check(row1["force_rel_err"] <= 1e-4 and row1["energy_rel_err"] <= 1e-4,
+           f"row 1 vs plain at the restart positions {row1}")
+    _check(bool(torch.isfinite(xk).all()) and row1["chunk_max_dx_nm"] <= 1e-3
+           and row1["chunk_energy_rel_err"] <= 1e-4, f"row 1's 100-step chunk {row1}")
+
+    # 2. the API on rungs 0-3, on the card; every result a host array
+    trajs = [np.ascontiguousarray(res.positions[:, r]) for r in range(API_RUNGS)]
+    F = trajs[0].shape[0]
+    traj = np.concatenate(trajs)
+    api.clear_feature_cache()
+    X, meta = timed("features_s", lambda: api.compute_features(
+        traj, "phi_psi", info, cos_sin_expand=True))
+    X2, _ = timed("features_cached_s", lambda: api.compute_features(
+        traj, "phi_psi", info, cos_sin_expand=True))
+    Xd, _ = featurize_trajectory(traj, "phi_psi", info, cos_sin_expand=True)
+    _check(isinstance(X, np.ndarray) and X2 is X, "compute_features: host array, cached")
+    _check(Xd.is_cuda and np.array_equal(Xd.cpu().numpy(), X),
+           "compute_features is featurize_trajectory's result on the card, bit for bit")
+    out["features"] = list(X.shape)
+
+    theta = 0.7
+    rot = np.array([[np.cos(theta), -np.sin(theta), 0.0], [np.sin(theta), np.cos(theta), 0.0],
+                    [0.0, 0.0, 1.0]], np.float32)
+    block = trajs[0][:API_ALIGN_FRAMES]
+    moved = block @ rot.T + np.array([1.0, -0.5, 2.0], np.float32)
+    aligned = timed("align_s", lambda: api.align_trajectory(np.concatenate([block, moved])))
+    out["align_max_err_nm"] = float(np.abs(aligned[len(block):] - aligned[:len(block)]).max())
+    _check(isinstance(aligned, np.ndarray) and out["align_max_err_nm"] <= API_ALIGN_TOL_NM,
+           f"aligned copy {out['align_max_err_nm']} nm off the aligned block")
+    A, meta_a = api.compute_features(traj, "phi_psi", info)
+    expanded = api.trig_expand_periodic(A)
+    out["trig_expand_vs_features_max"] = float(np.abs(expanded - X).max())
+    _check(isinstance(expanded, np.ndarray) and out["trig_expand_vs_features_max"] <= 1e-6,
+           "trig_expand_periodic of the angles is the features' (cos, sin) expansion")
+
+    emb = timed("embedding_s", lambda: api.compute_universal_embedding(traj, info))
+    metric = api.compute_universal_metric(traj, info)
+    _check(isinstance(emb, np.ndarray) and emb.shape == (len(traj), 2)
+           and bool(np.isfinite(emb).all()), f"universal embedding {emb.shape}")
+    _check(metric.shape == (len(traj),) and bool(np.isfinite(metric).all()),
+           "universal metric finite")
+
+    labels = timed("cluster_s", lambda: api.cluster_microstates(
+        [X[r * F:(r + 1) * F] for r in range(API_RUNGS)], n_states=API_STATES))
+    _check(isinstance(labels, np.ndarray) and labels.shape == (len(traj),),
+           "cluster_microstates: one label a frame")
+    dtrajs = np.split(labels, API_RUNGS)
+    msm = timed("msm_s", lambda: api.build_msm_from_labels(dtrajs, API_LAG, API_STATES))
+    active = msm.active_states
+    Ta, pia = msm.restricted_T(), msm.stationary_distribution[active]
+    out["msm_active_states"] = int(len(active))
+    out["msm_row_sum_off_1"] = float(np.abs(msm.transition_matrix.sum(1) - 1.0).max())
+    _check(out["msm_row_sum_off_1"] <= 1e-10, "MSM rows sum to 1")
+    Tn = Ta / Ta.sum(1, keepdims=True)
+    macro, _ = timed("macrostates_s", lambda: api.compute_macrostates(Tn, 2, pia))
+    pops = api.macrostate_populations(pia, macro)
+    Tm = api.macro_transition_matrix(Tn, pia, macro)
+    mfpt = api.macro_mfpt(Tn, pia, macro)
+    off = ~np.eye(len(Tm), dtype=bool)
+    out.update({"macrostate_populations": pops.tolist(),
+                "macro_transition_matrix": Tm.tolist(), "macro_mfpt_frames": mfpt.tolist()})
+    _check(len(pops) == 2 and abs(float(pops.sum()) - 1.0) <= 1e-10,
+           f"macrostate populations {pops}")
+    _check(float(np.abs(Tm.sum(1) - 1.0).max()) <= 1e-10, "macro T row-stochastic")
+    _check(bool(np.isfinite(mfpt).all() and (mfpt[off] > 0).all()),
+           f"macro MFPT {mfpt}")
+
+    # the FES on the dihedral angles: the featurizer names every column
+    # "phi_psi[k]" (phi first, then psi), so the pair is chosen on names
+    # that say which is which
+    n_phi = A.shape[1] // 2
+    names = [f"phi{k}" for k in range(n_phi)] + [f"psi{k}" for k in range(n_phi)]
+    i, j = api.select_fes_pair(names)
+    out["fes_pair"] = [names[i], names[j]]
+    out["fes_pair_on_featurizer_names"] = list(api.select_fes_pair(meta_a["columns"]))
+    fes, picks = timed("fes_minima_s", lambda: api.generate_fes_and_pick_minima(
+        A[:, i], A[:, j], periodic=(True, True), cv_names=(names[i], names[j])))
+    out["fes_finite_fraction"] = float(fes.finite_fraction)
+    out["fes_minima_frames"] = [len(v) for v in picks.values()]
+    _check(out["fes_finite_fraction"] > 0.0, "FES has finite bins")
+    _check(any(n > 0 for n in out["fes_minima_frames"]), "a minimum with frames")
+
+    cs = timed("conformations_s", lambda: api.find_conformations_from_msm(
+        Tn, n_macrostates=2, committor_tolerance=0.2))
+    csv_path = api.conformations_to_csv(cs, root / "conformations.csv")
+    json_path = api.conformations_to_json(cs, root / "conformations.json")
+    n_rows = len(csv_path.read_text().splitlines()) - 1
+    out["conformations"] = len(cs.conformations)
+    _check(len(cs.conformations) >= 1 and n_rows == len(cs.conformations)
+           == len(json.loads(json_path.read_text())["conformations"]),
+           f"{n_rows} CSV rows for {len(cs.conformations)} conformations")
+
+    phi0, psi0 = (np.degrees(A[:F, c]) for c in (i, j))
+    kpi = timed("benchmark_s", lambda: benchmark.run_benchmark(phi0, psi0))
+    out["benchmark"] = {k: kpi[k] for k in ("coverage", "transitions_cv1", "transitions_cv2",
+                                             "finite_fraction", "n_frames")}
+    _check(0.0 < kpi["coverage"] <= 1.0, f"coverage {kpi['coverage']}")
+    _check(kpi["transitions_cv1"] >= 0 and kpi["transitions_cv2"] >= 0, "transitions")
+
+    # 3. the one-shot analysis into a run directory, the plots, the dashboard
+    run_dir = root / "run"
+    m = timed("analyze_msm_s", lambda: api.analyze_msm(
+        trajs, info, output_dir=run_dir if have_mpl else None, n_states=API_STATES,
+        lag_time=API_LAG))
+    if not have_mpl:
+        m.save_analysis_results(run_dir)
+    _check(m.features[0].dtype == np.float32 and m.its is not None and m.ck is not None
+           and m.fes is not None, "analyze_msm: features on the host, ITS, CK, FES")
+    out["analyze_msm_files"] = sorted(p.name for p in run_dir.iterdir())
+    skipped = ["analyze_msm plots", "visualization plots", "fes_html / its_html",
+               "export_static", "CLI dashboard", "serve"]
+    if have_mpl:
+        skipped = []
+        from pmarlo_tpu_torch.main import main as cli
+        from pmarlo_tpu_torch.visualization import fes_html, its_html
+        from pmarlo_tpu_torch.visualization import plots as P
+        from pmarlo_tpu_torch.webapp import export_static, serve
+
+        for name in ("fes.png", "its.png", "ck.png"):
+            _check((run_dir / name).stat().st_size > 0, f"analyze_msm wrote {name}")
+        plots = root / "plots"
+        timed("plots_s", lambda: [
+            P.plot_acceptance_matrix(res, plots / "acceptance.png"),
+            P.plot_ramachandran(phi0, psi0, plots / "ramachandran.png"),
+            P.plot_committors(cs.tpt, plots / "committors.png"),
+            P.plot_flux_network(cs.tpt, plots / "flux_network.png"),
+            P.plot_its(m.its, plots / "its.png"), P.plot_ck(m.ck, plots / "ck.png")])
+        out["plots"] = {p.name: p.stat().st_size for p in sorted(plots.iterdir())}
+        _check(len(out["plots"]) == 6 and all(out["plots"].values()), f"plots {out['plots']}")
+        pages = timed("interactive_s", lambda: [fes_html(m.fes, root / "fes.html"),
+                                                 its_html(m.its, root / "its.html")])
+        _check(all("http://" not in p and "https://" not in p for p in pages),
+               "the interactive pages are self-contained")
+        page = timed("export_s", lambda: export_static(run_dir, root / "dashboard.html")
+                     .read_text())
+        _check(timed("cli_dashboard_s", lambda: cli(
+            ["dashboard", str(run_dir), "--export", str(root / "cli.html")])) == 0,
+               "the CLI's dashboard exits 0")
+        _check((root / "cli.html").read_bytes() == (root / "dashboard.html").read_bytes(),
+               "the CLI's page is export_static's, byte for byte")
+        titles = _dashboard_titles(page)
+        out["dashboard_cards"] = titles
+        out["dashboard_bytes"] = len(page)
+        _check(all(any(t.startswith(c) for t in titles) for c in DASHBOARD_CARDS),
+               f"dashboard cards {titles}")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        threading.Thread(target=serve, args=(run_dir,), kwargs={"port": port},
+                         daemon=True).start()
+        t0 = time.perf_counter()
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}", timeout=10) as r:
+                    status, served = r.status, r.read().decode()
+                break
+            except urllib.error.URLError as exc:
+                _check(isinstance(exc.reason, ConnectionRefusedError)
+                       and time.perf_counter() - t0 < 10.0, f"the dashboard server: {exc}")
+                time.sleep(0.1)
+        walls["serve_get_s"] = time.perf_counter() - t0
+        out["serve_status"] = status
+        _check(status == 200 and _dashboard_titles(served) == titles,
+               f"served page: status {status}, cards {_dashboard_titles(served)}")
+    out["steps_not_run"] = skipped
+    tmp.cleanup()
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    _line("phase 26 api and reports", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -4242,6 +4570,7 @@ def main() -> None:
     conformations = _timed("23 conformations", phase_conformations_path, cv, px_min)
     structure, chain_a = _timed("24 structure prep", phase_structure_prep)
     nucleic = _timed("25 nucleic complex", phase_nucleic_complex, chain_a)
+    api_reports = _timed("26 api and reports", phase_api_reports, cv, cx)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -4253,7 +4582,7 @@ def main() -> None:
         "name": "fused_md_chunk", **fused_src,
         "replaces": "pmarlo_tpu/md/pallas_md.py:791",
         "launches": (main_path["launches"] + cv["launches"]["fused_md_chunk"]
-                     + nucleic["launches"]),
+                     + nucleic["launches"] + api_reports["launches"]),
         "max_abs_err": kern["force_max_abs_err"],
         "ms": kern["chunk100_ms"],
         "plain_ms": kern["chunk100_plain_ms"],
@@ -4513,6 +4842,11 @@ def main() -> None:
                 "chunk_energy_rel_err", "launches", "run_wall_s", "mean_acceptance",
                 "kinetic_over_target", "kinetic_over_target_per_rung")}
                for kind in ("dna", "rna")}},
+        "api_reports": {k: api_reports[k] for k in (
+            "walls_s", "matplotlib", "steps_not_run", "launches",
+            "row1_vs_plain", "system_fields_differing", "mean_acceptance",
+            "kinetic_over_target", "align_max_err_nm", "msm_active_states",
+            "fes_finite_fraction", "conformations", "benchmark")},
         "phase_s": PHASE_S,
         "script_s": time.perf_counter() - t_start,
     })

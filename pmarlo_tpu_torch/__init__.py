@@ -28,6 +28,8 @@ _EXPORTS = {
     "load_defaults": ("pmarlo_tpu_torch.settings", "load_defaults"),
     "set_global_seed": ("pmarlo_tpu_torch.utils.seed", "set_global_seed"),
     "constants": ("pmarlo_tpu_torch.constants", None),
+    "api": ("pmarlo_tpu_torch.api", None),
+    "visualization": ("pmarlo_tpu_torch.visualization", None),
     # structure prep
     "Protein": ("pmarlo_tpu_torch.protein.protein", "Protein"),
     "solvate_structure": ("pmarlo_tpu_torch.protein.solvate", "solvate_structure"),
@@ -52,6 +54,9 @@ _EXPORTS = {
                                    "suggest_temperature_ladder"),
     "save_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "save_checkpoint"),
     "load_checkpoint": ("pmarlo_tpu_torch.remd.checkpoint", "load_checkpoint"),
+    # dashboard (reference pmarlo_webapp)
+    "export_dashboard": ("pmarlo_tpu_torch.webapp", "export_static"),
+    "serve_dashboard": ("pmarlo_tpu_torch.webapp", "serve"),
     # features
     "FEATURE_REGISTRY": ("pmarlo_tpu_torch.features.base", "FEATURE_REGISTRY"),
     "get_feature": ("pmarlo_tpu_torch.features.base", "get_feature"),

@@ -5,9 +5,9 @@ Port of ``pmarlo_tpu/main.py``: the same facade over the port's modules and
 the same subcommands, arguments and JSON output, as ``pmarlo-tpu-torch``
 (``python -m pmarlo_tpu_torch.main``). ``run-segment`` and ``remd`` run on
 the card when there is one (the entry points' ``device=None``); ``info``
-names the backend and the cards PyTorch sees. ``dashboard`` imports
-``.webapp``, which the port does not have yet: it raises
-``ModuleNotFoundError``.
+names the backend and the cards PyTorch sees. ``dashboard`` renders a run
+directory through the port's ``webapp``, imported when that command runs
+(its plots need matplotlib; the other commands do not).
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ Two things differ from the JAX class:
   posterior run on the same device; everything else works on host arrays.
 
 The ``plot_*`` methods, and the plots ``run_complete_msm_analysis`` draws
-after saving its npy, pickle and json files, import
-``..visualization``, which the port does not have yet (ROADMAP A14): they
-raise ``ModuleNotFoundError``.
+after saving its npy, pickle and json files, import the port's
+``..visualization`` when they run, as JAX's do: only the plots need
+matplotlib.
 """
 
 from __future__ import annotations
@@ -572,8 +572,8 @@ def run_complete_msm_analysis(
     """One-call pipeline (reference _enhanced_impl.py:50): load ->
     featurize -> cluster -> MSM -> ITS -> FES -> states -> save, on
     ``device`` (``None``: ``_device.default_device()``). With an
-    ``output_dir`` the plots after the save raise ``ModuleNotFoundError``
-    until the port has ``visualization`` (ROADMAP A14)."""
+    ``output_dir`` it saves the artifacts, then draws the FES, the ITS and
+    the CK plots there (PNG, through ``..visualization``)."""
     msm = EnhancedMSM(
         topology=topology, temperature_K=temperature_K, output_dir=output_dir,
         device=device,

@@ -293,11 +293,9 @@ def test_features_export_what_jax_exports_but_structure():
 
 
 #: each name of ``pmarlo_tpu._EXPORTS`` the port's registry lacks, beside
-#: the queue item of ROADMAP.md that brings its module
-REGISTRY_STILL_MISSING = {
-    "api": "A14", "visualization": "A14", "export_dashboard": "A14",
-    "serve_dashboard": "A14",
-}
+#: the queue item of ROADMAP.md that brings its module: none since the API
+#: facade, the plots and the dashboard are ported
+REGISTRY_STILL_MISSING = {}
 
 #: JAX modules the port carries under another name (the Pallas files)
 RENAMED = {

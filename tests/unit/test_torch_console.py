@@ -127,10 +127,31 @@ def test_cli_arguments_are_jax_arguments():
         assert getattr(port_main, name) is not None
 
 
-def test_dashboard_needs_the_webapp(tmp_path):
-    """``dashboard`` imports ``webapp``, which the port does not have yet."""
-    with pytest.raises(ModuleNotFoundError):
-        main(["dashboard", str(tmp_path), "--export", str(tmp_path / "out.html")])
+def test_dashboard_needs_the_webapp(tmp_path, capsys):
+    """``dashboard --export`` renders a run directory through the port's
+    ``webapp``: the page is JAX's page of the same directory, byte for byte
+    (the plots are the same matplotlib calls on the same artifacts)."""
+    from pmarlo_tpu.main import main as jax_main
+    from pmarlo_tpu_torch.msm.free_energy import generate_2d_fes
+    from pmarlo_tpu_torch.msm.its import ITSResult
+
+    rng = np.random.default_rng(0)
+    run = tmp_path / "run"
+    run.mkdir()
+    generate_2d_fes(rng.normal(size=2000), rng.normal(size=2000), bins=16).save(
+        run / "fes.json")
+    its = ITSResult(lags=np.array([1, 2, 5]), timescales=rng.uniform(5, 50, (3, 2)),
+                    ci_lower=np.ones((3, 2)), ci_upper=np.full((3, 2), 60.0), n_samples=20)
+    (run / "its.json").write_text(json.dumps(its.to_dict()))
+    (run / "analysis_summary.json").write_text(json.dumps({"temperature_K": 300.0}))
+    np.save(run / "stationary_distribution.npy", np.array([0.4, 0.6]))
+    assert main(["dashboard", str(run), "--export", str(tmp_path / "port.html")]) == 0
+    assert jax_main(["dashboard", str(run), "--export", str(tmp_path / "jax.html")]) == 0
+    assert f"wrote {tmp_path / 'port.html'}" in capsys.readouterr().out
+    page = (tmp_path / "port.html").read_bytes()
+    assert page == (tmp_path / "jax.html").read_bytes()
+    for card in (b"Run summary", b"Free-energy surface", b"Implied timescales", b"MSM"):
+        assert card in page, card
 
 
 # --- settings and utilities (tests/unit/test_utils_settings.py) ----------------------------

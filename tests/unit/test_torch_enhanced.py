@@ -71,9 +71,8 @@ def test_state_table_bootstrap_errors(double_well_dtrajs):
 
 
 def test_enhanced_plot_method_surface(double_well_dtrajs, tmp_path):
-    """The plot methods exist on the class; the port has no
-    ``visualization`` yet (ROADMAP A14), so each raises
-    ``ModuleNotFoundError`` naming it."""
+    """Each plot method writes its PNG through the port's
+    ``visualization`` and returns the matplotlib Figure."""
     _, xs = double_well_dtrajs
     m = EnhancedMSM(output_dir=tmp_path, device="cpu")
     m.features = [x[:, None].astype(np.float32) for x in xs]
@@ -82,14 +81,17 @@ def test_enhanced_plot_method_surface(double_well_dtrajs, tmp_path):
     m.compute_implied_timescales(lags=[1, 2, 5, 10], n_samples=8)
     m.compute_ck_test(factors=[2, 3])
     m.generate_free_energy_surface(0, 0, bins=8)
-    for call in (lambda: m.plot_implied_rates(tmp_path / "rates.png"),
-                 lambda: m.plot_free_energy_profile(0, tmp_path / "pmf.png"),
-                 lambda: m.plot_ck_test(tmp_path / "ck.png"),
-                 lambda: m.plot_free_energy_surface(tmp_path / "fes.png"),
-                 lambda: m.plot_implied_timescales(tmp_path / "its.png")):
-        with pytest.raises(ModuleNotFoundError, match="visualization"):
-            call()
-    assert not list(tmp_path.glob("*.png"))
+    from matplotlib.figure import Figure
+
+    calls = {"rates.png": lambda p: m.plot_implied_rates(p),
+             "pmf.png": lambda p: m.plot_free_energy_profile(0, p),
+             "ck.png": lambda p: m.plot_ck_test(p),
+             "fes.png": lambda p: m.plot_free_energy_surface(p),
+             "its.png": lambda p: m.plot_implied_timescales(p)}
+    for name, call in calls.items():
+        assert isinstance(call(tmp_path / name), Figure), name
+        assert (tmp_path / name).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == sorted(calls)
 
 
 def test_tica_refreshes_feature_info():
@@ -280,9 +282,9 @@ def test_enhanced_msm_chain_writes_states_and_results(alanine_basins, tmp_path):
 
 def test_run_complete_msm_analysis_saves_then_needs_visualization(alanine_basins, tmp_path):
     """From npz trajectory files: without an output directory the analysis
-    returns; with one it writes the npy, pickle and json files, then the
-    first plot raises ``ModuleNotFoundError`` (no ``visualization`` in the
-    port until ROADMAP A14)."""
+    returns; with one it writes the npy, pickle and json files and then
+    its plots (the FES; the ITS and CK where it computed them) through the
+    port's ``visualization``."""
     from pmarlo_tpu_torch.io.trajectory import TrajectoryWriter
 
     info, trajs = alanine_basins
@@ -296,7 +298,14 @@ def test_run_complete_msm_analysis_saves_then_needs_visualization(alanine_basins
               compute_ck=False, device="cpu")
     msm = run_complete_msm_analysis(files, info, **kw)
     assert msm.msm is not None and msm.fes is not None
-    with pytest.raises(ModuleNotFoundError, match="visualization"):
-        run_complete_msm_analysis(files, info, output_dir=tmp_path / "out", **kw)
-    assert (tmp_path / "out" / "transition_matrix.npy").exists()
-    assert (tmp_path / "out" / "analysis_summary.json").exists()
+    out = tmp_path / "out"
+    run_complete_msm_analysis(files, info, output_dir=out, **kw)
+    assert (out / "transition_matrix.npy").exists()
+    assert (out / "analysis_summary.json").exists()
+    assert (out / "fes.png").stat().st_size > 0
+    assert not (out / "its.png").exists() and not (out / "ck.png").exists()
+    kw.update(compute_its=True, compute_ck=True)
+    msm = run_complete_msm_analysis(files, info, output_dir=tmp_path / "full", **kw)
+    assert msm.its is not None and msm.ck is not None and msm.ck.predicted
+    for name in ("fes.png", "its.png", "ck.png", "its.json", "ck.json"):
+        assert (tmp_path / "full" / name).stat().st_size > 0, name

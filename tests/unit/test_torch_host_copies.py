@@ -47,6 +47,14 @@ COPIES = [
     "utils/config_utils.py", "utils/misc.py", "utils/path_utils.py",
     "settings/__init__.py", "settings/loader.py", "workflow/__init__.py",
     "workflow/pipeline.py",
+    # the API facade and the reports: the sampling benchmark, the ``api``
+    # package but ``features.py`` (a port, held in test_torch_api.py), the
+    # plots and the dashboard
+    "benchmark/__init__.py", "api/feature_profiles.py", "api/trajectory_utils.py",
+    "api/conformations.py", "api/fes.py", "api/msm.py", "api/clustering.py",
+    "api/__init__.py", "visualization/plots.py", "visualization/interactive.py",
+    "visualization/__init__.py", "webapp/app.py", "webapp/__init__.py",
+    "webapp/__main__.py",
 ]
 
 #: the settings' YAML files, carried byte for byte as the neck tables are

@@ -234,18 +234,21 @@ def test_ck_macrostates_and_insufficient_data_match_jax(block_dtrajs):
 
 
 def test_run_ck_writes_the_jax_artifacts(tmp_path, block_dtrajs):
-    """``run_ck``'s JSON and CSV as JAX writes them; its plot comes with the
-    port's ``visualization`` package, which the port does not have yet
-    (ROADMAP A14), so a run with predictions stops at the plot's import
-    after writing both files."""
+    """``run_ck``'s JSON and CSV as JAX writes them; a run with predictions
+    also draws ``ck.png`` through the port's ``visualization``, beside the
+    same JSON and CSV as JAX's."""
     short = [d[:40] for d in block_dtrajs]
     ck.run_ck(short, 15, tmp_path / "port", factors=(3, 4))
     jax_ck.run_ck(short, 15, tmp_path / "jax", factors=(3, 4))
     for name in ("ck.json", "ck.csv"):
         assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
-    with pytest.raises(ModuleNotFoundError, match="pmarlo_tpu_torch.visualization"):
-        ck.run_ck(block_dtrajs, 3, tmp_path / "full", factors=(2,))
-    assert (tmp_path / "full" / "ck.json").exists() and (tmp_path / "full" / "ck.csv").exists()
+    ck.run_ck(block_dtrajs, 3, tmp_path / "full", factors=(2,))
+    jax_ck.run_ck(block_dtrajs, 3, tmp_path / "jax_full", factors=(2,))
+    for name in ("ck.json", "ck.csv"):
+        assert ((tmp_path / "full" / name).read_text()
+                == (tmp_path / "jax_full" / name).read_text()), name
+    assert (tmp_path / "full" / "ck.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert (tmp_path / "full" / "ck.png").stat().st_size > 0
 
 
 # --- the CK/ITS lag selector ---------------------------------------------------------------------

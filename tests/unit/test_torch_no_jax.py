@@ -130,6 +130,18 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.utils.profiling", "pmarlo_tpu_torch.workflow.__init__",
     "pmarlo_tpu_torch.workflow.pipeline", "pmarlo_tpu_torch.__init__",
 ]
+#: modules the API and reports slice added: the ``api`` facade, the sampling
+#: benchmark, the plots and the dashboard (``visualization`` and ``webapp``
+#: import matplotlib, which this image has)
+NEW_MODULES += [
+    "pmarlo_tpu_torch.api.__init__", "pmarlo_tpu_torch.api.feature_profiles",
+    "pmarlo_tpu_torch.api.trajectory_utils", "pmarlo_tpu_torch.api.conformations",
+    "pmarlo_tpu_torch.api.fes", "pmarlo_tpu_torch.api.msm", "pmarlo_tpu_torch.api.clustering",
+    "pmarlo_tpu_torch.api.features", "pmarlo_tpu_torch.benchmark.__init__",
+    "pmarlo_tpu_torch.visualization.__init__", "pmarlo_tpu_torch.visualization.plots",
+    "pmarlo_tpu_torch.visualization.interactive", "pmarlo_tpu_torch.webapp.__init__",
+    "pmarlo_tpu_torch.webapp.app", "pmarlo_tpu_torch.webapp.__main__",
+]
 
 
 def test_port_imports_without_jax():
