@@ -250,10 +250,27 @@ Phases, one line of numbers each:
              matplotlib on the host the steps that render are listed and not
              run.
 
+27. multi-device - two ranks spawned on the one card (gloo with CUDA
+             tensors, a FileStore in a temporary directory; NCCL refuses two
+             ranks on one device) while this process runs the one-rank
+             references: phase 4's 32-replica alanine REMD on the plain
+             path, 2,000 steps, 16 rungs a rank; phase 7's 8-replica
+             3,726-atom REMD through rows 3-5, 100 steps at 4 fs, 4 rungs a
+             rank (each held: identical ids and acceptance, frames within
+             1e-4 nm; from one minimized structure); the checkpoint of the
+             sharded alanine run written and read back under the mesh; the
+             41,472-atom water box through row 9 in x-slabs (``run_md``, the
+             slab launches counted; then RF, PME and a box sheared by JAX's
+             dry-run tilt ratios, each against the unsharded kernel and
+             against the plain slab sweep: ms a sweep, scratch bytes a rank
+             beside the unsharded); one data-parallel DeepTICA step at the
+             defaults (32 x 200 frames x 32 features) against the serial
+             step.
+
 As each phase ends, its wall seconds and the script's so far go to
 standard error (a run cut at its time limit shows how far it got).
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-26 and every phase's wall seconds, the card's name and
+11-14 and 15-27 and every phase's wall seconds, the card's name and
 power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
@@ -268,6 +285,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -400,6 +418,16 @@ CLI_SEGMENT_STEPS = 200
 # 4-6 ps), so FIRE runs 2,000 iterations and the REMD equilibrates 4 ps
 # before its 2,000 steps; the ladder's mean kinetic/target temperature over
 # them within phase 7's band, each rung's within phase 17's
+MD_RANKS = 2                     # phase 27: ranks on the one card (gloo)
+MD_ALANINE_STEPS = 2_000
+MD_PROTEIN_STEPS = 100
+MD_WATER_SIDE = 24               # 24^3 waters = 41,472 atoms, box 7.54 nm: nx = 8 at 0.9 nm
+MD_WATER_FIRE = 50               # FIRE iterations from the lattice
+MD_WATER_STEPS = 20              # run_md through the slab launch
+#: the tilt ratios bx / ax, cx / ax, cy / by of JAX's dry run
+#: (``__graft_entry__.py``: tilt (0.45, 0.3, 0.4) on a 3.65 x 1.85 x 1.85 box)
+MD_TILT_RATIOS = (0.45 / 3.65, 0.3 / 3.65, 0.4 / 1.85)
+MD_DEEPTICA = (32, 200, 32)      # trajectories x frames x features
 NUCLEIC_REPLICAS = 8
 NUCLEIC_DT_PS = 0.001
 NUCLEIC_FIRE = 2_000
@@ -4449,6 +4477,346 @@ def phase_api_reports(cv: dict, cx: dict) -> dict:
     return out
 
 
+def _multi_device_config(seed: int = 0):
+    from pmarlo_tpu_torch.remd.remd import RemdConfig
+
+    return RemdConfig(n_replicas=N_REPLICAS, t_min=300.0, t_max=450.0,
+                      exchange_frequency=EXCHANGE_FREQUENCY,
+                      report_interval=EXCHANGE_FREQUENCY, dt_ps=DT_PS, seed=seed)
+
+
+def _multi_device_protein_config():
+    from pmarlo_tpu_torch.remd.remd import RemdConfig
+
+    return RemdConfig(n_replicas=PROTEIN_REPLICAS, t_min=300.0, t_max=330.0,
+                      exchange_frequency=MD_PROTEIN_STEPS, report_interval=50,
+                      dt_ps=PROTEIN_DT_PS, seed=0, friction_per_ps=SHORT_RUN_FRICTION)
+
+
+def _protein_setup():
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.md.setup import build_implicit_setup
+
+    return build_implicit_setup(chignolin_assembly(PROTEIN_COPIES), gb_model="gbn2",
+                                constraints="hbonds", device="cuda")
+
+
+def _deeptica_step(params, z0, zt, mesh=None):
+    """One SGD(lr=1) step of the VAMP-2 loss at DeepTICAConfig's defaults:
+    the data-parallel step under ``mesh``, else the serial math on the
+    card (the loss of the whole batch, its gradient)."""
+    from pmarlo_tpu_torch.ml.deeptica import DeepTICAConfig, mlp_apply
+    from pmarlo_tpu_torch.ml.losses import vamp2_loss
+    from pmarlo_tpu_torch.parallel import make_data_parallel_step
+
+    cfg = DeepTICAConfig()
+    p = [{k: torch.as_tensor(v, device="cuda") for k, v in layer.items()} for layer in params]
+    if mesh is not None:
+        step = make_data_parallel_step(cfg, lambda leaves: torch.optim.SGD(leaves, lr=1.0),
+                                       mesh)
+        p, _, loss = step(p, None, z0, zt)
+    else:
+        leaves = [t.requires_grad_(True) for layer in p for t in layer.values()]
+        z0, zt = (torch.as_tensor(z, device="cuda") for z in (z0, zt))
+        loss, _ = vamp2_loss(mlp_apply(p, z0, cfg.activation), mlp_apply(p, zt, cfg.activation),
+                             ridge=cfg.vamp_ridge, alpha=cfg.vamp_alpha)
+        opt = torch.optim.SGD(leaves, lr=1.0)
+        loss.backward()
+        opt.step()
+    return float(loss.detach()), [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+                                  for layer in p]
+
+
+def _water_slab_system(tilt: bool):
+    """The 24^3 TIP3P box (41,472 atoms, 7.54 nm, nx = 8 at the 0.9 nm
+    cutoff); ``tilt``: sheared by the tilt ratios of JAX's dry run."""
+    from pmarlo_tpu_torch.data.water import water_box_structure
+    from pmarlo_tpu_torch.md.forcefield import build_system
+
+    structure, box = water_box_structure(MD_WATER_SIDE)
+    shear = None
+    if tilt:
+        rbx, rcx, rcy = MD_TILT_RATIOS
+        shear = (rbx * box[0], rcx * box[0], rcy * box[1])
+    return build_system(structure, box=box, tilt=shear, cutoff=EXPLICIT_CUTOFF,
+                        hydrogen_mass=None, device="cuda")
+
+
+def _slab_sweeps(out: dict, tag: str, fn, serial, x: torch.Tensor) -> None:
+    """One rank's slab launch against its plain version (this rank's
+    partial sums) and the whole evaluation against the unsharded kernel;
+    ms a sweep of each, the ranks timing in turns (the other waits at a
+    barrier), the pairs inside the cutoff of the slab, the scratch of
+    each."""
+    import torch.distributed as dist
+
+    from pmarlo_tpu_torch.md.cells import bin_atoms
+
+    order, cs, _, xw = bin_atoms(fn.grid, x[None])
+    order, cs = order.contiguous(), cs.contiguous()
+    ek, fk = fn.sweep(xw, order, cs)
+    ep, fp = fn.sweep_reference(xw, order, cs)
+    _gate(out, f"{tag}_slab_vs_plain", ek.sum(-1), fk, ep.sum(-1), fp)
+    out[f"{tag}_slab_vs_plain_force_max_abs_err"] = float((fk - fp).abs().max())
+    e, f = fn(x)
+    e0, f0 = serial(x)
+    _gate(out, f"{tag}_slab_vs_unsharded", e[None], f, e0[None], f0)
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn != dist.get_rank():
+            continue
+        out[f"{tag}_slab_ms"] = _cuda_ms(lambda: fn.sweep(xw, order, cs), 20)
+        out[f"{tag}_unsharded_ms"] = _cuda_ms(lambda: serial.sweep(xw, order, cs), 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn.sweep_reference(xw, order, cs)
+        torch.cuda.synchronize()
+        out[f"{tag}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    dist.barrier()
+    sl = fn.slab
+    local, _ = sl.atoms(order[0], cs[0])
+    out[f"{tag}_slab_atoms"] = int(local.shape[0])
+    out[f"{tag}_slab_pairs"] = sum(int(ai.numel()) for ai, *_ in fn.half_shell(
+        xw[0], order[0], cs[0], home=(sl.lo, sl.hi)))
+    out[f"{tag}_scratch_bytes"] = fn.scratch_bytes(x)
+    out[f"{tag}_unsharded_scratch_bytes"] = serial.scratch_bytes(x)
+    _check(out[f"{tag}_scratch_bytes"] < out[f"{tag}_unsharded_scratch_bytes"],
+           f"{tag}: a rank's scratch is not below the unsharded one")
+
+
+def _sha256(x: torch.Tensor) -> str:
+    """The digest of a tensor's bytes (two ranks' copies compared bit for bit)."""
+    return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _multi_device_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of phase 27 (spawned): gloo over a FileStore, on cuda:0."""
+    import pickle
+
+    import torch.distributed as dist
+
+    import pmarlo_tpu_torch  # noqa: F401  (pins float32 matmuls)
+    from pmarlo_tpu_torch.data import alanine_dipeptide_structure
+    from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
+    from pmarlo_tpu_torch.md.constraints import build_h_constraints, strip_constrained_bonded
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.integrate import run_md, thermalize
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.parallel import replica_mesh
+    from pmarlo_tpu_torch.remd.checkpoint import load_checkpoint, save_checkpoint
+    from pmarlo_tpu_torch.remd.remd import ReplicaExchange
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    with np.load(f"{tmp}/inputs.npz") as d:
+        inputs = {k: d[k] for k in d.files}
+    layers = [{"w": inputs[f"w{i}"], "b": inputs[f"b{i}"]}
+              for i in range(sum(k.startswith("w") for k in inputs))]
+    mesh = replica_mesh(world)
+    out.update(backend=dist.get_backend(), world=dist.get_world_size(),
+               device=str(torch.cuda.current_device()))
+    walls = {}
+
+    # 1. alanine, 32 rungs on the plain path, and the checkpoint round trip
+    t0 = time.perf_counter()
+    system, _ = build_system(alanine_dipeptide_structure(), gb_model="gbn2", device="cuda")
+    remd = ReplicaExchange(system, torch.as_tensor(inputs["alanine_x"], device="cuda"),
+                           _multi_device_config(), minimize=False, mesh=mesh)
+    out["alanine"] = remd.run(MD_ALANINE_STEPS)
+    walls["alanine_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = save_checkpoint(remd, f"{tmp}/remd.npz", extra={"ranks": world})
+    back, _, extra = load_checkpoint(path, system, mesh=mesh)
+    same = [torch.equal(getattr(back.state, k), getattr(remd.state, k))
+            for k in ("positions", "velocities", "seeds")]
+    out["checkpoint"] = {
+        "state_bitwise": all(same), "ids_bitwise": bool(torch.equal(back.replica_ids,
+                                                                    remd.replica_ids)),
+        "attempts": back._attempts_done, "step": back.state.step, "extra": extra,
+        "local_rungs": int(back.state.positions.shape[0])}
+    walls["checkpoint_s"] = time.perf_counter() - t0
+
+    # 2. the protein through rows 3-5, 4 rungs a rank
+    t0 = time.perf_counter()
+    setup = _protein_setup()
+    _reset_counts()
+    premd = ReplicaExchange(setup.system, torch.as_tensor(inputs["protein_x"], device="cuda"),
+                            _multi_device_protein_config(), force_fn=setup.force_fn,
+                            constraints=setup.constraints, minimize=False, mesh=mesh)
+    out["protein"] = premd.run(MD_PROTEIN_STEPS)
+    out["protein_launches"] = {k: _counts()[k] for k in PAIR_KERNELS}
+    walls["protein_s"] = time.perf_counter() - t0
+
+    # 3. the water box in x-slabs: run_md through the slab launch (the
+    # launches counted), then each mode against the unsharded kernel and
+    # against its plain version
+    t0 = time.perf_counter()
+    wsys, wx = _water_slab_system(tilt=False)
+    # the lattice relaxes through the full system's slab sweep first
+    wx, _ = minimize_energy(wsys, wx, force_fn=build_cell_force_fn(wsys, mesh=mesh),
+                            max_iterations=MD_WATER_FIRE)
+    # every rank holds the whole state: its copy must stay the same bits
+    out["water_fire_sha256"] = _sha256(wx)
+    spec = build_h_constraints(wsys)
+    md_fn = build_cell_force_fn(strip_constrained_bonded(wsys), mesh=mesh)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    state = thermalize(wsys, wx, gen, 300.0)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, frames = run_md(wsys, state, n_steps=MD_WATER_STEPS, dt=DT_PS, friction=1.0,
+                           temperature_K=300.0, force_fn=md_fn, constraints=spec,
+                           report_interval=MD_WATER_STEPS)
+    torch.cuda.synchronize()
+    out["water_ms_per_step"] = (time.perf_counter() - t1) / MD_WATER_STEPS * 1e3
+    out["water_md_sha256"] = _sha256(state.positions)
+    out["water_launches"] = _counts()["cell_force_slab"]
+    out["water_unsharded_launches"] = _counts()["cell_force"]
+    out["water_temperature"] = float(frames["temperature"][-1])
+    out["water_atoms"] = wsys.n_atoms
+    out["water_cells"] = [md_fn.grid.nx, md_fn.grid.ny, md_fn.grid.nz]
+    out["local_shapes"] = md_fn.local_shapes
+    x = state.positions
+    for tag, elec in (("rf", "rf"), ("pme", "pme")):
+        _slab_sweeps(out, tag, build_cell_force_fn(wsys, electrostatics=elec, mesh=mesh),
+                     build_cell_force_fn(wsys, electrostatics=elec), x)
+    ssys, sx = _water_slab_system(tilt=True)
+    _slab_sweeps(out, "sheared", build_cell_force_fn(ssys, mesh=mesh),
+                 build_cell_force_fn(ssys), sx)
+    walls["water_s"] = time.perf_counter() - t0
+
+    # 4. the data-parallel DeepTICA step
+    t0 = time.perf_counter()
+    out["deeptica"] = _deeptica_step(layers, torch.as_tensor(inputs["z0"], device="cuda"),
+                                     torch.as_tensor(inputs["zt"], device="cuda"), mesh)
+    walls["deeptica_s"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _same_remd(out: dict, tag: str, res, ref) -> None:
+    """Phase 27's gate of a sharded run against the one-rank run: identical
+    ids and acceptance, frames within 1e-4 nm."""
+    ids = bool(np.array_equal(res.replica_ids, ref.replica_ids))
+    acc = bool(np.array_equal(res.acceptance_matrix, ref.acceptance_matrix, equal_nan=True))
+    dx = float(np.abs(res.positions - ref.positions).max())
+    de = float(np.abs(res.potential_energy - ref.potential_energy).max())
+    out[tag] = {"replica_ids_identical": ids, "acceptance_identical": acc,
+                "frames_max_abs_dx_nm": dx, "energies_max_abs_diff": de,
+                "mean_acceptance": res.mean_acceptance, "frames": list(res.positions.shape)}
+    _check(ids and acc, f"{tag}: sharded decisions differ from the one-rank run")
+    _check(dx <= 1e-4, f"{tag}: sharded frames {dx} nm from the one-rank run")
+
+
+def phase_multi_device() -> dict:
+    """Two ranks on the one card (gloo, CUDA tensors, a FileStore in a
+    temporary directory), spawned while this process runs the one-rank
+    references beside them."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from pmarlo_tpu_torch.data import alanine_dipeptide_structure
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.minimize import minimize_energy
+    from pmarlo_tpu_torch.ml.deeptica import DeepTICAConfig
+    from pmarlo_tpu_torch.remd.remd import ReplicaExchange
+
+    out = {"ranks": MD_RANKS}
+    walls = {}
+    t0 = time.perf_counter()
+    system, ax = build_system(alanine_dipeptide_structure(), gb_model="gbn2", device="cuda")
+    ax = minimize_energy(system, ax)[0]
+    setup = _protein_setup()
+    px = minimize_energy(setup.system, setup.positions, force_fn=setup.minimize_force_fn)[0]
+    cfg = DeepTICAConfig()
+    S, T, K = MD_DEEPTICA
+    rng = np.random.default_rng(27)
+    walk = np.cumsum(rng.normal(0.0, 0.1, (S, T, K)), axis=1).astype(np.float32)
+    z0 = walk[:, :-cfg.lag].reshape(-1, K)
+    zt = walk[:, cfg.lag:].reshape(-1, K)
+    sizes = [K, *cfg.hidden, cfg.n_out]
+    layers = [{"w": rng.normal(0.0, np.sqrt(2.0 / (a + b)), (a, b)).astype(np.float32),
+               "b": np.zeros(b, np.float32)} for a, b in zip(sizes[:-1], sizes[1:])]
+    walls["inputs_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/inputs.npz", alanine_x=ax.cpu().numpy(), protein_x=px.cpu().numpy(),
+                 z0=z0, zt=zt, **{f"{k}{i}": layer[k] for i, layer in enumerate(layers)
+                                  for k in ("w", "b")})
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_multi_device_rank, args=(MD_RANKS, f"{tmp}/store", tmp),
+                                 nprocs=MD_RANKS, join=False, start_method="spawn")
+        try:
+            # the one-rank references, while the ranks run
+            t1 = time.perf_counter()
+            ref = ReplicaExchange(system, ax, _multi_device_config(), device="cuda",
+                                  minimize=False).run(MD_ALANINE_STEPS)
+            walls["alanine_one_rank_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            pref = ReplicaExchange(setup.system, px, _multi_device_protein_config(),
+                                   device="cuda", force_fn=setup.force_fn,
+                                   constraints=setup.constraints,
+                                   minimize=False).run(MD_PROTEIN_STEPS)
+            walls["protein_one_rank_s"] = time.perf_counter() - t1
+            dloss, dparams = _deeptica_step(layers, z0, zt)
+        finally:
+            while not ctx.join():
+                pass
+        walls["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MD_RANKS):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as fh:
+                ranks.append(pickle.load(fh))
+    r0 = ranks[0]
+    out.update(backend=r0["backend"], world=r0["world"],
+               rank_devices=[r["device"] for r in ranks])
+    print(f"phase 27: backend {r0['backend']}, world size {r0['world']}", flush=True)
+    _check(r0["backend"] == "gloo" and r0["world"] == MD_RANKS, "the ranks' process group")
+    for r, res in enumerate(ranks):
+        _same_remd(out, f"alanine_rank{r}", res["alanine"], ref)
+        _same_remd(out, f"protein_rank{r}", res["protein"], pref)
+        ck = res["checkpoint"]
+        _check(ck["state_bitwise"] and ck["ids_bitwise"]
+               and ck["local_rungs"] == N_REPLICAS // MD_RANKS
+               and ck["attempts"] == MD_ALANINE_STEPS // EXCHANGE_FREQUENCY,
+               f"rank {r}: checkpoint round trip {ck}")
+        _check(all(n > 0 for n in res["protein_launches"].values()),
+               f"rank {r}: pair launches {res['protein_launches']}")
+        _check(res["water_launches"] >= MD_WATER_STEPS and res["water_unsharded_launches"] == 0,
+               f"rank {r}: slab launches {res['water_launches']}")
+        _check(all(res[k] == r0[k] for k in ("water_fire_sha256", "water_md_sha256")),
+               f"rank {r}: its copy of the water box left rank 0's after FIRE or run_md")
+        loss, params = res["deeptica"]
+        _check(abs(loss - dloss) <= 1e-4, f"rank {r}: DeepTICA loss {loss} vs {dloss}")
+        for mine, theirs in zip(params, dparams):
+            for k in ("w", "b"):
+                _check(np.allclose(mine[k], theirs[k], atol=5e-6, rtol=1e-5),
+                       f"rank {r}: DeepTICA {k} after the step")
+        out[f"rank{r}"] = {k: v for k, v in res.items()
+                           if k not in ("alanine", "protein", "deeptica")}
+        out[f"rank{r}"]["deeptica_loss"] = loss
+    out["checkpoint"] = r0["checkpoint"]
+    out["deeptica_one_rank_loss"] = dloss
+    out["walls_s"] = walls
+    out["water_ranks_in_step"] = True       # the sha256 checks above
+    out["slab_launches"] = sum(r["water_launches"] for r in ranks)
+    out["protein_pair_launches_per_rank"] = [r["protein_launches"] for r in ranks]
+    _line("phase 27 multi-device", out)
+    out["slab_max_abs_err"] = max(r[f"{t}_slab_vs_plain_force_max_abs_err"]
+                                  for r in ranks for t in ("rf", "pme", "sheared"))
+    out["slab_bound"] = _periodic_bound(r0["rf_slab_pairs"], 1, r0["rf_slab_atoms"])
+    out["slab_ms"], out["slab_plain_ms"] = r0["rf_slab_ms"], r0["rf_plain_ms"]
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -4571,6 +4939,7 @@ def main() -> None:
     structure, chain_a = _timed("24 structure prep", phase_structure_prep)
     nucleic = _timed("25 nucleic complex", phase_nucleic_complex, chain_a)
     api_reports = _timed("26 api and reports", phase_api_reports, cv, cx)
+    multi = _timed("27 multi-device", phase_multi_device)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -4606,7 +4975,8 @@ def main() -> None:
             "name": name, **cuda,
             "source": "pmarlo_tpu_torch/csrc/pair_force.cu",
             "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
-            "launches": remd["launches"][name] + structure["launches"][name],
+            "launches": (remd["launches"][name] + structure["launches"][name]
+                         + sum(r[name] for r in multi["protein_pair_launches_per_rank"])),
             "max_abs_err": pair[err],
             "ms": pair[f"{tag}_ms"],
             "plain_ms": pair[f"{tag}_plain_ms"],
@@ -4689,6 +5059,21 @@ def main() -> None:
         "ms_chignolin_r8": cells["chignolin_sweep_ms"],
         "bound_ms_chignolin_r8": cells["chignolin_bound_ms"],
     }]
+    kernels.append({
+        "name": "cell_force_slab", **cuda,
+        "source": "pmarlo_tpu_torch/csrc/cell_force.cu",
+        "replaces": "pmarlo_tpu/md/pallas_cells.py:232",
+        "mesh_branch": "pmarlo_tpu/md/pallas_cells.py:428-560",
+        "launches": multi["slab_launches"],
+        "max_abs_err": multi["slab_max_abs_err"],
+        "ms": multi["slab_ms"],
+        "plain_ms": multi["slab_plain_ms"],
+        "timed": f"one x-slab sweep of rank 0 of {MD_RANKS} (timed while the other waits), R=1, "
+                 f"N={multi['rank0']['water_atoms']}, "
+                 f"{multi['rank0']['rf_slab_atoms']} atoms in the slab",
+        **multi["slab_bound"],
+        "unsharded_ms_same_call": multi["rank0"]["rf_unsharded_ms"],
+    })
     Nl = large_path["atoms"]
     for mode, lines, path_counts in (
         ("culled", (984, 1009, 1039), large_path["ordered_launches"]),
@@ -4847,6 +5232,18 @@ def main() -> None:
             "row1_vs_plain", "system_fields_differing", "mean_acceptance",
             "kinetic_over_target", "align_max_err_nm", "msm_active_states",
             "fes_finite_fraction", "conformations", "benchmark")},
+        "multi_device": {
+            "backend": multi["backend"], "ranks": multi["world"],
+            "alanine_frames_max_abs_dx_nm": [multi[f"alanine_rank{r}"]["frames_max_abs_dx_nm"]
+                                             for r in range(MD_RANKS)],
+            "protein_frames_max_abs_dx_nm": [multi[f"protein_rank{r}"]["frames_max_abs_dx_nm"]
+                                             for r in range(MD_RANKS)],
+            "slab_launches": multi["slab_launches"], "slab_ms": multi["slab_ms"],
+            "slab_plain_ms": multi["slab_plain_ms"],
+            "unsharded_ms": multi["rank0"]["rf_unsharded_ms"],
+            "scratch_bytes": multi["rank0"]["rf_scratch_bytes"],
+            "unsharded_scratch_bytes": multi["rank0"]["rf_unsharded_scratch_bytes"],
+            "walls_s": multi["walls_s"]},
         "phase_s": PHASE_S,
         "script_s": time.perf_counter() - t_start,
     })

@@ -74,6 +74,19 @@
 //   whose scratch exceeds a quarter of the card's memory.
 // - energy: half of each pair's energy to each atom's row, so the rows are
 //   the half-summed rows of the row-owned sweep up to summation order.
+// - x-slabs (pmarlo_cell_force_slab; pallas_cells.py's mesh branch, :428-560):
+//   a rank of a mesh walks the home cells of its slab of cxl x-layers only,
+//   on a slab grid of cxl + 1 layers whose last is the halo: the next slab's
+//   first layer (the half shell's dx is 0 or +1, so one halo layer on the +x
+//   face covers every pair). The wrapper hands the slab's atoms in sorted
+//   order with their global indices and CSR offsets on the slab grid; the
+//   x axis of the slab grid does not wrap, except that the last rank's halo
+//   is layer 0 reached across the +x face (halo_wrap), whose shift the
+//   table gives, so each pair is displaced as the unsharded sweep does.
+//   Slots no home item writes are zero; outputs go to the atoms' global
+//   rows (the other rows zero), and an all_reduce over the ranks adds them:
+//   each home cell lies in one slab, so each pair is counted once. The
+//   scratch is sized to the slab's atoms.
 
 #include <cuda_runtime.h>
 
@@ -92,9 +105,11 @@ struct CellArgs {
   const int* cell_start;        // (R, n_cells + 1) CSR offsets into the sorted order
   float4* slots;                // (R, kSlots, N) by sorted position: force, e / 2
   const float* shifts;          // (27, 3) lattice shift of the wrap (wx, wy, wz) in {-1, 0, 1}^3
-  long long n_items;            // R n_cells kDirections kSplits
-  int n;
+  long long n_items;            // R n_home kDirections kSplits
+  int n;                        // atoms a replica in sorted order (the slab's)
   int nx, ny, nz;
+  int n_home;                   // items walk home cells [0, n_home)
+  int halo_wrap;                // the last x-layer is reached across the +x face
   int band;
   PairPhys p;
 };
@@ -113,18 +128,19 @@ __device__ __forceinline__ int wrap_cell(int c, int n, int* w) {
 }
 
 // The atoms by sorted position: packed[rep, p] of atom order[rep, p]
-// (PeriodicAtom: x, y, z, index | q, sigma, sqrt(eps)).
+// (PeriodicAtom: x, y, z, index | q, sigma, sqrt(eps)); n sorted positions
+// a replica of n_atoms atoms (fewer for a slab).
 __global__ void cell_pack_kernel(const float* xw, const float* atom_p, const int* order, int n,
-                                 PeriodicAtom* packed) {
+                                 int n_atoms, PeriodicAtom* packed) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * n;
-  const int atom = order[rbase + p];
-  const float* x = xw + (rbase + atom) * 3;
+  const size_t pbase = static_cast<size_t>(blockIdx.y) * n;
+  const int atom = order[pbase + p];
+  const float* x = xw + (static_cast<size_t>(blockIdx.y) * n_atoms + atom) * 3;
   PeriodicAtom t;
   t.p = make_float4(x[0], x[1], x[2], __int_as_float(atom));
-  t.m = make_float4(atom_p[atom], atom_p[n + atom], atom_p[2 * n + atom], 0.0f);
-  packed[rbase + p] = t;
+  t.m = make_float4(atom_p[atom], atom_p[n_atoms + atom], atom_p[2 * n_atoms + atom], 0.0f);
+  packed[pbase + p] = t;
 }
 
 // a slot's first write stores, a later one (a split's later row group in a
@@ -158,8 +174,8 @@ __global__ void __launch_bounds__(kThreads, 8) cell_force_kernel(CellArgs a) {
   const int n_cells = a.nx * a.ny * a.nz;
   const int split = static_cast<int>(item % kSplits);
   const int d = static_cast<int>((item / kSplits) % kDirections);
-  const int cell = static_cast<int>((item / (kSplits * kDirections)) % n_cells);
-  const long long rep = item / (static_cast<long long>(kSplits * kDirections) * n_cells);
+  const int cell = static_cast<int>((item / (kSplits * kDirections)) % a.n_home);
+  const long long rep = item / (static_cast<long long>(kSplits * kDirections) * a.n_home);
   const int* cs = a.cell_start + rep * (n_cells + 1);
 
   int nc = cell;
@@ -173,6 +189,7 @@ __global__ void __launch_bounds__(kThreads, 8) cell_force_kernel(CellArgs a) {
     const int ncx = wrap_cell(cx + k / 9 - 1, a.nx, &wx);
     const int ncy = wrap_cell(cy + (k / 3) % 3 - 1, a.ny, &wy);
     const int ncz = wrap_cell(cz + k % 3 - 1, a.nz, &wz);
+    if (a.halo_wrap && ncx == a.nx - 1) wx = 1;
     nc = (ncx * a.ny + ncy) * a.nz + ncz;
     // the wrapper's table, so the plain version adds the same float
     const float* sh = a.shifts + 3 * ((wx + 1) * 9 + (wy + 1) * 3 + (wz + 1));
@@ -226,6 +243,44 @@ __global__ void __launch_bounds__(kThreads, 8) cell_force_kernel(CellArgs a) {
 
 }  // namespace
 
+// Both entries: the launches on `stream`, cudaGetLastError() after them.
+static int launch_cells(const float* xw, const float* atom_p, const int* order,
+                        const int* cell_start, int n_replicas, int n_pos, int n_atoms,
+                        const int* dims, int n_home, int halo_wrap, int band, const float* shifts, const float* phys, int ewald,
+                 double* e_rows, float* forces, float* scratch, cudaStream_t s) {
+  const long long n_items = static_cast<long long>(n_replicas) * n_home * kDirections * kSplits;
+  if ((n_items + kWarps - 1) / kWarps > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CellArgs a = {};
+  a.packed = reinterpret_cast<const PeriodicAtom*>(scratch);
+  a.cell_start = cell_start;
+  a.slots = reinterpret_cast<float4*>(scratch + static_cast<size_t>(n_replicas) * n_pos * 8);
+  a.shifts = shifts;
+  a.n_items = n_items;
+  a.n = n_pos;
+  a.nx = dims[0];
+  a.ny = dims[1];
+  a.nz = dims[2];
+  a.n_home = n_home;
+  a.halo_wrap = halo_wrap;
+  a.band = band;
+  a.p = make_pair_phys(phys, ewald);
+  const dim3 per_pos((n_pos + 255) / 256, n_replicas);
+  cell_pack_kernel<<<per_pos, 256, 0, s>>>(xw, atom_p, order, n_pos, n_atoms,
+                                           reinterpret_cast<PeriodicAtom*>(scratch));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_items > 0) {
+    cell_force_kernel<<<static_cast<unsigned>((n_items + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+        a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  periodic_slots_kernel<<<per_pos, 256, 0, s>>>(a.slots, kSlots, n_pos, order, e_rows, forces);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 // dims: nx, ny, nz (host memory); shifts: (27, 3) device table of the lattice
@@ -242,34 +297,39 @@ int pmarlo_cell_force(const float* xw, const float* atom_p, const int* order,
       dims[1] < 1 || dims[2] < 1 || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_items = static_cast<long long>(n_replicas) * dims[0] * dims[1] * dims[2] *
-                            kDirections * kSplits;
-  if ((n_items + kWarps - 1) / kWarps > 0x7fffffffLL) {
+  return launch_cells(xw, atom_p, order, cell_start, n_replicas, n_atoms, n_atoms, dims,
+                      dims[0] * dims[1] * dims[2], 0, band, shifts, phys, ewald, e_rows, forces,
+                      scratch, static_cast<cudaStream_t>(stream));
+}
+
+// One replica's x-slab (see the design notes): order (n_slab,) the global
+// atom index of each of the slab's sorted positions, cell_start the CSR
+// offsets (n_slab_cells + 1) on the slab grid dims (host memory: cxl + 1,
+// ny, nz), home cells [0, n_home); xw (n_atoms, 3) and atom_p by global
+// index; scratch n_slab (8 + 4 kSlots) floats. e_rows (n_atoms) and forces
+// (n_atoms, 3) are zeroed here, then the slab's atoms written.
+int pmarlo_cell_force_slab(const float* xw, const float* atom_p, const int* order,
+                           const int* cell_start, int n_atoms, int n_slab, const int* dims,
+                           int n_home, int halo_wrap, int band, const float* shifts,
+                           const float* phys, int ewald, double* e_rows, float* forces,
+                           float* scratch, void* stream) {
+  if (n_atoms < 1 || n_slab < 1 || n_slab > n_atoms || n_home < 1 || band < 0 ||
+      dims[0] < 2 || dims[1] < 1 || dims[2] < 1 || n_home > (dims[0] - 1) * dims[1] * dims[2] ||
+      scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CellArgs a = {};
-  a.packed = reinterpret_cast<const PeriodicAtom*>(scratch);
-  a.cell_start = cell_start;
-  a.slots = reinterpret_cast<float4*>(scratch + static_cast<size_t>(n_replicas) * n_atoms * 8);
-  a.shifts = shifts;
-  a.n_items = n_items;
-  a.n = n_atoms;
-  a.nx = dims[0];
-  a.ny = dims[1];
-  a.nz = dims[2];
-  a.band = band;
-  a.p = make_pair_phys(phys, ewald);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 per_atom((n_atoms + 255) / 256, n_replicas);
-  cell_pack_kernel<<<per_atom, 256, 0, s>>>(xw, atom_p, order, n_atoms,
-                                            reinterpret_cast<PeriodicAtom*>(scratch));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(e_rows, 0, sizeof(double) * n_atoms, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * n_atoms, s);
+  // the slots no home item writes: the halo's rows and the columns a home
+  // cell reaches from outside the slab
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(scratch + static_cast<size_t>(n_slab) * 8, 0,
+                          sizeof(float4) * kSlots * static_cast<size_t>(n_slab), s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  cell_force_kernel<<<static_cast<unsigned>((n_items + kWarps - 1) / kWarps), kThreads, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  periodic_slots_kernel<<<per_atom, 256, 0, s>>>(a.slots, kSlots, n_atoms, order, e_rows, forces);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cells(xw, atom_p, order, cell_start, 1, n_slab, n_atoms, dims, n_home,
+                      halo_wrap, band, shifts, phys, ewald, e_rows, forces, scratch, s);
 }
 
 }  // extern "C"

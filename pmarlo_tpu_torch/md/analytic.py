@@ -3,9 +3,10 @@
 Port of ``pmarlo_tpu/md/analytic.py``. The math is the JAX file's: manual
 bond/angle/torsion derivatives, LJ/Coulomb pair coefficients, and the full
 GB chain rule through the Born radii. What changes is the layout: bonded
-gathers and scatters are indexed loads and ``index_add_`` where the JAX
-code used one-hot selector matmuls, and positions carry leading replica
-dimensions ``(..., N, 3)`` in place of ``vmap``.
+gathers and scatters are indexed loads and fixed-order row sums
+(``RowSums``) where the JAX code used one-hot selector matmuls, and
+positions carry leading replica dimensions ``(..., N, 3)`` in place of
+``vmap``.
 
 This is the plain version of the fused kernel's force math
 (``md/fused_md.py``, ``csrc/fused_md.cu``), and two choices here are the
@@ -261,18 +262,71 @@ _TERM_TYPES = ((bond_terms, "bond_idx"), (angle_terms, "angle_idx"),
                (torsion_terms, "tor_idx"))
 
 
+class RowSums:
+    """``RowSums(idx, n)(*parts)`` is ``(..., n, k)`` whose row ``a`` sums
+    the rows ``t`` with ``idx[t] == a`` of the parts concatenated along
+    ``-2``, in the order of ``t``: the same bits from call to call and for
+    any batch, where ``index_add_`` on a CUDA tensor adds with atomics
+    whose order, and so whose last bits, change from call to call
+    (``index_put_(accumulate=True)`` adds in order, but a call took 7-15
+    times ``index_add_``'s on an H100: ``scripts/time_step_paths.py``).
+    ``gather`` gives each target's rows ``(..., D, n, k)``, ``D`` the most
+    rows a target has, a zero where it has fewer: one concatenation with a
+    zero row and one ``index_select`` through a ``(D, n)`` table, built
+    once on the host from ``idx`` (a host array, or a tensor whose device
+    the table takes); the sum over ``D`` then runs over a leading axis."""
+
+    def __init__(self, idx, n: int, device=None):
+        if isinstance(idx, torch.Tensor):
+            device = idx.device if device is None else device
+            idx = idx.detach().cpu().numpy()
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        deg = np.bincount(idx, minlength=n)
+        table = np.full((n, max(int(deg.max(initial=0)), 1)), idx.size, np.int64)
+        by_target = np.argsort(idx, kind="stable")
+        first = np.cumsum(deg) - deg
+        table[idx[by_target], np.arange(idx.size) - first[idx[by_target]]] = by_target
+        self.shape = table.T.shape
+        self._flat = torch.as_tensor(table.T.reshape(-1), device=device)
+        self._zero = {}
+
+    def gather(self, *parts: torch.Tensor) -> torch.Tensor:
+        batch, k = tuple(parts[0].shape[:-2]), parts[0].shape[-1]
+        key = (parts[0].dtype, parts[0].device, k)
+        if key not in self._zero:
+            self._zero[key] = parts[0].new_zeros((1, k))
+        rows = torch.cat([*parts, self._zero[key].expand(batch + (1, k))], -2)
+        return rows.index_select(-2, self._flat).unflatten(-2, self.shape)
+
+    def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
+        return self.gather(*parts).sum(-3)
+
+
+def _bonded_rows(p, n: int) -> RowSums:
+    """The ``RowSums`` of ``p``'s bonded incidences (the order of
+    ``bonded_energy_and_forces``' parts) onto ``n`` atoms, built at the
+    first use and kept on ``p``."""
+    rows = p.__dict__.get("_row_sums")
+    if rows is None or rows.shape[1] != n:
+        rows = RowSums(torch.cat([getattr(p, idx)[:, k] for _, idx in _TERM_TYPES
+                                  for k in range(getattr(p, idx).shape[1])]), n)
+        object.__setattr__(p, "_row_sums", rows)
+    return rows
+
+
 def bonded_energy_and_forces(p, x: torch.Tensor, energy_dtype=None):
     """Bond + angle + torsion energy ``(...)`` and forces ``(..., N, 3)``
     (``p``: ``BondedParams`` or ``DenseParams``); ``energy_dtype`` is the
-    type the energies are summed in (default: that of ``x``)."""
-    forces = torch.zeros_like(x)
+    type the energies are summed in (default: that of ``x``). Each atom's
+    terms are added in one fixed order (``RowSums``), so the forces are
+    the same bits from call to call and for any batch size."""
     energy = 0.0
-    for terms, idx in _TERM_TYPES:
+    parts = []
+    for terms, _ in _TERM_TYPES:
         e, role_forces = terms(p, x)
         energy = energy + e.sum(-1, dtype=energy_dtype)
-        for k, f in enumerate(role_forces):
-            forces.index_add_(-2, getattr(p, idx)[:, k], f)
-    return energy, forces
+        parts.extend(role_forces)
+    return energy, _bonded_rows(p, x.shape[-2])(*parts)
 
 
 def _nonbonded_energy_pair_coef(p: DenseParams, inv_r):
@@ -405,4 +459,5 @@ __all__ = [
     "DenseParams", "make_dense_params", "energy_and_forces",
     "born_radii_and_chain", "BondedParams", "make_bonded_params",
     "bonded_energy_and_forces",
+    "RowSums",
 ]

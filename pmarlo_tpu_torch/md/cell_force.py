@@ -64,6 +64,25 @@ Pair arithmetic in the kernel is float32; energy rows are summed in float64
 past a patch and the plain twin evaluates in float64 outright. Energies
 come back as float32. ``launches`` counts kernel launches.
 
+**x-slabs** (``mesh=``, a 1-D ``DeviceMesh`` of n ranks; JAX's spatial
+decomposition). Every rank bins all atoms, as JAX keeps the atom-major
+arrays replicated; rank r's home cells are the x-layers ``[r cxl, (r + 1)
+cxl)``, ``cxl = nx / n``. Its launch (``pmarlo_cell_force_slab``) takes
+only the atoms of its extended slab, the interior and one halo layer on
+the +x face (the half shell's dx is 0 or +1), the last rank's halo being
+layer 0 across the +x face; the kernel's scratch is sized to that slab
+(``local_shapes``, ``scratch_bytes``). A pair whose partner is a halo atom
+credits that atom's global row, and one ``all_reduce`` of the energy and
+of the per-atom forces joins the ranks: each home cell lies in one slab,
+so each pair is counted once. What is not a pair sweep (the band add-back
+and far exclusions, the bonded terms, PME's reciprocal term, the
+dispersion tail) is computed on the first rank alone and added before the
+sum, and every rank spreads its own part onto the virtual sites' parents
+before it: nothing is added after the sum, so every rank holds the same
+bits and the ranks' copies of the state stay in step over a run.
+``sweep_reference`` takes the same home cells on the CPU. Finding the
+slab's atoms reads four CSR offsets a replica back to the host.
+
 **Virtual sites** (TIP4P-Ew, TIP5P water; ``md/vsites.py``): every entry
 point re-derives the site rows from their parents before it bins and
 spreads the site forces onto the parents after the evaluation. The kernel
@@ -102,8 +121,9 @@ from .pme import ReciprocalMesh
 from .system import System
 from .vsites import VirtualSites
 
-#: kernel launches made by this process (chip_smoke.py resets and reads it)
-launches = {"cell_force": 0}
+#: kernel launches made by this process (chip_smoke.py resets and reads it):
+#: the whole grid's, and a rank's x-slab's
+launches = {"cell_force": 0, "cell_force_slab": 0}
 
 #: the offsets of the half shell, rows of ``_neighbor_tables``' 27: the own
 #: cell (13, offset (0, 0, 0)) and the 13 after it, (k // 9 - 1, (k // 3) % 3
@@ -125,6 +145,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pmarlo_cell_force.argtypes = [p, p, p, p, i, i, p, i, p, p, i, p, p, p, p]
         lib.pmarlo_cell_force.restype = i
+        lib.pmarlo_cell_force_slab.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, i, p, p, p, p]
+        lib.pmarlo_cell_force_slab.restype = i
         _configured = True
     return lib
 
@@ -157,11 +179,42 @@ def _neighbor_tables(grid: CellGrid):
     return shifts, nb, wrap
 
 
+class Slab:
+    """Rank ``rank``'s x-slab of a grid split over ``n_ranks``: home cells
+    ``[lo, hi)`` (flat indices; x-major, so a slab is a range), its ``cxl``
+    layers, and the halo layer ``halo`` (``wraps``: reached across the +x
+    face, the last rank's)."""
+
+    def __init__(self, grid: CellGrid, mesh):
+        self.mesh = mesh
+        self.n_ranks = mesh.size()
+        self.rank = mesh.get_local_rank()
+        self.cxl = grid.nx // self.n_ranks
+        self.nyz = grid.ny * grid.nz
+        x0 = self.rank * self.cxl
+        self.lo, self.hi = x0 * self.nyz, (x0 + self.cxl) * self.nyz
+        self.halo = (x0 + self.cxl) % grid.nx
+        self.wraps = x0 + self.cxl == grid.nx
+        self.dims = (ctypes.c_int * 3)(self.cxl + 1, grid.ny, grid.nz)
+
+    def atoms(self, order: torch.Tensor, cell_start: torch.Tensor):
+        """One replica's slab: the global atom index of each of its sorted
+        positions (interior, then halo) and its CSR offsets on the slab
+        grid, int32."""
+        h0, h1 = self.halo * self.nyz, (self.halo + 1) * self.nyz
+        a0, a1, b0, b1 = cell_start[[self.lo, self.hi, h0, h1]].tolist()
+        local = torch.cat([order[a0:a1], order[b0:b1]])
+        cs = torch.cat([cell_start[self.lo:self.hi] - a0,
+                        cell_start[h0:h1 + 1] - b0 + (a1 - a0)])
+        return local.to(torch.int32).contiguous(), cs.to(torch.int32).contiguous()
+
+
 class CellForce:
     """``fn(x) -> (energy, forces)`` for the full periodic potential of
     ``system`` through the cell list: ``x`` is ``(N, 3)`` or ``(R, N, 3)``
     (every replica is binned on its own); energies come back with the
-    leading shape. Built by ``build_cell_force_fn``."""
+    leading shape. Built by ``build_cell_force_fn``; with ``mesh`` each
+    rank sweeps its x-slab (module docstring)."""
 
     #: every entry point handles the system's virtual sites itself
     expands_vsites = True
@@ -169,7 +222,7 @@ class CellForce:
     def __init__(self, system: System, grid: CellGrid, phys: PairPhysics, *,
                  band: Optional[ExclusionBand] = None, dispersion_correction: bool = False,
                  cell_chunk: int = 64, pme_mesh: Optional[ReciprocalMesh] = None,
-                 pme_precise: bool = False):
+                 pme_precise: bool = False, mesh=None):
         """``pme_mesh`` adds the reciprocal, self and background terms of
         smooth PME to an Ewald-mode ``phys`` (without it the Ewald mode
         evaluates the real-space sum alone)."""
@@ -211,6 +264,12 @@ class CellForce:
             self._ratios = tilt_ratios(grid.box, grid.tilt)
         self.mesh = pme_mesh
         self.pme_precise = bool(pme_precise)
+        self.slab = None if mesh is None else Slab(grid, mesh)
+        #: per-rank cell counts of the slab (JAX's ``local_shapes``); None unsharded
+        self.local_shapes = None if self.slab is None else {
+            "home_cells": self.slab.hi - self.slab.lo,
+            "slab_cells": (self.slab.cxl + 1) * self.slab.nyz,
+        }
         if pme_mesh is not None:
             if not phys.ewald:
                 raise ValueError("a PME mesh needs the sweep's Ewald mode")
@@ -299,7 +358,7 @@ class CellForce:
     # --- the sweep: plain twin and kernel ---------------------------------------------
 
     def half_shell(self, x: torch.Tensor, order: torch.Tensor, cell_start: torch.Tensor,
-                   shifts: Optional[torch.Tensor] = None):
+                   shifts: Optional[torch.Tensor] = None, home=None):
         """The pairs of one replica that the sweep takes, chunk by chunk:
         ``x (N, 3)`` the swept coordinates, ``order (N,)`` and ``cell_start
         (n_cells + 1,)`` its binning. Yields ``(ai, aj, d, pi, pj, cell, k)``
@@ -310,7 +369,8 @@ class CellForce:
         kernel computes it, of every pair with ``|ai - aj| > D`` and
         ``1e-8 < r^2 < rc^2`` (on the own cell column after row). Each
         unordered image pair within the cutoff is yielded once. ``shifts``
-        replaces the build box's lattice shifts (``box_shifts``)."""
+        replaces the build box's lattice shifts (``box_shifts``); ``home``
+        ``(lo, hi)`` restricts the row cells to that range (an x-slab's)."""
         n, dev = x.shape[0], x.device
         shifts = self._shifts if shifts is None else shifts
         cs, ordr = cell_start.long(), order.long()
@@ -323,8 +383,9 @@ class CellForce:
         pos = (cs[:-1, None] + slots[None, :]).clamp(max=n - 1)       # (C, M)
         atoms = ordr[pos]
         later = slots[None, :] > slots[:, None]                       # column after row
-        for c0 in range(0, self.grid.n_cells, self.cell_chunk):
-            c1 = min(c0 + self.cell_chunk, self.grid.n_cells)
+        lo, hi = (0, self.grid.n_cells) if home is None else home
+        for c0 in range(lo, hi, self.cell_chunk):
+            c1 = min(c0 + self.cell_chunk, hi)
             ai, vi, pi = atoms[c0:c1], valid[c0:c1], pos[c0:c1]
             xi = x[ai]                                                # (c, M, 3)
             for k in HALF_SHELL:
@@ -341,9 +402,11 @@ class CellForce:
                 yield (ai[c, r], aj[c, col], d[c, r, col], pi[c, r], pj[c, col], c + c0, k)
 
     def sweep_reference(self, xw: torch.Tensor, order: torch.Tensor,
-                        cell_start: torch.Tensor, shifts: Optional[torch.Tensor] = None):
+                        cell_start: torch.Tensor, shifts: Optional[torch.Tensor] = None,
+                        home=None):
         """``(e_rows (R, N) float64, forces (R, N, 3))`` by atom index (twin
-        of ``cell_force_kernel``): every pair of ``half_shell`` once, half
+        of ``cell_force_kernel``): every pair of ``half_shell`` from the home
+        cells ``home`` (``None``: this rank's slab, all cells unsharded) once, half
         its energy to each atom's row, ``-W d`` to the row atom and ``+W d``
         to the column atom. The displacement and r^2 are float32 in the
         kernel's one orientation, so both cut the same pairs, and a pair on
@@ -355,8 +418,11 @@ class CellForce:
         q, sig, seps = (row.double() for row in self._atom_p)
         e_rows = torch.zeros((R, n), dtype=torch.float64, device=dev)
         forces = torch.zeros((R, n, 3), dtype=torch.float64, device=dev)
+        if home is None and self.slab is not None:
+            home = (self.slab.lo, self.slab.hi)
         for rep in range(R):
-            for ai, aj, d, *_ in self.half_shell(xw[rep], order[rep], cell_start[rep], shifts):
+            for ai, aj, d, *_ in self.half_shell(xw[rep], order[rep], cell_start[rep], shifts,
+                                                 home):
                 d = d.double()
                 e_lj, e_el, w_lj, w_el, inv_r = pair_terms(
                     self.phys, (d * d).sum(-1), q[ai] * q[aj], 0.5 * (sig[ai] + sig[aj]),
@@ -395,28 +461,86 @@ class CellForce:
         launches["cell_force"] += 1
         return e_rows, forces
 
+    def _launch_slab(self, xw, order, cell_start, shifts=None):
+        """This rank's x-slab, one launch a replica: its rows of
+        ``(e_rows, forces)``, the other rows zero."""
+        shifts = self._shifts if shifts is None else shifts
+        R, n = xw.shape[0], xw.shape[1]
+        # pmarlo_cell_force_slab zeroes a replica's rows before it writes them
+        e_rows = torch.empty((R, n), dtype=torch.float64, device=xw.device)
+        forces = torch.empty_like(xw)
+        lib = _library()
+        phys, ewald = self.phys.kernel_args()
+        sl = self.slab
+        for rep in range(R):
+            local, cs = sl.atoms(order[rep], cell_start[rep])
+            m = int(local.shape[0])
+            if m == 0:
+                e_rows[rep].zero_()
+                forces[rep].zero_()
+                continue
+            shape, need = cell_scratch(1, m)
+            refuse_scratch("cell_force_slab", need, xw.device, 1, m)
+            scratch = torch.empty(shape, dtype=torch.float32, device=xw.device)
+            rc = lib.pmarlo_cell_force_slab(
+                xw[rep].data_ptr(), self._atom_p.data_ptr(), local.data_ptr(), cs.data_ptr(),
+                n, m, sl.dims, sl.hi - sl.lo, int(sl.wraps), self.band_D, shifts.data_ptr(),
+                phys, ewald, e_rows[rep].data_ptr(), forces[rep].data_ptr(), scratch.data_ptr(),
+                torch.cuda.current_stream(xw.device).cuda_stream,
+            )
+            _kernels.check_launch(rc, "cell_force_slab")
+            launches["cell_force_slab"] += 1
+        return e_rows, forces
+
+    def scratch_bytes(self, x: torch.Tensor) -> int:
+        """Bytes of the kernel scratch this rank allocates for ``x (N, 3)``
+        (the largest of a batch's replicas): its slab's atoms with a mesh,
+        all of them without."""
+        xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
+        if self.slab is None:
+            return cell_scratch(xb.shape[0], xb.shape[1])[1]
+        st = self._bin(xb)
+        return max(cell_scratch(1, int(self.slab.atoms(o, c)[0].shape[0]))[1]
+                   for o, c in zip(st.order, st.cell_start))
+
     def sweep(self, xw, order, cell_start, shifts=None):
-        """The band-masked sweep: the twin on the CPU, the kernel on CUDA."""
+        """The band-masked sweep: the twin on the CPU, the kernel on CUDA
+        (with a mesh this rank's slab of it)."""
         xw = self._batch(xw)
         if xw.device.type == "cpu":
             return self.sweep_reference(xw, order, cell_start, shifts)
+        if self.slab is not None:
+            return self._launch_slab(xw.contiguous(), order, cell_start, shifts)
         return self._launch(xw.contiguous(), order, cell_start, shifts)
 
     # --- assembly -------------------------------------------------------------------------
 
     def _evaluate(self, xb, st: NeighborState, sweep, box: Optional[torch.Tensor] = None):
+        """``(energy, forces)`` of ``xb``, the site forces spread onto their
+        parents. With a mesh the sweep is this rank's slab; what is not a
+        pair sweep is added on the first rank alone, before the one sum over
+        the ranks, so every rank gets the same bits (and nothing after the
+        sum depends on the order of a rank's adds)."""
         shifts = None if box is None else self.box_shifts(box)
         e_rows, forces = sweep(st.xw, st.order, st.cell_start, shifts)
-        e_c, f_c = self.correction(xb, box)
-        e_b, f_b = bonded_energy_and_forces(self._bonded, xb, energy_dtype=torch.float64)
-        energy = e_rows.sum(-1) + e_c + e_b
-        if self._disp_2pi_c:
-            energy = energy + (self.e_dispersion if box is None
-                               else self._disp_2pi_c / (box[0] * box[1] * box[2]).double())
-        forces = forces + f_c + f_b
-        if self.mesh is not None:
-            e_m, f_m = self._mesh_terms(xb, box)
-            energy, forces = energy + e_m, forces + f_m
+        energy = e_rows.sum(-1)
+        if self.slab is None or self.slab.rank == 0:
+            e_c, f_c = self.correction(xb, box)
+            e_b, f_b = bonded_energy_and_forces(self._bonded, xb, energy_dtype=torch.float64)
+            energy = energy + e_c + e_b
+            if self._disp_2pi_c:
+                energy = energy + (self.e_dispersion if box is None
+                                   else self._disp_2pi_c / (box[0] * box[1] * box[2]).double())
+            forces = forces + f_c + f_b
+            if self.mesh is not None:
+                e_m, f_m = self._mesh_terms(xb, box)
+                energy, forces = energy + e_m, forces + f_m
+        forces = self._spread(forces, xb)
+        if self.slab is not None:
+            from ..parallel.mesh import all_reduce_sum
+
+            energy = all_reduce_sum(energy.contiguous(), self.slab.mesh)
+            forces = all_reduce_sum(forces.contiguous(), self.slab.mesh)
         energy = energy.to(xb.dtype)
         if box is not None:
             poison = self._poison(box)
@@ -430,14 +554,13 @@ class CellForce:
         under ``box``, the build box when None); virtual-site rows must be
         expanded in both (``init_state_batched`` bins so)."""
         xs = self._expand(self._batch(xs))
-        energy, forces = self._evaluate(xs, st, self.sweep, None if box is None else self._box(box))
-        return energy, self._spread(forces, xs)
+        return self._evaluate(xs, st, self.sweep, None if box is None else self._box(box))
 
     def _call(self, x, sweep, box=None):
         lead = tuple(x.shape[:-2])
         xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
         energy, forces = self._evaluate(xb, self._bin(xb, box), sweep, box)
-        return energy.reshape(lead), self._spread(forces, xb).reshape(tuple(x.shape))
+        return energy.reshape(lead), forces.reshape(tuple(x.shape))
 
     def __call__(self, x: torch.Tensor):
         """Energy and forces from a fresh binning: the kernel on a CUDA
@@ -461,7 +584,7 @@ class CellForce:
         xs = self._expand(self._batch(xs))
         st = self._bin(xs)
         energy, forces = self._evaluate(xs, st, self.sweep)
-        return energy, self._spread(forces, xs), st
+        return energy, forces, st
 
     def init_state(self, x: torch.Tensor) -> NeighborState:
         return self.init_state_batched(x[None])
@@ -492,7 +615,6 @@ class CellForce:
         xb = self._expand(self._batch(x.reshape((-1,) + tuple(x.shape[-2:]))))
         st = self._bin(xb, box)
         energy, forces = self._evaluate(xb, st, self.sweep, box)
-        forces = self._spread(forces, xb)
         return energy.reshape(tuple(x.shape[:-2])), forces.reshape(tuple(x.shape)), st
 
 
@@ -539,13 +661,20 @@ def build_cell_force_fn(
     entries ``dynamic`` / ``init_state_dynamic`` / ``apply_dynamic`` and,
     with PME, ``pme_order`` and ``pme_mesh_shape``.
 
-    ``mesh`` (the spatially decomposed sweep) is not ported yet and raises
-    ``NotImplementedError`` naming ROADMAP queue A13."""
+    ``mesh`` (a 1-D ``DeviceMesh``, every rank calls this) splits the
+    sweep into x-slabs over the ranks (module docstring): ``nx`` must
+    divide over the mesh and leave room for the halo, as JAX requires; a
+    1-rank mesh is the serial sweep. Every rank then returns the same
+    energy and forces, and the result carries ``local_shapes``."""
     if system.box is None:
         raise ValueError("build_cell_force_fn needs system.box")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the spatially decomposed cell sweep is ROADMAP queue A13")
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+        if mesh.size() == 1:
+            # the serial sweep: a 1-rank slab's halo would be its own layer 0
+            mesh = None
     if electrostatics not in ("rf", "pme"):
         raise ValueError(f"electrostatics must be rf|pme, got {electrostatics!r}")
     n = system.n_atoms
@@ -576,10 +705,25 @@ def build_cell_force_fn(
             "minimum image would be unreliable). Use a larger box or a "
             "smaller cutoff."
         )
+    if mesh is not None:
+        n_dev = mesh.size()
+        if grid.nx % n_dev != 0:
+            raise ValueError(
+                f"spatial decomposition needs n_cells_x ({grid.nx}) "
+                f"divisible by the mesh size ({n_dev})"
+            )
+        cxl = grid.nx // n_dev
+        if grid.nx < cxl + 2:
+            raise ValueError(
+                f"grid too small for sharded binning: the {cxl}-layer "
+                f"slab's halo window ({cxl + 2} x-layers) exceeds the "
+                f"{grid.nx}-layer grid (a cell would ghost onto itself); "
+                "use more cells or fewer devices"
+            )
     if electrostatics == "rf":
         phys = PairPhysics.from_system(system)
         return CellForce(system, grid, phys, band=band,
-                         dispersion_correction=dispersion_correction)
+                         dispersion_correction=dispersion_correction, mesh=mesh)
     from .pme import ewald_alpha, mesh_lengths, pme_grid_shape, pme_spacing
 
     if pme_mesh_refine < 1.0:
@@ -593,8 +737,8 @@ def build_cell_force_fn(
     return CellForce(system, grid, phys, band=band,
                      dispersion_correction=dispersion_correction,
                      pme_mesh=ReciprocalMesh(shape, pme_order, alpha, system.device),
-                     pme_precise=pme_precise)
+                     pme_precise=pme_precise, mesh=mesh)
 
 
-__all__ = ["CELL_SLOTS", "CELL_SPLITS", "CellForce", "HALF_SHELL", "build_cell_force_fn",
+__all__ = ["CELL_SLOTS", "CELL_SPLITS", "CellForce", "HALF_SHELL", "Slab", "build_cell_force_fn",
            "cell_scratch", "launches"]

@@ -6,8 +6,9 @@ Jacobi-style iteration (every constraint computes its correction from one
 iterate, corrections add up), a fixed iteration count, and positions or
 velocities with leading replica dimensions ``(..., N, 3)``. The TPU
 layouts (one-hot scatter matmuls, rolled groups) become index gathers
-and one ``index_add_`` an iteration. X-H constraints form stars (a heavy
-atom with 1-3 hydrogens), on which Jacobi converges in a few sweeps.
+and, an iteration, one fixed-order sum of each atom's corrections
+(``analytic.RowSums``). X-H constraints form stars (a heavy atom with 1-3
+hydrogens), on which Jacobi converges in a few sweeps.
 
 Rigid water (``RigidWaterSpec``): the three coupled distance constraints
 of a water triangle make Jacobi SHAKE/RATTLE unstable in dynamics, so each
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from .._device import default_device
+from .analytic import RowSums
 from .ff_params import TYPE_ELEMENTS
 from .system import System
 from .topology import _WATER_NAMES
@@ -54,6 +56,17 @@ class ConstraintSpec:
         # host-bound on a card: every saved op counts ~120 times a step)
         object.__setattr__(self, "idx_both", torch.cat([self.idx1, self.idx2]))
         object.__setattr__(self, "weights", torch.cat([-self.inv_m1, self.inv_m2]))
+
+    def rows(self, n: int) -> RowSums:
+        """The fixed-order sums of each atom's correction rows
+        (``analytic.RowSums`` over ``idx_both`` onto ``n`` atoms): the same
+        bits from call to call and for any batch. Built at the first use
+        (one host read) and kept."""
+        rows = self.__dict__.get("_rows")
+        if rows is None or rows.shape[1] != n:
+            rows = RowSums(self.idx_both, n)
+            object.__setattr__(self, "_rows", rows)
+        return rows
 
     @property
     def n_constraints(self) -> int:
@@ -145,18 +158,14 @@ def _pair_vectors(spec: ConstraintSpec, x: torch.Tensor) -> torch.Tensor:
     return both[..., :spec.n_constraints, :] - both[..., spec.n_constraints:, :]
 
 
-def _scatter(spec: ConstraintSpec, x: torch.Tensor, k: torch.Tensor,
-             weighted: torch.Tensor) -> torch.Tensor:
-    """x + k * weighted scattered onto (first atoms, second atoms), where
-    ``weighted (..., 2C, 3)`` holds a bond vector times -1/m1 then +1/m2.
-    The corrections of an atom are summed before they are added to it, as
-    the JAX scatter matmuls sum them."""
-    corr = torch.cat([k, k], -1)[..., None] * weighted
-    return x + torch.zeros_like(x).index_add_(-2, spec.idx_both, corr)
-
-
-def _weighted(spec: ConstraintSpec, d: torch.Tensor) -> torch.Tensor:
-    return torch.cat([d, d], -2) * spec.weights[:, None]
+def _corrections(spec: ConstraintSpec, d: torch.Tensor, n: int):
+    """The row sums onto ``n`` atoms and each atom's bond vectors ``d``
+    weighted by -1/m1 (first atom) or +1/m2 (second), ``(..., D, n, 3)``:
+    an iteration then adds ``(k_rows * weighted).sum(-3)``, each atom's
+    corrections summed before they are added to it, as the JAX scatter
+    matmuls sum them, in one fixed order."""
+    rows = spec.rows(n)
+    return rows, rows.gather(torch.cat([d, d], -2) * spec.weights[:, None])
 
 
 def shake(spec: ConstraintSpec, x_new: torch.Tensor, x_ref: torch.Tensor,
@@ -172,7 +181,7 @@ def shake(spec: ConstraintSpec, x_new: torch.Tensor, x_ref: torch.Tensor,
     if isinstance(spec, RigidWaterSpec):
         return shake_water(spec, x_new, x_ref)
     d_ref = _pair_vectors(spec, x_ref)
-    weighted = _weighted(spec, d_ref)
+    rows, weighted = _corrections(spec, d_ref, x_new.shape[-2])
     d0sq = spec.d0 * spec.d0
     two_ims = 2.0 * spec.inv_mass_sum
     x = x_new
@@ -183,7 +192,8 @@ def shake(spec: ConstraintSpec, x_new: torch.Tensor, x_ref: torch.Tensor,
         g = diff / torch.where(denom.abs() > 1e-12, denom, 1e-12)
         if omega != 1.0:
             g = omega * g
-        x = _scatter(spec, x, g, weighted)
+        g = g[..., None]
+        x = x + (rows.gather(g, g) * weighted).sum(-3)
     return x
 
 
@@ -197,11 +207,11 @@ def rattle(spec: ConstraintSpec, v: torch.Tensor, x: torch.Tensor) -> torch.Tens
     if isinstance(spec, RigidWaterSpec):
         return rattle_water(spec, v, x)
     d = _pair_vectors(spec, x)
-    weighted = _weighted(spec, d)
+    rows, weighted = _corrections(spec, d, v.shape[-2])
     denom = torch.linalg.vecdot(d, d) * spec.inv_mass_sum + 1e-12
     for _ in range(max(spec.n_iter // 2, 5)):
-        k = torch.linalg.vecdot(d, _pair_vectors(spec, v)) / denom
-        v = _scatter(spec, v, k, weighted)
+        k = (torch.linalg.vecdot(d, _pair_vectors(spec, v)) / denom)[..., None]
+        v = v + (rows.gather(k, k) * weighted).sum(-3)
     return v
 
 

@@ -399,26 +399,27 @@ class FusedChunk:
 
         return force_fn
 
-    def _steps(self, state, temps, n_steps, force_fn):
+    def _steps(self, state, temps, n_steps, force_fn, replica_offset: int = 0):
         for _ in range(int(n_steps)):
             state, _ = langevin_step(
                 self.system, state, dt=self.dt, friction=self.friction,
-                temperature_K=temps, force_fn=force_fn,
+                temperature_K=temps, force_fn=force_fn, replica_offset=replica_offset,
             )
         return state
 
     def reference(self, x, v, seeds, temps, n_steps: int, step_offset: int = 0,
-                  hills: Optional[MetaDState] = None):
+                  hills: Optional[MetaDState] = None, replica_offset: int = 0):
         """Plain PyTorch twin: ``langevin_step`` over the analytic forces
         and the bias twin, the kernel's noise stream, energies at the final
         positions. With ``mtd_deposit_interval`` every replica deposits a
         hill after each window, in replica order, and the ledger comes
-        back as a fourth value."""
+        back as a fourth value. ``replica_offset``: the global index of
+        ``x``'s first replica (a rank's block of a sharded REMD)."""
         self._check(x, v, seeds, temps, n_steps, hills)
         state = MDState(positions=x, velocities=v, seeds=seeds, step=int(step_offset))
         if self.mtd_deposit_interval is None:
             force_fn = self._force_fn(hills)
-            state = self._steps(state, temps, n_steps, force_fn)
+            state = self._steps(state, temps, n_steps, force_fn, replica_offset)
             return state.positions, state.velocities, force_fn(state.positions)[0]
         mtd = dataclasses.replace(self.mtd, max_hills=int(hills.heights.shape[0]))
         for _ in range(int(n_steps) // self.mtd_deposit_interval):

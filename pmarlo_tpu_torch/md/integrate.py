@@ -74,15 +74,19 @@ def _uniform24(w: torch.Tensor) -> torch.Tensor:
     return ((w >> 8).to(torch.float32) + 0.5) * (1.0 / 16777216.0)
 
 
-def gaussian_noise(seeds: torch.Tensor, step: int, n_atoms: int) -> torch.Tensor:
+def gaussian_noise(seeds: torch.Tensor, step: int, n_atoms: int,
+                   replica_offset: int = 0) -> torch.Tensor:
     """Standard normals ``seeds.shape + (n_atoms, 3)`` for one step.
 
     Philox key = (seed, replica index), counter = (step low word, step high
     word, atom, 0); the four output words give three normals by
-    Box-Muller. The kernel computes the same numbers."""
+    Box-Muller. The kernel computes the same numbers. A rank that holds
+    replicas ``replica_offset, ...`` of a sharded batch keys them by their
+    global index."""
     dev = seeds.device
     k0 = (seeds.reshape(-1).to(torch.int64) & _MASK32)[:, None]
-    k1 = torch.arange(k0.shape[0], device=dev, dtype=torch.int64)[:, None]
+    k1 = torch.arange(replica_offset, replica_offset + k0.shape[0], device=dev,
+                      dtype=torch.int64)[:, None]
     atoms = torch.arange(n_atoms, device=dev, dtype=torch.int64)[None, :]
     shape = (k0.shape[0], n_atoms)
     c0 = torch.full(shape, step & _MASK32, dtype=torch.int64, device=dev)
@@ -242,9 +246,12 @@ def langevin_step(
     force_fn: Optional[Callable] = None,
     constraints=None,
     force_state=None,
+    replica_offset: int = 0,
 ):
     """One folded BAOAB step (OpenMM ``LangevinMiddleIntegrator``).
     Returns ``(new_state, energy at the pre-step positions)``.
+    ``replica_offset`` is the global index of the batch's first replica
+    (a rank's block of a sharded REMD), which keys its noise.
 
     ``bias_fn(positions) -> energy`` adds a bias to the autograd forces of
     ``potential_energy``; it cannot go with a ``force_fn``, which is used
@@ -294,7 +301,7 @@ def langevin_step(
         v = rattle(constraints, v, x)
     c1 = math.exp(-friction * dt)
     c2 = torch.sqrt((1.0 - c1 * c1) * _kT(temperature_K, v) * inv_m)
-    noise = gaussian_noise(state.seeds, state.step, system.n_atoms)
+    noise = gaussian_noise(state.seeds, state.step, system.n_atoms, replica_offset)
     v = c1 * v + c2 * noise.to(v.dtype)
     if constraints is not None:
         v = rattle(constraints, v, x)

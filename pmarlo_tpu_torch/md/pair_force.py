@@ -80,7 +80,7 @@ import torch
 
 from .. import _kernels
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
-from .analytic import bonded_energy_and_forces, make_bonded_params
+from .analytic import RowSums, bonded_energy_and_forces, make_bonded_params
 from .bonded_window import build_bonded_window
 from .cells import ExclusionBand
 from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
@@ -477,6 +477,8 @@ class PairForce:
         sig_all = host(system.lj_sigma)
         self._corr_i = torch.as_tensor(pi, dtype=torch.long, device=dev)
         self._corr_j = torch.as_tensor(pj, dtype=torch.long, device=dev)
+        # each atom's band pairs added in one fixed order
+        self._corr_rows = RowSums(np.concatenate([pi, pj]), n, dev)
         self._corr_sig = f32(0.5 * (sig_all[pi] + sig_all[pj]))
         self._corr_lj = f32(4.0 * c_lj * np.sqrt(np.maximum(
             eps_all[pi] * eps_all[pj], 0.0)))
@@ -906,9 +908,8 @@ class PairForce:
         cutoff a band or far pair beyond it is wanted at exactly zero, as
         the sweeps count it."""
         x = self._batch(x)
-        forces = torch.zeros_like(x)
         if self._corr_i.numel() == 0:
-            return x.new_zeros(x.shape[0], dtype=torch.float64), forces
+            return x.new_zeros(x.shape[0], dtype=torch.float64), torch.zeros_like(x)
         d = x[:, self._corr_i] - x[:, self._corr_j]
         r = torch.sqrt((d * d).sum(-1) + _EPS)
         inv_r = 1.0 / r
@@ -922,9 +923,7 @@ class PairForce:
             dEdr = dEdr * within
         energy = e_pair.sum(-1, dtype=torch.float64)
         f_i = -(dEdr * inv_r)[..., None] * d
-        forces.index_add_(1, self._corr_i, f_i)
-        forces.index_add_(1, self._corr_j, -f_i)
-        return energy, forces
+        return energy, self._corr_rows(f_i, -f_i)
 
     def bonded_reference(self, x: torch.Tensor):
         """Bonded energies ``(R,)`` float64 and forces ``(R, N, 3)`` by

@@ -18,6 +18,12 @@ loader opens the file and starts streams keyed by the same numbers.
 (``seed=`` re-keys them, ``md.simulation.fold_seed``); a checkpoint of
 another stream (the JAX package's, which records no ``prng``) raises
 unless ``seed=`` starts new streams.
+
+**Sharded runs** (``ReplicaExchange(mesh=)``). ``save_checkpoint`` gathers
+the rungs of every rank (every rank calls it), rank 0 writes the file and
+the others wait at a barrier, so the file is the one a serial run writes.
+``load_checkpoint(mesh=)`` reads it on every rank, and each keeps its
+block.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..bias.metadynamics import MetaDState, metad_state_from_numpy
 from ..md.integrate import MDState
@@ -51,14 +58,20 @@ def save_checkpoint(
     hills: Optional[MetaDState] = None,
     extra: Optional[dict] = None,
 ) -> Path:
+    """Write ``remd``'s state (and ``hills``) to ``path``; with a mesh a
+    collective: every rank calls it, rank 0 writes."""
     path = Path(path)
+    state = remd.global_state()
+    if remd.mesh is not None and remd.mesh.get_local_rank() != 0:
+        dist.barrier(group=remd.mesh.get_group())
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    seeds = remd.state.seeds.cpu().numpy()
+    seeds = state.seeds.cpu().numpy()
     arrays = {
-        "positions": remd.state.positions.cpu().numpy(),
-        "velocities": remd.state.velocities.cpu().numpy(),
+        "positions": state.positions.cpu().numpy(),
+        "velocities": state.velocities.cpu().numpy(),
         "keys": _prng_key(seeds),
-        "step": np.full(remd.n_replicas, remd.state.step, np.int32),
+        "step": np.full(remd.n_replicas, state.step, np.int32),
         "replica_ids": remd.replica_ids.cpu().numpy(),
         "swap_key": _prng_key(remd.config.seed),
         "ladder": remd.ladder.cpu().numpy(),
@@ -95,6 +108,8 @@ def save_checkpoint(
     tmp = path.with_suffix(".tmp.npz")
     np.savez_compressed(tmp, metadata=json.dumps(meta), **arrays)
     tmp.replace(path)
+    if remd.mesh is not None:
+        dist.barrier(group=remd.mesh.get_group())
     return path
 
 
@@ -118,9 +133,9 @@ def load_checkpoint(
     override, constraints, bias, fused kernel and its bias); a mismatch
     raises. ``seed`` re-keys a Philox checkpoint's streams, and is needed to
     start new streams from a checkpoint of another PRNG (the JAX
-    package's keys); ``mesh`` is ROADMAP queue A13 and raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device REMD is ROADMAP queue A13")
+    package's keys). ``mesh`` shards the rungs over the ranks as
+    ``ReplicaExchange(mesh=)`` does (``device`` then defaults to this
+    rank's); the ladder must divide over it."""
     path = Path(path)
     with np.load(path) as data:
         meta = json.loads(str(data["metadata"]))
@@ -165,7 +180,7 @@ def load_checkpoint(
         remd = ReplicaExchange(
             system, positions[0], config, device=device, use_kernel=use_kernel,
             minimize=False, force_fn=force_fn, constraints=constraints,
-            bias_fn=bias_fn, kernel_bias=kernel_bias,
+            bias_fn=bias_fn, kernel_bias=kernel_bias, mesh=mesh,
         )
         dev = remd.device
         if stream == PHILOX:
@@ -177,14 +192,14 @@ def load_checkpoint(
             remd._attempts_done = int(data["swap_attempts"])
         else:
             # new streams, drawn as a fresh ReplicaExchange draws them
-            seeds = remd.state.seeds
-        remd.state = MDState(
+            seeds = remd.global_state().seeds
+        remd.set_global_state(MDState(
             positions=positions.to(dev),
             velocities=torch.as_tensor(np.asarray(data["velocities"], np.float32),
                                        device=dev),
             seeds=seeds,
             step=int(np.asarray(data["step"]).reshape(-1)[0]),
-        )
+        ))
         remd.replica_ids = torch.as_tensor(np.asarray(data["replica_ids"], np.int32),
                                            device=dev)
         hills = None

@@ -21,6 +21,17 @@ Two MD paths run the exchange windows of ``run()``:
   entries (``init_state_batched`` / ``apply_batched``) carry its cell
   assignment through a window.
 
+``mesh=`` (a 1-D ``DeviceMesh``, ``parallel.replica_mesh``) shards the
+rungs: rank r holds rungs ``[r R / n, (r + 1) R / n)`` on its device and
+runs them through its force path (the plain dense step, or the given
+``force_fn``: the pair, periodic or cell sweeps); each window's noise stays
+keyed by the global rung index. At an exchange attempt one ``all_reduce``
+gathers the R energies and each rank's first and last rung; every rank
+takes the same decisions from ``swap_uniforms``, and the configurations
+that cross a block boundary come from that buffer. Frames, energies and
+kinetic temperatures are gathered at the end of ``run()``, so every rank
+returns the ``RemdResult`` of the serial run.
+
 ``run_fused()`` runs the whole of the fused-chunk path (MD, frames, swaps,
 identities) in ONE kernel launch. Swap uniforms are a pure function of
 ``(config.seed, attempt, pair)`` (``swap_uniforms``, Philox), drawn the
@@ -203,8 +214,10 @@ class ReplicaExchange:
         minimize_force_fn=None,
         bias_fn=None,
         kernel_bias=None,
+        mesh=None,
     ):
-        """``device`` defaults to the system's. ``use_kernel=True`` runs
+        """``device`` defaults to the system's (with ``mesh``: this rank's,
+        ``parallel.mesh.rank_device``). ``use_kernel=True`` runs
         every window through the fused CUDA kernel, which needs ``device``
         to be a CUDA device; ``False`` runs the plain PyTorch twin on
         ``device``.
@@ -224,7 +237,24 @@ class ReplicaExchange:
         SHAKE/RATTLE to every replica's step; the fused chunk does not
         constrain, so it refuses them (as the JAX fused chunk does).
         ``minimize_force_fn`` minimizes through the given forces (the
-        full system's, stiff X-H bonds kept) instead of autograd."""
+        full system's, stiff X-H bonds kept) instead of autograd.
+
+        ``mesh`` shards the rungs over the ranks (module docstring); the
+        ladder must divide over it, and the fused kernel is single-chip."""
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh, rank_device
+
+            check_mesh(mesh)
+            if use_kernel:
+                raise ValueError("use_kernel=True is single-chip only for now")
+            if getattr(force_fn, "slab", None) is not None:
+                # its all_reduce would add one rank's rungs to another's
+                raise ValueError(
+                    "a force_fn split into x-slabs over a mesh cannot run under a "
+                    "replica mesh: the ranks hold different rungs")
+            if device is None:
+                device = rank_device(mesh)
         self.device = torch.device(device) if device is not None else system.device
         # recorded in checkpoints, so that a resume supplies the same force path
         self._force_fn_is_override = force_fn is not None
@@ -258,6 +288,14 @@ class ReplicaExchange:
             config.ladder(), dtype=torch.float32, device=self.device
         )
         self.n_replicas = int(self.ladder.shape[0])
+        #: this rank's rungs [lo, hi) (all of them without a mesh)
+        self._block = (0, self.n_replicas)
+        if mesh is not None:
+            from ..parallel.mesh import mesh_block
+
+            self._block = mesh_block(self.n_replicas, mesh, "the replica ladder")
+        lo, hi = self._block
+        self._local_ladder = self.ladder[lo:hi]
         if constraints is not None:
             constraints = constraints.to(self.device)
         self._constraints = constraints
@@ -280,7 +318,7 @@ class ReplicaExchange:
                 )
             self._chunk = build_fused_chunk(
                 self.system, dt=config.dt_ps, friction=config.friction_per_ps,
-                n_replicas=self.n_replicas, **bias_kwargs,
+                n_replicas=hi - lo, **bias_kwargs,
             )
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(config.seed))
@@ -288,6 +326,13 @@ class ReplicaExchange:
         if minimize:
             x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn,
                                    bias_fn=bias_fn)
+        if mesh is not None:
+            from ..parallel.mesh import broadcast_first
+
+            # every rank starts from the first rank's structure: forces that
+            # add with atomics (the cell path's band correction, the Newton
+            # sums) can leave the ranks' minimizations apart in the last bits
+            x = broadcast_first(x.contiguous(), mesh)
         x0 = x[None].expand((self.n_replicas,) + tuple(x.shape)).contiguous()
         v0 = remove_com_motion(
             self.system, initialize_velocities(self.system, gen, self.ladder)
@@ -296,12 +341,59 @@ class ReplicaExchange:
             0, 2**31 - 1, (self.n_replicas,), generator=gen,
             device=self.device, dtype=torch.int64,
         ).to(torch.int32)
-        self.state = MDState(positions=x0, velocities=v0, seeds=seeds, step=0)
+        self.state = self._local(MDState(positions=x0, velocities=v0, seeds=seeds, step=0))
         self.replica_ids = torch.arange(
             self.n_replicas, dtype=torch.int32, device=self.device
         )
         #: exchange attempts made so far: the counter of the swap stream
         self._attempts_done = 0
+
+    # --- the rank's block -------------------------------------------------------
+
+    def _local(self, state: MDState) -> MDState:
+        """This rank's rungs of a state of all R."""
+        lo, hi = self._block
+        return dataclasses.replace(state, positions=state.positions[lo:hi].contiguous(),
+                                   velocities=state.velocities[lo:hi].contiguous(),
+                                   seeds=state.seeds[lo:hi].contiguous())
+
+    def global_state(self) -> MDState:
+        """The state of all R rungs (gathered from every rank with a mesh:
+        a collective, so every rank calls it)."""
+        if self.mesh is None:
+            return self.state
+        from ..parallel.mesh import gather_blocks
+
+        s = self.state
+        return dataclasses.replace(
+            s, positions=gather_blocks(s.positions, self.mesh),
+            velocities=gather_blocks(s.velocities, self.mesh),
+            seeds=gather_blocks(s.seeds, self.mesh))
+
+    def set_global_state(self, state: MDState) -> None:
+        """Install a state of all R rungs; this rank keeps its block."""
+        self.state = self._local(state)
+
+    def _exchange_inputs(self, state: MDState, energies: torch.Tensor):
+        """Every rung's energy ``(R,)`` and the window of rows a swap can
+        reach: this rank's rungs with the previous rank's last and the next
+        rank's first rung around them, each row (positions, velocities,
+        seed) flattened in float64 (which holds each exactly), from one
+        ``all_reduce``."""
+        from ..parallel.mesh import gather_blocks
+
+        n_local = state.positions.shape[0]
+        rows = torch.cat([state.positions.flatten(1).double(),
+                          state.velocities.flatten(1).double(),
+                          state.seeds[:, None].double()], 1)
+        local = torch.cat([energies.double(), rows[[0, -1]].flatten()])
+        g = gather_blocks(local, self.mesh).reshape(self.mesh.size(), -1)
+        edges = g[:, n_local:].reshape(2 * self.mesh.size(), -1)
+        r = self.mesh.get_local_rank()
+        before = edges[2 * r - 1] if r > 0 else rows[0]
+        after = edges[2 * r + 2] if r < self.mesh.size() - 1 else rows[-1]
+        window = torch.cat([before[None], rows, after[None]])
+        return g[:, :n_local].reshape(-1).to(energies.dtype), window
 
     # --- phases -----------------------------------------------------------------
 
@@ -320,6 +412,7 @@ class ReplicaExchange:
                     friction=cfg.friction_per_ps, temperature_K=temps,
                     force_fn=self._force_fn if apply is None else apply,
                     constraints=self._constraints, force_state=fstate,
+                    replica_offset=self._block[0],
                 )
                 state = out[0]
                 if fstate is not None:
@@ -332,7 +425,7 @@ class ReplicaExchange:
         if self.use_kernel:
             x, v, energies = self._chunk(*args)
         else:
-            x, v, energies = self._chunk.reference(*args)
+            x, v, energies = self._chunk.reference(*args, replica_offset=self._block[0])
         return dataclasses.replace(
             state, positions=x, velocities=v, step=state.step + n_steps
         ), energies
@@ -352,9 +445,13 @@ class ReplicaExchange:
         rung's uniform ``u[r]``, and exchange the configurations (positions,
         velocities, seeds, identities), rescaling velocities by
         sqrt(T_self / T_source). Returns ``(state, ids, acc_left)`` with
-        ``acc_left (R,)`` = 1/0 on attempted left rungs, NaN elsewhere."""
+        ``acc_left (R,)`` = 1/0 on attempted left rungs, NaN elsewhere.
+        With a mesh ``state`` and ``energies`` are this rank's rungs, and
+        every rank takes the same decisions on the gathered energies."""
         R = self.n_replicas
         dev = energies.device
+        if self.mesh is not None:
+            energies, window = self._exchange_inputs(state, energies)
         betas = 1.0 / (BOLTZMANN_CONSTANT_KJ_PER_MOL * self.ladder)
         r = torch.arange(R, device=dev)
         is_left = (r % 2) == (int(parity) % 2)
@@ -365,12 +462,25 @@ class ReplicaExchange:
         accept = (torch.log(u[pair_lo] + 1e-30) < log_acc) & paired
         target = torch.where(accept, partner, r)
         scale = torch.sqrt(self.ladder / self.ladder[target])
-        new_state = dataclasses.replace(
-            state,
-            positions=state.positions[target],
-            velocities=state.velocities[target] * scale[:, None, None],
-            seeds=state.seeds[target],
-        )
+        if self.mesh is None:
+            new_state = dataclasses.replace(
+                state,
+                positions=state.positions[target],
+                velocities=state.velocities[target] * scale[:, None, None],
+                seeds=state.seeds[target],
+            )
+        else:
+            lo, hi = self._block
+            rows = window[target[lo:hi] - lo + 1]
+            shape = (hi - lo,) + tuple(state.positions.shape[1:])
+            k = state.positions[0].numel()
+            new_state = dataclasses.replace(
+                state,
+                positions=rows[:, :k].to(torch.float32).reshape(shape),
+                velocities=rows[:, k:2 * k].to(torch.float32).reshape(shape)
+                * scale[lo:hi, None, None],
+                seeds=rows[:, 2 * k].to(torch.int32),
+            )
         acc_left = torch.where(
             is_left & paired, accept.to(torch.float32),
             torch.full((R,), float("nan"), device=dev),
@@ -388,27 +498,29 @@ class ReplicaExchange:
                 f"{cfg.exchange_frequency}"
             )
         state = self.state
+        ladder = self._local_ladder
         if cfg.heating_steps > 0:
             n_ramp = 10
             per = max(cfg.heating_steps // n_ramp, 1)
             for i in range(n_ramp):
                 frac = (i + 1) / n_ramp
-                temps = cfg.t_min + frac * (self.ladder - cfg.t_min)
+                temps = cfg.t_min + frac * (ladder - cfg.t_min)
                 state, _ = self._md_chunk(state, temps, per)
         if cfg.equilibration_steps > 0:
-            state, _ = self._md_chunk(state, self.ladder, cfg.equilibration_steps)
+            state, _ = self._md_chunk(state, ladder, cfg.equilibration_steps)
 
         R, N = self.n_replicas, self.system.n_atoms
+        Rl = self._block[1] - self._block[0]
         n_attempts = n_steps // cfg.exchange_frequency
         fpc = max(cfg.exchange_frequency // cfg.report_interval, 1)
         F = n_attempts * fpc
         dev = self.device
         i16 = cfg.frame_precision == "i16"
         frames = torch.empty(
-            (F, R, N, 3), dtype=torch.int16 if i16 else torch.float32, device=dev
+            (F, Rl, N, 3), dtype=torch.int16 if i16 else torch.float32, device=dev
         )
-        frame_e = torch.empty((F, R), dtype=torch.float32, device=dev)
-        frame_t = torch.empty((F, R), dtype=torch.float32, device=dev)
+        frame_e = torch.empty((F, Rl), dtype=torch.float32, device=dev)
+        frame_t = torch.empty((F, Rl), dtype=torch.float32, device=dev)
         n_con = 0 if self._constraints is None else self._constraints.n_constraints
         ids_hist = torch.empty((n_attempts + 1, R), dtype=torch.int32, device=dev)
         acc_hist = torch.empty((n_attempts, R), dtype=torch.float32, device=dev)
@@ -417,7 +529,7 @@ class ReplicaExchange:
         f = 0
         for a in range(n_attempts):
             for _ in range(fpc):
-                state, energies = self._md_chunk(state, self.ladder, cfg.report_interval)
+                state, energies = self._md_chunk(state, ladder, cfg.report_interval)
                 frames[f] = _quantize_i16(state.positions) if i16 else state.positions
                 frame_e[f] = energies
                 frame_t[f] = instantaneous_temperature(
@@ -432,6 +544,11 @@ class ReplicaExchange:
         self.state = state
         self.replica_ids = replica_ids
         self._attempts_done += n_attempts
+        if self.mesh is not None:
+            from ..parallel.mesh import gather_blocks
+
+            frames, frame_e, frame_t = (gather_blocks(t, self.mesh, dim=1)
+                                        for t in (frames, frame_e, frame_t))
 
         pos = frames.cpu().numpy()
         if i16:
@@ -471,6 +588,8 @@ class ReplicaExchange:
         ``_attempt_swaps`` over the same swap uniforms) runs only when the
         replicas lie on the CPU."""
         t_start = time.perf_counter()
+        if self.mesh is not None:
+            raise ValueError("run_fused is single-chip; use run() with a mesh")
         if self.bias_fn is not None:
             raise ValueError("run_fused supports in-kernel bias only (kernel_bias)")
         if self._chunk is None:
@@ -614,20 +733,24 @@ def run_replica_exchange(
     takes ``ReplicaExchange(kernel_bias=...)``).
 
     ``nonbonded="pme"`` runs the cell-list sweep with smooth PME.
-    ``mesh`` is not ported yet and raises ``NotImplementedError`` naming
-    ROADMAP queue A13."""
+    ``mesh`` (``parallel.replica_mesh``) shards the rungs over the ranks
+    (``ReplicaExchange``); every rank calls this and gets the same result.
+    A ladder designed for ``target_acceptance`` must divide over it."""
     import dataclasses as _dc
 
     from ..io.pdb import read_pdb
     from ..md.setup import build_explicit_setup, build_implicit_setup, is_explicit_solvent
 
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device REMD is ROADMAP queue A13")
     if constraints not in (None, "none", "hbonds"):
         raise ValueError(
             f"constraints must be None|'none'|'hbonds', got {constraints!r}"
         )
     config = config or RemdConfig()
+    if mesh is not None and device is None:
+        from ..parallel.mesh import check_mesh, rank_device
+
+        check_mesh(mesh)
+        device = rank_device(mesh)
     device = torch.device(device) if device is not None else default_device()
     structure = read_pdb(pdb_file) if not hasattr(pdb_file, "residues") else pdb_file
     explicit = is_explicit_solvent(structure)
@@ -674,6 +797,15 @@ def run_replica_exchange(
             force_fn=force_fn if force_fn is not None else make_force_fn(system),
             constraints=cspec, dt_ps=config.dt_ps,
         )
+        if mesh is not None:
+            n_dev = mesh.size()
+            if len(designed) % n_dev != 0:
+                raise ValueError(
+                    f"the designed ladder has {len(designed)} rungs, which "
+                    f"does not shard over the {n_dev}-device mesh; drop "
+                    "the mesh, widen [t_min, t_max], or pass an explicit "
+                    "ladder sized for the mesh"
+                )
         config = _dc.replace(
             config, temperatures=tuple(float(t) for t in designed),
             n_replicas=len(designed),
@@ -683,7 +815,7 @@ def run_replica_exchange(
         use_kernel=use_kernel and force_path == "dense" and not explicit,
         force_fn=force_fn, constraints=cspec,
         minimize=target_acceptance is None and not explicit,
-        minimize_force_fn=setup.minimize_force_fn, bias_fn=bias_fn,
+        minimize_force_fn=setup.minimize_force_fn, bias_fn=bias_fn, mesh=mesh,
     )
     return remd.run(n_steps), system
 

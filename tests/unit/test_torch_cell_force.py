@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_workers
 from pmarlo_tpu_torch.data.water import water_box_structure
 from pmarlo_tpu_torch.md import cell_force
 from pmarlo_tpu_torch.md.cell_force import build_cell_force_fn
@@ -228,9 +229,12 @@ def test_apply_after_motion_equals_fresh_evaluation(entry):
     _assert_close(e1, f1, e_one, f_one, "single-system apply")
 
 
-def test_refusals_keep_their_meaning():
-    """The 2 x cutoff width refusal, the option that is not ported yet
-    (``mesh``), a box tensor of the wrong shape, and a grid with no slack."""
+def test_refusals_keep_their_meaning(tmp_path):
+    """The 2 x cutoff width refusal, a ``mesh`` that is not a
+    ``DeviceMesh`` and a 1-rank mesh, which is the serial sweep (as JAX
+    makes it; the x-slab checks over real ranks are in
+    ``test_torch_parallel_cells.py``), a box tensor of the wrong shape, and
+    a grid with no slack."""
     s, box = water_box_structure(5)
     system, x = build_system(s, box=box, cutoff=CUTOFF, hydrogen_mass=None, device="cpu")
     with pytest.raises(ValueError, match="needs system.box"):
@@ -239,8 +243,11 @@ def test_refusals_keep_their_meaning():
         build_cell_force_fn(dataclasses.replace(system, cutoff=0.9))
     with pytest.raises(ValueError, match="pme_mesh_refine"):
         build_cell_force_fn(system, electrostatics="pme", pme_mesh_refine=0.9)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_cell_force_fn(system, mesh=object())
+    with torch_parallel_workers.one_rank_world(tmp_path) as mesh:
+        one = build_cell_force_fn(system, mesh=mesh)
+        assert one.slab is None and one.local_shapes is None
     with pytest.raises(ValueError, match="rf\\|pme"):
         build_cell_force_fn(system, electrostatics="ewald")
     npt = build_cell_force_fn(system)

@@ -323,9 +323,10 @@ def test_run_replica_exchange_on_a_solvated_input(nonbonded):
 
 
 def test_explicit_entry_refusals():
-    """What the explicit entry refuses: no constraints, the option that is
-    not ported yet (``mesh``, naming its ROADMAP item), a switch distance on
-    an implicit input, ``pme_precise`` without the PME engine."""
+    """What the explicit entry refuses: no constraints, a ``mesh`` that is
+    not a ``DeviceMesh`` (sharded explicit REMD over real ranks is in
+    ``test_torch_parallel_remd.py``), a switch distance on an implicit
+    input, ``pme_precise`` without the PME engine."""
     s = solvated_alanine()
     cfg = RemdConfig(**REMD)
     with pytest.raises(ValueError, match="rigid TIP3P water requires SHAKE"):
@@ -334,8 +335,9 @@ def test_explicit_entry_refusals():
     with pytest.raises(ValueError, match="pme_precise"):
         build_explicit_setup(s, cutoff=CUTOFF, nonbonded="cells", pme_precise=True,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        run_replica_exchange(s, n_steps=10, config=cfg, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        run_replica_exchange(s, n_steps=10, config=cfg, device="cpu", cutoff=CUTOFF,
+                             mesh=object())
     with pytest.raises(ValueError, match="switch_distance"):
         run_replica_exchange(alanine_dipeptide_structure(), n_steps=10, config=cfg,
                              device="cpu", switch_distance=0.4)

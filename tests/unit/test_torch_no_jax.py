@@ -142,6 +142,11 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.visualization.interactive", "pmarlo_tpu_torch.webapp.__init__",
     "pmarlo_tpu_torch.webapp.app", "pmarlo_tpu_torch.webapp.__main__",
 ]
+#: modules the multi-device slice added
+NEW_MODULES += [
+    "pmarlo_tpu_torch.parallel.__init__", "pmarlo_tpu_torch.parallel.mesh",
+    "pmarlo_tpu_torch.parallel.reductions", "pmarlo_tpu_torch.parallel.train",
+]
 
 
 def test_port_imports_without_jax():

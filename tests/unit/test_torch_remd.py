@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_workers
 from pmarlo_tpu.data import alanine_dipeptide_structure as jax_alanine
 from pmarlo_tpu.md.forcefield import build_system as jax_build_system
 from pmarlo_tpu.md.integrate import MDState as JaxMDState
@@ -133,14 +134,24 @@ def test_second_run_continues_state_and_noise(systems):
     np.testing.assert_array_equal(second.replica_ids[0], first.replica_ids[-1])
 
 
-def test_unported_options_raise(systems):
+def test_unported_options_raise(systems, tmp_path):
     _, _, ts, tx = systems
     with pytest.raises(ValueError, match="CUDA"):
         ReplicaExchange(ts, tx, RemdConfig(n_replicas=2), device="cpu",
                         use_kernel=True, minimize=False)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_replica_exchange(alanine_dipeptide_structure(), n_steps=100,
                              mesh=object())
+    # JAX's refusals under a mesh (a ladder that does not divide over real
+    # ranks: test_torch_parallel_remd.py)
+    with torch_parallel_workers.one_rank_world(tmp_path) as mesh:
+        with pytest.raises(ValueError, match="single-chip only"):
+            ReplicaExchange(ts, tx, RemdConfig(n_replicas=2), mesh=mesh,
+                            use_kernel=True, minimize=False)
+        remd = ReplicaExchange(ts, tx, RemdConfig(n_replicas=2), mesh=mesh, minimize=False)
+        assert remd.device == torch.device("cpu") and remd.state.positions.shape[0] == 2
+        with pytest.raises(ValueError, match="run_fused is single-chip"):
+            remd.run_fused(100)
     # bias_fn is ported (the plain path); the kernel path takes kernel_bias
     with pytest.raises(ValueError, match="kernel_bias"):
         ReplicaExchange(ts, tx, RemdConfig(n_replicas=2), device="cpu",
