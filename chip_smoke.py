@@ -266,11 +266,30 @@ Phases, one line of numbers each:
              beside the unsharded); one data-parallel DeepTICA step at the
              defaults (32 x 200 frames x 32 features) against the serial
              step.
+28. neighbor list - the neighbor-listed GB path (``md/nblist.py``, plain
+             PyTorch) and the roll layouts on phase 7's minimized 3,726-atom
+             assembly: (a) ``potential_energy_nb`` and its autograd forces,
+             the list at 1.5 nm without skin, against the pair path cut at
+             1.5 nm in its Newton mode (rows 7 and 10) and ordered (rows 6
+             and 10) at warmed positions, and at the minimized ones in
+             float64 against the pair path's float64 version, n_max beside
+             the capacity; (b) ``run_md_nb`` 400 steps
+             at 2 fs, 1/ps, cutoff 2.0 + skin 0.2, a rebuild every 20 steps
+             (JAX's test settings), from a state warmed 300 steps on row 7 at
+             5/ps, ms a step beside ``run_md`` on row 7 at 2.0 nm from the
+             same state, list build ms, peak device memory; (c)
+             ``build_rolled_bonded`` against the index-gathered bonded terms,
+             ``shake_rolled`` / ``rattle_rolled`` against ``shake`` /
+             ``rattle`` on the index layout's spec, and 100 constrained
+             ``run_md`` steps at 4 fs with
+             ``build_h_constraints(layout="rolled")`` (the index layout's
+             100 steps timed beside; a rolled spec runs the same solver on
+             the constraints it reads off its masks).
 
 As each phase ends, its wall seconds and the script's so far go to
 standard error (a run cut at its time limit shows how far it got).
 Then a summary line that repeats the headline numbers of phases 1,
-11-14 and 15-27 and every phase's wall seconds, the card's name and
+11-14 and 15-28 and every phase's wall seconds, the card's name and
 power limit, a line of the kernels'
 times before their redesign (the one-thread-an-atom and the row-owned fused kernels, the
 row-owned dense Born and energy sweeps, the Newton Born and energy sweeps'
@@ -428,6 +447,19 @@ MD_WATER_STEPS = 20              # run_md through the slab launch
 #: (``__graft_entry__.py``: tilt (0.45, 0.3, 0.4) on a 3.65 x 1.85 x 1.85 box)
 MD_TILT_RATIOS = (0.45 / 3.65, 0.3 / 3.65, 0.4 / 1.85)
 MD_DEEPTICA = (32, 200, 32)      # trajectories x frames x features
+NB_STEPS = 400                   # phase 28: run_md_nb at JAX's test settings
+NB_DT_PS = 0.002
+NB_FRICTION = 1.0
+NB_CUTOFF = 2.0
+NB_SKIN = 0.2
+NB_REBUILD = 20
+NB_REPORT = 100
+NB_WARM_STEPS = 300              # row 7 at SHORT_RUN_FRICTION before run_md_nb
+NB_ROW7_STEPS = 100              # row 7 timed from run_md_nb's start state
+NB_PARITY_REL = 1e-4             # nblist vs the cut pair path: energy, force / largest
+NB_T_BAND = (0.95, 1.05)         # state's mid-step temperature over the last 200 steps
+ROLLED_STEPS = 100
+ROLLED_DT_PS = 0.004
 NUCLEIC_REPLICAS = 8
 NUCLEIC_DT_PS = 0.001
 NUCLEIC_FIRE = 2_000
@@ -4817,6 +4849,217 @@ def phase_multi_device() -> dict:
     return out
 
 
+def _nblist_parity(out: dict, tag: str, system, tables, x: torch.Tensor, newton_fn, ordered_fn,
+                   twin64=None) -> None:
+    """Phase 28 (a) at positions ``x (N, 3)``: ``potential_energy_nb`` and its
+    autograd forces, the list at ``GB_CUTOFF`` without skin (the capacity
+    raised to ``n_max`` where the default would saturate), against the cut
+    pair path's kernels, Newton (rows 7 + 10) and ordered (rows 6 + 10), to
+    ``NB_PARITY_REL`` of the energy and of the largest force. With
+    ``twin64``, the pair path's float64 plain version: the float64 nblist
+    evaluation is held to it at the same gate (the two functions' parity),
+    and each float32 path's distance from it is printed. At minimized
+    positions (max |F| ~ 10^2 kJ/mol/nm) float32 rounding alone puts both
+    float32 paths ~1.5e-4 of it from the float64 evaluation (a 276-atom CPU
+    run of the same comparison), so there the float32 paths are held on
+    their energies only."""
+    from pmarlo_tpu_torch.md import nblist as NB
+
+    N = system.n_atoms
+    cap = NB._default_capacity(N, GB_CUTOFF, 0.0)
+    nl = NB.build_neighbor_list(x, GB_CUTOFF, cap)
+    n_max = int(nl.n_max)
+    out[f"{tag}_parity_capacity_default"], out[f"{tag}_parity_n_max"] = cap, n_max
+    if n_max > cap:
+        nl = NB.build_neighbor_list(x, GB_CUTOFF, n_max)
+    scales = NB._pair_scales(nl, tables)
+    e_nb, f_nb = NB._energy_and_forces(system, x, nl, scales, None)
+    out[f"{tag}_nblist_energy_kj_mol"] = float(e_nb)
+    out[f"{tag}_max_force"] = float(f_nb.abs().max())
+    if twin64 is not None:
+        e64, f64 = twin64.reference(x.double()[None])
+        e64, twin64_f = float(e64[0]), f64[0]
+        e_nb64, f_nb64 = NB._energy_and_forces(system, x.double(), nl, scales, None)
+        out[f"{tag}_nblist_vs_float64_force_rel_err"] = _rel(f_nb.double(), twin64_f)
+        out[f"{tag}_nblist64_vs_float64_energy_rel_err"] = abs(float(e_nb64) - e64) / abs(e64)
+        out[f"{tag}_nblist64_vs_float64_force_rel_err"] = _rel(f_nb64, twin64_f)
+        _check(out[f"{tag}_nblist64_vs_float64_energy_rel_err"] <= NB_PARITY_REL
+               and out[f"{tag}_nblist64_vs_float64_force_rel_err"] <= NB_PARITY_REL,
+               f"{tag}: float64 nblist vs the pair path's float64 version")
+    for path, fn in (("newton", newton_fn), ("ordered", ordered_fn)):
+        e_p, f_p = fn(x)
+        rel_e = abs(float(e_nb) - float(e_p)) / abs(float(e_p))
+        rel_f = _rel(f_nb, f_p)
+        out[f"{tag}_{path}_energy_kj_mol"] = float(e_p)
+        out[f"{tag}_nblist_vs_{path}_energy_rel_err"] = rel_e
+        out[f"{tag}_nblist_vs_{path}_force_rel_err"] = rel_f
+        _check(rel_e <= NB_PARITY_REL and (twin64 is not None or rel_f <= NB_PARITY_REL),
+               f"{tag}: nblist vs the {path} pair path at {GB_CUTOFF} nm: energy {rel_e}, "
+               f"force {rel_f}")
+        if twin64 is not None:
+            out[f"{tag}_{path}_vs_float64_force_rel_err"] = _rel(f_p.double(), twin64_f)
+    out[f"{tag}_nblist_eval_ms"] = _cuda_ms(
+        lambda: NB._energy_and_forces(system, x, nl, scales, None), 5)
+
+
+def phase_neighbor_list(px_min: torch.Tensor) -> dict:
+    """Phase 28: the neighbor-listed GB path and the roll layouts at full
+    width, 3,726 atoms (phase 7's minimized assembly; the System built
+    with its dense GBn2 neck tables, which the list's Born integral reads).
+
+    The nblist path launches no kernel: its numbers stand beside the pair
+    path's (rows 6, 7 and 10), which cuts every pair term at the same
+    distance. Every launch of the phase counts toward those rows."""
+    from pmarlo_tpu_torch.data.chignolin import chignolin_assembly
+    from pmarlo_tpu_torch.md import forces
+    from pmarlo_tpu_torch.md import nblist as NB
+    from pmarlo_tpu_torch.md.bonded_roll import build_rolled_bonded
+    from pmarlo_tpu_torch.md.constraints import (
+        RolledConstraintSpec, build_h_constraints, constraint_violation, rattle,
+        rattle_rolled, shake, shake_rolled, strip_constrained_bonded)
+    from pmarlo_tpu_torch.md.forcefield import build_system
+    from pmarlo_tpu_torch.md.integrate import run_md, thermalize
+    from pmarlo_tpu_torch.md.pair_force import build_pair_force_fn, kernel_name
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    system, _ = build_system(chignolin_assembly(PROTEIN_COPIES), gb_model="gbn2",
+                             device="cuda", dense_scales=True)
+    x = px_min.detach().clone()
+    N = system.n_atoms
+    _check(x.shape == (N, 3) and system.gb_neck_m0 is not None,
+           "phase 28 runs on phase 7's assembly with its neck tables")
+    tables = NB.make_exclusion_tables(system)
+    walls["system_and_tables_s"] = time.perf_counter() - t0
+    out = {"atoms": N, "card": _card(), "exclusion_table_width": int(tables.partner.shape[1])}
+
+    # (a) the list at the cut pair path's cutoff, no skin, against rows 6/7 + 10:
+    # at the minimized positions in float64 too, and at warmed positions
+    cut = dict(gb_cutoff=GB_CUTOFF, order_from=x, bonded="window")
+    newton_fn = build_pair_force_fn(system, **cut)
+    ordered_fn = build_pair_force_fn(system, newton=False, **cut)
+    twin64 = build_pair_force_fn(system, gb_cutoff=GB_CUTOFF, dtype=torch.float64)
+    _check(newton_fn.mode == "newton" and ordered_fn.mode == "culled"
+           and newton_fn.bonded == ordered_fn.bonded == "window",
+           "phase 28's pair paths are rows 7 and 6 with the bonded kernel")
+    _nblist_parity(out, "min", system, tables, x, newton_fn, ordered_fn, twin64)
+    out["newton_eval_ms"] = _cuda_ms(lambda: newton_fn(x), 5)
+
+    # (b) dynamics: warm on row 7 at 2.0 nm, then run_md_nb and row 7 from one state
+    row7 = build_pair_force_fn(system, gb_cutoff=NB_CUTOFF, order_from=x, bonded="window")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    warm = dict(dt=NB_DT_PS, temperature_K=300.0, force_fn=row7)
+    state, _ = run_md(system, thermalize(system, x, gen, 300.0), n_steps=NB_WARM_STEPS,
+                      friction=SHORT_RUN_FRICTION, report_interval=NB_WARM_STEPS, **warm)
+    _nblist_parity(out, "warm", system, tables, state.positions, newton_fn, ordered_fn)
+    cap = NB._default_capacity(N, NB_CUTOFF, NB_SKIN)
+    out["md_capacity"] = cap
+    out["md_list_n_max_start"] = int(NB.build_neighbor_list(state.positions, NB_CUTOFF + NB_SKIN,
+                                                            cap).n_max)
+    out["list_build_ms"] = _cuda_ms(
+        lambda: NB.build_neighbor_list(state.positions, NB_CUTOFF + NB_SKIN, cap), 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    st_nb, frames = NB.run_md_nb(system, state, n_steps=NB_STEPS, dt=NB_DT_PS,
+                                 friction=NB_FRICTION, temperature_K=300.0,
+                                 report_interval=NB_REPORT, cutoff=NB_CUTOFF, skin=NB_SKIN,
+                                 rebuild_interval=NB_REBUILD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    out["nblist_peak_device_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["nblist_ms_per_step"] = wall / NB_STEPS * 1e3
+    out["md_list_n_max_end"] = int(NB.build_neighbor_list(st_nb.positions, NB_CUTOFF + NB_SKIN,
+                                                          cap).n_max)
+    temps = [float(t) for t in frames["temperature"]]
+    last = NB_STEPS // NB_REPORT // 2
+    state_ratio = float(np.mean(temps[-last:]) / 300.0)
+    out.update({"nblist_report_temperature_K": temps,
+                "nblist_report_energy_kj_mol": [float(e) for e in frames["potential_energy"]],
+                "nblist_state_kinetic_over_target_last_200_steps": state_ratio})
+    _check(bool(torch.isfinite(frames["positions"]).all())
+           and bool(torch.isfinite(frames["potential_energy"]).all()), "run_md_nb frames finite")
+    _check(150.0 < temps[-1] < 450.0, f"run_md_nb's last report {temps[-1]} K")
+    _check(NB_T_BAND[0] <= state_ratio <= NB_T_BAND[1],
+           f"run_md_nb's state kinetic/target over the last 200 steps {state_ratio}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    run_md(system, state, n_steps=NB_ROW7_STEPS, friction=NB_FRICTION,
+           report_interval=NB_ROW7_STEPS, **warm)
+    torch.cuda.synchronize()
+    out["row7_ms_per_step"] = (time.perf_counter() - t2) / NB_ROW7_STEPS * 1e3
+    out["row7_peak_device_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    walls["dynamics_s"] = time.perf_counter() - t1
+
+    # (c) the roll layouts
+    t3 = time.perf_counter()
+    rolled = build_rolled_bonded(system)
+    with torch.enable_grad():
+        y = x.detach().requires_grad_(True)
+        e_r = rolled(y)
+        (g_r,) = torch.autograd.grad(e_r, y)
+        z = x.detach().requires_grad_(True)
+        e_i = (forces.bond_energy(system, z) + forces.angle_energy(system, z)
+               + forces.torsion_energy(system, z))
+        (g_i,) = torch.autograd.grad(e_i, z)
+    e_r, e_i = float(e_r.detach()), float(e_i.detach())
+    out["rolled_bonded_energy_rel_err"] = abs(e_r - e_i) / abs(e_i)
+    out["rolled_bonded_force_rel_err"] = float((g_r - g_i).abs().max() / g_i.abs().max())
+    _check(out["rolled_bonded_energy_rel_err"] <= 1e-4
+           and out["rolled_bonded_force_rel_err"] <= 1e-4,
+           f"rolled bonded terms: {out['rolled_bonded_energy_rel_err']}, "
+           f"{out['rolled_bonded_force_rel_err']}")
+    spec_r = build_h_constraints(system, layout="rolled")
+    spec_i = build_h_constraints(system)
+    _check(isinstance(spec_r, RolledConstraintSpec)
+           and spec_r.n_constraints == spec_i.n_constraints, "the two layouts' constraints")
+    rng = np.random.default_rng(28)
+    x_new = x + torch.as_tensor(rng.normal(0.0, 0.003, (N, 3)), dtype=x.dtype, device=x.device)
+    v = torch.as_tensor(rng.normal(0.0, 1.0, (N, 3)), dtype=x.dtype, device=x.device)
+    xs_r, xs_i = shake_rolled(spec_r, x_new, x), shake(spec_i, x_new, x)
+    vs_r, vs_i = rattle_rolled(spec_r, v, xs_i), rattle(spec_i, v, xs_i)
+    out["shake_rolled_vs_indexed_max_dx_nm"] = float((xs_r - xs_i).abs().max())
+    out["rattle_rolled_vs_indexed_max_dv_nm_ps"] = float((vs_r - vs_i).abs().max())
+    _check(out["shake_rolled_vs_indexed_max_dx_nm"] <= 1e-5
+           and out["rattle_rolled_vs_indexed_max_dv_nm_ps"] <= 1e-5,
+           "shake_rolled / rattle_rolled vs shake / rattle")
+    md_system = strip_constrained_bonded(system)
+    fn_md = build_pair_force_fn(md_system, **cut)
+    for tag, spec in (("rolled", spec_r), ("indexed", spec_i)):
+        gen.manual_seed(280)
+        st = thermalize(system, x, gen, 300.0)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        st, fr = run_md(system, st, n_steps=ROLLED_STEPS, dt=ROLLED_DT_PS, friction=NB_FRICTION,
+                        temperature_K=300.0, report_interval=ROLLED_STEPS // 2, force_fn=fn_md,
+                        constraints=spec)
+        torch.cuda.synchronize()
+        out[f"{tag}_constrained_ms_per_step"] = (time.perf_counter() - t4) / ROLLED_STEPS * 1e3
+        dev = float(constraint_violation(spec, fr["positions"]))
+        out[f"{tag}_max_constraint_deviation_nm"] = dev
+        _check(bool(torch.isfinite(fr["positions"]).all()) and dev <= 1e-4,
+               f"{tag} constrained run_md: deviation {dev} nm")
+    walls["rolled_s"] = time.perf_counter() - t3
+
+    counts = _counts()
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    rows = {"6": [kernel_name(s, "culled") for s in ("born", "energy", "force")],
+            "7": [kernel_name(s, "newton") for s in ("born", "energy", "force")],
+            "10": ["bonded"]}
+    _check(all(counts[k] > 0 for names in rows.values() for k in names),
+           f"phase 28 launched rows 6, 7 and 10: {out['launches']}")
+    _check(set(out["launches"]) <= {k for names in rows.values() for k in names},
+           f"phase 28 launched other kernels: {out['launches']}")
+    walls["phase_s"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    _line("phase 28 neighbor list", out)
+    return out
+
+
 def temperature_study() -> dict:
     """``python3 chip_smoke.py --temperature-study``: the two temperatures of
     the 61,824-atom constrained run at 4 fs and at 2 fs, 6 ps each from one
@@ -4940,6 +5183,7 @@ def main() -> None:
     nucleic = _timed("25 nucleic complex", phase_nucleic_complex, chain_a)
     api_reports = _timed("26 api and reports", phase_api_reports, cv, cx)
     multi = _timed("27 multi-device", phase_multi_device)
+    nblist = _timed("28 neighbor list", phase_neighbor_list, px_min)
 
     print(_card())
     R, N, Np = N_REPLICAS, system.n_atoms, protein.n_atoms
@@ -5090,7 +5334,7 @@ def main() -> None:
                 "source": ("pmarlo_tpu_torch/csrc/pair_newton.cu" if mode == "newton"
                            else "pmarlo_tpu_torch/csrc/pair_force.cu"),
                 "replaces": f"pmarlo_tpu/md/pallas_pair.py:{line}",
-                "launches": path_counts[name],
+                "launches": path_counts[name] + nblist["launches"].get(name, 0),
                 "max_abs_err": large_path[f"{mode}_{err}"],
                 "ms": large_path[f"{mode}_{tag}_ms"],
                 "plain_ms": large_path[f"{mode}_{tag}_plain_ms"],
@@ -5103,7 +5347,8 @@ def main() -> None:
         "name": "bonded", **cuda,
         "source": "pmarlo_tpu_torch/csrc/bonded.cu",
         "replaces": "pmarlo_tpu/md/bonded_window.py:350",
-        "launches": large_path["launches"]["bonded"] + large_path["ordered_launches"]["bonded"],
+        "launches": (large_path["launches"]["bonded"] + large_path["ordered_launches"]["bonded"]
+                     + nblist["launches"]["bonded"]),
         "max_abs_err": large_path["bonded_grad_max_abs_err"],
         "ms": large_path["bonded_ms"],
         "graph_ms": large_path["bonded_graph_ms"],
@@ -5244,6 +5489,20 @@ def main() -> None:
             "scratch_bytes": multi["rank0"]["rf_scratch_bytes"],
             "unsharded_scratch_bytes": multi["rank0"]["rf_unsharded_scratch_bytes"],
             "walls_s": multi["walls_s"]},
+        "neighbor_list": {k: nblist[k] for k in (
+            "atoms", "card", "min_parity_capacity_default", "min_parity_n_max",
+            "min_max_force", "min_nblist64_vs_float64_force_rel_err",
+            "min_nblist_vs_float64_force_rel_err", "min_newton_vs_float64_force_rel_err",
+            "min_nblist_vs_newton_energy_rel_err", "warm_max_force",
+            "warm_nblist_vs_newton_energy_rel_err", "warm_nblist_vs_newton_force_rel_err",
+            "warm_nblist_vs_ordered_energy_rel_err", "warm_nblist_vs_ordered_force_rel_err",
+            "warm_nblist_eval_ms", "newton_eval_ms", "md_capacity", "md_list_n_max_start",
+            "md_list_n_max_end", "list_build_ms", "nblist_ms_per_step", "row7_ms_per_step",
+            "nblist_peak_device_memory_gib", "row7_peak_device_memory_gib",
+            "nblist_state_kinetic_over_target_last_200_steps", "rolled_bonded_force_rel_err",
+            "shake_rolled_vs_indexed_max_dx_nm", "rolled_constrained_ms_per_step",
+            "indexed_constrained_ms_per_step", "rolled_max_constraint_deviation_nm",
+            "launches", "walls_s")},
         "phase_s": PHASE_S,
         "script_s": time.perf_counter() - t_start,
     })

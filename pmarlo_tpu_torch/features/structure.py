@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .base import Feature, TopologyInfo, register_feature
-from .builtins import compute_dihedrals, phi_psi_indices
+from .builtins import as_frames, compute_dihedrals, phi_psi_indices
 from .featurize import frames_on_device
 
 _EPS = 1e-12

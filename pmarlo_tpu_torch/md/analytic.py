@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
-from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
+from .ff_params import GB_DIELECTRIC_OFFSET, OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
 from .gbn2 import neck_value_and_derivative
 from .system import System, require_dense_scales
 

@@ -17,11 +17,20 @@ the JAX package's own arrays.
 **Cells** (``CellGrid``, ``make_cell_grid``, ``bin_atoms``,
 ``NeighborState``, ``free_skin``). Atoms are binned into a grid whose cell
 layers are at least one cutoff thick, so the 27-cell neighbourhood covers
-every pair within the cutoff. The TPU layout (a fixed-capacity slot array
-per cell, nine ghost-padded neighbour runs, lane alignment) is not carried
-over: ``bin_atoms`` returns a stable sort of the atoms by cell id and CSR
+every pair within the cutoff. The port's cell sweep does not use the TPU
+layout: ``bin_atoms`` returns a stable sort of the atoms by cell id and CSR
 offsets (``cell_start``), which hold any occupancy, so no cell can
 overflow.
+
+**The TPU slot layout** (``C_FEAT``, ``cell_slots``, ``scatter_features``,
+``ghost_pad``, ``make_cell_grid(lane_align=True)``, ``CellGrid.n_slots``):
+the helpers that feed JAX's cell kernel, in plain PyTorch with JAX's
+results. ``cell_slots`` turns ``bin_atoms``' sort into JAX's per-atom
+slots; ``scatter_features`` fills a ``(C_FEAT, n_cells * capacity)``
+feature array of fixed-capacity cell slots, and ``ghost_pad`` its copy
+wrap-padded by one cell a face with the coordinates of
+the wrapped layers shifted by a lattice vector. No step path of the port
+calls them.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import torch
 
 from .._device import host_constant
 from .ff_params import SCEE, SCNB
+
+C_FEAT = 8  # x, y, z, charge, sigma, eps, mask, atom index
 
 
 def _np(a) -> np.ndarray:
@@ -174,6 +185,10 @@ class CellGrid:
         return self.nx * self.ny * self.nz
 
     @property
+    def n_slots(self) -> int:
+        return self.n_cells * self.capacity
+
+    @property
     def cell_size(self) -> Tuple[float, float, float]:
         """Per-axis slab thickness bounding the neighbourhood cover: the
         edge length for orthorhombic grids, the perpendicular width per
@@ -202,12 +217,13 @@ def make_cell_grid(
     *,
     occupancy_margin: float = 1.4,
     min_headroom: int = 8,
+    lane_align: bool = False,
     tilt: Optional[Tuple[float, float, float]] = None,
 ) -> CellGrid:
     """Choose the grid: the most cells with a layer at least ``cutoff``
     thick per axis; ``capacity`` from the mean occupancy with margin,
-    rounded up to a multiple of 8 (as the JAX grid without lane
-    alignment)."""
+    rounded up to a multiple of 8, or of 128 with ``lane_align`` (the TPU
+    kernel's slot runs; the port's sweep reads no capacity)."""
     if tilt is None:
         widths = np.asarray(box, np.float64)
     else:
@@ -223,7 +239,8 @@ def make_cell_grid(
     nz = max(int(np.floor(widths[2] / cutoff)), 1)
     mean_occ = n_atoms / float(nx * ny * nz)
     cap = int(np.ceil(occupancy_margin * mean_occ)) + min_headroom
-    cap = ((cap + 7) // 8) * 8
+    align = 128 if lane_align else 8
+    cap = ((cap + align - 1) // align) * align
     return CellGrid(box=tuple(float(b) for b in box), cutoff=float(cutoff),
                     nx=int(nx), ny=int(ny), nz=int(nz), capacity=int(cap),
                     tilt=(tuple(float(t) for t in tilt)
@@ -284,6 +301,106 @@ def bin_atoms(grid: CellGrid, x: torch.Tensor, box: Optional[torch.Tensor] = Non
     return order.to(torch.int32), cell_start.to(torch.int32), cid, xw
 
 
+def cell_slots(grid: CellGrid, order: torch.Tensor, cell_start: torch.Tensor,
+               cell_id: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each atom's flat slot in the ``(n_cells * capacity)`` slot space
+    from ``bin_atoms``' sort, ``(slot (..., N) int64, overflow)``: slot =
+    cell * capacity + the atom's rank in its cell (ascending atom index),
+    as JAX's ``bin_atoms`` assigns them. ``overflow`` (a bool tensor) is
+    True when a cell holds more than ``capacity`` atoms; the excess ranks
+    then clamp onto the cell's last slot, as in JAX. This is the slot
+    layout ``scatter_features`` and ``ghost_pad`` take; the port's sweep
+    reads ``order`` and ``cell_start`` instead."""
+    order = order.long()
+    n = order.shape[-1]
+    pos = torch.arange(n, device=order.device).expand(order.shape)
+    start = cell_start.long().gather(-1, cell_id.gather(-1, order))
+    rank = torch.empty_like(order).scatter_(-1, order, pos - start)
+    overflow = (rank >= grid.capacity).any()
+    return cell_id * grid.capacity + rank.clamp(max=grid.capacity - 1), overflow
+
+
+def scatter_features(
+    grid: CellGrid,
+    xw: torch.Tensor,
+    slot: torch.Tensor,
+    charges: torch.Tensor,
+    sigma: torch.Tensor,
+    eps: torch.Tensor,
+) -> torch.Tensor:
+    """Per-atom features in the ``(C_FEAT, n_slots)`` slot array, on the
+    device of ``xw (N, 3)`` (wrapped coordinates) and ``slot (N,)`` (each
+    atom's flat slot, from ``cell_slots``, as JAX's ``bin_atoms`` assigns
+    them). Empty slots
+    carry mask 0, atom index -1e6 (never within the exclusion band of a
+    real index) and coordinates 100 box lengths away, so no distance to
+    them falls under a cutoff. Two atoms clamped onto one slot (a cell
+    overflow) leave that slot unspecified, as in JAX."""
+    n = xw.shape[0]
+    dt = xw.dtype
+    feat = torch.stack([
+        xw[:, 0], xw[:, 1], xw[:, 2], charges.to(dt), sigma.to(dt), eps.to(dt),
+        torch.ones(n, dtype=dt, device=xw.device),
+        torch.arange(n, dtype=dt, device=xw.device),
+    ], dim=1)                                               # (N, C)
+    slots = torch.zeros((grid.n_slots, C_FEAT), dtype=dt, device=xw.device)
+    slots[:, 0] = -100.0 * grid.box[0]
+    slots[:, 7] = -1e6
+    slots[slot.long()] = feat
+    return slots.T                                          # (C, S)
+
+
+def _wrap_pad(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """One layer of periodic padding on each side of ``dim``."""
+    n = g.shape[dim]
+    return torch.cat([g.narrow(dim, n - 1, 1), g, g.narrow(dim, 0, 1)], dim=dim)
+
+
+def ghost_pad(grid: CellGrid, slots: torch.Tensor,
+              box: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Wrap-pad the slot array ``(C, n_slots)`` by one cell a face, the
+    coordinate channels of each wrapped layer shifted by the lattice vector
+    of the face it crossed, so that plain distances need no minimum image.
+
+    Returns ``(C, (nx + 2)(ny + 2)(nz + 2) capacity)``, z fastest, then the
+    slot. ``box`` (a (3,) tensor) replaces the grid's diagonal (the NPT
+    path); a triclinic grid's tilt then follows it by the grid's tilt
+    ratios."""
+    C = slots.shape[0]
+    g = slots.reshape(C, grid.nx, grid.ny, grid.nz, grid.capacity)
+    for dim in (1, 2, 3):
+        g = _wrap_pad(g, dim)
+    if box is None:
+        bx, by, bz = grid.box
+    else:
+        bx, by, bz = box[0], box[1], box[2]
+    # a corner ghost sits in several boundary layers and takes each crossed
+    # lattice vector: a = (ax, 0, 0), b = (tbx, by, 0), c = (tcx, tcy, cz)
+    if grid.tilt is None:
+        tbx = tcx = tcy = 0.0
+    elif box is None:
+        tbx, tcx, tcy = grid.tilt
+    else:
+        from .box import tilt_ratios
+
+        rbx, rcx, rcy = tilt_ratios(grid.box, grid.tilt)
+        tbx, tcx, tcy = rbx * bx, rcx * bx, rcy * by
+    g[0, 0] -= bx
+    g[0, -1] += bx
+    g[1, :, 0] -= by
+    g[1, :, -1] += by
+    g[2, :, :, 0] -= bz
+    g[2, :, :, -1] += bz
+    if grid.tilt is not None:
+        g[0, :, 0] -= tbx          # b-vector x component
+        g[0, :, -1] += tbx
+        g[0, :, :, 0] -= tcx       # c-vector x component
+        g[0, :, :, -1] += tcx
+        g[1, :, :, 0] -= tcy       # c-vector y component
+        g[1, :, :, -1] += tcy
+    return g.reshape(C, -1)
+
+
 @dataclasses.dataclass(frozen=True)
 class NeighborState:
     """A cell assignment: what ``bin_atoms`` found, as the cell-list sweep
@@ -300,6 +417,7 @@ class NeighborState:
 
 
 __all__ = [
-    "CellGrid", "ExclusionBand", "NeighborState", "banded_scales", "bin_atoms",
-    "exclusion_band_width", "free_skin", "make_cell_grid",
+    "C_FEAT", "CellGrid", "ExclusionBand", "NeighborState", "banded_scales", "bin_atoms",
+    "cell_slots", "exclusion_band_width", "free_skin", "ghost_pad", "make_cell_grid",
+    "scatter_features",
 ]

@@ -4,11 +4,21 @@ exact rigid-water solver.
 Port of ``pmarlo_tpu/md/constraints.py``. X-H bonds: the same
 Jacobi-style iteration (every constraint computes its correction from one
 iterate, corrections add up), a fixed iteration count, and positions or
-velocities with leading replica dimensions ``(..., N, 3)``. The TPU
-layouts (one-hot scatter matmuls, rolled groups) become index gathers
-and, an iteration, one fixed-order sum of each atom's corrections
-(``analytic.RowSums``). X-H constraints form stars (a heavy atom with 1-3
-hydrogens), on which Jacobi converges in a few sweeps.
+velocities with leading replica dimensions ``(..., N, 3)``. X-H
+constraints form stars (a heavy atom with 1-3 hydrogens), on which Jacobi
+converges in a few sweeps. Two layouts (``build_h_constraints(layout=)``):
+
+- ``"onehot"`` (the port's default): JAX's one-hot scatter matmuls become
+  index gathers and, an iteration, one fixed-order sum of each atom's
+  corrections (``analytic.RowSums``), so the step paths add in one order
+  whatever the batch (``ConstraintSpec``);
+- ``"rolled"`` (JAX's default): JAX's ``RolledConstraintSpec``, the
+  constraints grouped by index offset into ``(G, N)`` masks, field for
+  field. Its solve is the index layout's: the spec reads its pairs
+  ``(i, i + delta_g)`` off the masks once into a ``ConstraintSpec``, which
+  ``shake_rolled`` / ``rattle_rolled`` (and ``shake`` / ``rattle``) run; a
+  card gathers natively, so the roll passes would be a second, slower
+  solver of the same iteration.
 
 Rigid water (``RigidWaterSpec``): the three coupled distance constraints
 of a water triangle make Jacobi SHAKE/RATTLE unstable in dynamics, so each
@@ -26,7 +36,7 @@ residue, and the massless site rows ride along unconstrained
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -108,13 +118,19 @@ def _host(t) -> np.ndarray:
 
 
 def build_h_constraints(
-    system: System, n_iter: int = 30,
-) -> "Union[ConstraintSpec, CompositeConstraintSpec, None]":
+    system: System, n_iter: int = 30, layout: str = "onehot",
+) -> "Union[ConstraintSpec, RolledConstraintSpec, CompositeConstraintSpec, None]":
     """Constraints for every bond involving a hydrogen (OpenMM HBonds), or
     ``None`` when there is none. A system with waters gets a
     ``CompositeConstraintSpec``: the waters (one contiguous block of
     (O, H1, H2[, M | L1, L2]) residues) go to the exact rigid solver, every
-    other X-H bond to the Jacobi iteration."""
+    other X-H bond to the Jacobi iteration, in the index layout
+    (``layout="onehot"``, ``ConstraintSpec``) or the roll layout
+    (``"rolled"``, ``RolledConstraintSpec``). The port keeps ``"onehot"``
+    as its default, where JAX defaults to ``"rolled"``; both give the same
+    constrained positions."""
+    if layout not in ("rolled", "onehot"):
+        raise ValueError(f"unknown constraint layout {layout!r}")
     bonds = _host(system.bond_idx).reshape(-1, 2)
     masses = _host(system.masses).astype(np.float64)
     is_h = _is_hydrogen(system)
@@ -128,7 +144,11 @@ def build_h_constraints(
         in_water = water_atoms[pairs[:, 0]] | water_atoms[pairs[:, 1]]
         pairs, r0 = pairs[~in_water], r0[~in_water]
     protein_spec = None
-    if pairs.shape[0]:
+    if pairs.shape[0] and layout == "rolled":
+        # float32 masses, as JAX takes 1/m
+        protein_spec = _build_rolled_spec(pairs, r0, _host(system.masses), n_iter,
+                                          device=system.device)
+    elif pairs.shape[0]:
         if np.any(masses[pairs.reshape(-1)] <= 0.0):
             raise ValueError("constraint pair references a massless (virtual-site) atom")
         # massless rows are virtual sites, whose 1/m no constraint reads
@@ -180,6 +200,8 @@ def shake(spec: ConstraintSpec, x_new: torch.Tensor, x_ref: torch.Tensor,
         return shake_water(spec.water, x_new, x_ref)
     if isinstance(spec, RigidWaterSpec):
         return shake_water(spec, x_new, x_ref)
+    if isinstance(spec, RolledConstraintSpec):
+        spec = spec.indexed
     d_ref = _pair_vectors(spec, x_ref)
     rows, weighted = _corrections(spec, d_ref, x_new.shape[-2])
     d0sq = spec.d0 * spec.d0
@@ -206,6 +228,8 @@ def rattle(spec: ConstraintSpec, v: torch.Tensor, x: torch.Tensor) -> torch.Tens
         return rattle_water(spec.water, v, x)
     if isinstance(spec, RigidWaterSpec):
         return rattle_water(spec, v, x)
+    if isinstance(spec, RolledConstraintSpec):
+        spec = spec.indexed
     d = _pair_vectors(spec, x)
     rows, weighted = _corrections(spec, d, v.shape[-2])
     denom = torch.linalg.vecdot(d, d) * spec.inv_mass_sum + 1e-12
@@ -226,6 +250,8 @@ def constraint_violation(spec: ConstraintSpec, x: torch.Tensor) -> torch.Tensor:
         d = _water_dvec(_water_block(spec, x))
         r = torch.sqrt((d * d).sum(-1) + 1e-12)
         return (r - spec.d0).abs().max()
+    if isinstance(spec, RolledConstraintSpec):
+        spec = spec.indexed
     d = _pair_vectors(spec, x)
     r = torch.sqrt((d * d).sum(-1) + 1e-12)
     return (r - spec.d0).abs().max()
@@ -262,6 +288,113 @@ def strip_constrained_bonded(system: System) -> System:
 def n_constraints(spec) -> int:
     """Constraint count of any spec (``None``: 0)."""
     return 0 if spec is None else spec.n_constraints
+
+
+# --- roll layout ---------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RolledConstraintSpec:
+    """X-H constraints in JAX's roll layout: constraint c = (i, i + delta_g).
+
+    H constraints are intra-residue, so their index offsets are small;
+    JAX groups them by offset (layered where a base atom repeats) into
+    ``(G, N)`` tensors defined at each constraint's base atom. Fields as
+    JAX's: the distinct offsets, each group's row among them, and those
+    tensors. ``indexed`` is the same constraints as an index
+    ``ConstraintSpec`` (group by group, base atoms ascending), which the
+    solvers run."""
+
+    deltas: Tuple[int, ...]
+    #: per group, the index into ``deltas`` of its offset
+    d_idx: Tuple[int, ...]
+    mask: torch.Tensor          # (G, N)
+    d0: torch.Tensor            # (G, N)
+    inv_m1: torch.Tensor        # (G, N) 1/m_i at base slots
+    inv_m2: torch.Tensor        # (G, N) 1/m_j at base slots
+    inv_mass_sum: torch.Tensor  # (G, N)
+    n_iter: int = 30
+
+    def __post_init__(self):
+        # each set mask entry (g, i) is the pair (i, (i + delta_g) mod N),
+        # the partner torch.roll(x, -delta_g) puts at i; read off once
+        on = self.mask > 0
+        g, i = np.nonzero(on.cpu().numpy())
+        offset = np.asarray(self.deltas, np.int64)[np.asarray(self.d_idx, np.int64)[g]]
+        dev = self.mask.device
+        object.__setattr__(self, "indexed", ConstraintSpec(
+            idx1=torch.as_tensor(i, device=dev),
+            idx2=torch.as_tensor((i + offset) % on.shape[1], device=dev),
+            d0=self.d0[on], inv_m1=self.inv_m1[on], inv_m2=self.inv_m2[on],
+            inv_mass_sum=self.inv_mass_sum[on], n_iter=self.n_iter,
+        ))
+
+    @property
+    def n_constraints(self) -> int:
+        return self.indexed.n_constraints
+
+    def to(self, device) -> "RolledConstraintSpec":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
+
+def _build_rolled_spec(pairs: np.ndarray, r0: np.ndarray, masses: np.ndarray,
+                       n_iter: int, device=None) -> RolledConstraintSpec:
+    """The roll-layout spec of constraint ``pairs`` (C, 2) with targets
+    ``r0``, on ``device`` (``None``: ``_device.default_device()``); the
+    numpy of the JAX package's ``_build_rolled_spec``, copied."""
+    from .bonded_roll import _layered_groups
+
+    device = torch.device(device) if device is not None else default_device()
+    n = masses.shape[0]
+    # massless rows are virtual sites: they never carry constraints
+    # (positions are parent-derived), so their 1/m is never consumed,
+    # but a bare divide would warn for every site row
+    if np.any(masses[pairs.reshape(-1)] <= 0.0):
+        raise ValueError(
+            "constraint pair references a massless (virtual-site) atom"
+        )
+    safe = np.where(masses > 0.0, masses, 1.0)
+    inv_m = np.where(masses > 0.0, 1.0 / safe, 0.0)
+    # layered offset groups; params carried per-constraint
+    groups = _layered_groups(
+        pairs, [r0, inv_m[pairs[:, 0]], inv_m[pairs[:, 1]],
+                inv_m[pairs[:, 0]] + inv_m[pairs[:, 1]]], n,
+    )
+    deltas = sorted({sig[0] for sig, _, _ in groups})
+    d_index = {d: i for i, d in enumerate(deltas)}
+    d_idx = np.asarray([d_index[sig[0]] for sig, _, _ in groups], np.int32)
+    mask = np.stack([m for _, m, _ in groups])
+    p0 = np.stack([ps[0] for _, _, ps in groups])
+    p1 = np.stack([ps[1] for _, _, ps in groups])
+    p2 = np.stack([ps[2] for _, _, ps in groups])
+    p3 = np.stack([ps[3] for _, _, ps in groups])
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return RolledConstraintSpec(
+        deltas=tuple(int(d) for d in deltas),
+        d_idx=tuple(int(i) for i in d_idx),
+        mask=f32(mask), d0=f32(p0), inv_m1=f32(p1), inv_m2=f32(p2),
+        inv_mass_sum=f32(p3), n_iter=int(n_iter),
+    )
+
+
+def shake_rolled(spec: RolledConstraintSpec, x_new: torch.Tensor, x_ref: torch.Tensor,
+                 omega: float = 1.0) -> torch.Tensor:
+    """Parallel SHAKE of positions ``(..., N, 3)`` under a roll-layout
+    spec: ``shake`` of its index form."""
+    return shake(spec.indexed, x_new, x_ref, omega)
+
+
+def rattle_rolled(spec: RolledConstraintSpec, v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Parallel RATTLE of velocities ``(..., N, 3)`` under a roll-layout
+    spec: ``rattle`` of its index form."""
+    return rattle(spec.indexed, v, x)
 
 
 # --- rigid water ---------------------------------------------------------------
@@ -328,7 +461,7 @@ class CompositeConstraintSpec:
     """X-H constraints of the solute (Jacobi) + the rigid-water block
     (exact); the clusters are disjoint, so the two solvers compose."""
 
-    protein: Optional[ConstraintSpec]
+    protein: Optional[Union[ConstraintSpec, RolledConstraintSpec]]
     water: RigidWaterSpec
 
     @property
@@ -452,7 +585,8 @@ def rattle_water(spec: RigidWaterSpec, v: torch.Tensor, x: torch.Tensor) -> torc
 
 
 __all__ = [
-    "CompositeConstraintSpec", "ConstraintSpec", "RigidWaterSpec",
+    "CompositeConstraintSpec", "ConstraintSpec", "RigidWaterSpec", "RolledConstraintSpec",
     "build_h_constraints", "constraint_violation", "n_constraints", "rattle",
-    "rattle_water", "shake", "shake_water", "strip_constrained_bonded",
+    "rattle_rolled", "rattle_water", "shake", "shake_rolled", "shake_water",
+    "strip_constrained_bonded",
 ]

@@ -65,8 +65,9 @@ def df(x) -> Df:
     return x, torch.zeros_like(x)
 
 
-def df_const(value: float) -> Tuple[float, float]:
-    """Split a host float64 scalar into an exact (hi, lo) float32 pair."""
+def df_const(value: float, dtype=None) -> Tuple[float, float]:
+    """Split a host float64 scalar into an exact (hi, lo) float32 pair.
+    ``dtype`` is accepted and unused, as in JAX."""
     hi = np.float32(value)
     lo = np.float32(value - np.float64(hi))
     return float(hi), float(lo)

@@ -10,13 +10,13 @@ the fused kernel, the periodic kernel and the cell-list kernel are held to.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..constants import COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
-from .ff_params import OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
+from .ff_params import GB_DIELECTRIC_OFFSET, OBC2_ALPHA, OBC2_BETA, OBC2_GAMMA
 from .gbn2 import neck_value_and_derivative
 from .system import System, require_dense_scales
 
@@ -177,20 +177,14 @@ def periodic_nonbonded_energy(system: System, positions: torch.Tensor) -> torch.
     return ((e_lj + e_rf + e_14) * upper).sum((-2, -1))
 
 
-def born_radii(system: System, positions: torch.Tensor) -> torch.Tensor:
-    """OBC/GBn2 Born radii ``(..., N)``: HCT pair integral (+ GBn2 neck)
-    then the tanh rescale."""
-    r = _pairwise_distances(positions)
-    n = r.shape[-1]
-    eye = torch.eye(n, dtype=positions.dtype, device=positions.device)
-    rho = system.gb_radii - system.gb_offset
-    sr = system.gb_screen * rho
-    rho_i = rho[:, None]
-    sr_j = sr[None, :]
-
+def _hct_pair_term(r: torch.Tensor, sr_j: torch.Tensor, rho_i: torch.Tensor):
+    """The HCT descreening integrand of pairs at distance ``r`` with the
+    partner's screened radius ``sr_j`` and the own offset radius ``rho_i``
+    (broadcast together): ``(term, inactive)``. Negative (sulfur)
+    screening can make U = r + sr_j <= rho_i: such pairs are ``inactive``
+    (the caller masks them), and U is sanitized so log() stays finite
+    under the mask."""
     U_raw = r + sr_j
-    # negative (sulfur) screening can make U <= rho_i: such pairs are
-    # masked, and U is sanitized so log() stays finite under the mask
     inactive = U_raw <= rho_i
     U = torch.where(inactive, rho_i + 1.0, U_raw)
     L = torch.maximum(torch.abs(r - sr_j), rho_i.expand_as(r))
@@ -204,13 +198,13 @@ def born_radii(system: System, positions: torch.Tensor) -> torch.Tensor:
     )
     corr = 2.0 * (1.0 / rho_i - inv_L)
     term = term + torch.where(sr_j - r > rho_i, corr, torch.zeros_like(corr))
-    mask = (1.0 - eye) * (~inactive).to(positions.dtype)
-    I = 0.5 * (term * mask).sum(-1)
+    return term, inactive
 
-    if system.gb_neck_scale != 0.0 and system.gb_neck_m0 is not None:
-        nv, _ = neck_value_and_derivative(r, system.gb_neck_d0, system.gb_neck_m0)
-        I = I + system.gb_neck_scale * (nv * (1.0 - eye)).sum(-1)
 
+def _born_rescale(system: System, I: torch.Tensor) -> torch.Tensor:
+    """Born radii from the descreening integrals ``I (..., N)``: the
+    OBC/GBn2 tanh rescale, 1/B clamped at 1e-3."""
+    rho = system.gb_radii - system.gb_offset
     psi = I * rho
     psi2 = psi * psi
     if system.gb_alpha is not None:
@@ -224,25 +218,59 @@ def born_radii(system: System, positions: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp(inv_B, min=1e-3)
 
 
+def _gb_prefactor(system: System) -> float:
+    """-ke/2 (1/eps_in - 1/eps_out), the GB energy's prefactor."""
+    return (
+        -0.5 * COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
+        * (1.0 / system.solute_dielectric - 1.0 / system.solvent_dielectric)
+    )
+
+
+def _gb_f(r: torch.Tensor, BB: torch.Tensor) -> torch.Tensor:
+    """Still's f_GB at distance ``r`` and Born radii product ``BB``."""
+    return torch.sqrt(r * r + BB * torch.exp(-(r * r) / (4.0 * BB)))
+
+
+def _gb_self_and_surface(system: System,
+                         B: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(e_self, e_sa)``: the GB self energy and the ACE surface-area
+    term of Born radii ``B (..., N)``, each summed over atoms."""
+    e_self = _gb_prefactor(system) * (system.charges ** 2 / B).sum(-1)
+    probe = 0.14
+    e_sa = system.surface_tension * (
+        (system.gb_radii + probe) ** 2 * (system.gb_radii / B) ** 6
+    ).sum(-1)
+    return e_self, e_sa
+
+
+def born_radii(system: System, positions: torch.Tensor) -> torch.Tensor:
+    """OBC/GBn2 Born radii ``(..., N)``: HCT pair integral (+ GBn2 neck)
+    then the tanh rescale."""
+    r = _pairwise_distances(positions)
+    n = r.shape[-1]
+    eye = torch.eye(n, dtype=positions.dtype, device=positions.device)
+    rho = system.gb_radii - system.gb_offset
+    sr = system.gb_screen * rho
+    term, inactive = _hct_pair_term(r, sr[None, :], rho[:, None])
+    mask = (1.0 - eye) * (~inactive).to(positions.dtype)
+    I = 0.5 * (term * mask).sum(-1)
+
+    if system.gb_neck_scale != 0.0 and system.gb_neck_m0 is not None:
+        nv, _ = neck_value_and_derivative(r, system.gb_neck_d0, system.gb_neck_m0)
+        I = I + system.gb_neck_scale * (nv * (1.0 - eye)).sum(-1)
+    return _born_rescale(system, I)
+
+
 def gb_energy(system: System, positions: torch.Tensor) -> torch.Tensor:
     """Generalized-Born polarization energy + ACE surface-area term."""
     B = born_radii(system, positions)
     r = _pairwise_distances(positions)
     n = r.shape[-1]
-    BB = B[..., :, None] * B[..., None, :]
-    f = torch.sqrt(r * r + BB * torch.exp(-(r * r) / (4.0 * BB)))
+    f = _gb_f(r, B[..., :, None] * B[..., None, :])
     qq = system.charges[:, None] * system.charges[None, :]
-    pref = (
-        -0.5 * COULOMB_CONSTANT_KJ_NM_PER_MOL_E2
-        * (1.0 / system.solute_dielectric - 1.0 / system.solvent_dielectric)
-    )
     off_diag = 1.0 - torch.eye(n, dtype=positions.dtype, device=positions.device)
-    e_cross = pref * (qq * off_diag / f).sum((-2, -1))
-    e_self = pref * (system.charges ** 2 / B).sum(-1)
-    probe = 0.14
-    e_sa = system.surface_tension * (
-        (system.gb_radii + probe) ** 2 * (system.gb_radii / B) ** 6
-    ).sum(-1)
+    e_cross = _gb_prefactor(system) * (qq * off_diag / f).sum((-2, -1))
+    e_self, e_sa = _gb_self_and_surface(system, B)
     return e_cross + e_self + e_sa
 
 

@@ -221,17 +221,25 @@ def stateful_entries(force_fn: Optional[Callable], positions: torch.Tensor):
     return getattr(force_fn, names[0]), getattr(force_fn, names[1])
 
 
-def make_force_fn(system: System, bias_fn: Optional[Callable] = None) -> Callable:
-    """Build ``force_fn(x) -> (energy, forces)``: the analytic dense path
-    (``md/analytic.py``, the math the fused kernel runs) plus, if given, a
-    bias ``bias_fn(positions) -> energy`` whose forces come from autograd,
-    wrapped for the system's virtual sites (``vsites.wrap_force_fn``).
-    Leading dimensions of ``x`` batch."""
-    from .analytic import energy_and_forces, make_dense_params
+def make_force_fn(system: System, bias_fn: Optional[Callable] = None,
+                  analytic: bool = True) -> Callable:
+    """Build ``force_fn(x) -> (energy, forces)``: with ``analytic`` the
+    analytic dense path (``md/analytic.py``, the math the fused kernel
+    runs) plus, if given, a bias ``bias_fn(positions) -> energy`` whose
+    forces come from autograd; with ``analytic=False`` the energy
+    ``forces.potential_energy`` (the bias in it) and its autograd gradient.
+    Either is wrapped for the system's virtual sites
+    (``vsites.wrap_force_fn``). Leading dimensions of ``x`` batch."""
+    if analytic:
+        from .analytic import energy_and_forces, make_dense_params
 
-    force_fn = partial(energy_and_forces, make_dense_params(system))
-    if bias_fn is not None:
-        force_fn = compose_bias(force_fn, bias_fn)
+        force_fn = partial(energy_and_forces, make_dense_params(system))
+        if bias_fn is not None:
+            force_fn = compose_bias(force_fn, bias_fn)
+    else:
+        from .forces import energy_and_forces_autograd
+
+        force_fn = partial(energy_and_forces_autograd, system, bias_fn=bias_fn)
     return wrap_force_fn(force_fn, system)
 
 

@@ -112,6 +112,52 @@ def test_langevin_step_with_bias_fn_matches_jax(alanine):
                       bias_fn=_torch_bias, force_fn=lambda y: (None, None))
 
 
+@pytest.mark.parametrize("biased", [False, True], ids=["no_bias", "bias_fn"])
+def test_make_force_fn_autograd_matches_jax_and_the_analytic_path(alanine, biased):
+    """``make_force_fn(analytic=False)``: the energy ``potential_energy``
+    (bias included) and its autograd forces, against JAX's autodiff path
+    and the port's analytic path, batched over a leading dimension."""
+    from pmarlo_tpu.md.integrate import make_force_fn as jax_make_force_fn
+
+    from pmarlo_tpu_torch.md.integrate import make_force_fn
+
+    js, ts, x = alanine
+    jb, tb = (_jax_bias, _torch_bias) if biased else (None, None)
+    je, jf = jax_make_force_fn(js, jb, analytic=False)(jnp.asarray(x))
+    te, tf = make_force_fn(ts, tb, analytic=False)(torch.from_numpy(x))
+    ae, af = make_force_fn(ts, tb)(torch.from_numpy(x))
+    for e, f in ((te, tf), (ae, af)):
+        assert abs(float(e) - float(je)) <= 1e-5 * abs(float(je))
+        assert np.abs(f.numpy() - np.asarray(jf)).max() <= 1e-4 * np.abs(np.asarray(jf)).max()
+    xs = torch.from_numpy(np.stack([x, x]))
+    be, bf = make_force_fn(ts, tb, analytic=False)(xs)
+    assert be.shape == (2,) and torch.allclose(bf[0], tf, rtol=0, atol=1e-3)
+
+
+def test_make_force_fn_autograd_spreads_virtual_site_forces_as_jax():
+    """On the 27-water TIP4P-Ew box of JAX's tests, the autograd path is
+    wrapped for the sites as JAX wraps its own: forces on the massless M
+    rows are spread onto O, H1 and H2."""
+    from pmarlo_tpu.md.forcefield import build_system as jax_build_system
+    from pmarlo_tpu.md.integrate import make_force_fn as jax_make_force_fn
+    from tests.unit.test_tip4pew import _t4_box
+
+    from pmarlo_tpu_torch.md.integrate import make_force_fn
+
+    s, box = _t4_box(3)
+    js, jx = jax_build_system(s, box=box, cutoff=0.5, hydrogen_mass=None)
+    ts = system_from_numpy(js.to_dict(), device="cpu")
+    x = (np.asarray(jx) + np.random.default_rng(8).normal(0.0, 0.005, np.shape(jx))).astype(
+        np.float32)
+    je, jf = jax_make_force_fn(js, analytic=False)(jnp.asarray(x))
+    te, tf = make_force_fn(ts, analytic=False)(torch.from_numpy(x))
+    assert abs(float(te) - float(je)) <= max(1e-5 * abs(float(je)), 1e-3)
+    jf = np.asarray(jf)
+    assert np.abs(tf.numpy() - jf).max() <= 1e-4 * np.abs(jf).max()
+    sites = np.asarray(js.vsite_idx)[:, 0]
+    assert np.abs(tf.numpy()[sites]).max() == 0.0
+
+
 @pytest.mark.parametrize("name", ["CA", "H", "N", "XX"])
 def test_system_select_matches_jax(alanine, name):
     js, ts, _ = alanine

@@ -147,6 +147,13 @@ NEW_MODULES += [
     "pmarlo_tpu_torch.parallel.__init__", "pmarlo_tpu_torch.parallel.mesh",
     "pmarlo_tpu_torch.parallel.reductions", "pmarlo_tpu_torch.parallel.train",
 ]
+#: modules the neighbor-list and roll-layout slice added, and the package
+#: ``__init__``s that now export JAX's names
+NEW_MODULES += [
+    "pmarlo_tpu_torch.md.nblist", "pmarlo_tpu_torch.md.bonded_roll",
+    "pmarlo_tpu_torch.md.__init__", "pmarlo_tpu_torch.remd.__init__",
+    "pmarlo_tpu_torch.utils.__init__",
+]
 
 
 def test_port_imports_without_jax():
