@@ -28,6 +28,9 @@ _NVCC_FLAGS = (
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
+#: whether this process ran nvcc for the library (False: it was in the
+#: build directory already; None: not asked for yet)
+compiled: Optional[bool] = None
 
 
 def _sources():
@@ -51,7 +54,7 @@ def build_library() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (once per source
     hash) and return its path. Raises with the compiler's output on
     failure."""
-    global _build_log
+    global _build_log, compiled
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -60,6 +63,7 @@ def build_library() -> Path:
     log = out.with_suffix(".log")
     if out.exists() and log.exists():
         _build_log = log.read_text()
+        compiled = False
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -97,6 +101,7 @@ def build_library() -> Path:
     log_tmp.write_text(_build_log)
     os.replace(log_tmp, log)
     os.replace(tmp, out)
+    compiled = True
     return out
 
 
@@ -105,6 +110,11 @@ def build_log() -> str:
     registers, shared memory, spills per kernel), kept beside the library
     and read back when it was cached; empty before ``build_library``."""
     return _build_log
+
+
+def loaded() -> bool:
+    """Whether the library is loaded in this process."""
+    return _lib is not None
 
 
 def library() -> ctypes.CDLL:
@@ -126,4 +136,4 @@ def check_launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-__all__ = ["build_library", "build_log", "library", "check_launch"]
+__all__ = ["build_library", "build_log", "library", "loaded", "check_launch"]

@@ -20,7 +20,11 @@ returns the energies at the final positions:
   sums, and the pairs ``pair_items``' items of a team of ``T`` lanes
   each, every unordered pair once; ``launch_shape`` chooses C, L, T and
   the steps a lane takes an iteration from the atom and replica counts
-  and the card.
+  and the card. ``chunk.remd(..., stamps=True)`` launches the stamped
+  build of the whole-run kernel, which also returns the clock64 stamps of
+  one sampled step a report block (``FusedRemdOutput.stamps``;
+  ``step_phase_cycles`` sums them by ``STAMP_PHASES``) and computes the
+  same bits.
 - tensors on the CPU run ``FusedChunk.reference``: ``langevin_step`` over
   ``analytic.energy_and_forces`` plus the bias twin (``md/cv_bias.py``),
   with the same Philox noise stream; deposits are
@@ -38,6 +42,7 @@ at first use (``_kernels.py``) and loaded with ``ctypes``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import math
@@ -49,6 +54,7 @@ import torch
 from .. import _kernels
 from ..bias.metadynamics import MetadynamicsBias, MetaDState
 from ..constants import BOLTZMANN_CONSTANT_KJ_PER_MOL
+from ..utils import profiling
 from .analytic import energy_and_forces, make_dense_params
 from .bonded_window import bonded_csr, bonded_slots
 from .cv_bias import MAX_CV, MAX_LAYERS, CVBias
@@ -102,7 +108,7 @@ _PTRS = (
     "quads", "dih_ptr", "dih_ent", "bias_p", "mtd_centers", "mtd_heights",
     "mtd_count", "cv_buf", "x_out", "v_out", "seeds_out", "ladder",
     "betas", "ids0", "frames", "frame_e", "frame_ke", "ids_hist", "accept",
-    "swap_e",
+    "swap_e", "stamps",
 )
 _INTS = (
     "n_replicas", "n_atoms", "n_steps", "use_gb", "use_neck", "bias_kind",
@@ -123,6 +129,20 @@ _MODE_CHUNK, _MODE_FUSED_MTD, _MODE_FUSED_REMD = 0, 1, 2
 _PLAN = ("threads", "smem_bytes", "slot_bytes", "table_bytes", "resident",
          "resident_slots", "resident_all")
 _BIAS_KINDS = {"harmonic": 1, "metadynamics": 2}
+#: the phases of a sampled step (csrc/fused_md.cu, file header): the three
+#: pair sweeps and the bonded terms; the owners' slot sums and bonded
+#: incidences; waiting at the replica barriers and the last block barrier;
+#: the CV bias's dihedrals, MLP and atom forces; the rest
+STAMP_PHASES = ("pairs", "folds", "barriers", "bias", "other")
+#: the phase of the interval from each StampAt boundary of csrc/fused_md_body.cuh
+#: to the next (19 intervals between 20 boundaries)
+STAMP_INTERVALS = (
+    "other", "barriers", "bias",                    # integration, barrier, CV bias
+    "pairs", "barriers", "folds", "other", "barriers",  # Born radius
+    "pairs", "barriers", "folds", "other", "barriers",  # dE/dB, chain factor
+    "pairs", "barriers", "folds", "bias", "other", "barriers",  # forces
+)
+STAMP_BOUNDARIES = len(STAMP_INTERVALS) + 1
 #: cudaErrorCooperativeLaunchTooLarge
 _TOO_LARGE = 720
 
@@ -147,9 +167,9 @@ def _library() -> ctypes.CDLL:
         lib.pmarlo_grid_barrier_probe.restype = i
         if lib.pmarlo_fused_md_max_atoms() != MAX_ATOMS:
             raise RuntimeError("kernel library and wrapper disagree on MAX_ATOMS")
-        abi = [lib.pmarlo_fused_md_abi(k) for k in range(9)]
+        abi = [lib.pmarlo_fused_md_abi(k) for k in range(10)]
         if abi != [len(_PTRS), len(_INTS), len(_FLOATS), MAX_LAYERS, MAX_CV,
-                   MAX_THREADS, MAX_CLUSTER, len(_PLAN), PAIR_TABS]:
+                   MAX_THREADS, MAX_CLUSTER, len(_PLAN), PAIR_TABS, STAMP_BOUNDARIES]:
             raise RuntimeError(
                 f"kernel library and wrapper disagree on the argument lists: {abi}")
         _configured = True
@@ -287,6 +307,28 @@ class FusedRemdOutput:
     frame_kinetic: torch.Tensor  # (F, R) kinetic energy of the state velocities
     ids_hist: torch.Tensor      # (A + 1, R) int32
     accept: torch.Tensor        # (A, R) 1 on both rungs of an accepted pair
+    #: (R, F, STAMP_BOUNDARIES) int64 clock64 stamps of one sampled step a
+    #: frame's block, by configuration (launched with ``stamps=True``), or None
+    stamps: Optional[torch.Tensor] = None
+
+
+#: each interval's index in STAMP_PHASES, by device (made once: a copy to
+#: the device a segment would cost the traced runner a synchronisation)
+_INTERVAL_PHASE = {}
+
+
+def step_phase_cycles(stamps: torch.Tensor) -> torch.Tensor:
+    """(len(STAMP_PHASES),) int64 on the stamps' device: the cycles of each
+    phase summed over every sampled step of ``stamps`` (R, F,
+    STAMP_BOUNDARIES); they add up to the steps' cycles from first to last
+    boundary. No host synchronisation."""
+    dev = stamps.device
+    if dev not in _INTERVAL_PHASE:
+        _INTERVAL_PHASE[dev] = torch.as_tensor(
+            [STAMP_PHASES.index(p) for p in STAMP_INTERVALS], device=dev)
+    d = (stamps[..., 1:] - stamps[..., :-1]).sum(dim=(0, 1))
+    return torch.zeros(len(STAMP_PHASES), dtype=torch.int64, device=dev).index_add_(
+        0, _INTERVAL_PHASE[dev], d)
 
 
 def _bonded_csr(system: System) -> Tuple[np.ndarray, np.ndarray]:
@@ -637,8 +679,10 @@ class FusedChunk:
             fv = (ctypes.c_float * len(_FLOATS))(*[
                 float(floats.get(k, 0.0)) for k in _FLOATS])
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.pmarlo_fused_md_launch(
-                mode, pv, iv, fv, int(step_offset), int(attempt_offset), stream)
+            with (profiling.span("remd.launch") if mode == _MODE_FUSED_REMD
+                  else contextlib.nullcontext()):
+                rc = lib.pmarlo_fused_md_launch(
+                    mode, pv, iv, fv, int(step_offset), int(attempt_offset), stream)
         self.last_launch = plan
         if rc == _TOO_LARGE:
             raise RuntimeError(
@@ -697,17 +741,30 @@ class FusedChunk:
             ho = dataclasses.replace(ho, n_hills=ho.n_hills.reshape(()))
         return xo, vo, eo, fo, ho
 
+    def plan_remd(self, n_replicas: int) -> dict:
+        """The whole-run launch's shape and placement for ``n_replicas``
+        (``last_launch``'s keys), chosen now rather than at the first
+        launch; the launch takes the same plan."""
+        dev = self.system.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"the fused kernel runs on CUDA tensors, got {dev}")
+        _library()
+        with torch.cuda.device(dev):
+            return self._plan(_MODE_FUSED_REMD, self._common_args(int(n_replicas), 0)[1])
+
     def remd(self, x, v, seeds, ids, ladder, *, n_attempts: int,
              frames_per_attempt: int, report_interval: int, step_offset: int,
-             swap_seed: int, attempt_offset: int) -> FusedRemdOutput:
+             swap_seed: int, attempt_offset: int, stamps: bool = False) -> FusedRemdOutput:
         """The whole REMD run in one launch (``build_pallas_remd``):
         ``n_attempts`` windows of ``frames_per_attempt`` blocks of
         ``report_interval`` steps, a frame and its energies after each
         block, a parity-alternating neighbour Metropolis swap after each
         window (parity = the window's index in this call; the uniform of
         pair ``p`` at global attempt ``attempt_offset + a`` is
-        ``remd.swap_uniforms``'s). Inputs and outputs are rung-major. CUDA
-        tensors only: the plain version is
+        ``remd.swap_uniforms``'s). Inputs and outputs are rung-major.
+        ``stamps=True`` launches the stamped build (the same bits, and the
+        step-phase stamps in ``FusedRemdOutput.stamps``). CUDA tensors
+        only: the plain version is
         ``ReplicaExchange._run_fused_reference``."""
         if x.device.type != "cuda":
             raise RuntimeError(f"the fused kernel runs on CUDA tensors, got {x.device}")
@@ -732,6 +789,8 @@ class FusedChunk:
             frame_kinetic=torch.empty((A * fpc, R), **f32),
             ids_hist=torch.empty((A + 1, R), dtype=torch.int32, device=dev),
             accept=torch.empty((A, R), **f32),
+            stamps=(torch.empty((R, A * fpc, STAMP_BOUNDARIES), dtype=torch.int64, device=dev)
+                    if stamps else None),
         )
         out.ids_hist[0] = ids
         ptrs, ints, floats = self._common_args(R, A * fpc * int(report_interval))
@@ -746,6 +805,7 @@ class FusedChunk:
             "frame_ke": out.frame_kinetic, "ids_hist": out.ids_hist,
             "accept": out.accept,
             "swap_e": torch.empty((2, R), **f32),
+            "stamps": out.stamps,
         })
         ints.update({"n_attempts": A, "frames_per_attempt": fpc,
                      "report_interval": int(report_interval),
@@ -801,5 +861,6 @@ def grid_barrier_probe(n_blocks: int, n_threads: int, n_barriers: int,
 
 __all__ = ["FusedChunk", "FusedRemdOutput", "LaunchShape", "build_fused_chunk",
            "grid_barrier_probe", "launch_shape", "launch_shapes", "pair_items",
-           "shape_cost", "MAX_ATOMS", "MAX_CLUSTER", "MAX_THREADS", "PAIR_TABS", "launches",
+           "shape_cost", "step_phase_cycles", "MAX_ATOMS", "MAX_CLUSTER", "MAX_THREADS",
+           "PAIR_TABS", "STAMP_BOUNDARIES", "STAMP_INTERVALS", "STAMP_PHASES", "launches",
            "variant_launches"]

@@ -40,6 +40,15 @@ the same decisions from the same energies.
 
 Frames go into an ``(F, R, N, 3)`` buffer preallocated on the device and
 are copied to the host once per call.
+
+With the recorder of ``utils/profiling.py`` on, set-up and ``run_fused``
+record spans (set-up: ``remd.init`` with ``kernels.load``, ``remd.plan``,
+``remd.minimize``, ``remd.state``; a call: ``remd.run_fused``, a segment of
+its own, with ``remd.prepare`` (``remd.launch`` or, on the CPU,
+``remd.reference``) and ``remd.finish`` (``remd.to_host``, ``remd.result``,
+``remd.stamps``)), the counters ``remd.host_syncs`` / ``remd.host_bytes``
+of the blocking device-to-host copies, and the fused kernel's step-phase
+cycles (``md_step.cycles.<phase>``, ``md_step.sampled_steps``).
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ from ..constants import (
     DEFAULT_TIMESTEP_PS,
     REMD_DEFAULT_EXCHANGE_FREQUENCY,
 )
-from ..md.fused_md import FusedRemdOutput, build_fused_chunk
+from .. import _kernels
+from ..md.fused_md import STAMP_PHASES, FusedRemdOutput, build_fused_chunk, step_phase_cycles
 from ..md.integrate import (
     MDState,
     _uniform24,
@@ -74,6 +84,7 @@ from ..md.integrate import (
 from ..md.minimize import minimize_energy
 from ..md.setup import compose_bias
 from ..md.system import System
+from ..utils import profiling
 from ..utils.input_parsing import parse_temperature_ladder
 
 
@@ -182,6 +193,15 @@ def swap_uniforms(seed: int, attempt: int, n_replicas: int, device) -> torch.Ten
     return _uniform24(w0)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as host numpy; a blocking copy from a device is counted
+    (``remd.host_syncs``, ``remd.host_bytes``) while the recorder is on."""
+    if t.device.type != "cpu":
+        profiling.count("remd.host_syncs", 1)
+        profiling.count("remd.host_bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()
+
+
 def _quantize_i16(x: torch.Tensor) -> torch.Tensor:
     """XTC-style fixed point at 1e-3 nm; out-of-range and non-finite values
     poison to INT16_MIN (-32.768 nm) instead of wrapping or casting NaN."""
@@ -241,91 +261,114 @@ class ReplicaExchange:
 
         ``mesh`` shards the rungs over the ranks (module docstring); the
         ladder must divide over it, and the fused kernel is single-chip."""
-        self.mesh = mesh
-        if mesh is not None:
-            from ..parallel.mesh import check_mesh, rank_device
+        with profiling.span("remd.init"):
+            self.mesh = mesh
+            if mesh is not None:
+                from ..parallel.mesh import check_mesh, rank_device
 
-            check_mesh(mesh)
-            if use_kernel:
-                raise ValueError("use_kernel=True is single-chip only for now")
-            if getattr(force_fn, "slab", None) is not None:
-                # its all_reduce would add one rank's rungs to another's
+                check_mesh(mesh)
+                if use_kernel:
+                    raise ValueError("use_kernel=True is single-chip only for now")
+                if getattr(force_fn, "slab", None) is not None:
+                    # its all_reduce would add one rank's rungs to another's
+                    raise ValueError(
+                        "a force_fn split into x-slabs over a mesh cannot run under a "
+                        "replica mesh: the ranks hold different rungs")
+                if device is None:
+                    device = rank_device(mesh)
+            self.device = torch.device(device) if device is not None else system.device
+            # recorded in checkpoints, so that a resume supplies the same force path
+            self._force_fn_is_override = force_fn is not None
+            if constraints is not None and use_kernel:
                 raise ValueError(
-                    "a force_fn split into x-slabs over a mesh cannot run under a "
-                    "replica mesh: the ranks hold different rungs")
-            if device is None:
-                device = rank_device(mesh)
-        self.device = torch.device(device) if device is not None else system.device
-        # recorded in checkpoints, so that a resume supplies the same force path
-        self._force_fn_is_override = force_fn is not None
-        if constraints is not None and use_kernel:
-            raise ValueError(
-                "constraints are integrated by langevin_step; the fused "
-                "chunk does not SHAKE (use use_kernel=False)"
-            )
-        if force_fn is not None and use_kernel:
-            raise ValueError("force_fn override and use_kernel are exclusive")
-        if use_kernel and bias_fn is not None:
-            raise ValueError(
-                "use_kernel=True takes the structured kernel_bias (in-kernel "
-                "DeepTICA bias), not an arbitrary bias_fn; use the plain "
-                "path for python bias functions"
-            )
-        if kernel_bias is not None and not use_kernel:
-            raise ValueError("kernel_bias requires use_kernel=True")
-        if use_kernel and self.device.type != "cuda":
-            raise ValueError(
-                f"use_kernel=True needs a CUDA device, got {self.device}"
-            )
-        self.system = system.to(self.device)
-        self.bias_fn = bias_fn
-        # run_fused() reads this to wire the in-kernel CV bias: it is the
-        # same chunk, so a biased run_fused cannot come out unbiased
-        self._kernel_bias = kernel_bias
-        self.config = config
-        self.use_kernel = use_kernel
-        self.ladder = torch.as_tensor(
-            config.ladder(), dtype=torch.float32, device=self.device
-        )
-        self.n_replicas = int(self.ladder.shape[0])
-        #: this rank's rungs [lo, hi) (all of them without a mesh)
-        self._block = (0, self.n_replicas)
-        if mesh is not None:
-            from ..parallel.mesh import mesh_block
-
-            self._block = mesh_block(self.n_replicas, mesh, "the replica ladder")
-        lo, hi = self._block
-        self._local_ladder = self.ladder[lo:hi]
-        if constraints is not None:
-            constraints = constraints.to(self.device)
-        self._constraints = constraints
-        if force_fn is None and constraints is not None:
-            force_fn = make_force_fn(self.system)
-        if bias_fn is not None:
-            # compose the bias into an override: storing the override alone
-            # would run unbiased dynamics while the caller believes the
-            # bias is active
-            force_fn = (make_force_fn(self.system, bias_fn) if force_fn is None
-                        else compose_bias(force_fn, bias_fn))
-        self._force_fn = force_fn
-        self._chunk = None
-        if force_fn is None:
-            bias_kwargs = {}
-            if kernel_bias is not None:
-                bias_kwargs = dict(
-                    bias_model=kernel_bias["model"], bias_quads=kernel_bias["quads"],
-                    bias_strength=kernel_bias.get("strength", 1.0),
+                    "constraints are integrated by langevin_step; the fused "
+                    "chunk does not SHAKE (use use_kernel=False)"
                 )
-            self._chunk = build_fused_chunk(
-                self.system, dt=config.dt_ps, friction=config.friction_per_ps,
-                n_replicas=hi - lo, **bias_kwargs,
+            if force_fn is not None and use_kernel:
+                raise ValueError("force_fn override and use_kernel are exclusive")
+            if use_kernel and bias_fn is not None:
+                raise ValueError(
+                    "use_kernel=True takes the structured kernel_bias (in-kernel "
+                    "DeepTICA bias), not an arbitrary bias_fn; use the plain "
+                    "path for python bias functions"
+                )
+            if kernel_bias is not None and not use_kernel:
+                raise ValueError("kernel_bias requires use_kernel=True")
+            if use_kernel and self.device.type != "cuda":
+                raise ValueError(
+                    f"use_kernel=True needs a CUDA device, got {self.device}"
+                )
+            self.system = system.to(self.device)
+            self.bias_fn = bias_fn
+            # run_fused() reads this to wire the in-kernel CV bias: it is the
+            # same chunk, so a biased run_fused cannot come out unbiased
+            self._kernel_bias = kernel_bias
+            self.config = config
+            self.use_kernel = use_kernel
+            self.ladder = torch.as_tensor(
+                config.ladder(), dtype=torch.float32, device=self.device
             )
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(config.seed))
-        x = positions.to(device=self.device, dtype=torch.float32)
-        if minimize:
-            x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn,
-                                   bias_fn=bias_fn)
+            self.n_replicas = int(self.ladder.shape[0])
+            #: this rank's rungs [lo, hi) (all of them without a mesh)
+            self._block = (0, self.n_replicas)
+            if mesh is not None:
+                from ..parallel.mesh import mesh_block
+
+                self._block = mesh_block(self.n_replicas, mesh, "the replica ladder")
+            lo, hi = self._block
+            self._local_ladder = self.ladder[lo:hi]
+            if constraints is not None:
+                constraints = constraints.to(self.device)
+            self._constraints = constraints
+            if force_fn is None and constraints is not None:
+                force_fn = make_force_fn(self.system)
+            if bias_fn is not None:
+                # compose the bias into an override: storing the override alone
+                # would run unbiased dynamics while the caller believes the
+                # bias is active
+                force_fn = (make_force_fn(self.system, bias_fn) if force_fn is None
+                            else compose_bias(force_fn, bias_fn))
+            self._force_fn = force_fn
+            self._chunk = None
+            if force_fn is None and use_kernel:
+                with profiling.span("kernels.load") as sp:
+                    before = _kernels.loaded()
+                    _kernels.library()
+                    if sp is not None:
+                        sp.attrs["library"] = ("loaded before" if before
+                                               else "nvcc" if _kernels.compiled else "cache")
+            with profiling.span("remd.plan"):
+                if force_fn is None:
+                    bias_kwargs = {}
+                    if kernel_bias is not None:
+                        bias_kwargs = dict(
+                            bias_model=kernel_bias["model"], bias_quads=kernel_bias["quads"],
+                            bias_strength=kernel_bias.get("strength", 1.0),
+                        )
+                    self._chunk = build_fused_chunk(
+                        self.system, dt=config.dt_ps, friction=config.friction_per_ps,
+                        n_replicas=hi - lo, **bias_kwargs,
+                    )
+                    if use_kernel:
+                        # the launch shape now, not at the first launch
+                        self._chunk.plan_remd(hi - lo)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(config.seed))
+            x = positions.to(device=self.device, dtype=torch.float32)
+            if minimize:
+                with profiling.span("remd.minimize"):
+                    x, _ = minimize_energy(self.system, x, force_fn=minimize_force_fn,
+                                           bias_fn=bias_fn)
+                    if profiling.RECORDER.on and x.device.type == "cuda":
+                        # the span holds FIRE's device work, not only its dispatch
+                        torch.cuda.synchronize(x.device)
+            with profiling.span("remd.state"):
+                self._initial_state(x, gen)
+
+    def _initial_state(self, x: torch.Tensor, gen: torch.Generator) -> None:
+        """Every rung from structure ``x``, velocities and Philox seeds from
+        ``gen``; no exchange attempted yet."""
+        mesh = self.mesh
         if mesh is not None:
             from ..parallel.mesh import broadcast_first
 
@@ -586,8 +629,19 @@ class ReplicaExchange:
         ``build_pallas_remd``) or the call raises; the plain version
         (``_run_fused_reference``: a loop of the chunk's twin and
         ``_attempt_swaps`` over the same swap uniforms) runs only when the
-        replicas lie on the CPU."""
-        t_start = time.perf_counter()
+        replicas lie on the CPU. With the recorder on the call is a
+        segment of spans (module docstring) and the kernel the stamped
+        build, which computes the same bits."""
+        with profiling.span("remd.run_fused", segment=True, n_steps=int(n_steps)):
+            t_start = time.perf_counter()
+            with profiling.span("remd.prepare"):
+                out, A, fpc = self._fused_launch(n_steps)
+            with profiling.span("remd.finish"):
+                return self._fused_result(out, n_steps, A, fpc, t_start)
+
+    def _fused_launch(self, n_steps: int) -> Tuple[FusedRemdOutput, int, int]:
+        """``run_fused``'s checks and its one launch (or, on the CPU, the
+        plain version) from the present state."""
         if self.mesh is not None:
             raise ValueError("run_fused is single-chip; use run() with a mesh")
         if self.bias_fn is not None:
@@ -603,7 +657,6 @@ class ReplicaExchange:
                 f"n_steps {n_steps} must be a positive multiple of "
                 f"exchange_frequency {cfg.exchange_frequency}"
             )
-        R = self.n_replicas
         A = n_steps // cfg.exchange_frequency
         fpc = max(cfg.exchange_frequency // cfg.report_interval, 1)
         state = self.state
@@ -613,43 +666,66 @@ class ReplicaExchange:
                 self.ladder, n_attempts=A, frames_per_attempt=fpc,
                 report_interval=cfg.report_interval, step_offset=state.step,
                 swap_seed=cfg.seed, attempt_offset=self._attempts_done,
+                stamps=profiling.RECORDER.on,
             )
         else:
-            out = self._run_fused_reference(A, fpc)
+            with profiling.span("remd.reference"):
+                out = self._run_fused_reference(A, fpc)
+        return out, A, fpc
+
+    def _fused_result(self, out: FusedRemdOutput, n_steps: int, A: int, fpc: int,
+                      t_start: float) -> RemdResult:
+        """The state and the swap counter moved past the launch, its outputs
+        to the host (six blocking copies) and its ``RemdResult``; the
+        step-phase stamps to counters where there are any."""
         self.state = MDState(positions=out.positions, velocities=out.velocities,
-                             seeds=out.seeds, step=state.step + n_steps)
+                             seeds=out.seeds, step=self.state.step + n_steps)
         self.replica_ids = out.ids_hist[-1]
         self._attempts_done += A
-
-        frames = out.frames
-        if cfg.frame_precision == "i16":
-            frames = _quantize_i16(frames)
-        pos = frames.cpu().numpy()
-        if cfg.frame_precision == "i16":
-            pos = pos.astype(np.float32) / 1000.0
-        acc = out.accept.cpu().numpy()
-        pair_acc = np.full(R - 1, np.nan)
-        for pair in range(R - 1):
-            # pair (p, p+1) is attempted on parities where p is "left"
-            attempts = acc[pair % 2::2, pair]
-            if attempts.size:
-                pair_acc[pair] = float(attempts.mean())
+        cfg = self.config
+        R = self.n_replicas
         n_dof = 3 * self.system.n_atoms
-        return RemdResult(
-            positions=pos,
-            potential_energy=out.frame_energy.cpu().numpy(),
-            temperatures=self.ladder.cpu().numpy(),
-            replica_ids=out.ids_hist.cpu().numpy(),
-            acceptance_matrix=pair_acc,
-            exchange_attempts=A,
-            n_steps=n_steps,
-            dt_ps=cfg.dt_ps,
-            frames_per_attempt=fpc,
-            kinetic_temperature=(
-                2.0 * out.frame_kinetic / (n_dof * BOLTZMANN_CONSTANT_KJ_PER_MOL)
-            ).cpu().numpy(),
-            wall_seconds=time.perf_counter() - t_start,
-        )
+        with profiling.span("remd.to_host"):
+            frames = out.frames
+            if cfg.frame_precision == "i16":
+                frames = _quantize_i16(frames)
+            pos = _to_host(frames)
+            acc = _to_host(out.accept)
+            energy = _to_host(out.frame_energy)
+            temps = _to_host(self.ladder)
+            ids = _to_host(out.ids_hist)
+            kin = _to_host(2.0 * out.frame_kinetic / (n_dof * BOLTZMANN_CONSTANT_KJ_PER_MOL))
+        with profiling.span("remd.result"):
+            if cfg.frame_precision == "i16":
+                pos = pos.astype(np.float32) / 1000.0
+            pair_acc = np.full(R - 1, np.nan)
+            for pair in range(R - 1):
+                # pair (p, p+1) is attempted on parities where p is "left"
+                attempts = acc[pair % 2::2, pair]
+                if attempts.size:
+                    pair_acc[pair] = float(attempts.mean())
+            result = RemdResult(
+                positions=pos,
+                potential_energy=energy,
+                temperatures=temps,
+                replica_ids=ids,
+                acceptance_matrix=pair_acc,
+                exchange_attempts=A,
+                n_steps=n_steps,
+                dt_ps=cfg.dt_ps,
+                frames_per_attempt=fpc,
+                kinetic_temperature=kin,
+                wall_seconds=time.perf_counter() - t_start,
+            )
+        if out.stamps is not None:
+            with profiling.span("remd.stamps"):
+                # summed on the device; read when the counters are
+                cycles = step_phase_cycles(out.stamps)
+                for k, phase in enumerate(STAMP_PHASES):
+                    profiling.count(f"md_step.cycles.{phase}", cycles[k])
+                profiling.count("md_step.sampled_steps",
+                                out.stamps.shape[0] * out.stamps.shape[1])
+        return result
 
     def _run_fused_reference(self, n_attempts: int, fpc: int) -> FusedRemdOutput:
         """Plain PyTorch version of ``FusedChunk.remd``, from the present
